@@ -1,0 +1,120 @@
+// Shared pieces of the few-bit Hopper kernels: the element types, a tiled
+// shared-memory GEMM core with f32 accumulators, and the deterministic
+// column-partial reduction.
+//
+// The GEMM core computes one BM x BN tile of A @ B with FMA on CUDA cores:
+// 256 threads, each holding an 8 x 8 block of f32 accumulators at rows
+// ty + 16 i and columns tx + 16 j of the tile (strided, so that the
+// shared-memory reads of one warp are conflict free or broadcast).
+// Operands of either element type are widened to f32 on their way into
+// shared memory, so a bf16 model multiplies bf16 values with f32
+// accumulation.  This is the simple, correct core: tensor cores (wgmma),
+// TMA and multi-stage pipelines are later work.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fewbit {
+
+constexpr int BM = 128;   // rows of a tile
+constexpr int BN = 128;   // columns of a tile
+constexpr int BK = 8;     // reduction depth per shared-memory stage
+constexpr int NT = 256;   // threads per block
+constexpr int PAD = 4;    // shared-memory row padding against bank conflicts
+constexpr int TM = 8;     // accumulator rows per thread
+constexpr int TN = 8;     // accumulator columns per thread
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's cast
+}
+
+// The value a T store keeps, back in f32.
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+struct GemmSmem {
+  float a[BK][BM + PAD];
+  float b[BK][BN + PAD];
+};
+
+// acc[i][j] = sum_k A[row0 + ty + 16 i, k] * B[k, col0 + tx + 16 j].
+// A is row-major (n, kdim).  B is the logical (kdim, m) operand: row-major
+// when TRANS_B is false, and stored as its row-major (m, kdim) transpose
+// when TRANS_B is true (a torch weight of shape (out, in)).  Every edge is
+// masked: rows >= n, columns >= m and depth >= kdim read as zero.
+template <typename T, bool TRANS_B>
+__device__ __forceinline__ void gemm_tile(const T* __restrict__ A,
+                                          const T* __restrict__ B, int n,
+                                          int kdim, int m, int row0, int col0,
+                                          GemmSmem& s, float acc[TM][TN]) {
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < kdim; k0 += BK) {
+#pragma unroll
+    for (int q = 0; q < (BM * BK) / NT; ++q) {
+      const int e = tid + NT * q;
+      const int r = e / BK, ka = e % BK;
+      const int gr = row0 + r, gka = k0 + ka;
+      s.a[ka][r] = (gr < n && gka < kdim) ? to_f(A[(size_t)gr * kdim + gka])
+                                          : 0.f;
+      int c, kb;
+      if (TRANS_B) {
+        c = e / BK;
+        kb = e % BK;
+      } else {
+        kb = e / BN;
+        c = e % BN;
+      }
+      const int gc = col0 + c, gkb = k0 + kb;
+      float v = 0.f;
+      if (gc < m && gkb < kdim)
+        v = to_f(TRANS_B ? B[(size_t)gc * kdim + gkb] : B[(size_t)gkb * m + gc]);
+      s.b[kb][c] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = s.a[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = s.b[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// out[c] = sum_{t < parts} partial[t, c], summed in order t = 0, 1, ...:
+// the second, deterministic pass of every cross-block column sum.
+static __global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                    int parts, int m, float* __restrict__ out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= m) return;
+  float acc = 0.f;
+  for (int t = 0; t < parts; ++t) acc += partial[(size_t)t * m + c];
+  out[c] = acc;
+}
+
+}  // namespace fewbit

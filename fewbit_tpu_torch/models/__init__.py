@@ -1,0 +1,8 @@
+"""Models with few-bit config switches."""
+
+from fewbit_tpu_torch.models.roberta import (
+    RobertaConfig, RobertaForSequenceClassification, RobertaModel,
+    flax_param_pairs, load_flax_params)
+
+__all__ = ("RobertaConfig", "RobertaForSequenceClassification",
+           "RobertaModel", "flax_param_pairs", "load_flax_params")

@@ -1,0 +1,355 @@
+"""RoBERTa-base with the few-bit training path, as
+``fewbit_tpu/models/roberta.py`` (standard attention, post-LN layers, a
+Python loop over the layers; no flash attention, tensor parallelism or
+scan).
+
+Two config switches inject the memory-efficient path, as in the JAX model:
+
+* ``proj_dim_ratio`` -- every projection becomes a ``RandomizedDense``
+  whose backward keeps a sketch of its input;
+* ``gelu_bits`` with ``fused_ffn`` and ``sketch="countsketch"`` -- the FFN
+  becomes one ``FewBitFFN`` block (packed ``bits / 8``-byte codes, sketched
+  weight gradients).
+
+``dtype`` is the activation precision; parameters stay f32.  Randomness
+comes from two explicit generators per forward, ``dropout_generator`` and
+``sketch_generator``, the counterparts of flax's ``'dropout'`` and
+``'sketch'`` RNG collections.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as TF
+from torch import nn
+
+from fewbit_tpu_torch.modules._rng import lecun_normal_
+from fewbit_tpu_torch.modules.ffn import FewBitFFN
+from fewbit_tpu_torch.modules.linear import RandomizedDense
+
+__all__ = ("RobertaConfig", "RobertaModel",
+           "RobertaForSequenceClassification", "load_flax_params",
+           "flax_param_pairs", "dropout")
+
+
+@dataclasses.dataclass(frozen=True)
+class RobertaConfig:
+    vocab_size: int = 50265
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 514
+    type_vocab_size: int = 1
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    layer_norm_eps: float = 1e-5
+    pad_token_id: int = 1
+    num_labels: int = 2
+    dtype: Any = torch.float32
+    # Few-bit switches.
+    gelu_bits: Optional[int] = None        # None = exact gelu backward
+    proj_dim_ratio: Optional[float] = None  # None = exact Dense backward
+    sketch: str = "gaussian"
+    fused_ffn: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def fewbit_ffn(self) -> bool:
+        return bool(self.gelu_bits and self.fused_ffn and self.proj_dim_ratio
+                    and self.sketch == "countsketch")
+
+
+def dropout(x: torch.Tensor, p: float, deterministic: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout with the keep mask drawn from ``generator``; the
+    backward keeps the boolean mask (1 byte per element)."""
+    if deterministic or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep * (1.0 / (1.0 - p))
+
+
+class Dense(nn.Module):
+    """Exact ``x @ weight^T + bias`` in the compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int, dtype,
+                 bias: bool = True, device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features,
+                                               device=device))
+        lecun_normal_(self.weight, in_features, generator)
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if bias else None)
+
+    def forward(self, x, generator=None):
+        dt = self.dtype
+        b = self.bias.to(dt) if self.bias is not None else None
+        return TF.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm whose output follows the compute dtype (f32 parameters)."""
+
+    def __init__(self, features: int, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x):
+        return TF.layer_norm(x, x.shape[-1:], self.weight.to(x.dtype),
+                             self.bias.to(x.dtype), self.eps)
+
+
+def _dense(cfg: RobertaConfig, fin: int, fout: int, device, gen):
+    if cfg.proj_dim_ratio:
+        return RandomizedDense(fin, fout, proj_dim_ratio=cfg.proj_dim_ratio,
+                               matmul=cfg.sketch, dtype=cfg.dtype,
+                               device=device, generator=gen)
+    return Dense(fin, fout, cfg.dtype, device=device, generator=gen)
+
+
+class RobertaEmbeddings(nn.Module):
+
+    def __init__(self, cfg: RobertaConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=device)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
+                                                h, device=device)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h,
+                                                  device=device)
+        for emb in (self.word_embeddings, self.position_embeddings,
+                    self.token_type_embeddings):
+            with torch.no_grad():
+                emb.weight.normal_(0.0, h ** -0.5, generator=generator)
+        self.layer_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
+
+    def forward(self, input_ids, token_type_ids, deterministic: bool,
+                generator=None):
+        cfg = self.cfg
+        # RoBERTa position quirk: positions count from pad_token_id + 1 and
+        # padding tokens keep position pad_token_id.
+        mask = (input_ids != cfg.pad_token_id).to(torch.int64)
+        position_ids = torch.cumsum(mask, dim=-1) * mask + cfg.pad_token_id
+        dt = cfg.dtype
+        x = (self.word_embeddings(input_ids).to(dt)
+             + self.position_embeddings(position_ids).to(dt)
+             + self.token_type_embeddings(token_type_ids).to(dt))
+        x = self.layer_norm(x)
+        return dropout(x, cfg.hidden_dropout, deterministic, generator)
+
+
+class RobertaSelfAttention(nn.Module):
+
+    def __init__(self, cfg: RobertaConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.query = _dense(cfg, h, h, device, generator)
+        self.key = _dense(cfg, h, h, device, generator)
+        self.value = _dense(cfg, h, h, device, generator)
+        self.output = _dense(cfg, h, h, device, generator)
+
+    def forward(self, x, attention_mask, deterministic: bool,
+                dropout_generator=None, sketch_generator=None):
+        cfg = self.cfg
+        b, s, h = x.shape
+
+        def split(t):
+            return t.reshape(b, s, cfg.num_heads, cfg.head_dim)
+
+        q = split(self.query(x, sketch_generator))
+        k = split(self.key(x, sketch_generator))
+        v = split(self.value(x, sketch_generator))
+        scale = cfg.head_dim ** -0.5
+        logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+        if attention_mask is not None:
+            neg = torch.tensor(torch.finfo(torch.float32).min,
+                               device=x.device).to(logits.dtype)
+            bias = torch.where(attention_mask[:, None, None, :] > 0,
+                               torch.zeros_like(neg), neg)
+            logits = logits + bias
+        probs = torch.softmax(logits, dim=-1)
+        probs = dropout(probs, cfg.attention_dropout, deterministic,
+                        dropout_generator)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h)
+        out = self.output(ctx, sketch_generator)
+        return dropout(out, cfg.hidden_dropout, deterministic,
+                       dropout_generator)
+
+
+class RobertaLayer(nn.Module):
+
+    def __init__(self, cfg: RobertaConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        h, inner = cfg.hidden_size, cfg.intermediate_size
+        self.attention = RobertaSelfAttention(cfg, device, generator)
+        self.attention_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
+        if cfg.fewbit_ffn:
+            self.ffn = FewBitFFN(h, inner, h, activation="gelu",
+                                 bits=cfg.gelu_bits, dtype=cfg.dtype,
+                                 proj_dim_ratio=cfg.proj_dim_ratio,
+                                 device=device, generator=generator)
+        elif cfg.gelu_bits and cfg.fused_ffn:
+            raise NotImplementedError(
+                "the fused dense+activation FFN without countsketch is not "
+                "ported yet (ROADMAP, queue 1 item 8)")
+        elif cfg.gelu_bits:
+            raise NotImplementedError(
+                "the standalone few-bit GELU is not ported yet (ROADMAP, "
+                "queue 1 item 7)")
+        else:
+            self.intermediate = _dense(cfg, h, inner, device, generator)
+            self.ffn_output = _dense(cfg, inner, h, device, generator)
+        self.output_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
+
+    def forward(self, x, attention_mask, deterministic: bool,
+                dropout_generator=None, sketch_generator=None):
+        cfg = self.cfg
+        attn = self.attention(x, attention_mask, deterministic,
+                              dropout_generator, sketch_generator)
+        x = self.attention_norm(x + attn)
+        if cfg.fewbit_ffn:
+            out = self.ffn(x, sketch_generator)
+        else:
+            inner = self.intermediate(x, sketch_generator)
+            inner = TF.gelu(inner, approximate="none")
+            out = self.ffn_output(inner, sketch_generator)
+        out = dropout(out, cfg.hidden_dropout, deterministic,
+                      dropout_generator)
+        return self.output_norm(x + out)
+
+
+class RobertaModel(nn.Module):
+
+    def __init__(self, cfg: RobertaConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = RobertaEmbeddings(cfg, device, generator)
+        self.layers = nn.ModuleList(RobertaLayer(cfg, device, generator)
+                                    for _ in range(cfg.num_layers))
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                deterministic: bool = True, dropout_generator=None,
+                sketch_generator=None):
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = self.embeddings(input_ids, token_type_ids, deterministic,
+                            dropout_generator)
+        for layer in self.layers:
+            x = layer(x, attention_mask, deterministic, dropout_generator,
+                      sketch_generator)
+        return x
+
+
+class RobertaForSequenceClassification(nn.Module):
+
+    def __init__(self, cfg: RobertaConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.roberta = RobertaModel(cfg, device, generator)
+        self.head_dense = _dense(cfg, h, h, device, generator)
+        self.head_out = _dense(cfg, h, cfg.num_labels, device, generator)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                deterministic: bool = True, dropout_generator=None,
+                sketch_generator=None):
+        cfg = self.cfg
+        hidden = self.roberta(input_ids, attention_mask, token_type_ids,
+                              deterministic, dropout_generator,
+                              sketch_generator)
+        # RoBERTa classification head on the <s> token.
+        x = hidden[:, 0, :]
+        x = dropout(x, cfg.hidden_dropout, deterministic, dropout_generator)
+        x = torch.tanh(self.head_dense(x, sketch_generator))
+        x = dropout(x, cfg.hidden_dropout, deterministic, dropout_generator)
+        return self.head_out(x, sketch_generator)
+
+
+# ---------------------------------------------------------------------------
+# Transplanting the JAX model's parameters.
+# ---------------------------------------------------------------------------
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _dense_pairs(mod: nn.Module, p):
+    yield mod.weight, np.asarray(p["kernel"]).T  # flax kernels are (in, out)
+    if mod.bias is not None:
+        yield mod.bias, p["bias"]
+
+
+def _norm_pairs(mod: LayerNorm, p):
+    yield mod.weight, p["scale"]
+    yield mod.bias, p["bias"]
+
+
+def flax_param_pairs(model: RobertaForSequenceClassification, tree):
+    """``(parameter, array)`` for every parameter of ``model``, the array
+    taken from a tree shaped like the JAX model's parameters (nested dicts,
+    with or without the outer ``'params'``) and put in the port's
+    orientation.  Layers scanned by the JAX model are stacked on axis 0
+    under ``layers``.  Works on any such tree: parameters or gradients."""
+    p = tree.get("params", tree)
+    r = p["roberta"]
+    emb = r["embeddings"]
+    e = model.roberta.embeddings
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        yield getattr(e, name).weight, emb[name]["embedding"]
+    yield from _norm_pairs(e.layer_norm, emb["layer_norm"])
+    for i, layer in enumerate(model.roberta.layers):
+        lp = _index(r["layers"], i) if "layers" in r else r[f"layer_{i}"]
+        for name in ("query", "key", "value", "output"):
+            yield from _dense_pairs(getattr(layer.attention, name),
+                                    lp["attention"][name])
+        yield from _norm_pairs(layer.attention_norm, lp["attention_norm"])
+        yield from _norm_pairs(layer.output_norm, lp["output_norm"])
+        if model.cfg.fewbit_ffn:
+            f = lp["ffn"]
+            yield layer.ffn.up_weight, np.asarray(f["up_kernel"]).T
+            yield layer.ffn.down_weight, np.asarray(f["down_kernel"]).T
+            if layer.ffn.up_bias is not None:
+                yield layer.ffn.up_bias, f["up_bias"]
+            if layer.ffn.down_bias is not None:
+                yield layer.ffn.down_bias, f["down_bias"]
+        else:
+            yield from _dense_pairs(layer.intermediate, lp["intermediate"])
+            yield from _dense_pairs(layer.ffn_output, lp["ffn_output"])
+    yield from _dense_pairs(model.head_dense, p["head_dense"])
+    yield from _dense_pairs(model.head_out, p["head_out"])
+
+
+def load_flax_params(model: RobertaForSequenceClassification, params) -> None:
+    """Fill every parameter of ``model`` from the JAX package's parameter
+    tree, given as nested dicts of numpy arrays."""
+    filled = set()
+    for param, arr in flax_param_pairs(model, params):
+        arr = np.array(arr, dtype=np.float32)  # a writable copy
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"shape {arr.shape} does not fit "
+                             f"{tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(torch.from_numpy(arr))
+        filled.add(id(param))
+    missing = [n for n, q in model.named_parameters() if id(q) not in filled]
+    if missing:
+        raise ValueError(f"parameters not in the tree: {missing}")

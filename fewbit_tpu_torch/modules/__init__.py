@@ -1,0 +1,6 @@
+"""``nn.Module``s of the few-bit training path."""
+
+from fewbit_tpu_torch.modules.ffn import FewBitFFN
+from fewbit_tpu_torch.modules.linear import RandomizedDense
+
+__all__ = ("FewBitFFN", "RandomizedDense")

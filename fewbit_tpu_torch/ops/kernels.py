@@ -1,0 +1,378 @@
+"""The three CUDA kernels of the few-bit training step, their plain PyTorch
+versions, their envelopes and their launch counters: the counterpart of
+``fewbit_tpu/ops/pallas_kernels.py``.
+
+Each wrapper takes the plain version only for a tensor that lies on the
+CPU.  For a CUDA tensor it checks device, dtype, shape, contiguity and the
+envelope, raises on anything its kernel does not take, allocates the
+outputs, launches on the current stream, raises on a CUDA error, and adds
+one to its ``launches`` count.  The callers in :mod:`fewbit_tpu_torch.
+functional` decide, from shapes alone, whether a call is inside the
+envelope, exactly where the JAX package decides between its Pallas and jnp
+paths.
+
+Numerics: the kernels multiply f32 operands in f32 and bf16 operands with
+f32 accumulation, and every sketch accumulates in f32 and is stored in
+:func:`sketch_dtype`.  The plain versions compute the same function: the
+product of the f32-widened operands, the epilogue on the f32 result.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from fewbit_tpu_torch.ops.activations import apply_lut, compare_codes
+from fewbit_tpu_torch.ops.bitpack import (packed_shape, pack_codes,
+                                          unpack_codes)
+
+__all__ = ("FFN_BN", "FFN_BM", "sketch_dtype", "countsketch_aligned_keff",
+           "countsketch_signed",
+           "matmul_sketch_keff", "fused_matmul_input_sketch",
+           "fused_dense_act_sketch", "fused_matmul_lut_backward",
+           "matmul_input_sketch_plain", "dense_act_sketch_plain",
+           "matmul_lut_backward_plain", "launch_counts",
+           "reset_launch_counts", "KERNELS")
+
+FFN_BN = 512  # row granularity of the sketch partition (k_eff % FFN_BN)
+FFN_BM = 512  # column granularity of the FFN kernels' envelope
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def sketch_dtype(dtype) -> torch.dtype:
+    """Storage dtype for countsketch residuals, keyed on the MODEL dtype:
+    bf16 models store bf16 sketches, f32 models f32.  Accumulation is f32
+    wherever an accumulator exists."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def countsketch_aligned_keff(n: int, k: int) -> Optional[int]:
+    """Bucket count for the kernel-fused countsketch: the smallest multiple
+    of FFN_BN that divides ``n`` and is >= ``k``, within a 2x bucket
+    budget; None when there is none (the caller takes the plain sketch)."""
+    if n % FFN_BN:
+        return None
+    k_eff = max(FFN_BN, _cdiv(k, FFN_BN) * FFN_BN)
+    while k_eff <= 2 * k:
+        if n % k_eff == 0:
+            return k_eff if k_eff <= n else None
+        k_eff += FFN_BN
+    return None
+
+
+def matmul_sketch_keff(n: int, kdim: int, m: int, k: int,
+                       dtype) -> Optional[int]:
+    """Envelope of :func:`fused_matmul_input_sketch`: the aligned bucket
+    count, or None when the caller must take the plain path.
+
+    The width cap (<= 1024) and the fast-memory estimate below are the JAX
+    package's findings for its own kernel, kept so that the port takes the
+    same paths as the reference; both wait for a measurement on this
+    card's kernels (ROADMAP)."""
+    if dtype not in _DTYPES:
+        return None
+    if n % FFN_BN or kdim % 128 or m % 128 or kdim > 1024 or m > 1024:
+        return None
+    k_eff = countsketch_aligned_keff(n, k)
+    if k_eff is None or k_eff > n // 2:
+        return None
+    est = (2 * FFN_BN * kdim * 2 + kdim * m * 2 + 2 * FFN_BN * m * 4
+           + FFN_BN * kdim * 4 + FFN_BN * kdim * 4)
+    if est > 56 * 1024 * 1024:
+        return None
+    return k_eff
+
+
+# ---------------------------------------------------------------------------
+# Plain versions.
+# ---------------------------------------------------------------------------
+
+
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of the f32-widened operands, in f32."""
+    return torch.matmul(a.float(), b.float())
+
+
+def countsketch_signed(mat: torch.Tensor, sigma: torch.Tensor, k_eff: int,
+                       out_dtype=None) -> torch.Tensor:
+    """Signed bucket sum ``sk[b] = sum_{r = b mod k_eff} sigma_r mat_r``:
+    the stride partition shared by the plain paths and the kernels, so
+    sketches from any path contract bucket for bucket.  Rows are cast to
+    the storage dtype (:func:`sketch_dtype` of ``mat`` unless given),
+    summed in f32, and stored."""
+    n, d = mat.shape
+    if out_dtype is None:
+        out_dtype = sketch_dtype(mat.dtype)
+    signed = mat.to(out_dtype) * sigma.to(out_dtype)[:, None]
+    if k_eff >= n:
+        return signed
+    block = n // k_eff
+    main = signed[:block * k_eff].reshape(block, k_eff, d).sum(
+        0, dtype=torch.float32)
+    rem = n - block * k_eff
+    if rem:
+        main[:rem] += signed[block * k_eff:].float()
+    return main.to(out_dtype)
+
+
+def matmul_input_sketch_plain(x, w, bias, sigma, k_eff: int,
+                              want_colsum: bool = False):
+    y = dot_f32(x, w)
+    if bias is not None:
+        y = y + bias.float()
+    sk = countsketch_signed(x, sigma, k_eff)
+    if want_colsum:
+        return y.to(x.dtype), sk, x.float().sum(0)
+    return y.to(x.dtype), sk
+
+
+def dense_act_sketch_plain(spec, x, w, bias, borders, sigma, k_eff: int):
+    z = dot_f32(x, w)
+    if bias is not None:
+        z = z + bias.float()
+    packed = pack_codes(spec.codes(z, borders, spec.args), spec.bits)
+    y = spec.fwd(z, spec.args).to(x.dtype)
+    return y, packed, countsketch_signed(y, sigma, k_eff)
+
+
+def matmul_lut_backward_plain(spec, packed, levels, g, wt, sigma,
+                              k_eff: int):
+    codes = unpack_codes(packed, spec.bits, g.shape[0])
+    dz32 = apply_lut(codes, levels, spec.bits) * dot_f32(g, wt)
+    sk = countsketch_signed(dz32, sigma, k_eff, sketch_dtype(g.dtype))
+    return dz32.to(g.dtype), sk, dz32.sum(0)
+
+
+# ---------------------------------------------------------------------------
+# Wrapper checks.
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    from fewbit_tpu_torch.ops._build import load_library
+
+    return load_library()
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(what)
+
+
+def _check(name: str, t: torch.Tensor, device, shape, dtype) -> None:
+    _require(t.device == device, f"{name} on {t.device}, expected {device}")
+    _require(tuple(t.shape) == tuple(shape),
+             f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    _require(t.dtype == dtype, f"{name} is {t.dtype}, expected {dtype}")
+    _require(t.is_contiguous(), f"{name} is not contiguous")
+
+
+def _weight(name: str, w: torch.Tensor, device, shape, dtype) -> int:
+    """Check a logical (K, M) operand; 1 when it is stored as the
+    row-major transpose (a torch (out, in) weight seen through ``.t()``)."""
+    if w.is_contiguous():
+        trans = 0
+    elif w.t().is_contiguous():
+        trans = 1
+    else:
+        raise ValueError(f"{name} is neither row-major nor a transposed "
+                         f"row-major tensor")
+    _check(name, w if not trans else w.t(), device,
+           shape if not trans else shape[::-1], dtype)
+    return trans
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(fn_name: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(_lib(), fn_name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} after launch")
+
+
+def _ffn_spec_ok(spec) -> None:
+    _require(spec.name == "gelu" and spec.codes is compare_codes,
+             f"the FFN kernels compute the exact GELU with border codes, "
+             f"not {spec.name!r}")
+    _require(1 <= spec.bits <= 6, f"bits={spec.bits} outside 1..6")
+    _require(spec.n_borders < 64, "more than 63 borders")
+
+
+def _ffn_rows_ok(n: int, m: int, k_eff: int) -> None:
+    _require(n % FFN_BN == 0 and m % FFN_BM == 0,
+             f"N={n} or M={m} not a multiple of {FFN_BN}")
+    _require(k_eff % FFN_BN == 0 and k_eff <= n and n % k_eff == 0,
+             f"k_eff={k_eff} is not a multiple of {FFN_BN} dividing N={n}")
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: matmul + input countsketch (+ column sum).
+# ---------------------------------------------------------------------------
+
+
+def fused_matmul_input_sketch(x: torch.Tensor, w: torch.Tensor,
+                              bias: Optional[torch.Tensor],
+                              sigma: torch.Tensor, k_eff: int,
+                              want_colsum: bool = False):
+    """``x @ w (+ b)`` plus the stride-partition countsketch of ``x``
+    (``(k_eff, K)``, stored in :func:`sketch_dtype`) and, with
+    ``want_colsum``, the f32 column sum of ``x``.
+
+    ``x``: (N, K); ``w``: the logical (K, M) weight, row-major or the
+    ``.t()`` of a row-major (M, K) tensor; ``sigma``: (N,) f32 signs.
+    """
+    if x.device.type == "cpu":
+        return matmul_input_sketch_plain(x, w, bias, sigma, k_eff,
+                                         want_colsum)
+    _require(x.is_cuda, f"x on {x.device}: neither CPU nor CUDA")
+    _require(x.ndim == 2 and w.ndim == 2, "x and w must be 2-D")
+    n, kdim = x.shape
+    m = w.shape[1]
+    dev, dt = x.device, x.dtype
+    _require(dt in _DTYPES, f"dtype {dt} not in {_DTYPES}")
+    _check("x", x, dev, (n, kdim), dt)
+    trans = _weight("w", w, dev, (kdim, m), dt)
+    if bias is not None:
+        _check("bias", bias, dev, (m,), dt)
+    _check("sigma", sigma, dev, (n,), torch.float32)
+    _require(matmul_sketch_keff(n, kdim, m, k_eff, dt) == k_eff,
+             f"(N={n}, K={kdim}, M={m}, k_eff={k_eff}) outside the "
+             f"envelope of matmul_sketch_keff")
+    y = torch.empty(n, m, dtype=dt, device=dev)
+    sk = torch.empty(k_eff, kdim, dtype=sketch_dtype(dt), device=dev)
+    cs_partial = cs = None
+    if want_colsum:
+        cs_partial = torch.empty(k_eff // 64, kdim, dtype=torch.float32,
+                                 device=dev)
+        cs = torch.empty(kdim, dtype=torch.float32, device=dev)
+    _launch("fewbit_matmul_input_sketch", dev, x.data_ptr(), w.data_ptr(),
+            trans, _ptr(bias), sigma.data_ptr(), y.data_ptr(), sk.data_ptr(),
+            _ptr(cs_partial), _ptr(cs), n, kdim, m, k_eff,
+            int(dt == torch.bfloat16))
+    fused_matmul_input_sketch.launches += 1
+    return (y, sk, cs) if want_colsum else (y, sk)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: dense + activation + packed codes + output countsketch.
+# ---------------------------------------------------------------------------
+
+
+def fused_dense_act_sketch(spec, x: torch.Tensor, w: torch.Tensor,
+                           bias: Optional[torch.Tensor],
+                           borders: torch.Tensor, sigma: torch.Tensor,
+                           k_eff: int):
+    """``y = act(x @ w + b)`` with the packed codes of the pre-activation
+    (``(bits, N / 32, M)`` int32) and the countsketch of ``y``
+    (``(k_eff, M)``).  Returns ``(y, packed, sketch)``."""
+    if x.device.type == "cpu":
+        return dense_act_sketch_plain(spec, x, w, bias, borders, sigma,
+                                      k_eff)
+    _require(x.is_cuda, f"x on {x.device}: neither CPU nor CUDA")
+    _ffn_spec_ok(spec)
+    _require(x.ndim == 2 and w.ndim == 2, "x and w must be 2-D")
+    n, kdim = x.shape
+    m = w.shape[1]
+    dev, dt = x.device, x.dtype
+    _require(dt in _DTYPES, f"dtype {dt} not in {_DTYPES}")
+    _require(kdim % 128 == 0, f"K={kdim} not a multiple of 128")
+    _ffn_rows_ok(n, m, k_eff)
+    _check("x", x, dev, (n, kdim), dt)
+    trans = _weight("w", w, dev, (kdim, m), dt)
+    if bias is not None:
+        _check("bias", bias, dev, (m,), dt)
+    _check("borders", borders, dev, (spec.n_borders,), torch.float32)
+    _check("sigma", sigma, dev, (n,), torch.float32)
+    y = torch.empty(n, m, dtype=dt, device=dev)
+    packed = torch.empty(packed_shape(n, m, spec.bits), dtype=torch.int32,
+                         device=dev)
+    sk = torch.empty(k_eff, m, dtype=sketch_dtype(dt), device=dev)
+    _launch("fewbit_dense_act_sketch", dev, x.data_ptr(), w.data_ptr(),
+            trans, _ptr(bias), borders.data_ptr(), spec.n_borders,
+            sigma.data_ptr(), y.data_ptr(), packed.data_ptr(), sk.data_ptr(),
+            n, kdim, m, k_eff, spec.bits, int(dt == torch.bfloat16))
+    fused_dense_act_sketch.launches += 1
+    return y, packed, sk
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: matmul + LUT dequant + countsketch + bias gradient.
+# ---------------------------------------------------------------------------
+
+
+def fused_matmul_lut_backward(spec, packed: torch.Tensor,
+                              levels: torch.Tensor, g: torch.Tensor,
+                              wt: torch.Tensor, sigma: torch.Tensor,
+                              k_eff: int):
+    """``dz = levels[codes] * (g @ wt)`` with the countsketch of ``dz``
+    (``(k_eff, M)``) and ``db = sum_n dz`` in f32.  ``g``: (N, H); ``wt``:
+    the logical (H, M) operand (the down projection's weight transposed).
+    Returns ``(dz, sketch, db)``."""
+    if g.device.type == "cpu":
+        return matmul_lut_backward_plain(spec, packed, levels, g, wt, sigma,
+                                         k_eff)
+    _require(g.is_cuda, f"g on {g.device}: neither CPU nor CUDA")
+    _require(1 <= spec.bits <= 6, f"bits={spec.bits} outside 1..6")
+    _require(g.ndim == 2 and wt.ndim == 2, "g and wt must be 2-D")
+    n, h = g.shape
+    m = wt.shape[1]
+    dev, dt = g.device, g.dtype
+    _require(dt in _DTYPES, f"dtype {dt} not in {_DTYPES}")
+    _require(h % 128 == 0, f"H={h} not a multiple of 128")
+    _ffn_rows_ok(n, m, k_eff)
+    _check("g", g, dev, (n, h), dt)
+    trans = _weight("wt", wt, dev, (h, m), dt)
+    _check("packed", packed, dev, packed_shape(n, m, spec.bits), torch.int32)
+    _check("levels", levels, dev, (1 << spec.bits,), torch.float32)
+    _check("sigma", sigma, dev, (n,), torch.float32)
+    dz = torch.empty(n, m, dtype=dt, device=dev)
+    sk = torch.empty(k_eff, m, dtype=sketch_dtype(dt), device=dev)
+    db_partial = torch.empty(k_eff // 128, m, dtype=torch.float32,
+                             device=dev)
+    db = torch.empty(m, dtype=torch.float32, device=dev)
+    _launch("fewbit_matmul_lut_backward", dev, g.data_ptr(), wt.data_ptr(),
+            trans, packed.data_ptr(), levels.data_ptr(), spec.bits,
+            sigma.data_ptr(), dz.data_ptr(), sk.data_ptr(),
+            db_partial.data_ptr(), db.data_ptr(), n, h, m, k_eff,
+            int(dt == torch.bfloat16))
+    fused_matmul_lut_backward.launches += 1
+    return dz, sk, db
+
+
+# name -> (wrapper, plain version, TPU kernel it replaces, CUDA source).
+KERNELS = {
+    "matmul_input_sketch": (
+        fused_matmul_input_sketch, matmul_input_sketch_plain,
+        "fewbit_tpu/ops/pallas_kernels.py:1013",
+        "fewbit_tpu_torch/csrc/matmul_input_sketch.cu"),
+    "dense_act_sketch": (
+        fused_dense_act_sketch, dense_act_sketch_plain,
+        "fewbit_tpu/ops/pallas_kernels.py:687",
+        "fewbit_tpu_torch/csrc/dense_act_sketch.cu"),
+    "matmul_lut_backward": (
+        fused_matmul_lut_backward, matmul_lut_backward_plain,
+        "fewbit_tpu/ops/pallas_kernels.py:799",
+        "fewbit_tpu_torch/csrc/matmul_lut_backward.cu"),
+}
+
+
+def reset_launch_counts() -> None:
+    for wrapper, *_ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: entry[0].launches for name, entry in KERNELS.items()}
+
+
+reset_launch_counts()

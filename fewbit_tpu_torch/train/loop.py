@@ -1,0 +1,101 @@
+"""Training step on one device: optimizer, schedule, loss, as in
+``fewbit_tpu/train/loop.py``.
+
+AdamW with betas (0.9, 0.98), eps 1e-6 and weight decay 0.1 on all
+parameters, and a linear warmup (6% of the steps, from 0) followed by a
+linear decay to 0, the same recipe and the same per-step learning rates as
+the JAX package's optax chain.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as TF
+
+__all__ = ("TrainConfig", "make_schedule", "make_optimizer",
+           "classification_loss", "make_train_step")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-5
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.98
+    eps: float = 1e-6
+    warmup_ratio: float = 0.06
+    total_steps: int = 1000
+    max_grad_norm: Optional[float] = None
+
+
+def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """Learning rate at optimizer step ``count`` (0 at step 0)."""
+    warmup = max(int(cfg.warmup_ratio * cfg.total_steps), 1)
+    decay = cfg.total_steps - warmup
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return cfg.learning_rate * count / warmup
+        if decay <= 0:
+            return cfg.learning_rate
+        frac = min(count - warmup, decay) / decay
+        return cfg.learning_rate * (1.0 - frac)
+
+    return schedule
+
+
+def make_optimizer(cfg: TrainConfig, params):
+    """``(optimizer, scheduler)``: AdamW on ``params`` and a ``LambdaLR``
+    that follows :func:`make_schedule`."""
+    opt = torch.optim.AdamW(params, lr=cfg.learning_rate,
+                            betas=(cfg.beta1, cfg.beta2), eps=cfg.eps,
+                            weight_decay=cfg.weight_decay)
+    schedule = make_schedule(cfg)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda count: schedule(count) / cfg.learning_rate)
+    return opt, sched
+
+
+def classification_loss(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    return TF.cross_entropy(logits.float(), labels.long())
+
+
+def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
+                    loss_fn: Callable = classification_loss) -> Callable:
+    """Build ``step(batch, generator) -> {"loss": tensor}``.
+
+    ``batch`` holds ``input_ids``, ``attention_mask`` and ``labels`` on the
+    model's device.  ``generator`` (a CPU ``torch.Generator``) seeds two
+    fresh device generators per step, one for dropout and one for the
+    sketch signs, as the JAX step splits its key.
+    """
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt, sched = make_optimizer(cfg, params)
+    device = params[0].device
+
+    def step(batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        seeds = torch.randint(0, 2 ** 62, (2,), generator=generator)
+        dropout_gen = torch.Generator(device=device)
+        dropout_gen.manual_seed(int(seeds[0]))
+        sketch_gen = torch.Generator(device=device)
+        sketch_gen.manual_seed(int(seeds[1]))
+        logits = model(batch["input_ids"], batch.get("attention_mask"),
+                       deterministic=False, dropout_generator=dropout_gen,
+                       sketch_generator=sketch_gen)
+        loss = loss_fn(logits, batch["labels"])
+        loss.backward()
+        if cfg.max_grad_norm:
+            torch.nn.utils.clip_grad_norm_(params, cfg.max_grad_norm)
+        opt.step()
+        sched.step()
+        # Gradients live only inside the step, as in the JAX step.
+        opt.zero_grad(set_to_none=True)
+        return {"loss": loss.detach()}
+
+    step.optimizer, step.scheduler = opt, sched
+    return step

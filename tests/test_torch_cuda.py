@@ -1,0 +1,84 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  These tests need an NVIDIA GPU and skip elsewhere; the file imports
+no JAX, so it also runs where JAX is missing:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances, as a fraction of max(1, max |plain|): f32 differs only by the
+order of the f32 sums (1e-4); bf16 outputs may differ by one bf16 rounding
+step where the f32 sums differ (2e-2); the f32 column sums and db add
+thousands of rows (1e-3).  Codes may flip only where z lies within
+rounding of a border, on at most 1e-4 of the elements.
+"""
+
+import pytest
+import torch
+
+from fewbit_tpu_torch.functional.activations import resolve_activation
+from fewbit_tpu_torch.ops import kernels as K
+from fewbit_tpu_torch.ops.bitpack import unpack_codes
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernels are CUDA only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_on_cuda(cuda, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, kdim, m, k_eff = 2048, 256, 512, 1024
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=cuda)
+                * scale).to(dtype)
+
+    def close(a, b, t=tol):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= t * max(1.0, b.float().abs().max().item()), err
+
+    sigma = torch.randint(0, 2, (n,), generator=gen,
+                          device=cuda).float() * 2 - 1
+    x, w, bias = rand(n, kdim), rand(m, kdim, scale=0.06), rand(m, scale=0.1)
+    spec, borders, levels = resolve_activation("gelu", bits=3, device=cuda)
+    K.reset_launch_counts()
+    for args in ((x, w.t(), bias, sigma, k_eff // 2),
+                 (rand(n, m), w, None, sigma, k_eff // 2, True)):
+        for a, b in zip(K.fused_matmul_input_sketch(*args),
+                        K.matmul_input_sketch_plain(*args)):
+            close(a, b, tol if a.dtype == dtype else 1e-3)
+    args = (spec, x, w.t(), bias, borders, sigma, k_eff)
+    y, packed, sk = K.fused_dense_act_sketch(*args)
+    y0, packed0, sk0 = K.dense_act_sketch_plain(*args)
+    close(y, y0)
+    close(sk, sk0)
+    flips = (unpack_codes(packed, 3, n) != unpack_codes(packed0, 3, n))
+    assert flips.float().mean().item() <= 1e-4
+    args = (spec, packed, levels, rand(n, kdim), rand(kdim, m, scale=0.06),
+            sigma, k_eff)
+    dz, sk, db = K.fused_matmul_lut_backward(*args)
+    dz0, sk0, db0 = K.matmul_lut_backward_plain(*args)
+    close(dz, dz0)
+    close(sk, sk0)
+    close(db, db0, 1e-3)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {"matmul_input_sketch": 2,
+                                 "dense_act_sketch": 1,
+                                 "matmul_lut_backward": 1}
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_outside_envelope_on_cuda(cuda):
+    x = torch.randn(1000, 128, device=cuda)
+    w = torch.randn(128, 128, device=cuda)
+    sigma = torch.ones(1000, device=cuda)
+    with pytest.raises(ValueError):
+        K.fused_matmul_input_sketch(x, w, None, sigma, 512)
+    with pytest.raises(ValueError):
+        K.fused_matmul_input_sketch(x[:512].double(), w.double(), None,
+                                    sigma[:512], 256)
