@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's few-bit RoBERTa-base training step on one GPU.
+"""Drive the PyTorch port's few-bit training steps on one GPU.
 
     python3 chip_smoke.py
 
@@ -7,22 +7,29 @@ Phases (any failure raises and exits non-zero; no result is printed):
 
 1. Device: the card's name and power limit (nvidia-smi), and the build of
    the CUDA kernels from ``fewbit_tpu_torch/csrc``.
-2. Each kernel against its plain PyTorch version at the main path's shapes,
-   in f32 and bf16, with the tolerances below, and both timed with CUDA
+2. Each kernel against its plain PyTorch version at its path's shapes, in
+   f32 and bf16, with the tolerances below, and both timed with CUDA
    events.
-3. Few-bit training steps of RoBERTa-base (12 layers, hidden 768, 12 heads,
-   FFN 3072; random weights from a seed) on an MRPC-shaped batch, bs 64,
-   seq 128, 3-bit GELU, countsketch at ratio 0.2, dropout on: 3 steps in
-   f32 and one in bf16.  Every loss must be finite, and every step must
-   launch kernels 1, 2 and 3 exactly 96, 12 and 12 times.  The few-bit
-   forward must equal the exact forward of a vanilla model holding the
-   same weights.
-4. Vanilla against few-bit, with the same weights and batches, 4 timed
-   steps each in turns: step time and peak memory above what was held
-   before the step; the few-bit peak must be lower.
+3. RoBERTa-base (12 layers, hidden 768, 12 heads, FFN 3072; random weights
+   from a seed), the fused few-bit FFN: an MRPC-shaped batch, bs 64, seq
+   128, 3-bit GELU, countsketch at ratio 0.2, dropout on: 3 f32 steps and
+   one bf16 step, each launching kernels 1, 2 and 3 exactly 96, 12 and 12
+   times; the few-bit forward equals the exact forward of a vanilla model
+   holding the same weights; vanilla against few-bit, 4 timed steps each
+   in turns (step time, peak memory above what was held before the step;
+   the few-bit peak must be lower).
+4. GPT-2 small (12 layers, hidden 768, 12 heads, FFN 3072, vocab 50257,
+   1024 positions, tied head), few-bit: a ``synthetic_lm`` batch, bs 8,
+   seq 1024, 3-bit GELU, countsketch at ratio 0.2, dropout on: 3 f32 steps
+   and one bf16 step, each launching kernels 1, 6 and 5 exactly 96, 12 and
+   12 times; the same forward check; vanilla against few-bit, 4 steps each
+   in turns, the few-bit peak lower.
+5. RoBERTa-base with the unfused few-bit FFN (``fused_ffn=False``): 2 f32
+   steps, each launching kernels 1, 4 and 5 exactly 96, 12 and 12 times.
 
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is
+Every loss must be finite.  Each path's launch counts start at 0 just
+before it.  The line before the last is a JSON object with each kernel's
+launches, error and times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -36,12 +43,21 @@ import numpy as np
 import torch
 
 SEED = 0
-BS, SEQ = 64, 128
-N = BS * SEQ          # rows of every projection on the main path
+BS, SEQ = 64, 128     # RoBERTa's MRPC-shaped batch
+GPT_BS, GPT_SEQ = 8, 1024
+N = BS * SEQ          # rows of every projection, both models
+assert N == GPT_BS * GPT_SEQ
 HIDDEN, FFN = 768, 3072
 K_EFF = 2048          # aligned bucket count of ratio 0.2 at N = 8192
-PER_STEP = {"matmul_input_sketch": 96, "dense_act_sketch": 12,
-            "matmul_lut_backward": 12}
+# Kernel launches per training step on each path; every other kernel 0.
+PATHS = {
+    "roberta_fused_ffn": {"matmul_input_sketch": 96, "dense_act_sketch": 12,
+                          "matmul_lut_backward": 12},
+    "gpt2_small": {"matmul_input_sketch": 96, "dense_act": 12,
+                   "fused_backward": 12},
+    "roberta_unfused_ffn": {"matmul_input_sketch": 96, "fused_forward": 12,
+                            "fused_backward": 12},
+}
 
 # Tolerance on max |kernel - plain|, as a fraction of max(1, max |plain|):
 # f32 differs only by the order of the f32 sums; bf16 outputs may differ by
@@ -83,6 +99,26 @@ def compare(name, got, want, tol):
     return err
 
 
+def code_flips(tag, packed, packed0, z0, borders, bits):
+    """Codes that differ between a kernel and its plain version: only where
+    the plain z lies within FLIP_BAND of a border, on at most FLIP_FRACTION
+    of the elements.  Returns their count."""
+    from fewbit_tpu_torch.ops.bitpack import unpack_codes
+
+    rows = z0.shape[0]
+    flips = unpack_codes(packed, bits, rows) != unpack_codes(packed0, bits,
+                                                             rows)
+    n_flips = int(flips.sum())
+    if n_flips:
+        near = (z0[flips][:, None] - borders[None, :]).abs().min(1)[0]
+        if near.max().item() > FLIP_BAND:
+            raise AssertionError(f"{tag}: a code differs at "
+                                 f"{near.max().item()} from a border")
+    if n_flips > FLIP_FRACTION * flips.numel():
+        raise AssertionError(f"{tag}: {n_flips} codes differ")
+    return n_flips
+
+
 def phase_device():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -109,7 +145,6 @@ def phase_device():
 def phase_kernels():
     from fewbit_tpu_torch.functional.activations import resolve_activation
     from fewbit_tpu_torch.ops import kernels as K
-    from fewbit_tpu_torch.ops.bitpack import unpack_codes
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -159,20 +194,10 @@ def phase_kernels():
         y, packed, sk = K.fused_dense_act_sketch(*args)
         y0, packed0, sk0 = K.dense_act_sketch_plain(*args)
         z0 = K.dot_f32(x, up_w.t()) + up_b.float()
-        codes = unpack_codes(packed, spec.bits, N)
-        codes0 = unpack_codes(packed0, spec.bits, N)
-        flips = codes != codes0
-        n_flips = int(flips.sum())
-        if n_flips:
-            near = (z0[flips][:, None] - borders[None, :]).abs().min(1)[0]
-            if near.max().item() > FLIP_BAND:
-                raise AssertionError(f"k2 {tag}: a code differs at "
-                                     f"{near.max().item()} from a border")
-        if n_flips > FLIP_FRACTION * codes.numel():
-            raise AssertionError(f"k2 {tag}: {n_flips} codes differ")
         errs = {"y": compare(f"k2 {tag} y", y, y0, tol),
                 "sketch": compare(f"k2 {tag} sketch", sk, sk0, tol),
-                "code_flips": n_flips}
+                "code_flips": code_flips(f"k2 {tag}", packed, packed0, z0,
+                                         borders, spec.bits)}
         results["dense_act_sketch"].append({
             "mode": "forward", "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_dense_act_sketch(*args)),
@@ -191,6 +216,49 @@ def phase_kernels():
             "mode": "backward", "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_matmul_lut_backward(*args)),
             "plain_ms": cuda_ms(lambda: K.matmul_lut_backward_plain(*args))})
+
+        # Kernel 6: the GPT FFN up projection with GELU and codes, no
+        # sketch, the weight an (out, in) parameter seen through .t().
+        args = (spec, x, up_w.t(), up_b, borders)
+        y, packed6 = K.fused_dense_act(*args)
+        y0, packed0 = K.dense_act_plain(*args)
+        errs = {"y": compare(f"k6 {tag} y", y, y0, tol),
+                "code_flips": code_flips(f"k6 {tag}", packed6, packed0, z0,
+                                         borders, spec.bits)}
+        results["dense_act"].append({
+            "mode": "forward", "dtype": tag, "errors": errs,
+            "ms": cuda_ms(lambda: K.fused_dense_act(*args)),
+            "plain_ms": cuda_ms(lambda: K.dense_act_plain(*args))})
+
+        # Kernel 4: the RoBERTa unfused FFN's GELU on the (N, FFN)
+        # pre-activation.  Its codes are the plain version's exactly: the
+        # same f32 compares of the same x.
+        h = rand(N, FFN, scale=1.5, dt=dt)
+        args = (spec, h, borders)
+        y, packed4 = K.fused_forward(*args)
+        y0, packed0 = K.act_forward_plain(*args)
+        if not torch.equal(packed4, packed0):
+            raise AssertionError(f"k4 {tag}: packed codes differ")
+        errs = {"y": compare(f"k4 {tag} y", y, y0, tol), "code_flips": 0}
+        results["fused_forward"].append({
+            "mode": "forward", "dtype": tag, "errors": errs,
+            "ms": cuda_ms(lambda: K.fused_forward(*args)),
+            "plain_ms": cuda_ms(lambda: K.act_forward_plain(*args))})
+
+        # Kernel 5 on the codes of kernel 6 (GPT) and of kernel 4 (RoBERTa
+        # unfused), with an (N, FFN) output gradient.
+        g_ffn = rand(N, FFN, dt=dt)
+        for source, packed in (("codes of kernel 6", packed6),
+                               ("codes of kernel 4", packed4)):
+            args = (spec, packed, levels, g_ffn)
+            dx = K.fused_backward(*args)
+            dx0 = K.act_backward_plain(*args)
+            results["fused_backward"].append({
+                "mode": f"backward on {source}", "dtype": tag,
+                "errors": {"dx": compare(f"k5 {tag} {source}", dx, dx0,
+                                         tol)},
+                "ms": cuda_ms(lambda: K.fused_backward(*args)),
+                "plain_ms": cuda_ms(lambda: K.act_backward_plain(*args))})
     for name, cases in results.items():
         for c in cases:
             log(f"kernel {name} [{c['mode']}, {c['dtype']}]: errors "
@@ -199,29 +267,46 @@ def phase_kernels():
     return results
 
 
-def _batches(dev, seed):
-    from fewbit_tpu_torch.train import synthetic_glue
+def _batches(path, seed):
+    """Endless batches of a path on the card: MRPC-shaped for RoBERTa,
+    ``synthetic_lm`` for GPT."""
+    from fewbit_tpu_torch.train import synthetic_glue, synthetic_lm
 
-    for b in synthetic_glue(BS, SEQ, seed=seed):
-        yield {"input_ids": torch.from_numpy(b["input_ids"]).long().to(dev),
-               "attention_mask": torch.from_numpy(b["attention_mask"]).to(
-                   dev),
-               "labels": torch.from_numpy(b["labels"]).long().to(dev)}
+    if path == "gpt2_small":
+        source = synthetic_lm(GPT_BS, GPT_SEQ, seed=seed)
+    else:
+        source = synthetic_glue(BS, SEQ, seed=seed)
+    for b in source:
+        yield {k: torch.from_numpy(v).to("cuda").long()
+               for k, v in b.items()}
 
 
-def _model(dt, fewbit):
-    from fewbit_tpu_torch.models import (RobertaConfig,
+def _model(path, dt, fewbit):
+    """A path's model in ``dt`` (vanilla or few-bit, random weights from
+    SEED) and its training step."""
+    from fewbit_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         RobertaConfig,
                                          RobertaForSequenceClassification)
-    from fewbit_tpu_torch.train import TrainConfig, make_train_step
+    from fewbit_tpu_torch.train import (TrainConfig, causal_lm_loss,
+                                        classification_loss, make_train_step)
 
-    cfg = RobertaConfig(dtype=dt, gelu_bits=3 if fewbit else None,
-                        proj_dim_ratio=0.2 if fewbit else None,
-                        sketch="countsketch", fused_ffn=True)
-    model = RobertaForSequenceClassification(
-        cfg, device="cuda", generator=torch.Generator(
-            device="cuda").manual_seed(SEED))
+    switches = dict(dtype=dt, gelu_bits=3 if fewbit else None,
+                    proj_dim_ratio=0.2 if fewbit else None,
+                    sketch="countsketch")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if path == "gpt2_small":
+        model = GPTForCausalLM(GPTConfig(**switches), device="cuda",
+                               generator=gen)
+        loss_fn = causal_lm_loss
+    else:
+        cfg = RobertaConfig(**switches,
+                            fused_ffn=path == "roberta_fused_ffn")
+        model = RobertaForSequenceClassification(cfg, device="cuda",
+                                                 generator=gen)
+        loss_fn = classification_loss
     step = make_train_step(model, TrainConfig(total_steps=100,
-                                              learning_rate=1e-5))
+                                              learning_rate=1e-5),
+                           loss_fn=loss_fn)
     return model, step
 
 
@@ -237,11 +322,11 @@ def _timed_step(step, batch, gen):
     return loss, dt, torch.cuda.max_memory_allocated() - held
 
 
-def phase_forward_check(model):
+def phase_forward_check(path, model):
     """The few-bit forward is exact: its logits equal those of a vanilla
     model holding the same weights (f32 sums in another order: tolerance
     1e-3).  Returns that vanilla model and its step."""
-    vanilla, vstep = _model(torch.float32, fewbit=False)
+    vanilla, vstep = _model(path, torch.float32, fewbit=False)
     rename = {"ffn.up_weight": "intermediate.weight",
               "ffn.up_bias": "intermediate.bias",
               "ffn.down_weight": "ffn_output.weight",
@@ -252,102 +337,135 @@ def phase_forward_check(model):
             k = k.replace(old, new)
         state[k] = v
     vanilla.load_state_dict(state)
-    batch = next(_batches("cuda", SEED + 7))
+    batch = next(_batches(path, SEED + 7))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     with torch.no_grad():
         got = model(batch["input_ids"], batch["attention_mask"],
                     sketch_generator=gen)
         want = vanilla(batch["input_ids"], batch["attention_mask"])
-    err = compare("few-bit forward vs vanilla logits", got, want, 1e-3)
-    log(f"few-bit forward logits {tuple(got.shape)} vs vanilla: max abs "
-        f"err {err}")
+    err = compare(f"{path}: few-bit forward vs vanilla logits", got, want,
+                  1e-3)
+    log(f"{path}: few-bit forward logits {tuple(got.shape)} vs vanilla: "
+        f"max abs err {err}")
     return vanilla, vstep
 
 
-def _checked_step(tag, step, batch, gen):
+def _checked_step(path, tag, step, batch, gen):
+    """One few-bit step that launches exactly the path's kernels."""
     from fewbit_tpu_torch.ops import kernels as K
 
+    expected = {name: PATHS[path].get(name, 0) for name in K.KERNELS}
     before = K.launch_counts()
     loss, sec, peak = _timed_step(step, batch, gen)
     after = K.launch_counts()
     delta = {k: after[k] - before[k] for k in after}
-    if delta != PER_STEP:
-        raise AssertionError(f"{tag}: launches {delta}, expected {PER_STEP}")
+    if delta != expected:
+        raise AssertionError(f"{path} {tag}: launches {delta}, expected "
+                             f"{expected}")
     if not np.isfinite(loss):
-        raise AssertionError(f"{tag}: loss {loss}")
-    log(f"{tag}: loss {loss:.6f}, {sec * 1e3:.1f} ms, peak "
-        f"{peak / 2**30:.3f} GiB above held, launches {delta}")
+        raise AssertionError(f"{path} {tag}: loss {loss}")
+    log(f"{path} {tag}: loss {loss:.6f}, {sec * 1e3:.1f} ms, peak "
+        f"{peak / 2**30:.3f} GiB above held, launches "
+        f"{ {k: v for k, v in delta.items() if v} }")
     return loss
 
 
-def phase_train(results):
+def _checked_steps(path, step, batches, gen, n):
+    """The path's main run: every count starts at 0 just before it and is
+    read just after.  Returns (losses, counts)."""
     from fewbit_tpu_torch.ops import kernels as K
 
-    batches = _batches("cuda", SEED)
-    gen = torch.Generator().manual_seed(SEED)
-    model, step = _model(torch.float32, fewbit=True)
-    vmodel, vstep = phase_forward_check(model)
-
-    # The main path: every count starts at 0 here.
     K.reset_launch_counts()
-    losses = [_checked_step(f"few-bit f32 step {i}", step, next(batches),
-                            gen) for i in range(3)]
-    main_counts = K.launch_counts()
-    for name, cases in results.items():
-        for c in cases:
-            c["launches"] = main_counts[name]
+    losses = [_checked_step(path, f"few-bit f32 step {i}", step,
+                            next(batches), gen) for i in range(n)]
+    return losses, K.launch_counts()
 
-    # Vanilla against few-bit, same weights and batches, in turns
-    # (vanilla, few-bit, few-bit, vanilla, ...).  Each model has taken a
-    # step, so its optimizer state is in what is held before the step.
-    vstep(next(_batches("cuda", SEED)), gen)
+
+def _vanilla_vs_fewbit(path, steps, batches, gen, turns):
+    """Vanilla and few-bit, same weights and batches, in turns (vanilla,
+    few-bit, few-bit, vanilla, ...): step ms and peak bytes above held.
+    The few-bit peak must be lower."""
     timed = {"vanilla": [], "fewbit": []}
     peaks = {"vanilla": [], "fewbit": []}
-    steps = {"vanilla": vstep, "fewbit": step}
-    for order in (("vanilla", "fewbit"), ("fewbit", "vanilla")) * 2:
+    for order in (("vanilla", "fewbit"), ("fewbit", "vanilla")) * turns:
         batch = next(batches)
         for name in order:
             loss, sec, peak = _timed_step(steps[name], batch, gen)
             if not np.isfinite(loss):
-                raise AssertionError(f"{name}: loss {loss}")
+                raise AssertionError(f"{path} {name}: loss {loss}")
             timed[name].append(sec * 1e3)
             peaks[name].append(peak)
     v_ms, fb_ms = (statistics.median(timed[k]) for k in ("vanilla",
                                                          "fewbit"))
     v_peak, fb_peak = max(peaks["vanilla"]), max(peaks["fewbit"])
-    log(f"f32 bs {BS} seq {SEQ}: step ms vanilla {timed['vanilla']} "
-        f"(median {v_ms:.2f}), few-bit {timed['fewbit']} (median "
-        f"{fb_ms:.2f}); peak above held: vanilla {v_peak} B "
-        f"({v_peak / 2**30:.3f} GiB), few-bit {fb_peak} B "
-        f"({fb_peak / 2**30:.3f} GiB), saving "
+    log(f"{path} f32: step ms vanilla {timed['vanilla']} (median "
+        f"{v_ms:.2f}), few-bit {timed['fewbit']} (median {fb_ms:.2f}); "
+        f"peak above held: vanilla {v_peak} B ({v_peak / 2**30:.3f} GiB), "
+        f"few-bit {fb_peak} B ({fb_peak / 2**30:.3f} GiB), saving "
         f"{100 * (1 - fb_peak / v_peak):.2f}%")
     if not fb_peak < v_peak:
-        raise AssertionError(f"few-bit peak {fb_peak} >= vanilla {v_peak}")
-    del model, step, vmodel, vstep, steps
-    torch.cuda.empty_cache()
-
-    bmodel, bstep = _model(torch.bfloat16, fewbit=True)
-    bf16_loss = _checked_step("few-bit bf16 step", bstep,
-                              next(_batches("cuda", SEED)), gen)
-    return {"f32_losses": losses, "bf16_loss": bf16_loss,
-            "vanilla_step_ms": timed["vanilla"],
+        raise AssertionError(f"{path}: few-bit peak {fb_peak} >= vanilla "
+                             f"{v_peak}")
+    return {"vanilla_step_ms": timed["vanilla"],
             "fewbit_step_ms": timed["fewbit"],
             "vanilla_peak_bytes": v_peak, "fewbit_peak_bytes": fb_peak}
+
+
+def phase_path(path):
+    """A few-bit path's forward check, its checked f32 steps, vanilla
+    against few-bit 4 steps each in turns, and one bf16 step."""
+    batches = _batches(path, SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    model, step = _model(path, torch.float32, fewbit=True)
+    vmodel, vstep = phase_forward_check(path, model)
+    losses, counts = _checked_steps(path, step, batches, gen, 3)
+    # Each model has taken a step, so its optimizer state is in what is
+    # held before the timed steps.
+    vstep(next(_batches(path, SEED)), gen)
+    out = {"f32_losses": losses,
+           **_vanilla_vs_fewbit(path, {"vanilla": vstep, "fewbit": step},
+                                batches, gen, turns=2)}
+    del model, step, vmodel, vstep
+    torch.cuda.empty_cache()
+    bmodel, bstep = _model(path, torch.bfloat16, fewbit=True)
+    out["bf16_loss"] = _checked_step(path, "few-bit bf16 step", bstep,
+                                     next(_batches(path, SEED)), gen)
+    del bmodel, bstep
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def phase_unfused(path):
+    """RoBERTa with the unfused few-bit FFN: 2 checked f32 steps."""
+    model, step = _model(path, torch.float32, fewbit=True)
+    losses, counts = _checked_steps(path, step, _batches(path, SEED),
+                                    torch.Generator().manual_seed(SEED), 2)
+    del model, step
+    torch.cuda.empty_cache()
+    return {"f32_losses": losses}, counts
 
 
 def main():
     smi = phase_device()
     results = phase_kernels()
-    train = phase_train(results)
+    train, counts = {}, {}
+    for path, run in (("roberta_fused_ffn", phase_path),
+                      ("gpt2_small", phase_path),
+                      ("roberta_unfused_ffn", phase_unfused)):
+        train[path], counts[path] = run(path)
     from fewbit_tpu_torch.ops import kernels as K
 
     kernels = []
     for name, cases in results.items():
         _, _, replaces, source = K.KERNELS[name]
+        by_path = {path: c[name] for path, c in counts.items() if c[name]}
+        if not by_path:
+            raise AssertionError(f"kernel {name}: no path launched it")
         first = cases[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": first["launches"],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(v for c in cases if c["dtype"] == "f32"
                                for k, v in c["errors"].items()
                                if k != "code_flips"),

@@ -1,6 +1,6 @@
-// Shared pieces of the few-bit Hopper kernels: the element types, a tiled
-// shared-memory GEMM core with f32 accumulators, and the deterministic
-// column-partial reduction.
+// Shared pieces of the few-bit Hopper kernels: the element types, the
+// activations and interval codes, a tiled shared-memory GEMM core with f32
+// accumulators, and the deterministic column-partial reduction.
 //
 // The GEMM core computes one BM x BN tile of A @ B with FMA on CUDA cores:
 // 256 threads, each holding an 8 x 8 block of f32 accumulators at rows
@@ -43,6 +43,34 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 // The value a T store keeps, back in f32.
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
+}
+
+// Activation ids shared with fewbit_tpu_torch/ops/kernels.py (ACT_IDS).
+// Only the exact GELU so far; the other activations add cases here.
+constexpr int ACT_GELU = 0;
+
+__device__ __forceinline__ float gelu_exact(float z) {
+  return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
+}
+
+// act(z) for an id the entry points have checked with act_known().
+__device__ __forceinline__ float act_forward(int act, float z) {
+  switch (act) {
+    case ACT_GELU:
+      return gelu_exact(z);
+  }
+  return __int_as_float(0x7fffffff);  // NaN: an unknown id
+}
+
+inline bool act_known(int act) { return act == ACT_GELU; }
+
+// The interval code of z: the number of borders strictly below it, compared
+// in f32, as compare_codes in fewbit_tpu_torch/ops/activations.py.
+__device__ __forceinline__ unsigned border_code(float z, const float* bord,
+                                                int n_borders) {
+  unsigned code = 0;
+  for (int k = 0; k < n_borders; ++k) code += z > bord[k] ? 1u : 0u;
+  return code;
 }
 
 struct GemmSmem {

@@ -27,10 +27,6 @@
 namespace fewbit {
 namespace {
 
-__device__ __forceinline__ float gelu_exact(float z) {
-  return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
-}
-
 template <typename T, bool TRANS_B>
 __global__ void __launch_bounds__(NT)
     dense_act_sketch_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -78,7 +74,7 @@ __global__ void __launch_bounds__(NT)
           const float z = acc[i][j] + bj[j];
           const T yt = from_f<T>(gelu_exact(z));
           y[(size_t)row * m + col] = yt;
-          for (int k = 0; k < n_borders; ++k) code += z > bord[k] ? 1u : 0u;
+          code = border_code(z, bord, n_borders);
           // The sketch sums y as stored, widened to f32.
           ska[i][j] = fmaf(sg, to_f(yt), ska[i][j]);
         }

@@ -1,10 +1,9 @@
-"""Resolving a few-bit activation by name: spec, interior borders and
-levels, as ``resolve_activation`` and ``_resolve_lut`` in
+"""Few-bit activations by name: ``resolve_activation`` (spec, interior
+borders and levels) and the functional ``gelu``, as in
 ``fewbit_tpu/functional/activations.py``.
 
-This slice ports the exact erf GELU, the activation of the few-bit FFN
-block.  The other activations and the standalone few-bit functions wait for
-the elementwise kernels (ROADMAP, queue 1 item 7).
+The port has the exact erf GELU.  The other activations wait for ROADMAP
+queue 1 item 7; each adds an activation id to kernels 4 and 6.
 """
 
 from __future__ import annotations
@@ -17,9 +16,10 @@ import torch
 import torch.nn.functional as TF
 
 from fewbit_tpu_torch.lut import store
-from fewbit_tpu_torch.ops.activations import ActivationSpec, compare_codes
+from fewbit_tpu_torch.ops.activations import (ActivationSpec, compare_codes,
+                                              fewbit_activation)
 
-__all__ = ("resolve_activation", "gelu_exact")
+__all__ = ("resolve_activation", "gelu_exact", "gelu")
 
 PORTED = ("gelu",)
 
@@ -68,3 +68,12 @@ def resolve_activation(name: str, bits: Optional[int] = None, borders=None,
                           n_borders=int(b.shape[0]))
     return (spec, torch.tensor(b, dtype=torch.float32, device=device),
             torch.tensor(v, dtype=torch.float32, device=device))
+
+
+def gelu(x: torch.Tensor, *, bits: Optional[int] = None, borders=None,
+         values=None) -> torch.Tensor:
+    """Exact GELU whose backward keeps ``bits``-bit codes of ``x`` (3 when
+    neither ``bits`` nor ``borders``/``values`` is given)."""
+    spec, b, v = resolve_activation("gelu", bits=bits, borders=borders,
+                                    values=values, device=x.device)
+    return fewbit_activation(spec, x, b, v)

@@ -1,0 +1,229 @@
+"""GPT-2-style decoder-only causal LM with the few-bit training path, as
+``fewbit_tpu/models/gpt.py``: pre-LN blocks, learned positions, a
+weight-tied LM head, standard causal attention, a Python loop over the
+layers.
+
+The config switches are those of the RoBERTa model:
+
+* ``gelu_bits`` -- the FFN's up projection and GELU are one
+  ``FusedDenseActivation`` named ``intermediate`` (kernel 6 forward, kernel
+  5 backward): the backward keeps ``bits / 8``-byte codes, never the
+  pre-activation;
+* ``proj_dim_ratio`` -- every projection (and the up projection's weight
+  gradient) keeps a countsketch of its input along the batch x seq axis.
+
+Not ported: tensor parallelism (``tp_axis``/``tp_size``, ROADMAP queue 1
+item 13) and ``scan_layers``.  ``flash_attention=True`` raises (queue 2
+item 8); ``"auto"`` takes the standard path, as the JAX package does off a
+TPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as TF
+from torch import nn
+
+from fewbit_tpu_torch.models.roberta import (LayerNorm, _dense, _dense_pairs,
+                                             _fused_dense_gelu, _index,
+                                             _norm_pairs, dropout)
+
+__all__ = ("GPTConfig", "GPTModel", "GPTForCausalLM")
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50257
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 1024
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    layer_norm_eps: float = 1e-5
+    dtype: Any = torch.float32
+    # Few-bit switches (same semantics as RobertaConfig).
+    gelu_bits: Optional[int] = None
+    proj_dim_ratio: Optional[float] = None
+    sketch: str = "countsketch"
+    flash_attention: Any = False  # False | True | "auto"
+    tie_lm_head: bool = True
+
+    def __post_init__(self):
+        if self.flash_attention not in (True, False, None, "auto"):
+            raise ValueError(
+                f"flash_attention must be True, False, or 'auto'; got "
+                f"{self.flash_attention!r}")
+        if self.flash_attention is True and self.attention_dropout > 0:
+            raise ValueError(
+                "flash_attention=True cannot apply attention dropout; set "
+                "attention_dropout=0.0 explicitly to opt in, or use "
+                "flash_attention='auto' to keep the standard path when "
+                "dropout is on")
+        if self.flash_attention is True:
+            raise NotImplementedError(
+                "flash attention is not ported yet (ROADMAP, queue 2 item "
+                "8); flash_attention='auto' takes the standard path")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+class GPTSelfAttention(nn.Module):
+
+    def __init__(self, cfg: GPTConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.query = _dense(cfg, h, h, device, generator)
+        self.key = _dense(cfg, h, h, device, generator)
+        self.value = _dense(cfg, h, h, device, generator)
+        self.output = _dense(cfg, h, h, device, generator)
+
+    def forward(self, x, attention_mask, deterministic: bool,
+                dropout_generator=None, sketch_generator=None):
+        cfg = self.cfg
+        b, s, h = x.shape
+
+        def split(t):
+            return t.reshape(b, s, cfg.num_heads, cfg.head_dim)
+
+        q = split(self.query(x, sketch_generator))
+        k = split(self.key(x, sketch_generator))
+        v = split(self.value(x, sketch_generator))
+        scale = cfg.head_dim ** -0.5
+        logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+        keep = torch.ones(s, s, dtype=torch.bool,
+                          device=x.device).tril()[None, None]
+        if attention_mask is not None:
+            keep = keep & (attention_mask[:, None, None, :] > 0)
+        neg = torch.tensor(torch.finfo(torch.float32).min, device=x.device)
+        logits = logits + torch.where(keep, torch.zeros_like(neg),
+                                      neg).to(logits.dtype)
+        probs = torch.softmax(logits, dim=-1)
+        probs = dropout(probs, cfg.attention_dropout, deterministic,
+                        dropout_generator)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h)
+        out = self.output(ctx, sketch_generator)
+        return dropout(out, cfg.hidden_dropout, deterministic,
+                       dropout_generator)
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN transformer decoder block."""
+
+    def __init__(self, cfg: GPTConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        h, inner = cfg.hidden_size, cfg.intermediate_size
+        self.attention_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
+        self.attention = GPTSelfAttention(cfg, device, generator)
+        self.ffn_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
+        self.intermediate = (
+            _fused_dense_gelu(cfg, h, inner, device, generator)
+            if cfg.gelu_bits else _dense(cfg, h, inner, device, generator))
+        self.ffn_output = _dense(cfg, inner, h, device, generator)
+
+    def forward(self, x, attention_mask, deterministic: bool,
+                dropout_generator=None, sketch_generator=None):
+        cfg = self.cfg
+        x = x + self.attention(self.attention_norm(x), attention_mask,
+                               deterministic, dropout_generator,
+                               sketch_generator)
+        inner = self.intermediate(self.ffn_norm(x), sketch_generator)
+        if not cfg.gelu_bits:
+            inner = TF.gelu(inner, approximate="none")
+        out = self.ffn_output(inner, sketch_generator)
+        return x + dropout(out, cfg.hidden_dropout, deterministic,
+                           dropout_generator)
+
+
+class GPTModel(nn.Module):
+    """Decoder backbone; with ``logits=True`` the LM head is applied inside
+    (tied: the token embedding matrix, transposed)."""
+
+    def __init__(self, cfg: GPTConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=device)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
+                                                h, device=device)
+        for emb in (self.word_embeddings, self.position_embeddings):
+            with torch.no_grad():
+                emb.weight.normal_(0.0, h ** -0.5, generator=generator)
+        self.layers = nn.ModuleList(GPTBlock(cfg, device, generator)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
+        self.lm_head = (None if cfg.tie_lm_head else
+                        _dense(cfg, h, cfg.vocab_size, device, generator,
+                               bias=False))
+
+    def forward(self, input_ids, attention_mask=None,
+                deterministic: bool = True, dropout_generator=None,
+                sketch_generator=None, logits: bool = False):
+        cfg = self.cfg
+        s = input_ids.shape[-1]
+        if s > cfg.max_position_embeddings:
+            # An embedding lookup past the table would fail on the CPU and
+            # read out of bounds on the card.
+            raise ValueError(
+                f"sequence length {s} exceeds max_position_embeddings="
+                f"{cfg.max_position_embeddings}")
+        dt = cfg.dtype
+        positions = torch.arange(s, device=input_ids.device)
+        x = (self.word_embeddings(input_ids).to(dt)
+             + self.position_embeddings(positions).to(dt)[None])
+        x = dropout(x, cfg.hidden_dropout, deterministic, dropout_generator)
+        for layer in self.layers:
+            x = layer(x, attention_mask, deterministic, dropout_generator,
+                      sketch_generator)
+        x = self.final_norm(x)
+        if not logits:
+            return x
+        if self.lm_head is None:
+            return torch.matmul(x, self.word_embeddings.weight.to(dt).t())
+        return self.lm_head(x, sketch_generator)
+
+
+class GPTForCausalLM(nn.Module):
+
+    def __init__(self, cfg: GPTConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.transformer = GPTModel(cfg, device, generator)
+
+    def forward(self, input_ids, attention_mask=None,
+                deterministic: bool = True, dropout_generator=None,
+                sketch_generator=None):
+        return self.transformer(input_ids, attention_mask, deterministic,
+                                dropout_generator, sketch_generator,
+                                logits=True)
+
+    def flax_param_pairs(self, p):
+        """``(parameter, array)`` pairs from the JAX model's tree
+        ``transformer/{word_embeddings, position_embeddings, layers |
+        layer_i, final_norm, lm_head?}`` (see
+        :func:`fewbit_tpu_torch.models.roberta.flax_param_pairs`)."""
+        t = p["transformer"]
+        m = self.transformer
+        for name in ("word_embeddings", "position_embeddings"):
+            yield getattr(m, name).weight, t[name]["embedding"]
+        for i, layer in enumerate(m.layers):
+            lp = _index(t["layers"], i) if "layers" in t else t[f"layer_{i}"]
+            for name in ("query", "key", "value", "output"):
+                yield from _dense_pairs(getattr(layer.attention, name),
+                                        lp["attention"][name])
+            yield from _norm_pairs(layer.attention_norm, lp["attention_norm"])
+            yield from _norm_pairs(layer.ffn_norm, lp["ffn_norm"])
+            yield from _dense_pairs(layer.intermediate, lp["intermediate"])
+            yield from _dense_pairs(layer.ffn_output, lp["ffn_output"])
+        yield from _norm_pairs(m.final_norm, t["final_norm"])
+        if m.lm_head is not None:
+            yield from _dense_pairs(m.lm_head, t["lm_head"])

@@ -7,9 +7,12 @@ Two config switches inject the memory-efficient path, as in the JAX model:
 
 * ``proj_dim_ratio`` -- every projection becomes a ``RandomizedDense``
   whose backward keeps a sketch of its input;
-* ``gelu_bits`` with ``fused_ffn`` and ``sketch="countsketch"`` -- the FFN
-  becomes one ``FewBitFFN`` block (packed ``bits / 8``-byte codes, sketched
-  weight gradients).
+* ``gelu_bits`` -- the FFN's GELU keeps packed ``bits / 8``-byte codes.
+  With ``fused_ffn``, ``proj_dim_ratio`` and ``sketch="countsketch"`` the
+  FFN is one ``FewBitFFN`` block (sketched weight gradients for both
+  projections); with ``fused_ffn`` otherwise, the up projection and GELU
+  are one ``FusedDenseActivation`` named ``intermediate``; without
+  ``fused_ffn``, ``intermediate`` -> few-bit ``gelu`` -> ``ffn_output``.
 
 ``dtype`` is the activation precision; parameters stay f32.  Randomness
 comes from two explicit generators per forward, ``dropout_generator`` and
@@ -27,8 +30,10 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
+from fewbit_tpu_torch.functional.activations import gelu as fewbit_gelu
 from fewbit_tpu_torch.modules._rng import lecun_normal_
 from fewbit_tpu_torch.modules.ffn import FewBitFFN
+from fewbit_tpu_torch.modules.fused import FusedDenseActivation
 from fewbit_tpu_torch.modules.linear import RandomizedDense
 
 __all__ = ("RobertaConfig", "RobertaModel",
@@ -110,12 +115,33 @@ class LayerNorm(nn.Module):
                              self.bias.to(x.dtype), self.eps)
 
 
-def _dense(cfg: RobertaConfig, fin: int, fout: int, device, gen):
+def _dense(cfg, fin: int, fout: int, device, gen, bias: bool = True):
+    """A projection of a model config with the few-bit switches: sketched
+    with ``proj_dim_ratio``, exact otherwise."""
     if cfg.proj_dim_ratio:
-        return RandomizedDense(fin, fout, proj_dim_ratio=cfg.proj_dim_ratio,
+        return RandomizedDense(fin, fout, bias=bias,
+                               proj_dim_ratio=cfg.proj_dim_ratio,
                                matmul=cfg.sketch, dtype=cfg.dtype,
                                device=device, generator=gen)
-    return Dense(fin, fout, cfg.dtype, device=device, generator=gen)
+    return Dense(fin, fout, cfg.dtype, bias=bias, device=device,
+                 generator=gen)
+
+
+def _fused_dense_gelu(cfg, fin: int, fout: int, device, gen):
+    """``gelu(x @ w + b)`` with ``cfg.gelu_bits``-bit residuals, its weight
+    gradient sketched with ``proj_dim_ratio``."""
+    return FusedDenseActivation(fin, fout, activation="gelu",
+                                bits=cfg.gelu_bits, dtype=cfg.dtype,
+                                proj_dim_ratio=cfg.proj_dim_ratio,
+                                matmul=cfg.sketch, device=device,
+                                generator=gen)
+
+
+def _gelu(cfg, x: torch.Tensor) -> torch.Tensor:
+    """The FFN activation: few-bit with ``cfg.gelu_bits``, exact otherwise."""
+    if cfg.gelu_bits:
+        return fewbit_gelu(x, bits=cfg.gelu_bits)
+    return TF.gelu(x, approximate="none")
 
 
 class RobertaEmbeddings(nn.Module):
@@ -202,16 +228,12 @@ class RobertaLayer(nn.Module):
                                  bits=cfg.gelu_bits, dtype=cfg.dtype,
                                  proj_dim_ratio=cfg.proj_dim_ratio,
                                  device=device, generator=generator)
-        elif cfg.gelu_bits and cfg.fused_ffn:
-            raise NotImplementedError(
-                "the fused dense+activation FFN without countsketch is not "
-                "ported yet (ROADMAP, queue 1 item 8)")
-        elif cfg.gelu_bits:
-            raise NotImplementedError(
-                "the standalone few-bit GELU is not ported yet (ROADMAP, "
-                "queue 1 item 7)")
         else:
-            self.intermediate = _dense(cfg, h, inner, device, generator)
+            self.fused_act = bool(cfg.gelu_bits and cfg.fused_ffn)
+            self.intermediate = (
+                _fused_dense_gelu(cfg, h, inner, device, generator)
+                if self.fused_act else
+                _dense(cfg, h, inner, device, generator))
             self.ffn_output = _dense(cfg, inner, h, device, generator)
         self.output_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
 
@@ -225,7 +247,8 @@ class RobertaLayer(nn.Module):
             out = self.ffn(x, sketch_generator)
         else:
             inner = self.intermediate(x, sketch_generator)
-            inner = TF.gelu(inner, approximate="none")
+            if not self.fused_act:
+                inner = _gelu(cfg, inner)
             out = self.ffn_output(inner, sketch_generator)
         out = dropout(out, cfg.hidden_dropout, deterministic,
                       dropout_generator)
@@ -279,6 +302,9 @@ class RobertaForSequenceClassification(nn.Module):
         x = dropout(x, cfg.hidden_dropout, deterministic, dropout_generator)
         return self.head_out(x, sketch_generator)
 
+    def flax_param_pairs(self, p):
+        return _roberta_pairs(self, p)
+
 
 # ---------------------------------------------------------------------------
 # Transplanting the JAX model's parameters.
@@ -302,13 +328,17 @@ def _norm_pairs(mod: LayerNorm, p):
     yield mod.bias, p["bias"]
 
 
-def flax_param_pairs(model: RobertaForSequenceClassification, tree):
-    """``(parameter, array)`` for every parameter of ``model``, the array
-    taken from a tree shaped like the JAX model's parameters (nested dicts,
-    with or without the outer ``'params'``) and put in the port's
-    orientation.  Layers scanned by the JAX model are stacked on axis 0
-    under ``layers``.  Works on any such tree: parameters or gradients."""
-    p = tree.get("params", tree)
+def flax_param_pairs(model: nn.Module, tree):
+    """``(parameter, array)`` for every parameter of ``model`` (RoBERTa or
+    GPT), the array taken from a tree shaped like the JAX model's
+    parameters (nested dicts, with or without the outer ``'params'``) and
+    put in the port's orientation.  Layers scanned by the JAX model are
+    stacked on axis 0 under ``layers``.  Works on any such tree: parameters
+    or gradients."""
+    return model.flax_param_pairs(tree.get("params", tree))
+
+
+def _roberta_pairs(model: RobertaForSequenceClassification, p):
     r = p["roberta"]
     emb = r["embeddings"]
     e = model.roberta.embeddings
@@ -338,7 +368,7 @@ def flax_param_pairs(model: RobertaForSequenceClassification, tree):
     yield from _dense_pairs(model.head_out, p["head_out"])
 
 
-def load_flax_params(model: RobertaForSequenceClassification, params) -> None:
+def load_flax_params(model: nn.Module, params) -> None:
     """Fill every parameter of ``model`` from the JAX package's parameter
     tree, given as nested dicts of numpy arrays."""
     filled = set()

@@ -1,6 +1,8 @@
 """``nn.Module``s of the few-bit training path."""
 
+from fewbit_tpu_torch.modules.activations import GELU
 from fewbit_tpu_torch.modules.ffn import FewBitFFN
+from fewbit_tpu_torch.modules.fused import FusedDenseActivation
 from fewbit_tpu_torch.modules.linear import RandomizedDense
 
-__all__ = ("FewBitFFN", "RandomizedDense")
+__all__ = ("GELU", "FewBitFFN", "FusedDenseActivation", "RandomizedDense")

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 The sources in ``fewbit_tpu_torch/csrc/*.cu`` are compiled with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, loaded
-with :mod:`ctypes`.  The build runs at the first kernel launch, never at
-import, into ``fewbit_tpu_torch/_build/`` (listed in ``.gitignore``), under
-a name keyed on the sources' hash, so an edited source rebuilds and an
-unchanged one loads the library already built.
+for ``sm_90a``, one ``nvcc`` per source, all started together, and linked
+into one shared library with a plain C interface, loaded with
+:mod:`ctypes`.  The build runs at the first kernel launch, never at import,
+into ``fewbit_tpu_torch/_build/`` (listed in ``.gitignore``), under a name
+keyed on the sources' hash, so an edited source rebuilds and an unchanged
+one loads the library already built.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ __all__ = ("load_library", "build_seconds", "CSRC", "BUILD_DIR")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argument types, in the order of each extern "C" signature.
@@ -36,6 +37,10 @@ SIGNATURES = {
         _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "fewbit_matmul_lut_backward": (
         _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fewbit_act_forward": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
+    "fewbit_act_backward": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
+    "fewbit_dense_act": (
+        _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _build_seconds = 0.0
@@ -72,15 +77,29 @@ def load_library() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cu, _ = _sources()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               *map(str, cu)]
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cu]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                              "-o", str(obj), str(src)]
+                             for src, obj in zip(cu, objs))]
+        outs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, proc in procs]
+        if all(rc == 0 for *_, rc in outs):
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            outs.append((cmd, proc.stdout, proc.returncode))
         _build_seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}\n"
-                               f"{proc.stderr}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        for cmd, out, rc in outs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}"
+                                   f"\n{out}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():

@@ -1,9 +1,12 @@
-"""Few-bit activation pieces: the activation spec, the interval codes and
-the LUT select, as in ``fewbit_tpu/ops/activations.py``.
+"""Few-bit activation engine: the activation spec, the interval codes, the
+LUT select and the generic few-bit ``autograd.Function``, as in
+``fewbit_tpu/ops/activations.py``.
 
-The generic few-bit ``autograd.Function`` (``fewbit_activation``) waits for
-the elementwise kernels (see ROADMAP); the fused FFN block uses the pieces
-here directly.
+:func:`fewbit_activation` computes the exact activation and keeps only the
+packed interval codes (``bits / 8`` bytes per element) for its backward,
+``dx = levels[code] * g``.  On a CUDA tensor inside the envelope
+(:func:`fewbit_tpu_torch.ops.kernels.act_kernel_ok`) forward and backward
+run kernels 4 and 5; elsewhere their plain versions.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ("ActivationSpec", "compare_codes", "apply_lut")
+__all__ = ("ActivationSpec", "compare_codes", "apply_lut",
+           "fewbit_activation")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,3 +59,53 @@ def apply_lut(codes: torch.Tensor, levels: torch.Tensor,
         vals = [torch.where(mask, vals[2 * k + 1], vals[2 * k])
                 for k in range(len(vals) // 2)]
     return vals[0]
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """The ``(R, C)`` view the kernels take: leading dims collapsed (a 0-D
+    or 1-D tensor becomes one column)."""
+    if t.ndim < 2:
+        return t.reshape(-1, 1)
+    return t.reshape(-1, t.shape[-1])
+
+
+class _FewBitActivation(torch.autograd.Function):
+    """Exact ``spec.fwd(x)``; the backward keeps ``(packed codes,
+    levels)``, never ``x``."""
+
+    @staticmethod
+    def forward(ctx, spec: ActivationSpec, x, borders, levels):
+        from fewbit_tpu_torch.ops import kernels as K
+
+        x2 = _rows(x)
+        fwd = (K.fused_forward if K.act_kernel_ok(spec, x2.shape[1], x.dtype)
+               else K.act_forward_plain)
+        y2, packed = fwd(spec, x2.contiguous(), borders)
+        ctx.spec = spec
+        ctx.save_for_backward(packed, levels)
+        return y2.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        from fewbit_tpu_torch.ops import kernels as K
+
+        spec = ctx.spec
+        packed, levels = ctx.saved_tensors
+        g2 = _rows(g)
+        bwd = (K.fused_backward if K.act_kernel_ok(spec, g2.shape[1], g.dtype)
+               else K.act_backward_plain)
+        dx = bwd(spec, packed, levels, g2.contiguous())
+        return None, dx.reshape(g.shape), None, None
+
+
+def fewbit_activation(spec: ActivationSpec, x: torch.Tensor,
+                      borders: torch.Tensor,
+                      levels: torch.Tensor) -> torch.Tensor:
+    """Exact forward of ``spec`` with a few-bit backward pass.
+
+    ``borders``: f32 interior borders, shape ``(spec.n_borders,)``;
+    ``levels``: f32 stepwise derivative values (``levels[k]`` multiplies
+    cotangents whose input fell in interval ``k``), ``2**bits`` of them.
+    Both on ``x``'s device.
+    """
+    return _FewBitActivation.apply(spec, x, borders, levels)

@@ -1,4 +1,4 @@
-"""The three CUDA kernels of the few-bit training step, their plain PyTorch
+"""The CUDA kernels of the few-bit training steps, their plain PyTorch
 versions, their envelopes and their launch counters: the counterpart of
 ``fewbit_tpu/ops/pallas_kernels.py``.
 
@@ -27,18 +27,22 @@ from fewbit_tpu_torch.ops.activations import apply_lut, compare_codes
 from fewbit_tpu_torch.ops.bitpack import (packed_shape, pack_codes,
                                           unpack_codes)
 
-__all__ = ("FFN_BN", "FFN_BM", "sketch_dtype", "countsketch_aligned_keff",
-           "countsketch_signed",
-           "matmul_sketch_keff", "fused_matmul_input_sketch",
-           "fused_dense_act_sketch", "fused_matmul_lut_backward",
-           "matmul_input_sketch_plain", "dense_act_sketch_plain",
-           "matmul_lut_backward_plain", "launch_counts",
-           "reset_launch_counts", "KERNELS")
+__all__ = ("FFN_BN", "FFN_BM", "ACT_IDS", "sketch_dtype",
+           "countsketch_aligned_keff", "countsketch_signed",
+           "matmul_sketch_keff", "act_kernel_ok", "dense_act_ok",
+           "fused_matmul_input_sketch", "fused_dense_act_sketch",
+           "fused_matmul_lut_backward", "fused_forward", "fused_backward",
+           "fused_dense_act", "matmul_input_sketch_plain",
+           "dense_act_sketch_plain", "matmul_lut_backward_plain",
+           "act_forward_plain", "act_backward_plain", "dense_act_plain",
+           "launch_counts", "reset_launch_counts", "KERNELS")
 
 FFN_BN = 512  # row granularity of the sketch partition (k_eff % FFN_BN)
 FFN_BM = 512  # column granularity of the FFN kernels' envelope
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# Activation ids of the kernels (csrc/common.cuh): the exact GELU so far.
+ACT_IDS = {"gelu": 0}
 
 
 def sketch_dtype(dtype) -> torch.dtype:
@@ -87,6 +91,26 @@ def matmul_sketch_keff(n: int, kdim: int, m: int, k: int,
     if est > 56 * 1024 * 1024:
         return None
     return k_eff
+
+
+def _act_spec_in(spec) -> bool:
+    """Whether the kernels compute ``spec``: an activation with an id,
+    border codes, at most 6 bits and 63 borders."""
+    return (spec.name in ACT_IDS and spec.codes is compare_codes
+            and 1 <= spec.bits <= 6 and spec.n_borders < 64)
+
+
+def act_kernel_ok(spec, c: int, dtype) -> bool:
+    """Envelope of kernels 4 and 5 on an ``(R, C)`` view: C a multiple of
+    128, f32 or bf16, as ``_eligible`` in the JAX package."""
+    return dtype in _DTYPES and c % 128 == 0 and _act_spec_in(spec)
+
+
+def dense_act_ok(spec, kdim: int, m: int, dtype) -> bool:
+    """Envelope of kernel 6: K and M multiples of 128, f32 or bf16; any N
+    (ragged rows are masked)."""
+    return (dtype in _DTYPES and kdim % 128 == 0 and m % 128 == 0
+            and _act_spec_in(spec))
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +173,24 @@ def matmul_lut_backward_plain(spec, packed, levels, g, wt, sigma,
     return dz32.to(g.dtype), sk, dz32.sum(0)
 
 
+def act_forward_plain(spec, x, borders):
+    packed = pack_codes(spec.codes(x, borders, spec.args), spec.bits)
+    return spec.fwd(x, spec.args).to(x.dtype), packed
+
+
+def act_backward_plain(spec, packed, levels, g):
+    codes = unpack_codes(packed, spec.bits, g.shape[0])
+    return (apply_lut(codes, levels, spec.bits) * g.float()).to(g.dtype)
+
+
+def dense_act_plain(spec, x, w, bias, borders):
+    z = dot_f32(x, w)
+    if bias is not None:
+        z = z + bias.float()
+    packed = pack_codes(spec.codes(z, borders, spec.args), spec.bits)
+    return spec.fwd(z, spec.args).to(x.dtype), packed
+
+
 # ---------------------------------------------------------------------------
 # Wrapper checks.
 # ---------------------------------------------------------------------------
@@ -201,11 +243,9 @@ def _launch(fn_name: str, device, *args) -> None:
 
 
 def _ffn_spec_ok(spec) -> None:
-    _require(spec.name == "gelu" and spec.codes is compare_codes,
-             f"the FFN kernels compute the exact GELU with border codes, "
-             f"not {spec.name!r}")
-    _require(1 <= spec.bits <= 6, f"bits={spec.bits} outside 1..6")
-    _require(spec.n_borders < 64, "more than 63 borders")
+    _require(spec.name == "gelu" and _act_spec_in(spec),
+             f"the FFN kernels compute the exact GELU with border codes at "
+             f"1..6 bits, not {spec.name!r} at {spec.bits} bits")
 
 
 def _ffn_rows_ok(n: int, m: int, k_eff: int) -> None:
@@ -349,6 +389,104 @@ def fused_matmul_lut_backward(spec, packed: torch.Tensor,
     return dz, sk, db
 
 
+# ---------------------------------------------------------------------------
+# Kernel 4: elementwise activation + packed codes.
+# ---------------------------------------------------------------------------
+
+
+def _act_kernel_checks(spec, t: torch.Tensor, what: str) -> None:
+    _require(t.is_cuda, f"{what} on {t.device}: neither CPU nor CUDA")
+    _require(t.ndim == 2, f"{what} must be 2-D (R, C)")
+    _require(act_kernel_ok(spec, t.shape[1], t.dtype),
+             f"{spec.name} at {spec.bits} bits, C={t.shape[1]}, {t.dtype}: "
+             f"outside the envelope of act_kernel_ok")
+
+
+def fused_forward(spec, x: torch.Tensor, borders: torch.Tensor):
+    """``y = act(x)`` and the packed codes of ``x``
+    (``(bits, R / 32, C)`` int32).  ``x``: (R, C).  Returns
+    ``(y, packed)``."""
+    if x.device.type == "cpu":
+        return act_forward_plain(spec, x, borders)
+    _act_kernel_checks(spec, x, "x")
+    r, c = x.shape
+    dev = x.device
+    _check("x", x, dev, (r, c), x.dtype)
+    _check("borders", borders, dev, (spec.n_borders,), torch.float32)
+    y = torch.empty_like(x)
+    packed = torch.empty(packed_shape(r, c, spec.bits), dtype=torch.int32,
+                         device=dev)
+    _launch("fewbit_act_forward", dev, x.data_ptr(), borders.data_ptr(),
+            spec.n_borders, ACT_IDS[spec.name], y.data_ptr(),
+            packed.data_ptr(), r, c, spec.bits,
+            int(x.dtype == torch.bfloat16))
+    fused_forward.launches += 1
+    return y, packed
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: unpack + LUT + multiply.
+# ---------------------------------------------------------------------------
+
+
+def fused_backward(spec, packed: torch.Tensor, levels: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+    """``dx = levels[codes] * g`` (f32 product, stored in g's dtype), the
+    codes decoded from ``packed`` (``(bits, R / 32, C)`` int32, from kernel
+    4, kernel 6 or the plain pack).  ``g``: (R, C)."""
+    if g.device.type == "cpu":
+        return act_backward_plain(spec, packed, levels, g)
+    _act_kernel_checks(spec, g, "g")
+    r, c = g.shape
+    dev = g.device
+    _check("g", g, dev, (r, c), g.dtype)
+    _check("packed", packed, dev, packed_shape(r, c, spec.bits), torch.int32)
+    _check("levels", levels, dev, (1 << spec.bits,), torch.float32)
+    dx = torch.empty_like(g)
+    _launch("fewbit_act_backward", dev, packed.data_ptr(), levels.data_ptr(),
+            spec.bits, g.data_ptr(), dx.data_ptr(), r, c,
+            int(g.dtype == torch.bfloat16))
+    fused_backward.launches += 1
+    return dx
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: dense + activation + packed codes.
+# ---------------------------------------------------------------------------
+
+
+def fused_dense_act(spec, x: torch.Tensor, w: torch.Tensor,
+                    bias: Optional[torch.Tensor], borders: torch.Tensor):
+    """``y = act(x @ w + b)`` with the packed codes of the pre-activation
+    (``(bits, N / 32, M)`` int32).  ``x``: (N, K); ``w``: the logical
+    (K, M) weight, row-major or the ``.t()`` of a row-major (M, K) tensor.
+    Returns ``(y, packed)``."""
+    if x.device.type == "cpu":
+        return dense_act_plain(spec, x, w, bias, borders)
+    _require(x.is_cuda, f"x on {x.device}: neither CPU nor CUDA")
+    _require(x.ndim == 2 and w.ndim == 2, "x and w must be 2-D")
+    n, kdim = x.shape
+    m = w.shape[1]
+    dev, dt = x.device, x.dtype
+    _require(dense_act_ok(spec, kdim, m, dt),
+             f"{spec.name} at {spec.bits} bits, K={kdim}, M={m}, {dt}: "
+             f"outside the envelope of dense_act_ok")
+    _check("x", x, dev, (n, kdim), dt)
+    trans = _weight("w", w, dev, (kdim, m), dt)
+    if bias is not None:
+        _check("bias", bias, dev, (m,), dt)
+    _check("borders", borders, dev, (spec.n_borders,), torch.float32)
+    y = torch.empty(n, m, dtype=dt, device=dev)
+    packed = torch.empty(packed_shape(n, m, spec.bits), dtype=torch.int32,
+                         device=dev)
+    _launch("fewbit_dense_act", dev, x.data_ptr(), w.data_ptr(), trans,
+            _ptr(bias), borders.data_ptr(), spec.n_borders,
+            ACT_IDS[spec.name], y.data_ptr(), packed.data_ptr(), n, kdim, m,
+            spec.bits, int(dt == torch.bfloat16))
+    fused_dense_act.launches += 1
+    return y, packed
+
+
 # name -> (wrapper, plain version, TPU kernel it replaces, CUDA source).
 KERNELS = {
     "matmul_input_sketch": (
@@ -363,6 +501,18 @@ KERNELS = {
         fused_matmul_lut_backward, matmul_lut_backward_plain,
         "fewbit_tpu/ops/pallas_kernels.py:799",
         "fewbit_tpu_torch/csrc/matmul_lut_backward.cu"),
+    "fused_forward": (
+        fused_forward, act_forward_plain,
+        "fewbit_tpu/ops/pallas_kernels.py:215",
+        "fewbit_tpu_torch/csrc/activation.cu"),
+    "fused_backward": (
+        fused_backward, act_backward_plain,
+        "fewbit_tpu/ops/pallas_kernels.py:285",
+        "fewbit_tpu_torch/csrc/activation.cu"),
+    "dense_act": (
+        fused_dense_act, dense_act_plain,
+        "fewbit_tpu/ops/pallas_kernels.py:411",
+        "fewbit_tpu_torch/csrc/dense_act.cu"),
 }
 
 

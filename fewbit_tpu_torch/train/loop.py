@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as TF
 
 __all__ = ("TrainConfig", "make_schedule", "make_optimizer",
-           "classification_loss", "make_train_step")
+           "classification_loss", "causal_lm_loss", "make_train_step")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +62,19 @@ def make_optimizer(cfg: TrainConfig, params):
 def classification_loss(logits: torch.Tensor,
                         labels: torch.Tensor) -> torch.Tensor:
     return TF.cross_entropy(logits.float(), labels.long())
+
+
+def causal_lm_loss(logits: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy, token-weighted: ``labels`` are pre-shifted
+    (the label at position t is token t + 1) and negative labels are
+    masked out."""
+    valid = labels >= 0
+    per_tok = TF.cross_entropy(logits.float().flatten(0, -2),
+                               labels.clamp_min(0).long().flatten(),
+                               reduction="none")
+    total = (per_tok * valid.flatten()).sum()
+    return total / valid.sum().clamp_min(1)
 
 
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig,

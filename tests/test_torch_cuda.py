@@ -69,7 +69,67 @@ def test_kernels_match_plain_on_cuda(cuda, dtype):
     torch.cuda.synchronize()
     assert K.launch_counts() == {"matmul_input_sketch": 2,
                                  "dense_act_sketch": 1,
-                                 "matmul_lut_backward": 1}
+                                 "matmul_lut_backward": 1,
+                                 "fused_forward": 0, "fused_backward": 0,
+                                 "dense_act": 0}
+
+
+def _lut(cuda, bits):
+    """The builtin GELU LUT, or for 5 bits a custom 32-level one."""
+    if bits <= 4:
+        return resolve_activation("gelu", bits=bits, device=cuda)
+    borders = torch.linspace(-3.0, 3.0, 31).tolist()
+    values = torch.linspace(-0.1, 1.1, 32).tolist()
+    return resolve_activation("gelu", borders=borders, values=values,
+                              device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c,bits", [(1000, 256, 3), (2048, 384, 5)])
+def test_elementwise_kernels_match_plain_on_cuda(cuda, dtype, r, c, bits):
+    """Kernels 4 and 5, ragged R included: y within the GELU tolerance
+    (erff against torch's erf), the packed words and dx equal."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    spec, borders, levels = _lut(cuda, bits)
+    x = (torch.randn(r, c, generator=gen, device=cuda) * 2).to(dtype)
+    g = torch.randn(r, c, generator=gen, device=cuda).to(dtype)
+    K.reset_launch_counts()
+    y, packed = K.fused_forward(spec, x, borders)
+    y0, packed0 = K.act_forward_plain(spec, x, borders)
+    assert (y.float() - y0.float()).abs().max().item() <= tol
+    assert torch.equal(packed, packed0)
+    dx = K.fused_backward(spec, packed, levels, g)
+    assert torch.equal(dx, K.act_backward_plain(spec, packed0, levels, g))
+    torch.cuda.synchronize()
+    assert (K.fused_forward.launches, K.fused_backward.launches) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,trans", [(1000, True), (512, False)])
+def test_dense_act_kernel_matches_plain_on_cuda(cuda, dtype, n, trans):
+    """Kernel 6 with ragged N and either weight layout; its codes decode
+    with kernel 5."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    kdim, m = 256, 384
+    spec, borders, levels = resolve_activation("gelu", bits=3, device=cuda)
+    x = torch.randn(n, kdim, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(m, kdim, generator=gen, device=cuda) * 0.06).to(dtype)
+    w = w.t() if trans else w.t().contiguous()
+    bias = (torch.randn(m, generator=gen, device=cuda) * 0.1).to(dtype)
+    y, packed = K.fused_dense_act(spec, x, w, bias, borders)
+    y0, packed0 = K.dense_act_plain(spec, x, w, bias, borders)
+    err = (y.float() - y0.float()).abs().max().item()
+    assert err <= tol * max(1.0, y0.float().abs().max().item()), err
+    flips = unpack_codes(packed, 3, n) != unpack_codes(packed0, 3, n)
+    assert flips.float().mean().item() <= 1e-4
+    g = torch.randn(n, m, generator=gen, device=cuda).to(dtype)
+    dz = K.fused_backward(spec, packed, levels, g)
+    dz0 = K.act_backward_plain(spec, packed, levels, g)
+    assert torch.equal(dz, dz0)
 
 
 @pytest.mark.cuda
@@ -82,3 +142,19 @@ def test_wrappers_refuse_outside_envelope_on_cuda(cuda):
     with pytest.raises(ValueError):
         K.fused_matmul_input_sketch(x[:512].double(), w.double(), None,
                                     sigma[:512], 256)
+    spec, borders, levels = resolve_activation("gelu", bits=3, device=cuda)
+    with pytest.raises(ValueError):  # C not a multiple of 128
+        K.fused_forward(spec, x[:, :100].contiguous(), borders)
+    with pytest.raises(ValueError):
+        K.fused_forward(spec, x.double(), borders)
+    _, packed = K.fused_forward(spec, x, borders)
+    with pytest.raises(ValueError):  # packed for other rows
+        K.fused_backward(spec, packed, levels, x[:512])
+    with pytest.raises(ValueError):  # K not a multiple of 128
+        K.fused_dense_act(spec, x[:, :100].contiguous(), w[:100], None,
+                          borders)
+    wide, wb, wv = resolve_activation(
+        "gelu", borders=torch.linspace(-3, 3, 127).tolist(),
+        values=torch.linspace(0, 1, 128).tolist(), device=cuda)
+    with pytest.raises(ValueError):  # 7 bits
+        K.fused_forward(wide, x, wb)

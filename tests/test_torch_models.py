@@ -53,7 +53,10 @@ def _torch_batch(b):
 
 
 def _models(fewbit: bool):
-    extra = FEWBIT if fewbit else {}
+    return _models_for(FEWBIT if fewbit else {})
+
+
+def _models_for(extra):
     jmodel = JaxModel(JaxConfig(**SMALL, **extra))
     b = _batch()
     params = jmodel.init({"params": jax.random.key(0),
@@ -182,6 +185,42 @@ def test_fewbit_slice_matches_jax(monkeypatch):
     assert abs(tl - jl) < 1e-5
     sketched = _sketched(tmodel)
     assert len(sketched) == 2 * 6 + 2
+    for param, want in flax_param_pairs(tmodel, jgrads):
+        got = param.grad.numpy()
+        assert got.shape == want.shape
+        assert np.isfinite(got).all()
+        if id(param) in sketched:
+            continue
+        assert _close_by_norm(got, want)
+        np.testing.assert_allclose(got, want, rtol=1e-2,
+                                   atol=1e-2 * np.abs(want).max() + 1e-6)
+
+
+# The two few-bit FFN branches besides FewBitFFN: the fused dense + GELU
+# (FusedDenseActivation, no sketch configured) and the unfused Dense ->
+# few-bit GELU -> Dense with every projection sketched.
+BRANCHES = {"fused_dense_act": dict(gelu_bits=3, fused_ffn=True),
+            "unfused_gelu": dict(FEWBIT, fused_ffn=False)}
+
+
+@pytest.mark.parametrize("extra", list(BRANCHES.values()),
+                         ids=list(BRANCHES))
+def test_fewbit_ffn_branches_match_jax(monkeypatch, extra):
+    monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
+    jmodel, params, tmodel, b = _models_for(extra)
+    layer = tmodel.roberta.layers[0]
+    assert not hasattr(layer, "ffn")
+    assert layer.fused_act == extra["fused_ffn"]
+    jl, jlogits, jgrads = _jax_loss_grads(jmodel, params, b)
+    tl, tlogits = _torch_loss_grads(tmodel, b)
+    np.testing.assert_allclose(tlogits, jlogits, rtol=1e-4, atol=1e-5)
+    assert abs(tl - jl) < 1e-5
+    sketched = set()
+    if extra.get("proj_dim_ratio"):
+        sketched = _sketched(tmodel) | {
+            id(q) for n, q in tmodel.named_parameters()
+            if n.endswith("intermediate.weight")}
+        assert len(sketched) == 2 * 6 + 2
     for param, want in flax_param_pairs(tmodel, jgrads):
         got = param.grad.numpy()
         assert got.shape == want.shape
