@@ -26,6 +26,23 @@ Phases (any failure raises and exits non-zero; no result is printed):
    in turns, the few-bit peak lower.
 5. RoBERTa-base with the unfused few-bit FFN (``fused_ffn=False``): 2 f32
    steps, each launching kernels 1, 4 and 5 exactly 96, 12 and 12 times.
+6. GPT-2 small few-bit with flash attention (``flash_attention=True``,
+   attention dropout 0): the forward check against the vanilla
+   standard-attention model, 3 f32 steps each launching kernels 1, 6, 5
+   and the flash kernels F1, F2, F3 exactly 96, 12, 12, 12, 12 and 12
+   times; vanilla (standard attention, attention dropout 0) against
+   few-bit + flash, 4 steps each in turns, the few-bit peak lower; the
+   few-bit step on the standard path with attention dropout 0 for
+   comparison; one bf16 step.
+7. RoBERTa-base fused few-bit FFN with flash attention and the padded
+   batch: 2 f32 steps, each launching kernels 1, 2, 3 and F1-F3 exactly
+   96, 12, 12 and 12 each.
+
+The kernel phase also holds kernel 2' (kernel 2 with the input sketch,
+which no path runs) against its plain version, and times flash attention
+(F1, then F2 and F3 through the autograd op) against the standard
+attention's forward and backward at seq 128 and 1024: the card's own
+crossover for ``flash_attention="auto"``, printed, not acted on.
 
 Every loss must be finite.  Each path's launch counts start at 0 just
 before it.  The line before the last is a JSON object with each kernel's
@@ -50,6 +67,8 @@ assert N == GPT_BS * GPT_SEQ
 HIDDEN, FFN = 768, 3072
 K_EFF = 2048          # aligned bucket count of ratio 0.2 at N = 8192
 # Kernel launches per training step on each path; every other kernel 0.
+FLASH = {"flash_forward": 12, "flash_backward_dkv": 12,
+         "flash_backward_dq": 12}
 PATHS = {
     "roberta_fused_ffn": {"matmul_input_sketch": 96, "dense_act_sketch": 12,
                           "matmul_lut_backward": 12},
@@ -57,7 +76,16 @@ PATHS = {
                    "fused_backward": 12},
     "roberta_unfused_ffn": {"matmul_input_sketch": 96, "fused_forward": 12,
                             "fused_backward": 12},
+    "gpt2_small_flash": {"matmul_input_sketch": 96, "dense_act": 12,
+                         "fused_backward": 12, **FLASH},
+    "roberta_flash": {"matmul_input_sketch": 96, "dense_act_sketch": 12,
+                      "matmul_lut_backward": 12, **FLASH},
 }
+# Kernel 2' has no path: the JAX package's fewbit_ffn never passes sigma_x
+# (fewbit_tpu/functional/ffn.py:142-148), nor does the port's.  It is held
+# against its plain version in the kernel phase only.
+NO_PATH = {"dense_act_sketch_x"}
+HEADS, HEAD_DIM = 12, 64
 
 # Tolerance on max |kernel - plain|, as a fraction of max(1, max |plain|):
 # f32 differs only by the order of the f32 sums; bf16 outputs may differ by
@@ -142,9 +170,52 @@ def phase_device():
     return smi
 
 
+def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
+    """F1-F3 on one input against their plain versions (the backward ones
+    on the kernel's lse and di, the same inputs), each timed."""
+    from fewbit_tpu_torch.ops import kernels as K
+    from fewbit_tpu_torch.ops.flash_attention import (
+        flash_backward_dkv_plain, flash_backward_dq_plain,
+        flash_forward_plain)
+
+    scale = HEAD_DIM ** -0.5
+    mode = f"{shape} {tuple(q.shape)}, {'causal' if causal else 'full'}"
+    fargs = (q, k, v, ids, ids, causal, scale)
+    o, lse = K.flash_forward(*fargs)
+    o0, lse0 = flash_forward_plain(*fargs)
+    if o.stride() != q.stride():
+        raise AssertionError(f"F1 {tag}: o strides {o.stride()}")
+    results["flash_forward"].append({
+        "mode": mode, "dtype": tag,
+        "errors": {"o": compare(f"F1 {tag} {shape} o", o, o0, tol),
+                   "lse": compare(f"F1 {tag} {shape} lse", lse, lse0, tol)},
+        "ms": cuda_ms(lambda: K.flash_forward(*fargs)),
+        "plain_ms": cuda_ms(lambda: flash_forward_plain(*fargs))})
+    del o0, lse0
+    di = (o.float() * do.float()).sum(-1)
+    bargs = (q, k, v, ids, ids, lse, do, di, causal, scale)
+    dk, dv = K.flash_backward_dkv(*bargs)
+    dk0, dv0 = flash_backward_dkv_plain(*bargs)
+    results["flash_backward_dkv"].append({
+        "mode": mode, "dtype": tag,
+        "errors": {"dk": compare(f"F2 {tag} {shape} dk", dk, dk0, tol),
+                   "dv": compare(f"F2 {tag} {shape} dv", dv, dv0, tol)},
+        "ms": cuda_ms(lambda: K.flash_backward_dkv(*bargs)),
+        "plain_ms": cuda_ms(lambda: flash_backward_dkv_plain(*bargs))})
+    del dk0, dv0
+    dq = K.flash_backward_dq(*bargs)
+    dq0 = flash_backward_dq_plain(*bargs)
+    results["flash_backward_dq"].append({
+        "mode": mode, "dtype": tag,
+        "errors": {"dq": compare(f"F3 {tag} {shape} dq", dq, dq0, tol)},
+        "ms": cuda_ms(lambda: K.flash_backward_dq(*bargs)),
+        "plain_ms": cuda_ms(lambda: flash_backward_dq_plain(*bargs))})
+
+
 def phase_kernels():
     from fewbit_tpu_torch.functional.activations import resolve_activation
     from fewbit_tpu_torch.ops import kernels as K
+    from fewbit_tpu_torch.train import synthetic_glue
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -155,8 +226,14 @@ def phase_kernels():
         return (torch.randn(*shape, generator=gen, device=dev)
                 * scale).to(dt)
 
-    sigma = torch.randint(0, 2, (N,), generator=gen,
-                          device=dev).float() * 2 - 1
+    sigma, sigma_x = (torch.randint(0, 2, (N,), generator=gen,
+                                    device=dev).float() * 2 - 1
+                      for _ in range(2))
+    # Segment ids as the models pass them: GPT's all-ones mask, RoBERTa's
+    # MRPC-shaped padding mask.
+    gpt_ids = torch.ones(GPT_BS, GPT_SEQ, dtype=torch.int32, device=dev)
+    mrpc_ids = torch.from_numpy(next(synthetic_glue(BS, SEQ, seed=SEED))[
+        "attention_mask"]).to(device=dev, dtype=torch.int32)
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[dt]
         tag = "f32" if dt == torch.float32 else "bf16"
@@ -202,6 +279,21 @@ def phase_kernels():
             "mode": "forward", "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_dense_act_sketch(*args)),
             "plain_ms": cuda_ms(lambda: K.dense_act_sketch_plain(*args))})
+
+        # Kernel 2': kernel 2 that also sketches x (sum of N / k_eff = 4
+        # rows per bucket).
+        xargs = (*args, sigma_x)
+        y, packed2x, sky, skx = K.fused_dense_act_sketch_x(*xargs)
+        y0, packed0, sky0, skx0 = K.dense_act_sketch_x_plain(*xargs)
+        errs = {"y": compare(f"k2' {tag} y", y, y0, tol),
+                "sketch_y": compare(f"k2' {tag} sketch_y", sky, sky0, tol),
+                "sketch_x": compare(f"k2' {tag} sketch_x", skx, skx0, tol),
+                "code_flips": code_flips(f"k2' {tag}", packed2x, packed0,
+                                         z0, borders, spec.bits)}
+        results["dense_act_sketch_x"].append({
+            "mode": "forward", "dtype": tag, "errors": errs,
+            "ms": cuda_ms(lambda: K.fused_dense_act_sketch_x(*xargs)),
+            "plain_ms": cuda_ms(lambda: K.dense_act_sketch_x_plain(*xargs))})
 
         # Kernel 3: the FFN backward on kernel 2's codes, with the down
         # projection's (out, in) weight as wt.
@@ -259,6 +351,16 @@ def phase_kernels():
                                          tol)},
                 "ms": cuda_ms(lambda: K.fused_backward(*args)),
                 "plain_ms": cuda_ms(lambda: K.act_backward_plain(*args))})
+
+        # F1-F3 at both paths' shapes, on (b, s, h, d) projections seen
+        # through transpose(1, 2), as the models pass them.
+        for shape, b, s, causal, ids in (
+                ("gpt2_small", GPT_BS, GPT_SEQ, True, gpt_ids),
+                ("roberta", BS, SEQ, False, mrpc_ids)):
+            q, k, v, do = (rand(b, s, HEADS, HEAD_DIM, dt=dt).transpose(1, 2)
+                           for _ in range(4))
+            _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol)
+        torch.cuda.empty_cache()
     for name, cases in results.items():
         for c in cases:
             log(f"kernel {name} [{c['mode']}, {c['dtype']}]: errors "
@@ -267,12 +369,57 @@ def phase_kernels():
     return results
 
 
+def _standard_attention(q, k, v, mask, scale):
+    """The models' standard causal attention on (b, s, h, d) projections."""
+    s = q.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    keep = (torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+            [None, None] & (mask[:, None, None, :] > 0))
+    logits = logits + torch.where(keep, 0.0, torch.finfo(torch.float32).min)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v)
+
+
+def phase_crossover():
+    """Attention forward and backward, f32, causal, 8192 tokens: the flash
+    op (F1, then F2 and F3) against the standard attention, at seq 128 and
+    1024 -- the card's own crossover for ``flash_attention="auto"``
+    (printed, not acted on)."""
+    from fewbit_tpu_torch.ops.flash_attention import (SegmentIds,
+                                                      flash_attention)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    scale = HEAD_DIM ** -0.5
+    out = {}
+    for b, s in ((BS, SEQ), (GPT_BS, GPT_SEQ)):
+        q, k, v, do = (torch.randn(b, s, HEADS, HEAD_DIM, generator=gen,
+                                   device="cuda") for _ in range(4))
+        for t in (q, k, v):
+            t.requires_grad_()
+        ids = torch.ones(b, s, dtype=torch.int32, device="cuda")
+        seg = SegmentIds(ids, ids)
+
+        def flash():
+            flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), seg, causal=True,
+                            sm_scale=scale).backward(do.transpose(1, 2))
+
+        def standard():
+            _standard_attention(q, k, v, ids, scale).backward(do)
+
+        out[f"seq{s}"] = {"batch": b, "flash_ms": cuda_ms(flash),
+                          "standard_ms": cuda_ms(standard)}
+        log(f"crossover seq {s} bs {b}: attention fwd+bwd flash "
+            f"{out[f'seq{s}']['flash_ms']:.3f} ms, standard "
+            f"{out[f'seq{s}']['standard_ms']:.3f} ms")
+    return out
+
+
 def _batches(path, seed):
     """Endless batches of a path on the card: MRPC-shaped for RoBERTa,
     ``synthetic_lm`` for GPT."""
     from fewbit_tpu_torch.train import synthetic_glue, synthetic_lm
 
-    if path == "gpt2_small":
+    if path.startswith("gpt2_small"):
         source = synthetic_lm(GPT_BS, GPT_SEQ, seed=seed)
     else:
         source = synthetic_glue(BS, SEQ, seed=seed)
@@ -281,26 +428,33 @@ def _batches(path, seed):
                for k, v in b.items()}
 
 
-def _model(path, dt, fewbit):
+def _model(path, dt, fewbit, flash=None):
     """A path's model in ``dt`` (vanilla or few-bit, random weights from
-    SEED) and its training step."""
+    SEED) and its training step.  On a flash path attention dropout is 0
+    and the few-bit model takes flash attention (unless ``flash`` says
+    otherwise); vanilla takes the standard attention."""
     from fewbit_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          RobertaConfig,
                                          RobertaForSequenceClassification)
     from fewbit_tpu_torch.train import (TrainConfig, causal_lm_loss,
                                         classification_loss, make_train_step)
 
+    flash_path = bool(set(PATHS[path]) & set(FLASH))
     switches = dict(dtype=dt, gelu_bits=3 if fewbit else None,
                     proj_dim_ratio=0.2 if fewbit else None,
-                    sketch="countsketch")
+                    sketch="countsketch",
+                    flash_attention=(flash_path and fewbit if flash is None
+                                     else flash))
+    if flash_path:
+        switches["attention_dropout"] = 0.0
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    if path == "gpt2_small":
+    if path.startswith("gpt2_small"):
         model = GPTForCausalLM(GPTConfig(**switches), device="cuda",
                                generator=gen)
         loss_fn = causal_lm_loss
     else:
         cfg = RobertaConfig(**switches,
-                            fused_ffn=path == "roberta_fused_ffn")
+                            fused_ffn=path != "roberta_unfused_ffn")
         model = RobertaForSequenceClassification(cfg, device="cuda",
                                                  generator=gen)
         loss_fn = classification_loss
@@ -427,6 +581,9 @@ def phase_path(path):
                                 batches, gen, turns=2)}
     del model, step, vmodel, vstep
     torch.cuda.empty_cache()
+    if path == "gpt2_small_flash":
+        out["fewbit_standard_attention"] = _fewbit_standard(path, batches,
+                                                            gen)
     bmodel, bstep = _model(path, torch.bfloat16, fewbit=True)
     out["bf16_loss"] = _checked_step(path, "few-bit bf16 step", bstep,
                                      next(_batches(path, SEED)), gen)
@@ -435,8 +592,24 @@ def phase_path(path):
     return out, counts
 
 
-def phase_unfused(path):
-    """RoBERTa with the unfused few-bit FFN: 2 checked f32 steps."""
+def _fewbit_standard(path, batches, gen):
+    """The few-bit model on the standard attention path (attention dropout
+    0), for comparison with flash: ms and peak above held of its second
+    step."""
+    model, step = _model(path, torch.float32, fewbit=True, flash=False)
+    step(next(batches), gen)
+    loss, sec, peak = _timed_step(step, next(batches), gen)
+    if not np.isfinite(loss):
+        raise AssertionError(f"{path} few-bit standard attention: {loss}")
+    log(f"{path}: few-bit on the standard attention path: {sec * 1e3:.2f} "
+        f"ms, peak above held {peak} B ({peak / 2**30:.3f} GiB)")
+    del model, step
+    torch.cuda.empty_cache()
+    return {"step_ms": sec * 1e3, "peak_bytes": peak}
+
+
+def phase_steps(path):
+    """A path's 2 checked f32 few-bit steps."""
     model, step = _model(path, torch.float32, fewbit=True)
     losses, counts = _checked_steps(path, step, _batches(path, SEED),
                                     torch.Generator().manual_seed(SEED), 2)
@@ -448,10 +621,13 @@ def phase_unfused(path):
 def main():
     smi = phase_device()
     results = phase_kernels()
+    crossover = phase_crossover()
     train, counts = {}, {}
     for path, run in (("roberta_fused_ffn", phase_path),
                       ("gpt2_small", phase_path),
-                      ("roberta_unfused_ffn", phase_unfused)):
+                      ("roberta_unfused_ffn", phase_steps),
+                      ("gpt2_small_flash", phase_path),
+                      ("roberta_flash", phase_steps)):
         train[path], counts[path] = run(path)
     from fewbit_tpu_torch.ops import kernels as K
 
@@ -459,7 +635,7 @@ def main():
     for name, cases in results.items():
         _, _, replaces, source = K.KERNELS[name]
         by_path = {path: c[name] for path, c in counts.items() if c[name]}
-        if not by_path:
+        if not by_path and name not in NO_PATH:
             raise AssertionError(f"kernel {name}: no path launched it")
         first = cases[0]
         kernels.append({
@@ -472,7 +648,7 @@ def main():
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "cases": [{k: c[k] for k in ("mode", "dtype", "errors", "ms",
                                          "plain_ms")} for c in cases]})
-    log(json.dumps({"train": train, "card": smi}))
+    log(json.dumps({"train": train, "crossover": crossover, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,11 +83,18 @@ struct GemmSmem {
 // when TRANS_B is false, and stored as its row-major (m, kdim) transpose
 // when TRANS_B is true (a torch weight of shape (out, in)).  Every edge is
 // masked: rows >= n, columns >= m and depth >= kdim read as zero.
+//
+// With skx, the read of A also feeds a signed row sum: skx[bucket0 + r, k]
+// = (first ? 0 : skx[bucket0 + r, k]) + sigx[row0 + r] A[row0 + r, k], in
+// f32, each element read and written by the one thread that loads it (the
+// countsketch of A over passes of a stride partition, kernel 2's sigma_x
+// mode).
 template <typename T, bool TRANS_B>
-__device__ __forceinline__ void gemm_tile(const T* __restrict__ A,
-                                          const T* __restrict__ B, int n,
-                                          int kdim, int m, int row0, int col0,
-                                          GemmSmem& s, float acc[TM][TN]) {
+__device__ __forceinline__ void gemm_tile(
+    const T* __restrict__ A, const T* __restrict__ B, int n, int kdim, int m,
+    int row0, int col0, GemmSmem& s, float acc[TM][TN],
+    float* __restrict__ skx = nullptr, const float* __restrict__ sigx = nullptr,
+    int bucket0 = 0, bool first = false) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
 #pragma unroll
@@ -101,8 +108,14 @@ __device__ __forceinline__ void gemm_tile(const T* __restrict__ A,
       const int e = tid + NT * q;
       const int r = e / BK, ka = e % BK;
       const int gr = row0 + r, gka = k0 + ka;
-      s.a[ka][r] = (gr < n && gka < kdim) ? to_f(A[(size_t)gr * kdim + gka])
-                                          : 0.f;
+      const bool in_a = gr < n && gka < kdim;
+      const float av = in_a ? to_f(A[(size_t)gr * kdim + gka]) : 0.f;
+      s.a[ka][r] = av;
+      if (skx != nullptr && in_a) {
+        float* dst = skx + (size_t)(bucket0 + r) * kdim + gka;
+        const float add = sigx[gr] * av;
+        *dst = first ? add : *dst + add;
+      }
       int c, kb;
       if (TRANS_B) {
         c = e / BK;

@@ -12,22 +12,29 @@ The config switches are those of the RoBERTa model:
 * ``proj_dim_ratio`` -- every projection (and the up projection's weight
   gradient) keeps a countsketch of its input along the batch x seq axis.
 
+``flash_attention`` chooses the attention op per call
+(:func:`fewbit_tpu_torch.models.flash.use_flash`): the causal flash op of
+:mod:`fewbit_tpu_torch.ops.flash_attention`, with segment ids from the
+attention mask, or the standard masked softmax.  ``flash_blocks`` is
+accepted for parity with the JAX config and not read: the CUDA kernels
+choose their own tiles.
+
 Not ported: tensor parallelism (``tp_axis``/``tp_size``, ROADMAP queue 1
-item 13) and ``scan_layers``.  ``flash_attention=True`` raises (queue 2
-item 8); ``"auto"`` takes the standard path, as the JAX package does off a
-TPU.
+item 13) and ``scan_layers``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as TF
 from torch import nn
 
+from fewbit_tpu_torch.models.flash import use_flash, validate_flash_config
 from fewbit_tpu_torch.models.roberta import (LayerNorm, _dense, _dense_pairs,
+                                             _flash_context,
                                              _fused_dense_gelu, _index,
                                              _norm_pairs, dropout)
 
@@ -51,23 +58,12 @@ class GPTConfig:
     proj_dim_ratio: Optional[float] = None
     sketch: str = "countsketch"
     flash_attention: Any = False  # False | True | "auto"
+    # (block_q, block_kv) of the TPU kernel: accepted, not read.
+    flash_blocks: Optional[Tuple[int, int]] = None
     tie_lm_head: bool = True
 
     def __post_init__(self):
-        if self.flash_attention not in (True, False, None, "auto"):
-            raise ValueError(
-                f"flash_attention must be True, False, or 'auto'; got "
-                f"{self.flash_attention!r}")
-        if self.flash_attention is True and self.attention_dropout > 0:
-            raise ValueError(
-                "flash_attention=True cannot apply attention dropout; set "
-                "attention_dropout=0.0 explicitly to opt in, or use "
-                "flash_attention='auto' to keep the standard path when "
-                "dropout is on")
-        if self.flash_attention is True:
-            raise NotImplementedError(
-                "flash attention is not ported yet (ROADMAP, queue 2 item "
-                "8); flash_attention='auto' takes the standard path")
+        validate_flash_config(self)
 
     @property
     def head_dim(self) -> int:
@@ -97,18 +93,23 @@ class GPTSelfAttention(nn.Module):
         k = split(self.key(x, sketch_generator))
         v = split(self.value(x, sketch_generator))
         scale = cfg.head_dim ** -0.5
-        logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
-        keep = torch.ones(s, s, dtype=torch.bool,
-                          device=x.device).tril()[None, None]
-        if attention_mask is not None:
-            keep = keep & (attention_mask[:, None, None, :] > 0)
-        neg = torch.tensor(torch.finfo(torch.float32).min, device=x.device)
-        logits = logits + torch.where(keep, torch.zeros_like(neg),
-                                      neg).to(logits.dtype)
-        probs = torch.softmax(logits, dim=-1)
-        probs = dropout(probs, cfg.attention_dropout, deterministic,
-                        dropout_generator)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h)
+        if use_flash(cfg.flash_attention, s, cfg.attention_dropout, x.device,
+                     deterministic):
+            ctx = _flash_context(q, k, v, attention_mask, True, scale)
+        else:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+            keep = torch.ones(s, s, dtype=torch.bool,
+                              device=x.device).tril()[None, None]
+            if attention_mask is not None:
+                keep = keep & (attention_mask[:, None, None, :] > 0)
+            neg = torch.tensor(torch.finfo(torch.float32).min,
+                               device=x.device)
+            logits = logits + torch.where(keep, torch.zeros_like(neg),
+                                          neg).to(logits.dtype)
+            probs = torch.softmax(logits, dim=-1)
+            probs = dropout(probs, cfg.attention_dropout, deterministic,
+                            dropout_generator)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h)
         out = self.output(ctx, sketch_generator)
         return dropout(out, cfg.hidden_dropout, deterministic,
                        dropout_generator)

@@ -1,7 +1,14 @@
 """RoBERTa-base with the few-bit training path, as
-``fewbit_tpu/models/roberta.py`` (standard attention, post-LN layers, a
-Python loop over the layers; no flash attention, tensor parallelism or
-scan).
+``fewbit_tpu/models/roberta.py`` (post-LN layers, a Python loop over the
+layers; no tensor parallelism or scan).
+
+``flash_attention`` chooses the attention op per call
+(:func:`fewbit_tpu_torch.models.flash.use_flash`): the non-causal flash op
+with segment ids from the attention mask, or the standard softmax with the
+mask bias.  The two differ only at padded query rows (flash attends pad to
+pad, the standard path pad to the real keys); real rows, logits, the loss
+and the gradients agree.  ``flash_blocks`` is accepted for parity with the
+JAX config and not read: the CUDA kernels choose their own tiles.
 
 Two config switches inject the memory-efficient path, as in the JAX model:
 
@@ -23,7 +30,7 @@ comes from two explicit generators per forward, ``dropout_generator`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,10 +38,12 @@ import torch.nn.functional as TF
 from torch import nn
 
 from fewbit_tpu_torch.functional.activations import gelu as fewbit_gelu
+from fewbit_tpu_torch.models.flash import use_flash, validate_flash_config
 from fewbit_tpu_torch.modules._rng import lecun_normal_
 from fewbit_tpu_torch.modules.ffn import FewBitFFN
 from fewbit_tpu_torch.modules.fused import FusedDenseActivation
 from fewbit_tpu_torch.modules.linear import RandomizedDense
+from fewbit_tpu_torch.ops.flash_attention import SegmentIds, flash_attention
 
 __all__ = ("RobertaConfig", "RobertaModel",
            "RobertaForSequenceClassification", "load_flax_params",
@@ -61,6 +70,12 @@ class RobertaConfig:
     proj_dim_ratio: Optional[float] = None  # None = exact Dense backward
     sketch: str = "gaussian"
     fused_ffn: bool = True
+    flash_attention: Any = False  # False | True | "auto"
+    # (block_q, block_kv) of the TPU kernel: accepted, not read.
+    flash_blocks: Optional[Tuple[int, int]] = None
+
+    def __post_init__(self):
+        validate_flash_config(self)
 
     @property
     def head_dim(self) -> int:
@@ -137,6 +152,22 @@ def _fused_dense_gelu(cfg, fin: int, fout: int, device, gen):
                                 generator=gen)
 
 
+def _flash_context(q, k, v, attention_mask, causal: bool, scale: float):
+    """Attention of ``(b, s, h, d)`` projections through the flash op, as
+    the JAX models call it: the ``transpose(1, 2)`` views in the library's
+    layout (no copy on the card), segment ids from the attention mask, the
+    context back as ``(b, s, h * d)``."""
+    b, s, heads, d = q.shape
+    seg = None
+    if attention_mask is not None:
+        ids = attention_mask.to(torch.int32)
+        seg = SegmentIds(ids, ids)
+    ctx = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), segment_ids=seg, causal=causal,
+                          sm_scale=scale)
+    return ctx.transpose(1, 2).reshape(b, s, heads * d)
+
+
 def _gelu(cfg, x: torch.Tensor) -> torch.Tensor:
     """The FFN activation: few-bit with ``cfg.gelu_bits``, exact otherwise."""
     if cfg.gelu_bits:
@@ -199,17 +230,22 @@ class RobertaSelfAttention(nn.Module):
         k = split(self.key(x, sketch_generator))
         v = split(self.value(x, sketch_generator))
         scale = cfg.head_dim ** -0.5
-        logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
-        if attention_mask is not None:
-            neg = torch.tensor(torch.finfo(torch.float32).min,
-                               device=x.device).to(logits.dtype)
-            bias = torch.where(attention_mask[:, None, None, :] > 0,
-                               torch.zeros_like(neg), neg)
-            logits = logits + bias
-        probs = torch.softmax(logits, dim=-1)
-        probs = dropout(probs, cfg.attention_dropout, deterministic,
-                        dropout_generator)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h)
+        if use_flash(cfg.flash_attention, s, cfg.attention_dropout, x.device,
+                     deterministic):
+            ctx = _flash_context(q, k, v, attention_mask, False, scale)
+        else:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+            if attention_mask is not None:
+                neg = torch.tensor(torch.finfo(torch.float32).min,
+                                   device=x.device).to(logits.dtype)
+                bias = torch.where(attention_mask[:, None, None, :] > 0,
+                                   torch.zeros_like(neg), neg)
+                logits = logits + bias
+            probs = torch.softmax(logits, dim=-1)
+            probs = dropout(probs, cfg.attention_dropout, deterministic,
+                            dropout_generator)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs,
+                               v).reshape(b, s, h)
         out = self.output(ctx, sketch_generator)
         return dropout(out, cfg.hidden_dropout, deterministic,
                        dropout_generator)

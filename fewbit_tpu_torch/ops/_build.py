@@ -28,19 +28,28 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argument types, in the order of each extern "C" signature.
 SIGNATURES = {
     "fewbit_matmul_input_sketch": (
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "fewbit_dense_act_sketch": (
-        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _I, _P),
     "fewbit_matmul_lut_backward": (
         _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "fewbit_act_forward": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
     "fewbit_act_backward": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
     "fewbit_dense_act": (
         _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fewbit_flash_forward": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "fewbit_flash_backward_dkv": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+        _I, _P),
+    "fewbit_flash_backward_dq": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+        _P),
 }
 
 _build_seconds = 0.0

@@ -1,6 +1,8 @@
 """The CUDA kernels of the few-bit training steps, their plain PyTorch
 versions, their envelopes and their launch counters: the counterpart of
-``fewbit_tpu/ops/pallas_kernels.py``.
+``fewbit_tpu/ops/pallas_kernels.py`` and of JAX's Pallas TPU flash
+attention (F1-F3; plain versions in :mod:`fewbit_tpu_torch.ops.
+flash_attention`).
 
 Each wrapper takes the plain version only for a tensor that lies on the
 CPU.  For a CUDA tensor it checks device, dtype, shape, contiguity and the
@@ -19,6 +21,7 @@ product of the f32-widened operands, the epilogue on the f32 result.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -26,16 +29,22 @@ import torch
 from fewbit_tpu_torch.ops.activations import apply_lut, compare_codes
 from fewbit_tpu_torch.ops.bitpack import (packed_shape, pack_codes,
                                           unpack_codes)
+from fewbit_tpu_torch.ops.flash_attention import (flash_backward_dkv_plain,
+                                                  flash_backward_dq_plain,
+                                                  flash_forward_plain)
 
 __all__ = ("FFN_BN", "FFN_BM", "ACT_IDS", "sketch_dtype",
            "countsketch_aligned_keff", "countsketch_signed",
            "matmul_sketch_keff", "act_kernel_ok", "dense_act_ok",
            "fused_matmul_input_sketch", "fused_dense_act_sketch",
-           "fused_matmul_lut_backward", "fused_forward", "fused_backward",
-           "fused_dense_act", "matmul_input_sketch_plain",
-           "dense_act_sketch_plain", "matmul_lut_backward_plain",
-           "act_forward_plain", "act_backward_plain", "dense_act_plain",
-           "launch_counts", "reset_launch_counts", "KERNELS")
+           "fused_dense_act_sketch_x", "fused_matmul_lut_backward",
+           "fused_forward", "fused_backward", "fused_dense_act",
+           "flash_forward", "flash_backward_dkv", "flash_backward_dq",
+           "FLASH_HEAD_DIM", "matmul_input_sketch_plain",
+           "dense_act_sketch_plain", "dense_act_sketch_x_plain",
+           "matmul_lut_backward_plain", "act_forward_plain",
+           "act_backward_plain", "dense_act_plain", "launch_counts",
+           "reset_launch_counts", "KERNELS")
 
 FFN_BN = 512  # row granularity of the sketch partition (k_eff % FFN_BN)
 FFN_BM = 512  # column granularity of the FFN kernels' envelope
@@ -156,13 +165,23 @@ def matmul_input_sketch_plain(x, w, bias, sigma, k_eff: int,
     return y.to(x.dtype), sk
 
 
-def dense_act_sketch_plain(spec, x, w, bias, borders, sigma, k_eff: int):
+def dense_act_sketch_plain(spec, x, w, bias, borders, sigma, k_eff: int,
+                           sigma_x=None):
     z = dot_f32(x, w)
     if bias is not None:
         z = z + bias.float()
     packed = pack_codes(spec.codes(z, borders, spec.args), spec.bits)
     y = spec.fwd(z, spec.args).to(x.dtype)
-    return y, packed, countsketch_signed(y, sigma, k_eff)
+    out = (y, packed, countsketch_signed(y, sigma, k_eff))
+    if sigma_x is None:
+        return out
+    return (*out, countsketch_signed(x, sigma_x, k_eff))
+
+
+def dense_act_sketch_x_plain(spec, x, w, bias, borders, sigma, k_eff: int,
+                             sigma_x):
+    return dense_act_sketch_plain(spec, x, w, bias, borders, sigma, k_eff,
+                                  sigma_x)
 
 
 def matmul_lut_backward_plain(spec, packed, levels, g, wt, sigma,
@@ -311,13 +330,20 @@ def fused_matmul_input_sketch(x: torch.Tensor, w: torch.Tensor,
 def fused_dense_act_sketch(spec, x: torch.Tensor, w: torch.Tensor,
                            bias: Optional[torch.Tensor],
                            borders: torch.Tensor, sigma: torch.Tensor,
-                           k_eff: int):
+                           k_eff: int, sigma_x: Optional[torch.Tensor] = None):
     """``y = act(x @ w + b)`` with the packed codes of the pre-activation
     (``(bits, N / 32, M)`` int32) and the countsketch of ``y``
-    (``(k_eff, M)``).  Returns ``(y, packed, sketch)``."""
+    (``(k_eff, M)``).  Returns ``(y, packed, sketch)``.
+
+    With ``sigma_x`` ((N,) f32 signs), kernel 2' (the TPU kernel's
+    ``_kernel_skx``): also the countsketch of ``x`` (``(k_eff, K)``,
+    summed in f32 from the kernel's own read of x, stored in
+    :func:`sketch_dtype`), counted as ``fused_dense_act_sketch_x``; returns
+    ``(y, packed, sketch_y, sketch_x)``.  No model path passes it, as in
+    the JAX package."""
     if x.device.type == "cpu":
         return dense_act_sketch_plain(spec, x, w, bias, borders, sigma,
-                                      k_eff)
+                                      k_eff, sigma_x)
     _require(x.is_cuda, f"x on {x.device}: neither CPU nor CUDA")
     _ffn_spec_ok(spec)
     _require(x.ndim == 2 and w.ndim == 2, "x and w must be 2-D")
@@ -337,12 +363,30 @@ def fused_dense_act_sketch(spec, x: torch.Tensor, w: torch.Tensor,
     packed = torch.empty(packed_shape(n, m, spec.bits), dtype=torch.int32,
                          device=dev)
     sk = torch.empty(k_eff, m, dtype=sketch_dtype(dt), device=dev)
+    skx_acc = skx = None
+    if sigma_x is not None:
+        _check("sigma_x", sigma_x, dev, (n,), torch.float32)
+        skx_acc = torch.empty(k_eff, kdim, dtype=torch.float32, device=dev)
+        skx = (skx_acc if sketch_dtype(dt) == torch.float32 else
+               torch.empty(k_eff, kdim, dtype=sketch_dtype(dt), device=dev))
     _launch("fewbit_dense_act_sketch", dev, x.data_ptr(), w.data_ptr(),
             trans, _ptr(bias), borders.data_ptr(), spec.n_borders,
             sigma.data_ptr(), y.data_ptr(), packed.data_ptr(), sk.data_ptr(),
-            n, kdim, m, k_eff, spec.bits, int(dt == torch.bfloat16))
-    fused_dense_act_sketch.launches += 1
-    return y, packed, sk
+            _ptr(sigma_x), _ptr(skx_acc),
+            None if skx is skx_acc else skx.data_ptr(), n, kdim, m, k_eff,
+            spec.bits, int(dt == torch.bfloat16))
+    if sigma_x is None:
+        fused_dense_act_sketch.launches += 1
+        return y, packed, sk
+    fused_dense_act_sketch_x.launches += 1
+    return y, packed, sk, skx
+
+
+def fused_dense_act_sketch_x(spec, x, w, bias, borders, sigma, k_eff: int,
+                             sigma_x: torch.Tensor):
+    """Kernel 2': :func:`fused_dense_act_sketch` with ``sigma_x``."""
+    return fused_dense_act_sketch(spec, x, w, bias, borders, sigma, k_eff,
+                                  sigma_x)
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +531,117 @@ def fused_dense_act(spec, x: torch.Tensor, w: torch.Tensor,
     return y, packed
 
 
+# ---------------------------------------------------------------------------
+# Flash attention F1-F3: forward, dK/dV, dQ.
+# ---------------------------------------------------------------------------
+
+FLASH_HEAD_DIM = 64  # the one head dimension the kernels take
+
+
+def _flash_checks(q, k, v, seg_q, seg_kv):
+    """Envelope of the flash kernels: f32 or bf16 ``(b, h, s, 64)``
+    operands of one device and dtype, unit stride along d, int32 segment
+    ids ``(b, s)`` for both sides or neither."""
+    _require(q.is_cuda, f"q on {q.device}: neither CPU nor CUDA")
+    _require(q.ndim == 4, f"q must be (b, h, s, d), not {tuple(q.shape)}")
+    b, h, sq, d = q.shape
+    sk = k.shape[2] if k.ndim == 4 else -1
+    dev, dt = q.device, q.dtype
+    _require(dt in _DTYPES, f"dtype {dt} not in {_DTYPES}")
+    _require(d == FLASH_HEAD_DIM,
+             f"head dimension {d}: the flash kernels take {FLASH_HEAD_DIM}")
+    for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, h, sk, d)),
+                           ("v", v, (b, h, sk, d))):
+        _require(t.device == dev, f"{name} on {t.device}, expected {dev}")
+        _require(tuple(t.shape) == shape,
+                 f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        _require(t.dtype == dt, f"{name} is {t.dtype}, expected {dt}")
+        _require(t.stride(-1) == 1, f"{name} has stride {t.stride(-1)} "
+                 f"along d, expected 1")
+    _require((seg_q is None) == (seg_kv is None),
+             "segment ids for both q and kv, or for neither")
+    if seg_q is not None:
+        _check("seg_q", seg_q, dev, (b, sq), torch.int32)
+        _check("seg_kv", seg_kv, dev, (b, sk), torch.int32)
+    return b, h, sq, sk, dev, dt
+
+
+def _strides(*tensors):
+    """The (b, h, s) strides of q, k, v, o, dO, dq, dk, dv (None for a
+    tensor the kernel does not take), as the C array the kernels read."""
+    vals = [x for t in tensors
+            for x in (t.stride()[:3] if t is not None else (0, 0, 0))]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_forward(q, k, v, seg_q=None, seg_kv=None, causal: bool = False,
+                  sm_scale: float = 1.0):
+    """F1: ``(o, lse)``, the attention output (q's dtype and strides) and
+    the f32 log-sum-exp of each row's masked logits ``(b, h, sq)``."""
+    if q.device.type == "cpu":
+        return flash_forward_plain(q, k, v, seg_q, seg_kv, causal, sm_scale)
+    b, h, sq, sk, dev, dt = _flash_checks(q, k, v, seg_q, seg_kv)
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
+    strides = _strides(q, k, v, o, None, None, None, None)
+    _launch("fewbit_flash_forward", dev, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), _ptr(seg_q), _ptr(seg_kv), o.data_ptr(),
+            lse.data_ptr(), ctypes.addressof(strides), b, h, sq, sk,
+            int(causal), float(sm_scale), int(dt == torch.bfloat16))
+    flash_forward.launches += 1
+    return o, lse
+
+
+def _flash_backward_checks(q, k, v, seg_q, seg_kv, lse, do, di):
+    b, h, sq, sk, dev, dt = _flash_checks(q, k, v, seg_q, seg_kv)
+    _require(do.device == dev and do.dtype == dt
+             and tuple(do.shape) == tuple(q.shape) and do.stride(-1) == 1,
+             f"dO {tuple(do.shape)} {do.dtype} on {do.device} does not fit "
+             f"q with unit stride along d")
+    _check("lse", lse, dev, (b, h, sq), torch.float32)
+    _check("di", di, dev, (b, h, sq), torch.float32)
+    return b, h, sq, sk, dev, dt
+
+
+def flash_backward_dkv(q, k, v, seg_q, seg_kv, lse, do, di,
+                       causal: bool = False, sm_scale: float = 1.0):
+    """F2: ``(dk, dv)`` from the forward's ``lse``, the output gradient
+    ``do`` and ``di = sum(do * o, -1)`` (f32); k's and v's strides."""
+    if q.device.type == "cpu":
+        return flash_backward_dkv_plain(q, k, v, seg_q, seg_kv, lse, do, di,
+                                        causal, sm_scale)
+    b, h, sq, sk, dev, dt = _flash_backward_checks(q, k, v, seg_q, seg_kv,
+                                                   lse, do, di)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    strides = _strides(q, k, v, None, do, None, dk, dv)
+    _launch("fewbit_flash_backward_dkv", dev, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), _ptr(seg_q), _ptr(seg_kv), lse.data_ptr(),
+            do.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            ctypes.addressof(strides), b, h, sq, sk, int(causal),
+            float(sm_scale), int(dt == torch.bfloat16))
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+def flash_backward_dq(q, k, v, seg_q, seg_kv, lse, do, di,
+                      causal: bool = False, sm_scale: float = 1.0):
+    """F3: ``dq`` (q's strides), from the arguments of F2."""
+    if q.device.type == "cpu":
+        return flash_backward_dq_plain(q, k, v, seg_q, seg_kv, lse, do, di,
+                                       causal, sm_scale)
+    b, h, sq, sk, dev, dt = _flash_backward_checks(q, k, v, seg_q, seg_kv,
+                                                   lse, do, di)
+    dq = torch.empty_like(q)
+    strides = _strides(q, k, v, None, do, dq, None, None)
+    _launch("fewbit_flash_backward_dq", dev, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), _ptr(seg_q), _ptr(seg_kv), lse.data_ptr(),
+            do.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            ctypes.addressof(strides), b, h, sq, sk, int(causal),
+            float(sm_scale), int(dt == torch.bfloat16))
+    flash_backward_dq.launches += 1
+    return dq
+
+
 # name -> (wrapper, plain version, TPU kernel it replaces, CUDA source).
 KERNELS = {
     "matmul_input_sketch": (
@@ -513,6 +668,24 @@ KERNELS = {
         fused_dense_act, dense_act_plain,
         "fewbit_tpu/ops/pallas_kernels.py:411",
         "fewbit_tpu_torch/csrc/dense_act.cu"),
+    "dense_act_sketch_x": (
+        fused_dense_act_sketch_x, dense_act_sketch_x_plain,
+        "fewbit_tpu/ops/pallas_kernels.py:687 (_kernel_skx)",
+        "fewbit_tpu_torch/csrc/dense_act_sketch.cu"),
+    # JAX's library kernel, jax/experimental/pallas/ops/tpu/
+    # flash_attention.py (jax 0.9.0), by pallas_call line.
+    "flash_forward": (
+        flash_forward, flash_forward_plain,
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "fewbit_tpu_torch/csrc/flash_attention.cu"),
+    "flash_backward_dkv": (
+        flash_backward_dkv, flash_backward_dkv_plain,
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "fewbit_tpu_torch/csrc/flash_attention.cu"),
+    "flash_backward_dq": (
+        flash_backward_dq, flash_backward_dq_plain,
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "fewbit_tpu_torch/csrc/flash_attention.cu"),
 }
 
 

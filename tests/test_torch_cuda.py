@@ -17,6 +17,10 @@ import torch
 from fewbit_tpu_torch.functional.activations import resolve_activation
 from fewbit_tpu_torch.ops import kernels as K
 from fewbit_tpu_torch.ops.bitpack import unpack_codes
+from fewbit_tpu_torch.ops.flash_attention import (SegmentIds,
+                                                  flash_attention,
+                                                  flash_backward_plain,
+                                                  flash_forward_plain)
 
 
 @pytest.fixture
@@ -67,11 +71,9 @@ def test_kernels_match_plain_on_cuda(cuda, dtype):
     close(sk, sk0)
     close(db, db0, 1e-3)
     torch.cuda.synchronize()
-    assert K.launch_counts() == {"matmul_input_sketch": 2,
-                                 "dense_act_sketch": 1,
-                                 "matmul_lut_backward": 1,
-                                 "fused_forward": 0, "fused_backward": 0,
-                                 "dense_act": 0}
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS} | {
+        "matmul_input_sketch": 2, "dense_act_sketch": 1,
+        "matmul_lut_backward": 1}
 
 
 def _lut(cuda, bits):
@@ -158,3 +160,103 @@ def test_wrappers_refuse_outside_envelope_on_cuda(cuda):
         values=torch.linspace(0, 1, 128).tolist(), device=cuda)
     with pytest.raises(ValueError):  # 7 bits
         K.fused_forward(wide, x, wb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_act_sketch_x_matches_plain_on_cuda(cuda, dtype):
+    """Kernel 2': the sketch of x beside kernel 2's outputs."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n, kdim, m, k_eff = 2048, 256, 512, 512
+    spec, borders, _ = resolve_activation("gelu", bits=3, device=cuda)
+    x = torch.randn(n, kdim, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(m, kdim, generator=gen, device=cuda) * 0.06).to(dtype)
+    signs = [torch.randint(0, 2, (n,), generator=gen, device=cuda).float()
+             * 2 - 1 for _ in range(2)]
+    args = (spec, x, w.t(), None, borders, *signs[:1], k_eff, signs[1])
+    K.reset_launch_counts()
+    got = K.fused_dense_act_sketch(*args[:-1], sigma_x=args[-1])
+    want = K.dense_act_sketch_x_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y", "packed", "sk_y", "sk_x"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name == "packed":
+            flips = unpack_codes(a, 3, n) != unpack_codes(b, 3, n)
+            assert flips.float().mean().item() <= 1e-4
+            continue
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * max(1.0, b.float().abs().max().item()), name
+    assert K.launch_counts()["dense_act_sketch_x"] == 1
+    assert K.launch_counts()["dense_act_sketch"] == 0
+
+
+def _flash_inputs(cuda, dtype, b, h, s, seed):
+    """(b, h, s, 64) q, k, v, dO as the models pass them (transposed
+    views of (b, s, h, 64) tensors) and padded segment ids."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = [torch.randn(b, s, h, 64, generator=gen, device=cuda).to(dtype)
+           .transpose(1, 2) for _ in range(4)]
+    lengths = torch.randint(s // 2, s + 1, (b,), generator=gen, device=cuda)
+    ids = (torch.arange(s, device=cuda)[None] < lengths[:, None]).int()
+    return qkv, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,causal,seg", [(1000, True, True),
+                                          (1000, False, False),
+                                          (256, True, False),
+                                          (128, False, True)])
+def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, causal, seg):
+    """F1-F3 against their plain versions, ragged s = 1000 included."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    (q, k, v, do), ids = _flash_inputs(cuda, dtype, 2, 3, s, s + causal)
+    seg_q = seg_kv = ids if seg else None
+    scale = 0.125
+    K.reset_launch_counts()
+    o, lse = K.flash_forward(q, k, v, seg_q, seg_kv, causal, scale)
+    o0, lse0 = flash_forward_plain(q, k, v, seg_q, seg_kv, causal, scale)
+    assert o.stride() == q.stride()
+    di = (o.float() * do.float()).sum(-1)
+    dk, dv = K.flash_backward_dkv(q, k, v, seg_q, seg_kv, lse, do, di,
+                                  causal, scale)
+    dq = K.flash_backward_dq(q, k, v, seg_q, seg_kv, lse, do, di, causal,
+                             scale)
+    dq0, dk0, dv0 = flash_backward_plain(q, k, v, seg_q, seg_kv, o0, lse0,
+                                         do, causal, scale)
+    torch.cuda.synchronize()
+    for name, a, b in (("o", o, o0), ("lse", lse, lse0), ("dq", dq, dq0),
+                       ("dk", dk, dk0), ("dv", dv, dv0)):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * max(1.0, b.float().abs().max().item()), \
+            (name, err)
+    assert [K.launch_counts()[n] for n in ("flash_forward",
+                                           "flash_backward_dkv",
+                                           "flash_backward_dq")] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_on_cuda(cuda):
+    """The autograd op on the card: gradients of the plain autograd path,
+    and the wrappers refuse what the kernels do not take."""
+    (q, k, v, do), ids = _flash_inputs(cuda, torch.float32, 2, 2, 200, 5)
+    grads = []
+    for use_op in (True, False):
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        if use_op:
+            out = flash_attention(*ins, SegmentIds(ids, ids), causal=True,
+                                  sm_scale=0.125)
+        else:
+            out = flash_forward_plain(*ins, ids, ids, True, 0.125)[0]
+        (out * do).sum().backward()
+        grads.append([out.detach()] + [t.grad for t in ins])
+    for a, b in zip(*grads):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * max(1.0, b.abs().max().item()), err
+    with pytest.raises(ValueError):  # head dimension 32
+        K.flash_forward(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError):  # float64
+        K.flash_forward(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):  # segment ids for one side only
+        K.flash_forward(q, k, v, ids, None)

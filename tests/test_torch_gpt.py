@@ -197,8 +197,17 @@ def test_causality():
 
 
 def test_config_guards():
-    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
-        GPTConfig(flash_attention=True, attention_dropout=0.0)
+    # flash_attention=True builds and runs (the flash op's plain version on
+    # the CPU), and agrees with the standard path.
+    ids = torch.from_numpy(_batch()["input_ids"][:2, :40]).long()
+    outs = []
+    for flash in (True, False):
+        model = GPTForCausalLM(
+            GPTConfig(**SMALL, flash_attention=flash),
+            generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            outs.append(model(ids, torch.ones_like(ids)))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="dropout"):
         GPTConfig(flash_attention=True)
     with pytest.raises(ValueError, match="flash_attention"):

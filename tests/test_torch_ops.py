@@ -190,6 +190,40 @@ def test_dense_act_sketch_matches_pallas(interpret, n):
 
 
 @pytest.mark.parametrize("n", [512, 1024])
+def test_dense_act_sketch_x_matches_pallas(interpret, n):
+    """Kernel 2' (sigma_x): the plain (y, packed, sk_y, sk_x) against the
+    Pallas kernel's _kernel_skx mode, as tests/test_ffn.py calls it."""
+    rng, x, w, b = _ffn_inputs(n, 200 + n)
+    sigma, sigma_x = _signs(rng, n), _signs(rng, n)
+    k_eff = 512
+    jspec, jb, _ = jax_resolve("gelu", bits=3)
+    spec, bd, _ = resolve_activation("gelu", bits=3)
+    ref = pk.fused_dense_act_sketch(
+        jspec, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jb,
+        jnp.asarray(sigma), k_eff, y_dtype=jnp.float32,
+        sigma_x=jnp.asarray(sigma_x))
+    launches = K.launch_counts()
+    got = K.fused_dense_act_sketch(spec, _t(x), _t(w), _t(b), bd, _t(sigma),
+                                   k_eff, sigma_x=_t(sigma_x))
+    assert len(got) == len(ref) == 4
+    y, packed, sk, skx = got
+    jy, jpacked, jsk, jskx = ref
+    _close(y, jy)
+    _close(sk, jsk)
+    assert tuple(skx.shape) == (k_eff, 128) and skx.dtype == torch.float32
+    _close(skx, jskx)
+    np.testing.assert_array_equal(
+        unpack_codes(packed, 3, n).numpy(),
+        np.asarray(pk.unpack_block_layout(jpacked, 3, (n, 512))))
+    # Its own entry among the kernels, the same function.
+    again = K.fused_dense_act_sketch_x(spec, _t(x), _t(w), _t(b), bd,
+                                       _t(sigma), k_eff, _t(sigma_x))
+    for a, c in zip(again, got):
+        assert torch.equal(a, c)
+    assert K.launch_counts() == launches
+
+
+@pytest.mark.parametrize("n", [512, 1024])
 def test_matmul_lut_backward_matches_pallas(interpret, n):
     rng, x, w, b = _ffn_inputs(n, 100 + n)
     sigma = _signs(rng, n)
