@@ -9,7 +9,9 @@ Phases (any failure raises and exits non-zero; no result is printed):
    the CUDA kernels from ``fewbit_tpu_torch/csrc``.
 2. Each kernel against its plain PyTorch version at its path's shapes, in
    f32 and bf16, with the tolerances below, and both timed with CUDA
-   events.
+   events (per call, the host's share included).  Kernel 1 also by the
+   profiler (device time), with the route and tile its host chose and the
+   achieved TFLOP/s.
 3. RoBERTa-base (12 layers, hidden 768, 12 heads, FFN 3072; random weights
    from a seed), the fused few-bit FFN: an MRPC-shaped batch, bs 64, seq
    128, 3-bit GELU, countsketch at ratio 0.2, dropout on: 3 f32 steps and
@@ -170,6 +172,52 @@ def phase_device():
     return smi
 
 
+def device_ms(fn, reps=10):
+    """Device milliseconds of ``fn`` per call: the time of the CUDA
+    kernels it launches, summed over a profiled run of ``reps`` calls
+    (torch.profiler), without the host's share of the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages())
+    if not total > 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / reps / 1e3
+
+
+def _k1_case(results, mode, tag, names, args, tol):
+    """Kernel 1 on one input against its plain version: errors, the route
+    and tile its host chose, call times by CUDA events, device times by the
+    profiler, and the achieved TFLOP/s of 2 N K M on the device time."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    x, w = args[:2]
+    (n, kdim), m = x.shape, w.shape[1]
+    got = K.fused_matmul_input_sketch(*args)
+    want = K.matmul_input_sketch_plain(*args)
+    errs = {name: compare(f"k1 {mode} {tag} {name}", a, b,
+                          TOL_SUM if name == "colsum" else tol)
+            for name, a, b in zip(names, got, want)}
+    fused, bn = K.matmul_sketch_route(kdim, m, x.dtype)
+    case = {"mode": mode, "dtype": tag, "errors": errs,
+            "route": "fused sketch" if fused else "separate sketch pass",
+            "tile": f"{K.K1_BM}x{bn}",
+            "ms": cuda_ms(lambda: K.fused_matmul_input_sketch(*args)),
+            "plain_ms": cuda_ms(lambda: K.matmul_input_sketch_plain(*args)),
+            "device_ms": device_ms(lambda: K.fused_matmul_input_sketch(*args)),
+            "plain_device_ms": device_ms(
+                lambda: K.matmul_input_sketch_plain(*args))}
+    flop = 2 * n * kdim * m
+    case["tflops"] = flop / case["device_ms"] / 1e9
+    case["plain_tflops"] = flop / case["plain_device_ms"] / 1e9
+    results["matmul_input_sketch"].append(case)
+
+
 def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     """F1-F3 on one input against their plain versions (the backward ones
     on the kernel's lse and di, the same inputs), each timed."""
@@ -242,27 +290,12 @@ def phase_kernels():
         x = rand(N, HIDDEN, dt=dt)
         weight = rand(HIDDEN, HIDDEN, scale=HIDDEN ** -0.5, dt=dt)
         bias = rand(HIDDEN, scale=0.1, dt=dt)
-        args = (x, weight.t(), bias, sigma, K_EFF)
-        y, sk = K.fused_matmul_input_sketch(*args)
-        y0, sk0 = K.matmul_input_sketch_plain(*args)
-        errs = {"y": compare(f"k1 fwd {tag} y", y, y0, tol),
-                "sketch": compare(f"k1 fwd {tag} sketch", sk, sk0, tol)}
-        results["matmul_input_sketch"].append({
-            "mode": "forward", "dtype": tag, "errors": errs,
-            "ms": cuda_ms(lambda: K.fused_matmul_input_sketch(*args)),
-            "plain_ms": cuda_ms(lambda: K.matmul_input_sketch_plain(*args))})
+        _k1_case(results, "forward", tag, ("y", "sketch"),
+                 (x, weight.t(), bias, sigma, K_EFF), tol)
         # Kernel 1, backward mode: dy @ w with the column sum for db.
         g = rand(N, HIDDEN, dt=dt)
-        args = (g, weight, None, sigma, K_EFF, True)
-        y, sk, cs = K.fused_matmul_input_sketch(*args)
-        y0, sk0, cs0 = K.matmul_input_sketch_plain(*args)
-        errs = {"dx": compare(f"k1 bwd {tag} dx", y, y0, tol),
-                "sketch": compare(f"k1 bwd {tag} sketch", sk, sk0, tol),
-                "colsum": compare(f"k1 bwd {tag} colsum", cs, cs0, TOL_SUM)}
-        results["matmul_input_sketch"].append({
-            "mode": "backward+colsum", "dtype": tag, "errors": errs,
-            "ms": cuda_ms(lambda: K.fused_matmul_input_sketch(*args)),
-            "plain_ms": cuda_ms(lambda: K.matmul_input_sketch_plain(*args))})
+        _k1_case(results, "backward+colsum", tag, ("dx", "sketch", "colsum"),
+                 (g, weight, None, sigma, K_EFF, True), tol)
 
         # Kernel 2: the FFN up projection with GELU, codes and sketch(y).
         up_w = rand(FFN, HIDDEN, scale=HIDDEN ** -0.5, dt=dt)
@@ -363,9 +396,15 @@ def phase_kernels():
         torch.cuda.empty_cache()
     for name, cases in results.items():
         for c in cases:
+            extra = ""
+            if "route" in c:
+                extra = (f"; {c['route']}, tile {c['tile']}; device "
+                         f"{c['device_ms']:.4f} ms ({c['tflops']:.1f} "
+                         f"TFLOP/s), plain {c['plain_device_ms']:.4f} ms "
+                         f"({c['plain_tflops']:.1f} TFLOP/s)")
             log(f"kernel {name} [{c['mode']}, {c['dtype']}]: errors "
                 f"{c['errors']}, kernel {c['ms']:.3f} ms, plain "
-                f"{c['plain_ms']:.3f} ms")
+                f"{c['plain_ms']:.3f} ms (calls){extra}")
     return results
 
 
@@ -646,8 +685,7 @@ def main():
                                for k, v in c["errors"].items()
                                if k != "code_flips"),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
-            "cases": [{k: c[k] for k in ("mode", "dtype", "errors", "ms",
-                                         "plain_ms")} for c in cases]})
+            "cases": cases})
     log(json.dumps({"train": train, "crossover": crossover, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

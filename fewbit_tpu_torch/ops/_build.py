@@ -32,7 +32,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argument types, in the order of each extern "C" signature.
 SIGNATURES = {
     "fewbit_matmul_input_sketch": (
-        _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _P),
+    "fewbit_matmul_sketch_smem": (_I, _I, _I, _I, _I),
     "fewbit_dense_act_sketch": (
         _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _I, _I, _P),

@@ -13,15 +13,18 @@ functional` decide, from shapes alone, whether a call is inside the
 envelope, exactly where the JAX package decides between its Pallas and jnp
 paths.
 
-Numerics: the kernels multiply f32 operands in f32 and bf16 operands with
-f32 accumulation, and every sketch accumulates in f32 and is stored in
-:func:`sketch_dtype`.  The plain versions compute the same function: the
-product of the f32-widened operands, the epilogue on the f32 result.
+Numerics: the kernels multiply f32 operands in f32 (kernel 1 as three TF32
+products on the tensor cores, hi hi + hi lo + lo hi, which keep f32
+accuracy) and bf16 operands with f32 accumulation, and every sketch
+accumulates in f32 and is stored in :func:`sketch_dtype`.  The plain
+versions compute the same function: the product of the f32-widened
+operands, the epilogue on the f32 result.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -35,7 +38,8 @@ from fewbit_tpu_torch.ops.flash_attention import (flash_backward_dkv_plain,
 
 __all__ = ("FFN_BN", "FFN_BM", "ACT_IDS", "sketch_dtype",
            "countsketch_aligned_keff", "countsketch_signed",
-           "matmul_sketch_keff", "act_kernel_ok", "dense_act_ok",
+           "matmul_sketch_keff", "matmul_sketch_route", "act_kernel_ok",
+           "dense_act_ok",
            "fused_matmul_input_sketch", "fused_dense_act_sketch",
            "fused_dense_act_sketch_x", "fused_matmul_lut_backward",
            "fused_forward", "fused_backward", "fused_dense_act",
@@ -79,6 +83,7 @@ def countsketch_aligned_keff(n: int, k: int) -> Optional[int]:
     return None
 
 
+@functools.lru_cache(maxsize=None)
 def matmul_sketch_keff(n: int, kdim: int, m: int, k: int,
                        dtype) -> Optional[int]:
     """Envelope of :func:`fused_matmul_input_sketch`: the aligned bucket
@@ -100,6 +105,47 @@ def matmul_sketch_keff(n: int, kdim: int, m: int, k: int,
     if est > 56 * 1024 * 1024:
         return None
     return k_eff
+
+
+# Kernel 1's GEMM (csrc/matmul_input_sketch.cu): 128-row block tiles (and
+# as many buckets per column-sum partial on both routes), a 4-stage TMA
+# ring, the tile widths it is built for in order of preference, and the
+# shared memory a block may take.  The GPU tests hold _k1_smem and the
+# limit against the source's own k1_smem (fewbit_matmul_sketch_smem).
+K1_BM, K1_STAGES, K1_TILE_N = 128, 4, (96, 64)
+K1_SMEM_LIMIT = 232448
+
+
+def _k1_smem(dtype, bn: int, kdim: int, m: int, fused: bool) -> int:
+    """Dynamic shared memory of kernel 1's GEMM block, as ``k1_smem`` in
+    the source: the ring (128-byte rows of A and of B, B split in two for
+    f32), with the fused sketch the f32 accumulators of the block's sketch
+    slice (128 rows) and of its column sums (one row per sketch-read row
+    group), the barriers and 1024 bytes of alignment slack."""
+    parts, groups = (2, 4) if dtype == torch.float32 else (1, 2)
+    kcp = _cdiv(kdim, m // bn) if fused else 0
+    return (K1_STAGES * (K1_BM + parts * bn) * 128
+            + (K1_BM + 2 * groups) * kcp * 4 + 2 * K1_STAGES * 8 + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_sketch_route(kdim: int, m: int, dtype) -> tuple:
+    """Kernel 1's plan for a call inside :func:`matmul_sketch_keff`:
+    ``(fused, bn)``.
+
+    ``bn``, the column-tile width: 96 where it divides M (at 768 -> 768
+    with k_eff 2048, 16 slabs x 8 column tiles = 128 blocks on 132 SMs),
+    otherwise 64.  ``fused``: the sketch and column sum come from the
+    GEMM's own read of x, each block keeping an f32 slice of
+    ``ceil(K / (M / bn))`` sketch columns in shared memory; where that
+    slice does not fit at 96, 64 is tried, and where it fits at neither, a
+    separate sketch pass reads x again.  A function of the shapes alone,
+    never of a failed launch."""
+    widths = [bn for bn in K1_TILE_N if m % bn == 0]
+    for bn in widths:
+        if _k1_smem(dtype, bn, kdim, m, True) <= K1_SMEM_LIMIT:
+            return True, bn
+    return False, widths[0]
 
 
 def _act_spec_in(spec) -> bool:
@@ -257,6 +303,9 @@ def _launch(fn_name: str, device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(_lib(), fn_name)(*args, stream)
+    if rc < 0:
+        raise RuntimeError(f"{fn_name}: refused before launch ({rc}; the "
+                           f"codes are listed at its entry point)")
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} after launch")
 
@@ -289,6 +338,10 @@ def fused_matmul_input_sketch(x: torch.Tensor, w: torch.Tensor,
 
     ``x``: (N, K); ``w``: the logical (K, M) weight, row-major or the
     ``.t()`` of a row-major (M, K) tensor; ``sigma``: (N,) f32 signs.
+
+    On the card the route is :func:`matmul_sketch_route`'s; the kernel
+    reads B K-major from scratch (f32: its TF32 halves, 2 M K elements;
+    bf16 row-major ``w``: its transpose), written by a prologue kernel.
     """
     if x.device.type == "cpu":
         return matmul_input_sketch_plain(x, w, bias, sigma, k_eff,
@@ -307,17 +360,30 @@ def fused_matmul_input_sketch(x: torch.Tensor, w: torch.Tensor,
     _require(matmul_sketch_keff(n, kdim, m, k_eff, dt) == k_eff,
              f"(N={n}, K={kdim}, M={m}, k_eff={k_eff}) outside the "
              f"envelope of matmul_sketch_keff")
+    # TMA reads x, and a bf16 .t() weight in place, from 16-byte aligned
+    # addresses.
+    _require(x.data_ptr() % 16 == 0
+             and (dt == torch.float32 or not trans or w.data_ptr() % 16 == 0),
+             "x or w does not start on a 16-byte boundary")
+    fused, bn = matmul_sketch_route(kdim, m, dt)
     y = torch.empty(n, m, dtype=dt, device=dev)
     sk = torch.empty(k_eff, kdim, dtype=sketch_dtype(dt), device=dev)
+    # The GEMM reads B K-major: f32 as TF32 hi and lo halves, bf16 as the
+    # transpose of a row-major w; a bf16 .t() weight is K-major as it is.
+    w_prep = None
+    if dt == torch.float32:
+        w_prep = torch.empty(2, m, kdim, dtype=dt, device=dev)
+    elif not trans:
+        w_prep = torch.empty(m, kdim, dtype=dt, device=dev)
     cs_partial = cs = None
     if want_colsum:
-        cs_partial = torch.empty(k_eff // 64, kdim, dtype=torch.float32,
+        cs_partial = torch.empty(k_eff // K1_BM, kdim, dtype=torch.float32,
                                  device=dev)
         cs = torch.empty(kdim, dtype=torch.float32, device=dev)
     _launch("fewbit_matmul_input_sketch", dev, x.data_ptr(), w.data_ptr(),
             trans, _ptr(bias), sigma.data_ptr(), y.data_ptr(), sk.data_ptr(),
-            _ptr(cs_partial), _ptr(cs), n, kdim, m, k_eff,
-            int(dt == torch.bfloat16))
+            _ptr(w_prep), _ptr(cs_partial), _ptr(cs), n, kdim, m, k_eff, bn,
+            int(fused), int(dt == torch.bfloat16))
     fused_matmul_input_sketch.launches += 1
     return (y, sk, cs) if want_colsum else (y, sk)
 

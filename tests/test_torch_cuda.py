@@ -76,6 +76,90 @@ def test_kernels_match_plain_on_cuda(cuda, dtype):
         "matmul_lut_backward": 1}
 
 
+def _k1_inputs(cuda, dtype, n, kdim, m, trans, seed):
+    """Kernel 1's operands: x, the logical (K, M) weight (an (out, in)
+    parameter seen through .t() when trans, else row-major), a bias and
+    signs."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, kdim, generator=gen, device=cuda).to(dtype)
+    weight = (torch.randn(m, kdim, generator=gen, device=cuda)
+              * kdim ** -0.5).to(dtype)
+    w = weight.t() if trans else weight.t().contiguous()
+    bias = (torch.randn(m, generator=gen, device=cuda) * 0.1).to(dtype)
+    sigma = torch.randint(0, 2, (n,), generator=gen,
+                          device=cuda).float() * 2 - 1
+    return x, w, bias, sigma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("keff_div", [2, 4])
+@pytest.mark.parametrize("colsum", [False, True])
+@pytest.mark.parametrize("trans", [1, 0])
+@pytest.mark.parametrize("kdim,m", [(768, 768), (128, 1024), (1024, 128),
+                                    (256, 512)])
+def test_matmul_input_sketch_matches_plain_on_cuda(cuda, kdim, m, trans,
+                                                   colsum, keff_div, dtype):
+    """Kernel 1 on every route: fused sketch at 96-wide (768 -> 768) and
+    64-wide tiles, and the separate sketch pass (K = 1024 over M = 128)."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    n = 8192
+    k_eff = n // keff_div
+    x, w, bias, sigma = _k1_inputs(cuda, dtype, n, kdim, m, trans,
+                                   kdim + m + trans)
+    fused, _ = K.matmul_sketch_route(kdim, m, dtype)
+    assert fused == ((kdim, m) != (1024, 128))
+    args = (x, w, bias if trans else None, sigma, k_eff, colsum)
+    K.reset_launch_counts()
+    got = K.fused_matmul_input_sketch(*args)
+    want = K.matmul_input_sketch_plain(*args)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 2 + colsum
+    for name, a, b in zip(("y", "sketch", "colsum"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        t = 1e-3 if name == "colsum" else tol
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= t * max(1.0, b.float().abs().max().item()), (name, err)
+    assert K.launch_counts()["matmul_input_sketch"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_input_sketch_is_deterministic_on_cuda(cuda, dtype):
+    """Two calls on the same inputs give bitwise-equal y, sketch and
+    column sum: every sum has one owner and a fixed order."""
+    for trans, colsum in ((1, False), (0, True)):
+        x, w, bias, sigma = _k1_inputs(cuda, dtype, 8192, 768, 768, trans, 3)
+        args = (x, w, bias, sigma, 2048, colsum)
+        first = K.fused_matmul_input_sketch(*args)
+        second = K.fused_matmul_input_sketch(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_sketch_route_budget_is_the_kernels(cuda, dtype):
+    """The host's route sizes shared memory as the kernel lays it out: over
+    the whole (K, M) envelope, both tile widths and both routes, _k1_smem
+    and K1_SMEM_LIMIT give what the kernel's own k1_smem gives (-1 where
+    the kernel would refuse the launch)."""
+    from fewbit_tpu_torch.ops._build import load_library
+
+    query = load_library().fewbit_matmul_sketch_smem
+    for kdim in range(128, 1025, 128):
+        for m in range(128, 1025, 128):
+            for bn in K.K1_TILE_N:
+                for fused in (False, True):
+                    want = K._k1_smem(dtype, bn, kdim, m, fused)
+                    if m % bn or want > K.K1_SMEM_LIMIT:
+                        want = -1
+                    got = query(kdim, m, bn, int(fused),
+                                int(dtype == torch.bfloat16))
+                    assert got == want, (kdim, m, bn, fused)
+
+
 def _lut(cuda, bits):
     """The builtin GELU LUT, or for 5 bits a custom 32-level one."""
     if bits <= 4:
