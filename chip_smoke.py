@@ -9,9 +9,15 @@ Phases (any failure raises and exits non-zero; no result is printed):
    the CUDA kernels from ``fewbit_tpu_torch/csrc``.
 2. Each kernel against its plain PyTorch version at its path's shapes, in
    f32 and bf16, with the tolerances below, and both timed with CUDA
-   events (per call, the host's share included).  Kernel 1 also by the
-   profiler (device time), with the route and tile its host chose and the
-   achieved TFLOP/s.
+   events (per call, the host's share included), beside its bound: the
+   least time the card could take, from the bytes the function must move
+   and the operations it does on these inputs (``bound``).  Kernels 1, 2
+   and 3 also by the profiler (device time), with the route and tile their
+   host chose, the achieved TFLOP/s and the share of the bound reached.
+   F1, and F2 with F3, beside the one PyTorch call that computes the same
+   function (``scaled_dot_product_attention`` and its backward): a
+   yardstick that the port never calls.  The GEMM kernels have no such
+   call; the bare ``torch.matmul`` of their product is printed as context.
 3. RoBERTa-base (12 layers, hidden 768, 12 heads, FFN 3072; random weights
    from a seed), the fused few-bit FFN: an MRPC-shaped batch, bs 64, seq
    128, 3-bit GELU, countsketch at ratio 0.2, dropout on: 3 f32 steps and
@@ -19,7 +25,8 @@ Phases (any failure raises and exits non-zero; no result is printed):
    times; the few-bit forward equals the exact forward of a vanilla model
    holding the same weights; vanilla against few-bit, 4 timed steps each
    in turns (step time, peak memory above what was held before the step;
-   the few-bit peak must be lower).
+   the few-bit peak must be lower); then two few-bit steps under the
+   profiler: device time per step by kernel.
 4. GPT-2 small (12 layers, hidden 768, 12 heads, FFN 3072, vocab 50257,
    1024 positions, tied head), few-bit: a ``synthetic_lm`` batch, bs 8,
    seq 1024, 3-bit GELU, countsketch at ratio 0.2, dropout on: 3 f32 steps
@@ -48,8 +55,12 @@ crossover for ``flash_attention="auto"``, printed, not acted on.
 
 Every loss must be finite.  Each path's launch counts start at 0 just
 before it.  The line before the last is a JSON object with each kernel's
-launches, error and times; the last line is
+launches, error, times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+``python3 chip_smoke.py --profile PATH`` runs only the device phase and the
+profiled steps of one path (a name in ``PATHS``): the way to read an older
+tree's device time per step with this script.
 """
 
 import json
@@ -100,8 +111,42 @@ TOL_SUM = 1e-3
 FLIP_BAND, FLIP_FRACTION = 1e-3, 1e-4
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): bytes per
+# second of device memory, and operations per second by operand type.  f32
+# products run as three TF32 products (the port's f32 policy), so their
+# rate is a third of the TF32 peak; elementwise kernels run on the CUDA
+# cores.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 495e12 / 3, "simt": 67e12}
+
+
 def log(*args):
     print(*args, flush=True)
+
+
+def tensor_bytes(*objs):
+    """Bytes of every tensor in ``objs`` (nested tuples allowed), each
+    counted once: what a function must read or write."""
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += tensor_bytes(*o)
+    return total
+
+
+def bound(ops, rate, nbytes):
+    """The least milliseconds the card could take: the larger of ``ops``
+    at the peak rate ``PEAK_OPS[rate]`` and ``nbytes`` at the memory rate.
+    Returns the keys of a case."""
+    by_ops, by_bytes = ops / PEAK_OPS[rate] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"ops": ops, "bytes": nbytes, "bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def gemm_rate(dt):
+    return "f32" if dt == torch.float32 else "bf16"
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -190,10 +235,33 @@ def device_ms(fn, reps=10):
     return total / reps / 1e3
 
 
+def _gemm_case(results, name, mode, tag, wrapper, plain, args, errs, route,
+               tile, flop, a, w):
+    """A tensor-core GEMM kernel (1, 2 or 3) on one input, already held
+    against its plain version (``errs``): the route and tile its host
+    chose, call times by CUDA events, device times by the profiler, its
+    bound on these inputs, the achieved TFLOP/s of ``flop`` and the share
+    of the bound on device time, and, as context only, the device time of
+    the bare ``torch.matmul`` of the same product ``a @ w`` (not the same
+    function: no epilogue, no codes, no sketch)."""
+    case = {"mode": mode, "dtype": tag, "errors": errs, "route": route,
+            "tile": tile,
+            "ms": cuda_ms(lambda: wrapper(*args)),
+            "plain_ms": cuda_ms(lambda: plain(*args)),
+            "device_ms": device_ms(lambda: wrapper(*args)),
+            "plain_device_ms": device_ms(lambda: plain(*args)),
+            **bound(flop, gemm_rate(a.dtype),
+                    tensor_bytes(args, wrapper(*args))),
+            "library_ms": None,
+            "matmul_only_device_ms": device_ms(lambda: torch.matmul(a, w))}
+    case["tflops"] = flop / case["device_ms"] / 1e9
+    case["plain_tflops"] = flop / case["plain_device_ms"] / 1e9
+    case["bound_share"] = case["bound_ms"] / case["device_ms"]
+    results[name].append(case)
+
+
 def _k1_case(results, mode, tag, names, args, tol):
-    """Kernel 1 on one input against its plain version: errors, the route
-    and tile its host chose, call times by CUDA events, device times by the
-    profiler, and the achieved TFLOP/s of 2 N K M on the device time."""
+    """Kernel 1 on one input against its plain version."""
     from fewbit_tpu_torch.ops import kernels as K
 
     x, w = args[:2]
@@ -204,18 +272,23 @@ def _k1_case(results, mode, tag, names, args, tol):
                           TOL_SUM if name == "colsum" else tol)
             for name, a, b in zip(names, got, want)}
     fused, bn = K.matmul_sketch_route(kdim, m, x.dtype)
-    case = {"mode": mode, "dtype": tag, "errors": errs,
-            "route": "fused sketch" if fused else "separate sketch pass",
-            "tile": f"{K.K1_BM}x{bn}",
-            "ms": cuda_ms(lambda: K.fused_matmul_input_sketch(*args)),
-            "plain_ms": cuda_ms(lambda: K.matmul_input_sketch_plain(*args)),
-            "device_ms": device_ms(lambda: K.fused_matmul_input_sketch(*args)),
-            "plain_device_ms": device_ms(
-                lambda: K.matmul_input_sketch_plain(*args))}
-    flop = 2 * n * kdim * m
-    case["tflops"] = flop / case["device_ms"] / 1e9
-    case["plain_tflops"] = flop / case["plain_device_ms"] / 1e9
-    results["matmul_input_sketch"].append(case)
+    _gemm_case(results, "matmul_input_sketch", mode, tag,
+               K.fused_matmul_input_sketch, K.matmul_input_sketch_plain,
+               args, errs,
+               "fused sketch" if fused else "separate sketch pass",
+               f"{K.K1_BM}x{bn}", 2 * n * kdim * m, x, w)
+
+
+def _ffn_case(results, name, mode, tag, wrapper, plain, args, errs, a, w):
+    """Kernel 2 or 3 on one input, already held against its plain
+    version."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    (n, kdim), m = a.shape, w.shape[1]
+    _gemm_case(results, name, mode, tag, wrapper, plain, args, errs,
+               "TMA ring + wgmma",
+               f"{K.FG_BM}x{K.ffn_gemm_route(m, a.dtype)}", 2 * n * kdim * m,
+               a, w)
 
 
 def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
@@ -228,6 +301,15 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
 
     scale = HEAD_DIM ** -0.5
     mode = f"{shape} {tuple(q.shape)}, {'causal' if causal else 'full'}"
+    # The (q, k) pairs this input leaves unmasked, times heads: each costs
+    # 2 d operations per product; F1 has two products, F2 four, F3 three.
+    keep = ids[:, :, None] == ids[:, None, :]
+    if causal:
+        keep = keep.tril()
+    pair_ops = 2 * HEAD_DIM * HEADS * int(keep.sum())
+    fwd_lib, bwd_lib = _sdpa_ms(q, k, v, do, keep, ids, causal, scale)
+    del keep
+    rate = gemm_rate(q.dtype)
     fargs = (q, k, v, ids, ids, causal, scale)
     o, lse = K.flash_forward(*fargs)
     o0, lse0 = flash_forward_plain(*fargs)
@@ -238,18 +320,26 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         "errors": {"o": compare(f"F1 {tag} {shape} o", o, o0, tol),
                    "lse": compare(f"F1 {tag} {shape} lse", lse, lse0, tol)},
         "ms": cuda_ms(lambda: K.flash_forward(*fargs)),
-        "plain_ms": cuda_ms(lambda: flash_forward_plain(*fargs))})
+        "plain_ms": cuda_ms(lambda: flash_forward_plain(*fargs)),
+        **bound(2 * pair_ops, rate, tensor_bytes(q, k, v, ids, ids, o, lse)),
+        "library_ms": fwd_lib,
+        "library": "scaled_dot_product_attention, forward"})
     del o0, lse0
     di = (o.float() * do.float()).sum(-1)
     bargs = (q, k, v, ids, ids, lse, do, di, causal, scale)
     dk, dv = K.flash_backward_dkv(*bargs)
     dk0, dv0 = flash_backward_dkv_plain(*bargs)
+    library = ("scaled_dot_product_attention, backward: dq, dk and dv in "
+               "one call (F2 and F3 together)")
     results["flash_backward_dkv"].append({
         "mode": mode, "dtype": tag,
         "errors": {"dk": compare(f"F2 {tag} {shape} dk", dk, dk0, tol),
                    "dv": compare(f"F2 {tag} {shape} dv", dv, dv0, tol)},
         "ms": cuda_ms(lambda: K.flash_backward_dkv(*bargs)),
-        "plain_ms": cuda_ms(lambda: flash_backward_dkv_plain(*bargs))})
+        "plain_ms": cuda_ms(lambda: flash_backward_dkv_plain(*bargs)),
+        **bound(4 * pair_ops, rate,
+                tensor_bytes(q, k, v, ids, ids, lse, do, di, dk, dv)),
+        "library_ms": bwd_lib, "library": library})
     del dk0, dv0
     dq = K.flash_backward_dq(*bargs)
     dq0 = flash_backward_dq_plain(*bargs)
@@ -257,7 +347,30 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         "mode": mode, "dtype": tag,
         "errors": {"dq": compare(f"F3 {tag} {shape} dq", dq, dq0, tol)},
         "ms": cuda_ms(lambda: K.flash_backward_dq(*bargs)),
-        "plain_ms": cuda_ms(lambda: flash_backward_dq_plain(*bargs))})
+        "plain_ms": cuda_ms(lambda: flash_backward_dq_plain(*bargs)),
+        **bound(3 * pair_ops, rate,
+                tensor_bytes(q, k, v, ids, ids, lse, do, di, dq)),
+        "library_ms": bwd_lib, "library": library})
+
+
+def _sdpa_ms(q, k, v, do, keep, ids, causal, scale):
+    """Milliseconds of PyTorch's ``scaled_dot_product_attention`` on the
+    flash kernels' inputs, forward and backward (dq, dk and dv in one
+    call): the library's time for the same function.  A yardstick only:
+    the port never calls it.  All-ones segment ids with ``causal`` are its
+    ``is_causal``; any other mask is passed as a boolean ``attn_mask``."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    if causal and bool((ids == 1).all()):
+        kwargs = {"is_causal": True}
+    else:
+        kwargs = {"attn_mask": keep[:, None]}
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    fwd = cuda_ms(lambda: sdpa(*ins, scale=scale, **kwargs))
+    out = sdpa(*ins, scale=scale, **kwargs)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, ins, do,
+                                              retain_graph=True))
+    return fwd, bwd
 
 
 def phase_kernels():
@@ -308,10 +421,10 @@ def phase_kernels():
                 "sketch": compare(f"k2 {tag} sketch", sk, sk0, tol),
                 "code_flips": code_flips(f"k2 {tag}", packed, packed0, z0,
                                          borders, spec.bits)}
-        results["dense_act_sketch"].append({
-            "mode": "forward", "dtype": tag, "errors": errs,
-            "ms": cuda_ms(lambda: K.fused_dense_act_sketch(*args)),
-            "plain_ms": cuda_ms(lambda: K.dense_act_sketch_plain(*args))})
+        ffn_flop = 2 * N * HIDDEN * FFN
+        _ffn_case(results, "dense_act_sketch", "forward", tag,
+                  K.fused_dense_act_sketch, K.dense_act_sketch_plain, args,
+                  errs, x, up_w.t())
 
         # Kernel 2': kernel 2 that also sketches x (sum of N / k_eff = 4
         # rows per bucket).
@@ -326,7 +439,10 @@ def phase_kernels():
         results["dense_act_sketch_x"].append({
             "mode": "forward", "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_dense_act_sketch_x(*xargs)),
-            "plain_ms": cuda_ms(lambda: K.dense_act_sketch_x_plain(*xargs))})
+            "plain_ms": cuda_ms(lambda: K.dense_act_sketch_x_plain(*xargs)),
+            **bound(ffn_flop, gemm_rate(dt),
+                    tensor_bytes(xargs, y, packed2x, sky, skx)),
+            "library_ms": None})
 
         # Kernel 3: the FFN backward on kernel 2's codes, with the down
         # projection's (out, in) weight as wt.
@@ -337,10 +453,9 @@ def phase_kernels():
         errs = {"dz": compare(f"k3 {tag} dz", dz, dz0, tol),
                 "sketch": compare(f"k3 {tag} sketch", sk, sk0, tol),
                 "db": compare(f"k3 {tag} db", db, db0, TOL_SUM)}
-        results["matmul_lut_backward"].append({
-            "mode": "backward", "dtype": tag, "errors": errs,
-            "ms": cuda_ms(lambda: K.fused_matmul_lut_backward(*args)),
-            "plain_ms": cuda_ms(lambda: K.matmul_lut_backward_plain(*args))})
+        _ffn_case(results, "matmul_lut_backward", "backward", tag,
+                  K.fused_matmul_lut_backward, K.matmul_lut_backward_plain,
+                  args, errs, g, down_w)
 
         # Kernel 6: the GPT FFN up projection with GELU and codes, no
         # sketch, the weight an (out, in) parameter seen through .t().
@@ -353,7 +468,9 @@ def phase_kernels():
         results["dense_act"].append({
             "mode": "forward", "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_dense_act(*args)),
-            "plain_ms": cuda_ms(lambda: K.dense_act_plain(*args))})
+            "plain_ms": cuda_ms(lambda: K.dense_act_plain(*args)),
+            **bound(ffn_flop, gemm_rate(dt), tensor_bytes(args, y, packed6)),
+            "library_ms": None})
 
         # Kernel 4: the RoBERTa unfused FFN's GELU on the (N, FFN)
         # pre-activation.  Its codes are the plain version's exactly: the
@@ -365,10 +482,14 @@ def phase_kernels():
         if not torch.equal(packed4, packed0):
             raise AssertionError(f"k4 {tag}: packed codes differ")
         errs = {"y": compare(f"k4 {tag} y", y, y0, tol), "code_flips": 0}
+        # Per element: one compare per border and the GELU, on CUDA cores.
         results["fused_forward"].append({
             "mode": "forward", "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_forward(*args)),
-            "plain_ms": cuda_ms(lambda: K.act_forward_plain(*args))})
+            "plain_ms": cuda_ms(lambda: K.act_forward_plain(*args)),
+            **bound(h.numel() * (spec.n_borders + 1), "simt",
+                    tensor_bytes(args, y, packed4)),
+            "library_ms": None})
 
         # Kernel 5 on the codes of kernel 6 (GPT) and of kernel 4 (RoBERTa
         # unfused), with an (N, FFN) output gradient.
@@ -383,7 +504,10 @@ def phase_kernels():
                 "errors": {"dx": compare(f"k5 {tag} {source}", dx, dx0,
                                          tol)},
                 "ms": cuda_ms(lambda: K.fused_backward(*args)),
-                "plain_ms": cuda_ms(lambda: K.act_backward_plain(*args))})
+                "plain_ms": cuda_ms(lambda: K.act_backward_plain(*args)),
+                # Per element: one multiply, on CUDA cores.
+                **bound(g_ffn.numel(), "simt", tensor_bytes(args, dx)),
+                "library_ms": None})
 
         # F1-F3 at both paths' shapes, on (b, s, h, d) projections seen
         # through transpose(1, 2), as the models pass them.
@@ -396,12 +520,20 @@ def phase_kernels():
         torch.cuda.empty_cache()
     for name, cases in results.items():
         for c in cases:
-            extra = ""
+            extra = (f"; bound {c['bound_ms']:.4f} ms by {c['bound_by']} "
+                     f"({c['ops'] / 1e9:.2f} G operations, "
+                     f"{c['bytes'] / 1e6:.1f} MB)")
+            if c["library_ms"] is not None:
+                extra += (f"; library {c['library_ms']:.3f} ms "
+                          f"({c['library']})")
             if "route" in c:
-                extra = (f"; {c['route']}, tile {c['tile']}; device "
-                         f"{c['device_ms']:.4f} ms ({c['tflops']:.1f} "
-                         f"TFLOP/s), plain {c['plain_device_ms']:.4f} ms "
-                         f"({c['plain_tflops']:.1f} TFLOP/s)")
+                extra += (f"; {c['route']}, tile {c['tile']}; device "
+                          f"{c['device_ms']:.4f} ms ({c['tflops']:.1f} "
+                          f"TFLOP/s, {100 * c['bound_share']:.1f}% of the "
+                          f"bound), plain {c['plain_device_ms']:.4f} ms "
+                          f"({c['plain_tflops']:.1f} TFLOP/s); context, not "
+                          f"the same function: torch.matmul of the product "
+                          f"alone {c['matmul_only_device_ms']:.4f} ms device")
             log(f"kernel {name} [{c['mode']}, {c['dtype']}]: errors "
                 f"{c['errors']}, kernel {c['ms']:.3f} ms, plain "
                 f"{c['plain_ms']:.3f} ms (calls){extra}")
@@ -604,6 +736,56 @@ def _vanilla_vs_fewbit(path, steps, batches, gen, turns):
             "vanilla_peak_bytes": v_peak, "fewbit_peak_bytes": fb_peak}
 
 
+# Device kernels by a part of their name, for the profiled steps.
+KERNEL_GROUPS = {
+    "kernel_1": ("matmul_sketch_kernel", "input_sketch_kernel"),
+    "kernel_2": ("dense_act_sketch",),
+    "kernel_3": ("matmul_lut_bwd",),
+    "weight_prologue": ("prep_weight_kernel",),
+    "column_partials": ("sum_partials_kernel",),
+    "flash": ("flash_",),
+}
+
+
+def profiled_steps(path, step, batches, gen, n=2):
+    """``n`` few-bit steps under the profiler (after the steps already
+    taken): device milliseconds per step, busy in all and by kernel group,
+    and the wall time of a profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(next(batches), gen)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    out = {"wall_ms": wall, "busy_ms": 0.0,
+           **{group: 0.0 for group in KERNEL_GROUPS}}
+    for e in prof.key_averages():
+        ms = e.device_time_total / 1e3 / n
+        out["busy_ms"] += ms
+        for group, parts in KERNEL_GROUPS.items():
+            if any(part in e.key for part in parts):
+                out[group] += ms
+    if not out["busy_ms"] > 0:
+        raise AssertionError("the profiler saw no device time")
+    out["idle_share"] = 1 - out["busy_ms"] / wall
+    log(f"{path}: profiled few-bit f32 step, device ms per step: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_profile(path):
+    """Only the profiled steps of a path, after two warm-up steps."""
+    batches = _batches(path, SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    model, step = _model(path, torch.float32, fewbit=True)
+    for _ in range(2):
+        step(next(batches), gen)
+    return profiled_steps(path, step, batches, gen)
+
+
 def phase_path(path):
     """A few-bit path's forward check, its checked f32 steps, vanilla
     against few-bit 4 steps each in turns, and one bf16 step."""
@@ -618,6 +800,8 @@ def phase_path(path):
     out = {"f32_losses": losses,
            **_vanilla_vs_fewbit(path, {"vanilla": vstep, "fewbit": step},
                                 batches, gen, turns=2)}
+    if path == "roberta_fused_ffn":
+        out["profile"] = profiled_steps(path, step, batches, gen)
     del model, step, vmodel, vstep
     torch.cuda.empty_cache()
     if path == "gpt2_small_flash":
@@ -659,6 +843,11 @@ def phase_steps(path):
 
 def main():
     smi = phase_device()
+    if sys.argv[1:2] == ["--profile"]:
+        if sys.argv[2:] not in [[path] for path in PATHS]:
+            sys.exit(f"chip_smoke: --profile takes one of {list(PATHS)}")
+        phase_profile(sys.argv[2])
+        return
     results = phase_kernels()
     crossover = phase_crossover()
     train, counts = {}, {}
@@ -685,7 +874,8 @@ def main():
                                for k, v in c["errors"].items()
                                if k != "code_flips"),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
-            "cases": cases})
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "cases": cases})
     log(json.dumps({"train": train, "crossover": crossover, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

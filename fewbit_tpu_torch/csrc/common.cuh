@@ -2,14 +2,15 @@
 // activations and interval codes, a tiled shared-memory GEMM core with f32
 // accumulators, and the deterministic column-partial reduction.
 //
-// The GEMM core computes one BM x BN tile of A @ B with FMA on CUDA cores:
-// 256 threads, each holding an 8 x 8 block of f32 accumulators at rows
-// ty + 16 i and columns tx + 16 j of the tile (strided, so that the
+// The GEMM core (gemm_tile) computes one BM x BN tile of A @ B with FMA on
+// CUDA cores: 256 threads, each holding an 8 x 8 block of f32 accumulators
+// at rows ty + 16 i and columns tx + 16 j of the tile (strided, so that the
 // shared-memory reads of one warp are conflict free or broadcast).
 // Operands of either element type are widened to f32 on their way into
 // shared memory, so a bf16 model multiplies bf16 values with f32
-// accumulation.  This is the simple, correct core: tensor cores (wgmma),
-// TMA and multi-stage pipelines are later work.
+// accumulation.  It is the simple, correct core of kernel 6 and of kernel
+// 2's sigma_x mode.  Kernels 1, 2 and 3 run on the tensor cores instead
+// (TMA ring and wgmma: hopper_gemm.cuh, ffn_gemm.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -10,44 +10,196 @@
 // with sigma_x), the forward of the few-bit FFN block.
 //
 // What bounds it on this card: at the FFN up projection (8192 x 768 ->
-// 3072) the product is 38.7 GFLOP against about 135 MB of f32 traffic,
-// compute bound for any GEMM near the card's rate; this simple FMA core is
-// bound by its own issue rate.  The epilogue adds one erff and 2^bits - 1
-// compares per element and writes y, bits / 8 bytes of codes and the
-// (k_eff, M) sketch; the (N, M) pre-activation never reaches device memory.
+// 3072) the product is 38.7 GFLOP against 170 MB of f32 traffic (x 25, w 9,
+// y 101, codes 9, sketch 25; 90 MB in bf16).  The tensor cores bound it:
+// 0.039 ms in bf16 at 989 TFLOP/s, 0.234 ms in f32 as three TF32 products
+// at 495 TFLOP/s, against 0.027-0.051 ms for the bytes at 3.35 TB/s.  The
+// epilogue adds one erff and 2^bits - 1 compares per element and is not
+// overlapped with the block's own wgmma; the (N, M) pre-activation never
+// reaches device memory.
 //
-// Design: the TPU kernel accumulated the sketch across sequential grid
-// steps.  Here a block owns one tile of BM buckets and BN columns and loops
-// over the N / k_eff passes itself: with the stride partition, rows
-// c k_eff + bucket0 + [0, BM) of every pass c land in the same BM buckets,
-// so the sketch tile is summed in registers (f32) and written once.  No
-// atomics, deterministic.  sk_x follows the same ownership: only the blocks
-// of the first column tile sum it (the TPU kernel summed it at column block
-// j == 0), each thread adding sigma_x x for the elements of x it loads into
-// shared memory to an f32 accumulator it alone reads and writes, pass after
-// pass; a bf16 model's sketch is converted by the same thread at the end.
-// The accumulator costs (k_eff, K) f32 read and written once per pass from
-// those blocks.  Codes go through shared memory so that one warp
-// holds 32 consecutive rows of one column, and each bit plane is one
-// __ballot_sync: word [b, w, m] holds bit b of the codes of rows
-// 32 w .. 32 w + 31 of column m.  GELU is the exact erff form.
-#include "common.cuh"
+// Design, without sigma_x (dense_act_sketch_wgmma_kernel): the mainloop of
+// ffn_gemm.cuh (TMA ring, two consumer warpgroups on wgmma, 128 buckets x BN
+// columns per block, the block loops over the N / k_eff passes), and per
+// pass, on the accumulator fragment:
+// - z = acc + b in f32, y = gelu(z) stored as T two columns at a time; the
+//   code of z counts the borders below it, four borders to a 16-byte read
+//   of the table and eight elements to a read (the block has 8 consumer
+//   warps, so the epilogue is bound by latency: independent elements are
+//   interleaved);
+// - sk += sigma_row * (y as stored), in the thread's own f32 accumulators
+//   (shared memory, ffn_gemm.cuh), stored once, by the last pass;
+// - the codes.  A packed word holds 32 consecutive rows of one column, but a
+//   warp's fragment holds 16 rows (thread (g, t): rows g and g + 8 of the
+//   warp's 16, columns 8 i + 2 t + e).  Each thread puts its two rows' bits
+//   of a plane at bits g and g + 8 of a 16-bit half, two planes to a
+//   register; three xor-shuffles (4, 8, 16) OR the halves over the 8 lanes
+//   that share a column, and the even and the odd warp of a 32-row group
+//   store the low and the high half of the word (2-byte stores; lane
+//   g = i mod 8 stores column group i, so the stores are spread over the
+//   warp).  No shared-memory staging and no block-wide barrier.
+// Registers per thread (nvcc 12.8, -Xptxas -v; the cap of a 288-thread
+// block is 168): f32 144 at both tile widths, bf16 128 (BN 96) and 112
+// (BN 64); no spills.  On an H100 SXM at 700 W the path shape takes about
+// 0.51 ms in f32 (46% of the bound) and 0.26 ms in bf16 (15%), a quarter to
+// two fifths of it the epilogue's arithmetic.
+//
+// With sigma_x (dense_act_sketch_x_kernel): the first, simple design on the
+// CUDA-core gemm_tile of common.cuh.  A block owns one tile of BM buckets
+// and BN columns and loops over the passes; the sketch tile is summed in
+// registers; only the blocks of the first column tile sum sk_x, each thread
+// adding sigma_x x for the elements of x it loads into shared memory to an
+// f32 accumulator it alone reads and writes, pass after pass; a bf16
+// model's sketch is converted by the same thread at the end.  Codes go
+// through shared memory so that one warp holds 32 consecutive rows of one
+// column, and each bit plane is one __ballot_sync.  No model path runs this
+// mode.
+#include "ffn_gemm.cuh"
 
 namespace fewbit {
 namespace {
 
+template <typename T>
+struct K2Params {
+  const T* bias;         // (m,) or null
+  const float* borders;  // (n_borders,)
+  const float* sigma;    // (n,)
+  T* y;                  // (n, m)
+  uint16_t* packed;      // (bits, words, m) 32-bit words, as their halves
+  T* sk;                 // (k_eff, m)
+  int kdim, m, words, bits, n_borders;
+  int passes, pass_stride;  // rows of pass c: c pass_stride + 128 blockIdx.x
+};
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(FG_THREADS, 1)
+    dense_act_sketch_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                                  const __grid_constant__ CUtensorMap map_b,
+                                  const __grid_constant__ CUtensorMap map_b_lo,
+                                  K2Params<T> p) {
+  extern __shared__ uint8_t smem_raw[];
+  const FgSmem<T, BN> s(smem_raw);
+  fg_init(s, p.borders, p.n_borders, __int_as_float(0x7f800000));  // +inf
+  const int bucket0 = blockIdx.x * FG_BM, col0 = blockIdx.y * BN;
+  const int k_tiles = p.kdim / Operand<T>::BK;
+  if (threadIdx.x >= FG_CONSUMERS) {  // the producer warp; one thread loads
+    if (threadIdx.x == FG_CONSUMERS)
+      fg_produce(s, &map_a, &map_b, &map_b_lo, p.passes, p.pass_stride,
+                 bucket0, col0, k_tiles);
+    return;
+  }
+  const FgThread th;
+  float* ska = s.ska + threadIdx.x;  // element idx at ska[idx * FG_CONSUMERS]
+  const int word_half = th.warp & 1;  // the half of the words it writes
+  const int border_quads = (p.n_borders + 3) / 4;
+  int st = 0;
+  uint32_t ph = 0;
+  for (int c = 0; c < p.passes; ++c) {
+    const int r0 = c * p.pass_stride + bucket0;
+    const bool first = c == 0, last = c == p.passes - 1;
+    float acc[BN / 2];
+    fg_consume_pass<T, BN>(acc, s, th, k_tiles, st, ph);
+    float sg[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) sg[h] = p.sigma[r0 + th.row + 8 * h];
+    // The 32-row group of this warp: rows 32 (warp / 2) .. + 31 of the
+    // warpgroup's 64.
+    const size_t word_row = (r0 + 64 * th.wg + 32 * (th.warp / 2)) / 32;
+    // Two column groups (8 elements) at a time: with 8 consumer warps on
+    // the SM the epilogue is bound by latency, not throughput, so
+    // independent elements are interleaved, and one 16-byte table read
+    // serves all 8.
+#pragma unroll
+    for (int i0 = 0; i0 < BN / 8; i0 += 2) {
+      float z[8];        // [u][h][e] of column groups i0 + u
+      unsigned code[8];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int col = col0 + 8 * (i0 + u) + 2 * th.t;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float bj = p.bias != nullptr ? to_f(p.bias[col + e]) : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            z[4 * u + 2 * h + e] = acc[4 * (i0 + u) + 2 * h + e] + bj;
+            code[4 * u + 2 * h + e] = 0u;
+          }
+        }
+      }
+      // The table is padded with +inf to a multiple of 4 borders.
+      for (int k = 0; k < border_quads; ++k) {
+        const float4 bd = reinterpret_cast<const float4*>(s.table)[k];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          code[j] += (z[j] > bd.x ? 1u : 0u) + (z[j] > bd.y ? 1u : 0u) +
+                     (z[j] > bd.z ? 1u : 0u) + (z[j] > bd.w ? 1u : 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = i0 + u, col = col0 + 8 * i + 2 * th.t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float yv[2], skv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * i + 2 * h + e;
+            yv[e] = round_to<T>(gelu_exact(z[4 * u + 2 * h + e]));
+            // The sketch sums y as stored, widened to f32.
+            skv[e] =
+                fmaf(sg[h], yv[e], first ? 0.f : ska[idx * FG_CONSUMERS]);
+            if (!last) ska[idx * FG_CONSUMERS] = skv[e];
+          }
+          store2(p.y + (size_t)(r0 + th.row + 8 * h) * p.m + col, yv[0],
+                 yv[1]);
+          if (last)
+            store2(p.sk + (size_t)(bucket0 + th.row + 8 * h) * p.m + col,
+                   skv[0], skv[1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // The codes of column col + e: row g in bits 0..7, row g + 8 in
+          // bits 8..15.
+          const uint32_t rows = code[4 * u + e] | (code[4 * u + 2 + e] << 8);
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {  // planes 2 q and 2 q + 1
+            if (2 * q < p.bits) {
+              // Bit b of both rows' codes at bits g and g + 8 of b's half.
+              uint32_t v = (((rows >> (2 * q)) & 0x101u) << th.g) |
+                           (((rows >> (2 * q + 1)) & 0x101u) << (th.g + 16));
+              v |= __shfl_xor_sync(0xffffffffu, v, 4);
+              v |= __shfl_xor_sync(0xffffffffu, v, 8);
+              v |= __shfl_xor_sync(0xffffffffu, v, 16);
+              if (th.g == (i & 7)) {
+#pragma unroll
+                for (int o = 0; o < 2; ++o) {
+                  const int b = 2 * q + o;
+                  if (b < p.bits)
+                    p.packed[(((size_t)b * p.words + word_row) * p.m + col +
+                              e) * 2 +
+                             word_half] =
+                        static_cast<uint16_t>(v >> (16 * o));
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 template <typename T, bool TRANS_B>
 __global__ void __launch_bounds__(NT)
-    dense_act_sketch_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                            const T* __restrict__ bias,
-                            const float* __restrict__ borders, int n_borders,
-                            const float* __restrict__ sigma, int n, int kdim,
-                            int m, int k_eff, int bits, T* __restrict__ y,
-                            uint32_t* __restrict__ packed,
-                            T* __restrict__ sk,
-                            const float* __restrict__ sigma_x,
-                            float* __restrict__ skx_acc,
-                            T* __restrict__ skx_out) {
+    dense_act_sketch_x_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                              const T* __restrict__ bias,
+                              const float* __restrict__ borders, int n_borders,
+                              const float* __restrict__ sigma, int n, int kdim,
+                              int m, int k_eff, int bits, T* __restrict__ y,
+                              uint32_t* __restrict__ packed,
+                              T* __restrict__ sk,
+                              const float* __restrict__ sigma_x,
+                              float* __restrict__ skx_acc,
+                              T* __restrict__ skx_out) {
   __shared__ GemmSmem s;
   __shared__ unsigned char codes[BN][BM + PAD];
   __shared__ float bord[64];
@@ -130,8 +282,50 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+template <typename T, int BN>
+int launch_wgmma_bn(const CUtensorMap& ma, const CUtensorMap& mb,
+                    const CUtensorMap& mb_lo, const K2Params<T>& p, int k_eff,
+                    cudaStream_t st) {
+  auto kernel = dense_act_sketch_wgmma_kernel<T, BN>;
+  static unsigned allowed = 0;
+  const int err =
+      fg_allow_smem(reinterpret_cast<const void*>(kernel), allowed);
+  if (err != 0) return err;
+  kernel<<<dim3(k_eff / FG_BM, p.m / BN), FG_THREADS,
+           fg_smem(Operand<T>::PARTS, BN), st>>>(ma, mb, mb_lo, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-void launch(const void* x, const void* w, int w_trans, const void* bias,
+int launch_wgmma(const void* x, const void* w, int w_trans, const void* bias,
+                 const float* borders, int n_borders, const float* sigma,
+                 void* y, void* packed, void* sk, void* w_prep, int n,
+                 int kdim, int m, int k_eff, int bits, int bn,
+                 cudaStream_t st) {
+  if (n_borders < 0 || n_borders > FG_TABLE || bits < 1 || bits > 6) return -1;
+  CUtensorMap ma, mb, mb_lo;
+  const int rc = fg_operands<T>(x, w, w_trans, w_prep, n, kdim, m, k_eff, bn,
+                                &ma, &mb, &mb_lo, st);
+  if (rc != 0) return rc;
+  K2Params<T> p{static_cast<const T*>(bias),
+                borders,
+                sigma,
+                static_cast<T*>(y),
+                static_cast<uint16_t*>(packed),
+                static_cast<T*>(sk),
+                kdim,
+                m,
+                (n + 31) / 32,
+                bits,
+                n_borders,
+                n / k_eff,
+                k_eff};
+  return bn == 96 ? launch_wgmma_bn<T, 96>(ma, mb, mb_lo, p, k_eff, st)
+                  : launch_wgmma_bn<T, 64>(ma, mb, mb_lo, p, k_eff, st);
+}
+
+template <typename T>
+void launch_x(const void* x, const void* w, int w_trans, const void* bias,
             const float* borders, int n_borders, const float* sigma, void* y,
             uint32_t* packed, void* sk, const float* sigma_x,
             float* skx_acc, void* skx_out, int n, int kdim, int m, int k_eff,
@@ -141,12 +335,12 @@ void launch(const void* x, const void* w, int w_trans, const void* bias,
   const T* wt = static_cast<const T*>(w);
   const T* bt = static_cast<const T*>(bias);
   if (w_trans)
-    dense_act_sketch_kernel<T, true><<<grid, NT, 0, st>>>(
+    dense_act_sketch_x_kernel<T, true><<<grid, NT, 0, st>>>(
         xt, wt, bt, borders, n_borders, sigma, n, kdim, m, k_eff, bits,
         static_cast<T*>(y), packed, static_cast<T*>(sk), sigma_x, skx_acc,
         static_cast<T*>(skx_out));
   else
-    dense_act_sketch_kernel<T, false><<<grid, NT, 0, st>>>(
+    dense_act_sketch_x_kernel<T, false><<<grid, NT, 0, st>>>(
         xt, wt, bt, borders, n_borders, sigma, n, kdim, m, k_eff, bits,
         static_cast<T*>(y), packed, static_cast<T*>(sk), sigma_x, skx_acc,
         static_cast<T*>(skx_out));
@@ -158,32 +352,60 @@ void launch(const void* x, const void* w, int w_trans, const void* bias,
 // x (n, kdim), w the logical (kdim, m) weight (stored transposed when
 // w_trans), bias (m,) or null, borders (n_borders,) f32 with n_borders < 64,
 // sigma (n,) f32; outputs y (n, m), packed (bits, ceil(n / 32), m) 32-bit
-// words and sk (k_eff, m).  With sigma_x (n,) f32 (else null), also sk_x
-// (k_eff, kdim): summed in skx_acc (k_eff, kdim) f32, which is the result
+// words and sk (k_eff, m).  k_eff must be a multiple of 128 that divides n,
+// and bits at most 6.
+//
+// Without sigma_x, the wgmma kernel: kdim a multiple of 128, m of bn (the
+// host's tile width, ffn_gemm_route: 96 or 64), x and a bf16 transposed w
+// 16-byte aligned; w_prep is scratch for the K-major B: (2, m, kdim) for
+// f32 (hi, lo), (m, kdim) for bf16 with w_trans = 0, null for bf16 with
+// w_trans = 1.
+//
+// With sigma_x (n,) f32, the sigma_x mode (w_prep and bn unused): also sk_x
+// (k_eff, kdim), summed in skx_acc (k_eff, kdim) f32, which is the result
 // when skx_out is null (f32 models) and is converted into skx_out otherwise
-// (bf16).  k_eff must be a multiple of 128 that divides n, and bits at most
-// 6.  Returns cudaGetLastError() after the launch.
-extern "C" int fewbit_dense_act_sketch(const void* x, const void* w,
-                                       int w_trans, const void* bias,
-                                       const void* borders, int n_borders,
-                                       const void* sigma, void* y,
-                                       void* packed, void* sk,
-                                       const void* sigma_x, void* skx_acc,
-                                       void* skx_out, int n, int kdim, int m,
-                                       int k_eff, int bits, int is_bf16,
-                                       void* stream) {
+// (bf16).
+//
+// Returns cudaGetLastError() after the launches, -1 for arguments the
+// kernels do not take (nothing launched), -2 when the TMA descriptors cannot
+// be encoded.
+extern "C" int fewbit_dense_act_sketch(
+    const void* x, const void* w, int w_trans, const void* bias,
+    const void* borders, int n_borders, const void* sigma, void* y,
+    void* packed, void* sk, const void* sigma_x, void* skx_acc, void* skx_out,
+    void* w_prep, int n, int kdim, int m, int k_eff, int bits, int bn,
+    int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bd = static_cast<const float*>(borders);
   const float* sg = static_cast<const float*>(sigma);
+  if (sigma_x == nullptr) {
+    if (is_bf16)
+      return fewbit::launch_wgmma<__nv_bfloat16>(x, w, w_trans, bias, bd,
+                                                 n_borders, sg, y, packed, sk,
+                                                 w_prep, n, kdim, m, k_eff,
+                                                 bits, bn, st);
+    return fewbit::launch_wgmma<float>(x, w, w_trans, bias, bd, n_borders, sg,
+                                       y, packed, sk, w_prep, n, kdim, m,
+                                       k_eff, bits, bn, st);
+  }
   const float* sgx = static_cast<const float*>(sigma_x);
   float* acc = static_cast<float*>(skx_acc);
   uint32_t* pk = static_cast<uint32_t*>(packed);
   if (is_bf16)
-    fewbit::launch<__nv_bfloat16>(x, w, w_trans, bias, bd, n_borders, sg, y,
-                                  pk, sk, sgx, acc, skx_out, n, kdim, m,
-                                  k_eff, bits, st);
+    fewbit::launch_x<__nv_bfloat16>(x, w, w_trans, bias, bd, n_borders, sg, y,
+                                    pk, sk, sgx, acc, skx_out, n, kdim, m,
+                                    k_eff, bits, st);
   else
-    fewbit::launch<float>(x, w, w_trans, bias, bd, n_borders, sg, y, pk, sk,
-                          sgx, acc, skx_out, n, kdim, m, k_eff, bits, st);
+    fewbit::launch_x<float>(x, w, w_trans, bias, bd, n_borders, sg, y, pk, sk,
+                            sgx, acc, skx_out, n, kdim, m, k_eff, bits, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory that a block of the FFN kernels (this one
+// without sigma_x, and fewbit_matmul_lut_backward) takes at tile width bn,
+// or -1 where they refuse it (a width not built, or over the block's
+// limit).  Launches nothing.
+extern "C" int fewbit_ffn_gemm_smem(int bn, int is_bf16) {
+  return is_bf16 ? fewbit::fg_smem_or_refuse<__nv_bfloat16>(bn)
+                 : fewbit::fg_smem_or_refuse<float>(bn);
 }

@@ -11,11 +11,17 @@
 // wgmma consumes 32 bytes of K (k8 for tf32, k16 for bf16), so the k-th step
 // of a tile is the tile's descriptor with its start address advanced by
 // 32 k bytes.
+//
+// Below the hopper namespace: what the kernels built on these pieces share
+// (the per-type tile constants, the paired store of an accumulator
+// fragment, and the prologue that writes a weight K-major for wgmma).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace fewbit {
 namespace hopper {
@@ -305,4 +311,56 @@ template <> struct Wgmma<96> {
 };
 
 }  // namespace hopper
+
+// Per element type: K per 128-byte tile row, B parts (f32: hi and lo) and
+// row groups of a warpgroup in kernel 1's sketch read (128 threads / BK
+// columns).
+template <typename T> struct Operand;
+template <> struct Operand<float> {
+  static constexpr int BK = 32, PARTS = 2, GROUPS = 4;
+};
+template <> struct Operand<__nv_bfloat16> {
+  static constexpr int BK = 64, PARTS = 1, GROUPS = 2;
+};
+
+// Two neighbouring columns of an accumulator fragment, stored as T.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The GEMM's B operand, K-major: out[mm, kk] = B[kk, mm] of the logical
+// (kdim, m) weight (stored (m, kdim) when trans, (kdim, m) otherwise), split
+// into TF32 hi and lo when `lo` is given.  Block (32, 8), grid (kdim / 32,
+// m / 32); kdim and m are multiples of 32.
+template <typename T>
+static __global__ void prep_weight_kernel(const T* __restrict__ w, int trans,
+                                          int kdim, int m, T* __restrict__ hi,
+                                          T* __restrict__ lo) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, m0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 8 * i;
+    tile[r][tx] = to_f(trans ? w[(size_t)(m0 + r) * kdim + k0 + tx]
+                             : w[(size_t)(k0 + r) * m + m0 + tx]);
+  }
+  __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 8 * i;
+    const float v = trans ? tile[r][tx] : tile[tx][r];
+    const size_t o = (size_t)(m0 + r) * kdim + k0 + tx;
+    if (lo == nullptr) {
+      hi[o] = from_f<T>(v);
+    } else {
+      uint32_t h, l;
+      hopper::split_tf32(v, h, l);
+      hi[o] = from_f<T>(__uint_as_float(h));
+      lo[o] = from_f<T>(__uint_as_float(l));
+    }
+  }
+}
+
 }  // namespace fewbit

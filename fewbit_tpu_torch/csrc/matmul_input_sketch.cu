@@ -35,9 +35,9 @@
 //   issue, so each half of a k tile has fragment registers of its own,
 //   kept alive until the wait that retires its group.  B comes pre-split:
 //   wgmma .tf32 wants both operands K-major, so a prologue
-//   (prep_weight_kernel) writes w_hi and w_lo, or for bf16 the transposed
-//   weight of the backward, K-major into scratch; the forward's bf16 weight
-//   (torch's (out, in)) is K-major as it is.
+//   (prep_weight_kernel in hopper_gemm.cuh) writes w_hi and w_lo, or for
+//   bf16 the transposed weight of the backward, K-major into scratch; the
+//   forward's bf16 weight (torch's (out, in)) is K-major as it is.
 // - The sketch and the column sum come from the x tiles already in the
 //   ring: each block owns the sketch columns [j K / J, (j + 1) K / J) of its
 //   column tile j (J column tiles), adds sigma_r x_r of the raw operand to
@@ -66,16 +66,6 @@ constexpr int K1_CONSUMERS = 256;  // two consumer warpgroups
 constexpr int K1_THREADS = K1_CONSUMERS + 32;  // and one producer warp
 constexpr int K1_SMEM_LIMIT = 232448;  // dynamic shared memory of a block
 
-// Per element type: K per 128-byte tile row, B parts (f32: hi and lo) and
-// row groups of a warpgroup in the sketch read (128 threads / BK columns).
-template <typename T> struct Operand;
-template <> struct Operand<float> {
-  static constexpr int BK = 32, PARTS = 2, GROUPS = 4;
-};
-template <> struct Operand<__nv_bfloat16> {
-  static constexpr int BK = 64, PARTS = 1, GROUPS = 2;
-};
-
 // Dynamic shared memory of the GEMM kernel: the ring, the sketch slice
 // (128 rows) and the column-sum rows (kcp = 0 on the separate route), the
 // barriers and the slack that aligns the ring to 1024 bytes.  The host's
@@ -97,13 +87,6 @@ struct K1Params {
   int passes, pass_stride;  // rows of pass c: c pass_stride + 128 blockIdx.x
   int jt, kcp;  // column tiles; sketch-slice stride (0: no fused sketch)
 };
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 template <typename T, int BN, bool SKETCH>
 __global__ void __launch_bounds__(K1_THREADS, 1)
@@ -307,38 +290,6 @@ __global__ void __launch_bounds__(K1_THREADS, 1)
       float s = 0.f;
       for (int q = 0; q < 2 * G; ++q) s += cs_acc[q * kcp + cc];
       p.cs_partial[(size_t)blockIdx.x * p.kdim + c_lo + cc] = s;
-    }
-  }
-}
-
-// The GEMM's B operand, K-major: out[mm, kk] = B[kk, mm] of the logical
-// (kdim, m) weight (stored (m, kdim) when trans, (kdim, m) otherwise), split
-// into TF32 hi and lo when `lo` is given.  Block (32, 8), grid (kdim / 32,
-// m / 32); kdim and m are multiples of 32.
-template <typename T>
-__global__ void prep_weight_kernel(const T* __restrict__ w, int trans,
-                                   int kdim, int m, T* __restrict__ hi,
-                                   T* __restrict__ lo) {
-  __shared__ float tile[32][33];
-  const int k0 = blockIdx.x * 32, m0 = blockIdx.y * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 8 * i;
-    tile[r][tx] = to_f(trans ? w[(size_t)(m0 + r) * kdim + k0 + tx]
-                             : w[(size_t)(k0 + r) * m + m0 + tx]);
-  }
-  __syncthreads();
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 8 * i;
-    const float v = trans ? tile[r][tx] : tile[tx][r];
-    const size_t o = (size_t)(m0 + r) * kdim + k0 + tx;
-    if (lo == nullptr) {
-      hi[o] = from_f<T>(v);
-    } else {
-      uint32_t h, l;
-      hopper::split_tf32(v, h, l);
-      hi[o] = from_f<T>(__uint_as_float(h));
-      lo[o] = from_f<T>(__uint_as_float(l));
     }
   }
 }

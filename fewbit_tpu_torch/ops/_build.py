@@ -36,10 +36,12 @@ SIGNATURES = {
         _P),
     "fewbit_matmul_sketch_smem": (_I, _I, _I, _I, _I),
     "fewbit_dense_act_sketch": (
-        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-        _I, _I, _P),
+        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+        _I, _I, _I, _I, _P),
+    "fewbit_ffn_gemm_smem": (_I, _I),
     "fewbit_matmul_lut_backward": (
-        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _I, _P),
     "fewbit_act_forward": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
     "fewbit_act_backward": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
     "fewbit_dense_act": (

@@ -4,8 +4,9 @@ Codes of an ``(N, M)`` tensor (values in ``[0, 2**bits)``) pack into
 ``(bits, ceil(N / 32), M)`` 32-bit words: bit ``i`` of word ``[b, w, m]`` is
 bit ``b`` of the code of row ``32 w + i``, column ``m``.  The layout depends
 on no block size, costs ``bits / 8`` bytes per element, and is what the
-CUDA kernels write with one ``__ballot_sync`` per bit plane (a warp holds
-32 rows of one column).  Words are ``int32`` tensors: PyTorch's ``uint32``
+CUDA kernels write: with one ``__ballot_sync`` per bit plane where a warp
+holds 32 rows of one column, and as the words' 16-bit halves where it holds
+16 (the fragment of a tensor-core product).  Words are ``int32`` tensors: PyTorch's ``uint32``
 has few CPU ops, and the bitwise ops are the same.  Rows past ``N`` in the
 last word are zero.
 """

@@ -13,9 +13,9 @@ functional` decide, from shapes alone, whether a call is inside the
 envelope, exactly where the JAX package decides between its Pallas and jnp
 paths.
 
-Numerics: the kernels multiply f32 operands in f32 (kernel 1 as three TF32
-products on the tensor cores, hi hi + hi lo + lo hi, which keep f32
-accuracy) and bf16 operands with f32 accumulation, and every sketch
+Numerics: the kernels multiply f32 operands in f32 (kernels 1, 2 and 3 as
+three TF32 products on the tensor cores, hi hi + hi lo + lo hi, which keep
+f32 accuracy) and bf16 operands with f32 accumulation, and every sketch
 accumulates in f32 and is stored in :func:`sketch_dtype`.  The plain
 versions compute the same function: the product of the f32-widened
 operands, the epilogue on the f32 result.
@@ -38,7 +38,8 @@ from fewbit_tpu_torch.ops.flash_attention import (flash_backward_dkv_plain,
 
 __all__ = ("FFN_BN", "FFN_BM", "ACT_IDS", "sketch_dtype",
            "countsketch_aligned_keff", "countsketch_signed",
-           "matmul_sketch_keff", "matmul_sketch_route", "act_kernel_ok",
+           "matmul_sketch_keff", "matmul_sketch_route", "ffn_gemm_route",
+           "act_kernel_ok",
            "dense_act_ok",
            "fused_matmul_input_sketch", "fused_dense_act_sketch",
            "fused_dense_act_sketch_x", "fused_matmul_lut_backward",
@@ -146,6 +147,38 @@ def matmul_sketch_route(kdim: int, m: int, dtype) -> tuple:
         if _k1_smem(dtype, bn, kdim, m, True) <= K1_SMEM_LIMIT:
             return True, bn
     return False, widths[0]
+
+
+# The GEMM of kernels 2 and 3 (csrc/ffn_gemm.cuh): 128-bucket block tiles,
+# a 4-stage TMA ring, and the tile widths it is built for in order of
+# preference.  The GPU tests hold _ffn_smem against the source's own
+# fg_smem (fewbit_ffn_gemm_smem).
+FG_BM, FG_STAGES, FG_TILE_N = 128, 4, (96, 64)
+FG_SMEM_LIMIT = K1_SMEM_LIMIT
+
+
+def _ffn_smem(dtype, bn: int) -> int:
+    """Dynamic shared memory of a block of kernels 2 and 3, as ``fg_smem``
+    in the source: the ring (128-byte rows of A and of B, B split in two
+    for f32), the f32 sketch accumulators of the 256 consumer threads
+    (``bn / 2`` each), one db row per consumer warp, the 64-entry borders
+    or levels table, the barriers and 1024 bytes of alignment slack."""
+    parts = 2 if dtype == torch.float32 else 1
+    return (FG_STAGES * (FG_BM + parts * bn) * 128 + (bn // 2) * 256 * 4
+            + 8 * bn * 4 + 64 * 4 + 2 * FG_STAGES * 8 + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_gemm_route(m: int, dtype) -> int:
+    """The column-tile width of kernels 2 and 3 for an ``M`` inside their
+    envelope: 96 where it divides M (M = 3072 with k_eff 2048: 32 column
+    tiles x 16 bucket tiles = 512 blocks, 3.9 waves on 132 SMs), otherwise
+    64 (M = 512).  A function of the shapes alone, never of a failed
+    launch; every width it returns fits the block's shared memory."""
+    for bn in FG_TILE_N:
+        if m % bn == 0 and _ffn_smem(dtype, bn) <= FG_SMEM_LIMIT:
+            return bn
+    raise ValueError(f"M={m}: no tile width of {FG_TILE_N} divides it")
 
 
 def _act_spec_in(spec) -> bool:
@@ -316,6 +349,27 @@ def _ffn_spec_ok(spec) -> None:
              f"1..6 bits, not {spec.name!r} at {spec.bits} bits")
 
 
+def _tma_ok(a: torch.Tensor, a_name: str, w: torch.Tensor, w_name: str,
+            trans: int) -> None:
+    """TMA reads the left operand, and a bf16 ``.t()`` weight in place,
+    from 16-byte aligned addresses."""
+    _require(a.data_ptr() % 16 == 0
+             and (a.dtype == torch.float32 or not trans
+                  or w.data_ptr() % 16 == 0),
+             f"{a_name} or {w_name} does not start on a 16-byte boundary")
+
+
+def _weight_scratch(trans: int, m: int, kdim: int, dt, dev):
+    """Scratch for the K-major B that the wgmma kernels read: f32 as TF32 hi
+    and lo halves, bf16 as the transpose of a row-major weight; None for a
+    bf16 ``.t()`` weight, which is K-major as it is."""
+    if dt == torch.float32:
+        return torch.empty(2, m, kdim, dtype=dt, device=dev)
+    if not trans:
+        return torch.empty(m, kdim, dtype=dt, device=dev)
+    return None
+
+
 def _ffn_rows_ok(n: int, m: int, k_eff: int) -> None:
     _require(n % FFN_BN == 0 and m % FFN_BM == 0,
              f"N={n} or M={m} not a multiple of {FFN_BN}")
@@ -360,21 +414,11 @@ def fused_matmul_input_sketch(x: torch.Tensor, w: torch.Tensor,
     _require(matmul_sketch_keff(n, kdim, m, k_eff, dt) == k_eff,
              f"(N={n}, K={kdim}, M={m}, k_eff={k_eff}) outside the "
              f"envelope of matmul_sketch_keff")
-    # TMA reads x, and a bf16 .t() weight in place, from 16-byte aligned
-    # addresses.
-    _require(x.data_ptr() % 16 == 0
-             and (dt == torch.float32 or not trans or w.data_ptr() % 16 == 0),
-             "x or w does not start on a 16-byte boundary")
+    _tma_ok(x, "x", w, "w", trans)
     fused, bn = matmul_sketch_route(kdim, m, dt)
     y = torch.empty(n, m, dtype=dt, device=dev)
     sk = torch.empty(k_eff, kdim, dtype=sketch_dtype(dt), device=dev)
-    # The GEMM reads B K-major: f32 as TF32 hi and lo halves, bf16 as the
-    # transpose of a row-major w; a bf16 .t() weight is K-major as it is.
-    w_prep = None
-    if dt == torch.float32:
-        w_prep = torch.empty(2, m, kdim, dtype=dt, device=dev)
-    elif not trans:
-        w_prep = torch.empty(m, kdim, dtype=dt, device=dev)
+    w_prep = _weight_scratch(trans, m, kdim, dt, dev)
     cs_partial = cs = None
     if want_colsum:
         cs_partial = torch.empty(k_eff // K1_BM, kdim, dtype=torch.float32,
@@ -401,12 +445,18 @@ def fused_dense_act_sketch(spec, x: torch.Tensor, w: torch.Tensor,
     (``(bits, N / 32, M)`` int32) and the countsketch of ``y``
     (``(k_eff, M)``).  Returns ``(y, packed, sketch)``.
 
+    On the card the product runs on the tensor cores (TMA ring and wgmma;
+    f32 as three TF32 products) at :func:`ffn_gemm_route`'s tile width; the
+    kernel reads B K-major from scratch (f32: its TF32 halves, 2 M K
+    elements; bf16 row-major ``w``: its transpose), written by a prologue
+    kernel.
+
     With ``sigma_x`` ((N,) f32 signs), kernel 2' (the TPU kernel's
     ``_kernel_skx``): also the countsketch of ``x`` (``(k_eff, K)``,
     summed in f32 from the kernel's own read of x, stored in
     :func:`sketch_dtype`), counted as ``fused_dense_act_sketch_x``; returns
     ``(y, packed, sketch_y, sketch_x)``.  No model path passes it, as in
-    the JAX package."""
+    the JAX package; this mode keeps the first CUDA-core kernel."""
     if x.device.type == "cpu":
         return dense_act_sketch_plain(spec, x, w, bias, borders, sigma,
                                       k_eff, sigma_x)
@@ -429,8 +479,13 @@ def fused_dense_act_sketch(spec, x: torch.Tensor, w: torch.Tensor,
     packed = torch.empty(packed_shape(n, m, spec.bits), dtype=torch.int32,
                          device=dev)
     sk = torch.empty(k_eff, m, dtype=sketch_dtype(dt), device=dev)
-    skx_acc = skx = None
-    if sigma_x is not None:
+    skx_acc = skx = w_prep = None
+    bn = 0
+    if sigma_x is None:
+        _tma_ok(x, "x", w, "w", trans)
+        bn = ffn_gemm_route(m, dt)
+        w_prep = _weight_scratch(trans, m, kdim, dt, dev)
+    else:
         _check("sigma_x", sigma_x, dev, (n,), torch.float32)
         skx_acc = torch.empty(k_eff, kdim, dtype=torch.float32, device=dev)
         skx = (skx_acc if sketch_dtype(dt) == torch.float32 else
@@ -439,8 +494,8 @@ def fused_dense_act_sketch(spec, x: torch.Tensor, w: torch.Tensor,
             trans, _ptr(bias), borders.data_ptr(), spec.n_borders,
             sigma.data_ptr(), y.data_ptr(), packed.data_ptr(), sk.data_ptr(),
             _ptr(sigma_x), _ptr(skx_acc),
-            None if skx is skx_acc else skx.data_ptr(), n, kdim, m, k_eff,
-            spec.bits, int(dt == torch.bfloat16))
+            None if skx is skx_acc else skx.data_ptr(), _ptr(w_prep), n, kdim,
+            m, k_eff, spec.bits, bn, int(dt == torch.bfloat16))
     if sigma_x is None:
         fused_dense_act_sketch.launches += 1
         return y, packed, sk
@@ -466,8 +521,13 @@ def fused_matmul_lut_backward(spec, packed: torch.Tensor,
                               k_eff: int):
     """``dz = levels[codes] * (g @ wt)`` with the countsketch of ``dz``
     (``(k_eff, M)``) and ``db = sum_n dz`` in f32.  ``g``: (N, H); ``wt``:
-    the logical (H, M) operand (the down projection's weight transposed).
-    Returns ``(dz, sketch, db)``."""
+    the logical (H, M) operand (the down projection's weight transposed),
+    row-major or the ``.t()`` of a row-major (M, H) tensor.  Returns
+    ``(dz, sketch, db)``.
+
+    On the card the product runs on the tensor cores as kernel 2's does;
+    the model's ``wt`` is the row-major (H, M) parameter, which the
+    prologue transposes (and for f32 splits) into the K-major scratch."""
     if g.device.type == "cpu":
         return matmul_lut_backward_plain(spec, packed, levels, g, wt, sigma,
                                          k_eff)
@@ -485,16 +545,19 @@ def fused_matmul_lut_backward(spec, packed: torch.Tensor,
     _check("packed", packed, dev, packed_shape(n, m, spec.bits), torch.int32)
     _check("levels", levels, dev, (1 << spec.bits,), torch.float32)
     _check("sigma", sigma, dev, (n,), torch.float32)
+    _tma_ok(g, "g", wt, "wt", trans)
+    bn = ffn_gemm_route(m, dt)
+    w_prep = _weight_scratch(trans, m, h, dt, dev)
     dz = torch.empty(n, m, dtype=dt, device=dev)
     sk = torch.empty(k_eff, m, dtype=sketch_dtype(dt), device=dev)
-    db_partial = torch.empty(k_eff // 128, m, dtype=torch.float32,
+    db_partial = torch.empty(k_eff // FG_BM, m, dtype=torch.float32,
                              device=dev)
     db = torch.empty(m, dtype=torch.float32, device=dev)
     _launch("fewbit_matmul_lut_backward", dev, g.data_ptr(), wt.data_ptr(),
             trans, packed.data_ptr(), levels.data_ptr(), spec.bits,
             sigma.data_ptr(), dz.data_ptr(), sk.data_ptr(),
-            db_partial.data_ptr(), db.data_ptr(), n, h, m, k_eff,
-            int(dt == torch.bfloat16))
+            db_partial.data_ptr(), db.data_ptr(), _ptr(w_prep), n, h, m,
+            k_eff, bn, int(dt == torch.bfloat16))
     fused_matmul_lut_backward.launches += 1
     return dz, sk, db
 
@@ -717,7 +780,7 @@ KERNELS = {
     "dense_act_sketch": (
         fused_dense_act_sketch, dense_act_sketch_plain,
         "fewbit_tpu/ops/pallas_kernels.py:687",
-        "fewbit_tpu_torch/csrc/dense_act_sketch.cu"),
+        "fewbit_tpu_torch/csrc/dense_act_sketch.cu"),  # + ffn_gemm.cuh
     "matmul_lut_backward": (
         fused_matmul_lut_backward, matmul_lut_backward_plain,
         "fewbit_tpu/ops/pallas_kernels.py:799",

@@ -170,6 +170,156 @@ def _lut(cuda, bits):
                               device=cuda)
 
 
+def _ffn_inputs(cuda, dtype, n, kdim, m, trans, seed):
+    """The FFN block's operands at (N, K) -> M -> H = K: x, the up weight
+    as the logical (K, M) operand and the down weight as the logical (H, M)
+    operand (each a ``.t()`` view of its row-major transpose when trans,
+    else row-major), the up bias, an (N, H) gradient and signs."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=cuda)
+                * scale).to(dtype)
+
+    x, g = rand(n, kdim), rand(n, kdim)
+    up, down = rand(m, kdim, scale=kdim ** -0.5), rand(m, kdim,
+                                                       scale=m ** -0.5)
+    if not trans:
+        up, down = up.t().contiguous().t(), down.t().contiguous().t()
+    sigma = torch.randint(0, 2, (n,), generator=gen,
+                          device=cuda).float() * 2 - 1
+    return x, g, up.t(), down.t(), rand(m, scale=0.1), sigma
+
+
+def _close(name, a, b, tol):
+    assert a.dtype == b.dtype and a.shape == b.shape, name
+    err = (a.float() - b.float()).abs().max().item()
+    assert err <= tol * max(1.0, b.float().abs().max().item()), (name, err)
+
+
+def _flips_ok(packed, packed0, z0, borders, bits):
+    """Codes differ from the plain version's only within 1e-3 of a border,
+    on at most 1e-4 of the elements (chip_smoke's FLIP_BAND and
+    FLIP_FRACTION)."""
+    n = z0.shape[0]
+    flips = unpack_codes(packed, bits, n) != unpack_codes(packed0, bits, n)
+    assert flips.float().mean().item() <= 1e-4
+    if flips.any():
+        near = (z0[flips][:, None] - borders[None, :]).abs().min(1)[0]
+        assert near.max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 3, 5])
+@pytest.mark.parametrize("passes", [1, 2, 4])
+@pytest.mark.parametrize("trans", [1, 0])
+@pytest.mark.parametrize("kdim", [128, 768, 1024])
+@pytest.mark.parametrize("m", [512, 1536, 3072])
+def test_ffn_kernels_match_plain_on_cuda(cuda, m, kdim, trans, passes, bits,
+                                         dtype):
+    """Kernels 2 and 3 (TMA ring and wgmma) against their plain versions:
+    64-wide (M = 512) and 96-wide tiles, both weight layouts, one to four
+    passes of the stride partition, 1, 3 and 5 (custom LUT) bits; kernel 3
+    decodes kernel 2's own codes."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    n = 2048
+    k_eff = n // passes
+    spec, borders, levels = _lut(cuda, bits)
+    x, g, w_up, wt_down, bias, sigma = _ffn_inputs(cuda, dtype, n, kdim, m,
+                                                   trans, m + kdim + bits)
+    assert K.ffn_gemm_route(m, dtype) == (64 if m == 512 else 96)
+    K.reset_launch_counts()
+    args = (spec, x, w_up, bias, borders, sigma, k_eff)
+    y, packed, sk = K.fused_dense_act_sketch(*args)
+    y0, packed0, sk0 = K.dense_act_sketch_plain(*args)
+    _close("y", y, y0, tol)
+    _close("sketch_y", sk, sk0, tol)
+    assert packed.dtype == packed0.dtype and packed.shape == packed0.shape
+    _flips_ok(packed, packed0, K.dot_f32(x, w_up) + bias.float(), borders,
+              spec.bits)
+    args = (spec, packed, levels, g, wt_down, sigma, k_eff)
+    dz, sk, db = K.fused_matmul_lut_backward(*args)
+    dz0, sk0, db0 = K.matmul_lut_backward_plain(*args)
+    torch.cuda.synchronize()
+    _close("dz", dz, dz0, tol)
+    _close("sketch_dz", sk, sk0, tol)
+    _close("db", db, db0, 1e-3)
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS} | {
+        "dense_act_sketch": 1, "matmul_lut_backward": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_kernels_are_deterministic_on_cuda(cuda, dtype):
+    """Two calls on the same inputs give bitwise-equal y, codes, sketches,
+    dz and db: every sum has one owner and a fixed order."""
+    spec, borders, levels = _lut(cuda, 3)
+    for trans, m in ((1, 3072), (0, 512)):
+        x, g, w_up, wt_down, bias, sigma = _ffn_inputs(cuda, dtype, 8192,
+                                                       768, m, trans, 11)
+        runs = []
+        for _ in range(2):
+            y, packed, sk = K.fused_dense_act_sketch(spec, x, w_up, bias,
+                                                     borders, sigma, 2048)
+            runs.append((y, packed, sk, *K.fused_matmul_lut_backward(
+                spec, packed, levels, g, wt_down, sigma, 2048)))
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_gemm_budget_is_the_kernels(cuda, dtype):
+    """The host sizes the FFN kernels' shared memory as the source lays it
+    out: _ffn_smem and FG_SMEM_LIMIT give what fg_smem gives, and a width
+    that is not built is refused."""
+    from fewbit_tpu_torch.ops._build import load_library
+
+    query = load_library().fewbit_ffn_gemm_smem
+    for bn in K.FG_TILE_N:
+        want = K._ffn_smem(dtype, bn)
+        assert want <= K.FG_SMEM_LIMIT
+        assert query(bn, int(dtype == torch.bfloat16)) == want
+    assert query(128, int(dtype == torch.bfloat16)) == -1
+
+
+@pytest.mark.cuda
+def test_ffn_kernels_refuse_a_misaligned_base_on_cuda(cuda):
+    """TMA reads x, g and a bf16 .t() weight in place: a base off a 16-byte
+    boundary raises, and nothing is launched."""
+    spec, borders, levels = _lut(cuda, 3)
+    n, kdim, m = 512, 128, 512
+    dt = torch.bfloat16
+    x, g, w_up, wt_down, bias, sigma = _ffn_inputs(cuda, dt, n, kdim, m, 1, 0)
+
+    def shifted(t):
+        """The same values, starting 2 bytes past a 16-byte boundary."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 and out.is_contiguous()
+        return out
+
+    _, packed, _ = K.fused_dense_act_sketch(spec, x, w_up, bias, borders,
+                                            sigma, n)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        K.fused_dense_act_sketch(spec, shifted(x), w_up, bias, borders,
+                                 sigma, n)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.fused_dense_act_sketch(spec, x, shifted(w_up.t()).t(), bias,
+                                 borders, sigma, n)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.fused_matmul_lut_backward(spec, packed, levels, shifted(g),
+                                    wt_down, sigma, n)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.fused_matmul_lut_backward(spec, packed, levels, g,
+                                    shifted(wt_down.t()).t(), sigma, n)
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,c,bits", [(1000, 256, 3), (2048, 384, 5)])
