@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's few-bit training steps on one GPU.
+"""Drive the PyTorch port's few-bit training steps, and its megakernel
+experiment, on one GPU.
 
     python3 chip_smoke.py
 
@@ -46,6 +47,19 @@ Phases (any failure raises and exits non-zero; no result is printed):
 7. RoBERTa-base fused few-bit FFN with flash attention and the padded
    batch: 2 f32 steps, each launching kernels 1, 2, 3 and F1-F3 exactly
    96, 12, 12 and 12 each.
+8. The megakernel experiment (``fewbit_tpu_torch.tools.exp_megakernel``) at
+   its own shape, N = 8192, K = 768, M = 3072, 3-bit GELU: the four
+   tensor-core schedules of kernel 6 (k loop with its epilogue ablation,
+   direct, emit, pipelined), the shipped ``fused_dense_act``, the first
+   CUDA-core kernel and the bare matmul, in f32, bf16 -> f32 and bf16, 5
+   calls timed 3 times each; every schedule's launch count is fixed
+   (``EXP_LAUNCHES``).
+
+The kernel phase holds each of the four schedules against the one plain
+version at that shape in every type pair its envelope admits, the k loop's
+ablation too, and the two whose f32 weight panel does not fit at K = 768
+also in f32 at K = 128; and it checks that the shipped kernel 6 is not
+slower than the CUDA-core kernel it replaced.
 
 The kernel phase also holds kernel 2' (kernel 2 with the input sketch,
 which no path runs) against its plain version, and times flash attention
@@ -54,8 +68,9 @@ attention's forward and backward at seq 128 and 1024: the card's own
 crossover for ``flash_attention="auto"``, printed, not acted on.
 
 Every loss must be finite.  Each path's launch counts start at 0 just
-before it.  The line before the last is a JSON object with each kernel's
-launches, error, times and bound; the last line is
+before it.  The experiment's rows are a JSON line of their own; the line
+before the last is a JSON object with each kernel's launches, error, times
+and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``python3 chip_smoke.py --profile PATH`` runs only the device phase and the
@@ -94,6 +109,19 @@ PATHS = {
     "roberta_flash": {"matmul_input_sketch": 96, "dense_act_sketch": 12,
                       "matmul_lut_backward": 12, **FLASH},
 }
+# The megakernel experiment: calls per row (one to size the outputs, two to
+# warm up, 3 timed blocks of EXP_ITERS), and the rows per kernel at its
+# shape: the shipped kernel 6 in f32 and bf16; the k loop with and without
+# its epilogue in the three type pairs; the direct schedule at both panel
+# widths and the emit schedule at the one its envelope admits, in bf16 ->
+# f32 and bf16 (in f32 their panel does not fit: printed, not launched); the
+# pipelined schedule in the three pairs.
+EXP_ITERS, EXP_ROUNDS = 5, 3
+EXP_CALLS = 1 + 2 + EXP_ITERS * EXP_ROUNDS
+EXP_LAUNCHES = {"dense_act": 2 * EXP_CALLS, "dense_act_kloop": 6 * EXP_CALLS,
+                "dense_act_direct": 4 * EXP_CALLS,
+                "dense_act_emit": 2 * EXP_CALLS,
+                "dense_act_pipelined": 3 * EXP_CALLS}
 # Kernel 2' has no path: the JAX package's fewbit_ffn never passes sigma_x
 # (fewbit_tpu/functional/ffn.py:142-148), nor does the port's.  It is held
 # against its plain version in the kernel phase only.
@@ -109,15 +137,6 @@ TOL_SUM = 1e-3
 # Codes may differ only where the plain z lies within this distance of a
 # border, and on at most this fraction of the elements.
 FLIP_BAND, FLIP_FRACTION = 1e-3, 1e-4
-
-
-# The card's published peaks (NVIDIA H100 SXM data sheet, dense): bytes per
-# second of device memory, and operations per second by operand type.  f32
-# products run as three TF32 products (the port's f32 policy), so their
-# rate is a third of the TF32 peak; elementwise kernels run on the CUDA
-# cores.
-PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 495e12 / 3, "simt": 67e12}
 
 
 def log(*args):
@@ -138,11 +157,13 @@ def tensor_bytes(*objs):
 
 def bound(ops, rate, nbytes):
     """The least milliseconds the card could take: the larger of ``ops``
-    at the peak rate ``PEAK_OPS[rate]`` and ``nbytes`` at the memory rate.
-    Returns the keys of a case."""
-    by_ops, by_bytes = ops / PEAK_OPS[rate] * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"ops": ops, "bytes": nbytes, "bound_ms": max(by_ops, by_bytes),
-            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+    at the card's peak rate for ``rate`` and ``nbytes`` at its memory rate
+    (the published peaks, ``fewbit_tpu_torch.tools.timing``).  Returns the
+    keys of a case."""
+    from fewbit_tpu_torch.tools.timing import bound_ms
+
+    ms, by = bound_ms(ops, rate, nbytes)
+    return {"ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by}
 
 
 def gemm_rate(dt):
@@ -289,6 +310,68 @@ def _ffn_case(results, name, mode, tag, wrapper, plain, args, errs, a, w):
                "TMA ring + wgmma",
                f"{K.FG_BM}x{K.ffn_gemm_route(m, a.dtype)}", 2 * n * kdim * m,
                a, w)
+
+
+def _schedule_cases(results, spec, borders, x, up_w, up_b, z0):
+    """The four tensor-core schedules of kernel 6 on the up projection
+    (x, the (out, in) weight through .t(), the bias; ``z0`` the plain
+    pre-activation), in every type pair that x's type admits, each against
+    the one plain version.  Where a schedule's envelope refuses the shape
+    (the resident f32 panel at K = 768) it is held at K = 128 instead, and
+    that case is marked as not the path's shape."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    dt = x.dtype
+    wrappers = {"dense_act_kloop": K.dense_act_kloop,
+                "dense_act_direct": K.dense_act_direct,
+                "dense_act_emit": K.dense_act_emit,
+                "dense_act_pipelined": K.dense_act_pipelined}
+    routes = {"dense_act_direct": K.dense_act_direct_route,
+              "dense_act_emit": K.dense_act_emit_route}
+    outs = [dt] if dt == torch.float32 else [torch.float32, dt]
+    for name, wrapper in wrappers.items():
+        for out_dt in outs:
+            tag = ("f32" if dt == torch.float32 else
+                   "bf16" if out_dt == dt else "bf16->f32")
+            a, w, z, mode, path_shape = x, up_w.t(), z0, "forward", True
+            if name in routes and routes[name](HIDDEN, FFN, dt,
+                                               out_dt) is None:
+                a = x[:, :128].contiguous()
+                w = up_w[:, :128].contiguous().t()
+                z = K.dot_f32(a, w) + up_b.float()
+                mode = (f"forward at K = 128 (the panel of K = {HIDDEN} is "
+                        f"outside the envelope)")
+                path_shape = False
+            args = (spec, a, w, up_b, borders, out_dt)
+            y, packed = wrapper(*args)
+            y0, packed0 = K.dense_act_plain(*args)
+            flop = 2 * a.shape[0] * a.shape[1] * FFN
+            errs = {"y": compare(f"{name} {tag} y", y, y0, TOL[out_dt]),
+                    "code_flips": code_flips(f"{name} {tag}", packed,
+                                             packed0, z, borders, spec.bits)}
+            results[name].append({
+                "mode": mode, "dtype": tag, "errors": errs,
+                "path_shape": path_shape,
+                "ms": cuda_ms(lambda: wrapper(*args)),
+                "plain_ms": cuda_ms(lambda: K.dense_act_plain(*args)),
+                **bound(flop, gemm_rate(dt), tensor_bytes(args, y, packed)),
+                "library_ms": None})
+            if name != "dense_act_kloop":
+                continue
+            # The k loop's ablation: z and one plane of zero words.
+            z_got, zero = wrapper(*args, epilogue=False)
+            z_want, zero0 = K.dense_act_plain(*args, epilogue=False)
+            if not torch.equal(zero, zero0):
+                raise AssertionError(f"{name} {tag}: ablation words not 0")
+            results[name].append({
+                "mode": "forward, no epilogue", "dtype": tag,
+                "errors": {"z": compare(f"{name} {tag} z", z_got, z_want,
+                                        TOL[out_dt])},
+                "ms": cuda_ms(lambda: wrapper(*args, epilogue=False)),
+                "plain_ms": cuda_ms(lambda: K.dense_act_plain(
+                    *args, epilogue=False)),
+                **bound(flop, gemm_rate(dt), tensor_bytes(args, z_got, zero)),
+                "library_ms": None})
 
 
 def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
@@ -465,12 +548,21 @@ def phase_kernels():
         errs = {"y": compare(f"k6 {tag} y", y, y0, tol),
                 "code_flips": code_flips(f"k6 {tag}", packed6, packed0, z0,
                                          borders, spec.bits)}
-        results["dense_act"].append({
-            "mode": "forward", "dtype": tag, "errors": errs,
+        case = {
+            "mode": f"forward, the {K.dense_act_schedule(N, FFN, dt)} "
+                    f"schedule", "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_dense_act(*args)),
             "plain_ms": cuda_ms(lambda: K.dense_act_plain(*args)),
+            # The CUDA-core kernel it replaced, same inputs, same call.
+            "simt_ms": cuda_ms(lambda: K.dense_act_simt(*args)),
             **bound(ffn_flop, gemm_rate(dt), tensor_bytes(args, y, packed6)),
-            "library_ms": None})
+            "library_ms": None}
+        if not case["ms"] <= case["simt_ms"]:
+            raise AssertionError(f"k6 {tag}: the shipped kernel takes "
+                                 f"{case['ms']} ms, the CUDA-core kernel "
+                                 f"{case['simt_ms']} ms")
+        results["dense_act"].append(case)
+        _schedule_cases(results, spec, borders, x, up_w, up_b, z0)
 
         # Kernel 4: the RoBERTa unfused FFN's GELU on the (N, FFN)
         # pre-activation.  Its codes are the plain version's exactly: the
@@ -526,6 +618,9 @@ def phase_kernels():
             if c["library_ms"] is not None:
                 extra += (f"; library {c['library_ms']:.3f} ms "
                           f"({c['library']})")
+            if "simt_ms" in c:
+                extra += (f"; the CUDA-core kernel it replaced "
+                          f"{c['simt_ms']:.3f} ms")
             if "route" in c:
                 extra += (f"; {c['route']}, tile {c['tile']}; device "
                           f"{c['device_ms']:.4f} ms ({c['tflops']:.1f} "
@@ -741,6 +836,9 @@ KERNEL_GROUPS = {
     "kernel_1": ("matmul_sketch_kernel", "input_sketch_kernel"),
     "kernel_2": ("dense_act_sketch",),
     "kernel_3": ("matmul_lut_bwd",),
+    "kernel_6": ("dense_act_kernel", "dense_act_kloop", "dense_act_resident",
+                 "dense_act_pipelined"),
+    "kernel_5": ("act_backward_kernel",),
     "weight_prologue": ("prep_weight_kernel",),
     "column_partials": ("sum_partials_kernel",),
     "flash": ("flash_",),
@@ -800,7 +898,7 @@ def phase_path(path):
     out = {"f32_losses": losses,
            **_vanilla_vs_fewbit(path, {"vanilla": vstep, "fewbit": step},
                                 batches, gen, turns=2)}
-    if path == "roberta_fused_ffn":
+    if path in ("roberta_fused_ffn", "gpt2_small_flash"):
         out["profile"] = profiled_steps(path, step, batches, gen)
     del model, step, vmodel, vstep
     torch.cuda.empty_cache()
@@ -841,6 +939,38 @@ def phase_steps(path):
     return {"f32_losses": losses}, counts
 
 
+def phase_exp_megakernel():
+    """The megakernel experiment through its entry point, at its own shape:
+    every schedule's count starts at 0 just before it, is read just after
+    and must be EXP_LAUNCHES'.  Returns (rows, counts)."""
+    from fewbit_tpu_torch.ops import kernels as K
+    from fewbit_tpu_torch.tools import exp_megakernel
+
+    K.reset_launch_counts()
+    rows = exp_megakernel.main(["--iters", str(EXP_ITERS), "--rounds",
+                                str(EXP_ROUNDS)])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    expected = {name: EXP_LAUNCHES.get(name, 0) for name in K.KERNELS}
+    if counts != expected:
+        raise AssertionError(f"exp_megakernel: launches {counts}, expected "
+                             f"{expected}")
+    by_row = {}
+    for row in rows:
+        if row["status"] == "ok" and row["kernel"] in K.KERNELS:
+            if not (np.isfinite(row["ms"]) and row["ms"] > 0):
+                raise AssertionError(f"exp_megakernel: {row}")
+            by_row[row["kernel"]] = by_row.get(row["kernel"], 0) + row["calls"]
+    if by_row != EXP_LAUNCHES:
+        raise AssertionError(f"exp_megakernel: rows call {by_row}, expected "
+                             f"{EXP_LAUNCHES}")
+    refused = [r["name"] for r in rows if r["status"] != "ok"]
+    if refused != ["direct f32", "emit f32"]:
+        raise AssertionError(f"exp_megakernel: outside the envelope: "
+                             f"{refused}")
+    return rows, counts
+
+
 def main():
     smi = phase_device()
     if sys.argv[1:2] == ["--profile"]:
@@ -857,6 +987,7 @@ def main():
                       ("gpt2_small_flash", phase_path),
                       ("roberta_flash", phase_steps)):
         train[path], counts[path] = run(path)
+    exp_rows, counts["exp_megakernel"] = phase_exp_megakernel()
     from fewbit_tpu_torch.ops import kernels as K
 
     kernels = []
@@ -865,18 +996,21 @@ def main():
         by_path = {path: c[name] for path, c in counts.items() if c[name]}
         if not by_path and name not in NO_PATH:
             raise AssertionError(f"kernel {name}: no path launched it")
-        first = cases[0]
+        first = next(c for c in cases if c.get("path_shape", True))
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(v for c in cases if c["dtype"] == "f32"
+            # Over the cases whose outputs are f32.
+            "max_abs_err": max(v for c in cases
+                               if c["dtype"] in ("f32", "bf16->f32")
                                for k, v in c["errors"].items()
                                if k != "code_flips"),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "cases": cases})
     log(json.dumps({"train": train, "crossover": crossover, "card": smi}))
+    log(json.dumps({"exp_megakernel": exp_rows, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

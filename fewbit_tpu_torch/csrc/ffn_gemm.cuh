@@ -1,7 +1,10 @@
 // The mainloop that the few-bit FFN's forward (dense_act_sketch.cu) and
 // backward (matmul_lut_backward.cu) share: acc = A @ B for one 128 x BN tile
 // per pass, on the tensor cores, fed by TMA.  Each kernel adds its own
-// epilogue on the accumulator fragment.
+// epilogue on the accumulator fragment.  The schedules of the fused dense +
+// activation kernel (dense_act.cu, dense_act_direct.cu,
+// dense_act_pipelined.cu) take its consumer pass and its host side, with
+// ring layouts of their own where theirs differ.
 //
 // - A block owns 128 buckets x BN columns and loops over the N / k_eff
 //   passes itself: rows c k_eff + bucket0 + [0, 128) of every pass c fall in
@@ -156,12 +159,19 @@ struct FgThread {
 // One pass of a consumer thread: acc = the thread's fragment of A @ B over
 // all k tiles, taken from the ring at (st, ph), which it advances.  Every
 // stage is handed back to the producer by the end.
-template <typename T, int BN>
+//
+// The ring is any layout with FgSmem's members and constants (ring_a,
+// ring_b, full, empty; PARTS, A_BYTES, B_BYTES).  With `panel`, B is not in
+// the ring: k tile kt of it (its PARTS tiles of B_BYTES) stays at
+// panel + kt PARTS B_BYTES, loaded once by the caller, and a stage holds A
+// alone.  th.wg selects the warpgroup's 64 rows of the stage's A tile (0
+// where the tile has only 64).
+template <typename T, int BN, typename Smem>
 __device__ __forceinline__ void fg_consume_pass(
-    float (&acc)[BN / 2], const FgSmem<T, BN>& s, const FgThread& th,
-    int k_tiles, int& st, uint32_t& ph) {
+    float (&acc)[BN / 2], const Smem& s, const FgThread& th, int k_tiles,
+    int& st, uint32_t& ph, const uint8_t* panel = nullptr) {
   using namespace hopper;
-  using S = FgSmem<T, BN>;
+  using S = Smem;
   // f32: A's TF32 fragments of the two halves of a k tile (k 0..15 and
   // 16..31), each half in registers of its own, so one half's wgmma can run
   // while the other's fragments are loaded.
@@ -201,7 +211,8 @@ __device__ __forceinline__ void fg_consume_pass(
     const uint8_t* tile_a = s.ring_a + st * S::A_BYTES;
     const uint32_t a_addr = smem_u32(tile_a) + 64 * th.wg * ROW_BYTES;
     const uint32_t b_addr =
-        smem_u32(s.ring_b + st * S::PARTS * S::B_BYTES);
+        smem_u32(panel != nullptr ? panel + kt * S::PARTS * S::B_BYTES
+                                  : s.ring_b + st * S::PARTS * S::B_BYTES);
     if constexpr (S::PARTS == 2) load_split(tile_a, 0, hi0, lo0);
     fence_operands(acc);
     wgmma_fence();  // after the register writes the wgmma reads
@@ -252,6 +263,36 @@ __device__ __forceinline__ void fg_consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(FG_CONSUMERS) : "memory");
 }
 
+// Host side: the operands without fg_operands' conditions on the rows: any
+// n >= 1 (TMA fills the rows of a box past n with zeros), A read in boxes
+// of a_rows rows, bn 64 or 96.  Arguments, the scratch and the return value
+// are fg_operands'.
+template <typename T>
+int fg_operands_any_rows(const void* a, int a_rows, const void* w, int w_trans,
+                         void* w_prep, int n, int kdim, int m, int bn,
+                         CUtensorMap* map_a, CUtensorMap* map_b,
+                         CUtensorMap* map_b_lo, cudaStream_t st) {
+  constexpr int PARTS = Operand<T>::PARTS;
+  const bool bf16 = sizeof(T) == 2;
+  if ((bn != 64 && bn != 96) || m <= 0 || m % bn || kdim <= 0 ||
+      kdim % 128 || n <= 0)
+    return -1;
+  const bool prep = PARTS == 2 || !w_trans;
+  if (prep && w_prep == nullptr) return -1;
+  T* hi = prep ? static_cast<T*>(w_prep) : nullptr;
+  T* lo = PARTS == 2 ? hi + (size_t)m * kdim : nullptr;
+  const void* b_hi = prep ? static_cast<const void*>(hi) : w;
+  const void* b_lo = lo != nullptr ? static_cast<const void*>(lo) : b_hi;
+  if (!hopper::make_tile_map(map_a, a, bf16, n, kdim, a_rows) ||
+      !hopper::make_tile_map(map_b, b_hi, bf16, m, kdim, bn) ||
+      !hopper::make_tile_map(map_b_lo, b_lo, bf16, m, kdim, bn))
+    return -2;
+  if (prep)
+    prep_weight_kernel<T><<<dim3(kdim / 32, m / 32), dim3(32, 8), 0, st>>>(
+        static_cast<const T*>(w), w_trans, kdim, m, hi, lo);
+  return 0;
+}
+
 // Host side: the operands as the mainloop reads them.  A (n, kdim) row-major
 // at `a`; B the logical (kdim, m) weight at `w` (stored (m, kdim) when
 // w_trans), written K-major into w_prep by prep_weight_kernel on `st` unless
@@ -263,25 +304,11 @@ template <typename T>
 int fg_operands(const void* a, const void* w, int w_trans, void* w_prep, int n,
                 int kdim, int m, int k_eff, int bn, CUtensorMap* map_a,
                 CUtensorMap* map_b, CUtensorMap* map_b_lo, cudaStream_t st) {
-  constexpr int PARTS = Operand<T>::PARTS;
-  const bool bf16 = sizeof(T) == 2;
-  if (fg_smem_or_refuse<T>(bn) < 0 || m % bn || kdim % 128 || n % FG_BM ||
-      k_eff % FG_BM || k_eff <= 0 || n % k_eff)
+  if (fg_smem_or_refuse<T>(bn) < 0 || n % FG_BM || k_eff % FG_BM ||
+      k_eff <= 0 || n % k_eff)
     return -1;
-  const bool prep = PARTS == 2 || !w_trans;
-  if (prep && w_prep == nullptr) return -1;
-  T* hi = prep ? static_cast<T*>(w_prep) : nullptr;
-  T* lo = PARTS == 2 ? hi + (size_t)m * kdim : nullptr;
-  const void* b_hi = prep ? static_cast<const void*>(hi) : w;
-  const void* b_lo = lo != nullptr ? static_cast<const void*>(lo) : b_hi;
-  if (!hopper::make_tile_map(map_a, a, bf16, n, kdim, FG_BM) ||
-      !hopper::make_tile_map(map_b, b_hi, bf16, m, kdim, bn) ||
-      !hopper::make_tile_map(map_b_lo, b_lo, bf16, m, kdim, bn))
-    return -2;
-  if (prep)
-    prep_weight_kernel<T><<<dim3(kdim / 32, m / 32), dim3(32, 8), 0, st>>>(
-        static_cast<const T*>(w), w_trans, kdim, m, hi, lo);
-  return 0;
+  return fg_operands_any_rows<T>(a, FG_BM, w, w_trans, w_prep, n, kdim, m, bn,
+                                 map_a, map_b, map_b_lo, st);
 }
 
 // Lets `kernel` take the whole shared-memory limit, once per device;

@@ -1,7 +1,8 @@
 // Reusable Hopper (sm_90a) building blocks for GEMM kernels written by hand:
 // TMA tensor maps (encoded on the host), the mbarrier ring that a producer
-// warp and consumer warpgroups share, shared-memory matrix descriptors for
-// the 128-byte swizzle, wgmma wrappers (bf16 with both operands in shared
+// warp and consumer warpgroups share, TMA bulk stores of a staged output
+// tile, named barriers between warpgroups, shared-memory matrix descriptors
+// for the 128-byte swizzle, wgmma wrappers (bf16 with both operands in shared
 // memory; tf32 with A in registers), and the round-to-nearest TF32 split.
 //
 // Layout convention: every operand tile is K-major with rows of exactly 128
@@ -98,6 +99,52 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Writes the dense (unswizzled) box at shared address `src` to `map` at
+// (c0 along the inner dimension, c1 along the outer), as part of the
+// thread's current bulk group.  Whatever lies past the tensor's edge is
+// dropped.  The writes to `src` must have passed fence_proxy_async and a
+// barrier with the issuing thread.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2}], [%3];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until at most `pending` of the thread's bulk groups still read
+// their shared-memory source (the source may then be written again).
+template <int pending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(pending) : "memory");
+}
+
+// Waits until at most `pending` of the thread's bulk groups are incomplete.
+template <int pending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(pending) : "memory");
+}
+
+// Orders a thread's shared-memory writes before a later TMA store's read.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Named barrier `id` (1..15) over `threads` threads: sync waits for them
+// all, arrive counts the caller in and goes on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // cuTensorMapEncodeTiled is a driver-API function; it is fetched through
 // the runtime's entry-point query, so the library links against nothing but
 // the CUDA runtime.  Returns nullptr when the driver does not offer it.
@@ -146,6 +193,28 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, bool bf16,
                 2, const_cast<void*>(base), dims, strides, box, estrides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map of the same matrix whose boxes are dense (box_rows, box_cols) tiles
+// without swizzle: the target of tma_store_2d.  box_cols * elem_bytes must
+// be a multiple of 16.
+inline bool make_plain_map(CUtensorMap* map, const void* base, bool bf16,
+                           uint64_t rows, uint64_t cols, uint32_t box_rows,
+                           uint32_t box_cols) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const uint32_t elem = bf16 ? 2 : 4;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t estrides[2] = {1, 1};
+  return encode(map,
+                bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                2, const_cast<void*>(base), dims, strides, box, estrides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

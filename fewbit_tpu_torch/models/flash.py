@@ -9,9 +9,12 @@ of the backend ``"tpu"``:
   versions on the CPU (the JAX package keeps its standard path off the TPU;
   the port runs the flash op everywhere, so the CPU tests reach it);
 * ``"auto"`` -- on a CUDA device only, at ``seq_len >= FLASH_AUTO_MIN_SEQ``,
-  where :func:`auto_blocks` finds a 128-aligned block, and where no
-  attention dropout would be applied (``attention_dropout == 0`` or a
-  ``deterministic`` call).
+  where :func:`auto_blocks` finds a 128-aligned block, where no attention
+  dropout would be applied (``attention_dropout == 0`` or a
+  ``deterministic`` call), and where the head dimension is one the flash
+  kernels take (``FLASH_HEAD_DIM``): outside their envelope ``"auto"``
+  keeps the standard attention, and only ``True`` reaches a kernel that
+  refuses the call.
 
 The threshold of 1024 and the 128-alignment rule are the JAX package's TPU
 findings, kept as written so that the port takes the reference's paths;
@@ -26,6 +29,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from fewbit_tpu_torch.ops.kernels import FLASH_HEAD_DIM
 
 __all__ = ("FLASH_AUTO_MIN_SEQ", "validate_flash_setting",
            "validate_flash_config", "auto_blocks", "use_flash")
@@ -66,8 +71,10 @@ def auto_blocks(seq_len: int) -> Optional[Tuple[int, int]]:
 
 
 def use_flash(setting, seq_len: int, attention_dropout: float, device,
-              deterministic: bool = False) -> bool:
-    """Resolve a ``flash_attention`` setting for one call on ``device``."""
+              deterministic: bool = False,
+              head_dim: Optional[int] = None) -> bool:
+    """Resolve a ``flash_attention`` setting for one call on ``device``.
+    ``head_dim`` is the model's head dimension (None: not checked)."""
     validate_flash_setting(setting)
     if setting is False or setting is None:
         return False
@@ -76,5 +83,6 @@ def use_flash(setting, seq_len: int, attention_dropout: float, device,
     if torch.device(device).type != "cuda":
         return False
     return ((deterministic or attention_dropout == 0.0)
+            and head_dim in (None, FLASH_HEAD_DIM)
             and seq_len >= FLASH_AUTO_MIN_SEQ
             and auto_blocks(seq_len) is not None)

@@ -19,8 +19,9 @@ attention mask, or the standard masked softmax.  ``flash_blocks`` is
 accepted for parity with the JAX config and not read: the CUDA kernels
 choose their own tiles.
 
-Not ported: tensor parallelism (``tp_axis``/``tp_size``, ROADMAP queue 1
-item 13) and ``scan_layers``.
+``scan_layers`` is accepted and has no effect (the layers are a Python
+loop); ``tp_axis``/``tp_size`` are accepted and raise unless ``None``/1:
+tensor parallelism is not ported (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from fewbit_tpu_torch.models.flash import use_flash, validate_flash_config
 from fewbit_tpu_torch.models.roberta import (LayerNorm, _dense, _dense_pairs,
                                              _flash_context,
                                              _fused_dense_gelu, _index,
-                                             _norm_pairs, dropout)
+                                             _norm_pairs, dropout,
+                                             validate_tp_config)
 
 __all__ = ("GPTConfig", "GPTModel", "GPTForCausalLM")
 
@@ -62,8 +64,16 @@ class GPTConfig:
     flash_blocks: Optional[Tuple[int, int]] = None
     tie_lm_head: bool = True
 
+    # The port loops over the layers in Python either way: accepted, no
+    # effect (load_flax_params reads stacked and per-layer trees alike).
+    scan_layers: bool = True
+    # Tensor parallelism is not ported (ROADMAP queue 1 item 13).
+    tp_axis: Optional[str] = None
+    tp_size: int = 1
+
     def __post_init__(self):
         validate_flash_config(self)
+        validate_tp_config(self)
 
     @property
     def head_dim(self) -> int:
@@ -94,7 +104,7 @@ class GPTSelfAttention(nn.Module):
         v = split(self.value(x, sketch_generator))
         scale = cfg.head_dim ** -0.5
         if use_flash(cfg.flash_attention, s, cfg.attention_dropout, x.device,
-                     deterministic):
+                     deterministic, cfg.head_dim):
             ctx = _flash_context(q, k, v, attention_mask, True, scale)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)

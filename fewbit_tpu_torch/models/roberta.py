@@ -1,6 +1,7 @@
 """RoBERTa-base with the few-bit training path, as
 ``fewbit_tpu/models/roberta.py`` (post-LN layers, a Python loop over the
-layers; no tensor parallelism or scan).
+layers whatever ``scan_layers`` says; ``tp_axis``/``tp_size`` are accepted
+and raise unless ``None``/1: tensor parallelism is not ported).
 
 ``flash_attention`` chooses the attention op per call
 (:func:`fewbit_tpu_torch.models.flash.use_flash`): the non-causal flash op
@@ -50,6 +51,15 @@ __all__ = ("RobertaConfig", "RobertaModel",
            "flax_param_pairs", "dropout")
 
 
+def validate_tp_config(cfg) -> None:
+    """The model configs' check of the tensor-parallel fields: accepted as
+    the JAX configs define them, not ported."""
+    if cfg.tp_axis is not None or cfg.tp_size != 1:
+        raise NotImplementedError(
+            f"tensor parallelism (tp_axis={cfg.tp_axis!r}, "
+            f"tp_size={cfg.tp_size}) is not ported: ROADMAP queue 1 item 13")
+
+
 @dataclasses.dataclass(frozen=True)
 class RobertaConfig:
     vocab_size: int = 50265
@@ -74,8 +84,16 @@ class RobertaConfig:
     # (block_q, block_kv) of the TPU kernel: accepted, not read.
     flash_blocks: Optional[Tuple[int, int]] = None
 
+    # The port loops over the layers in Python either way: accepted, no
+    # effect (load_flax_params reads stacked and per-layer trees alike).
+    scan_layers: bool = True
+    # Tensor parallelism is not ported (ROADMAP queue 1 item 13).
+    tp_axis: Optional[str] = None
+    tp_size: int = 1
+
     def __post_init__(self):
         validate_flash_config(self)
+        validate_tp_config(self)
 
     @property
     def head_dim(self) -> int:
@@ -231,7 +249,7 @@ class RobertaSelfAttention(nn.Module):
         v = split(self.value(x, sketch_generator))
         scale = cfg.head_dim ** -0.5
         if use_flash(cfg.flash_attention, s, cfg.attention_dropout, x.device,
-                     deterministic):
+                     deterministic, cfg.head_dim):
             ctx = _flash_context(q, k, v, attention_mask, False, scale)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)

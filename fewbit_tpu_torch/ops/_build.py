@@ -29,6 +29,10 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The tensor-core schedules of kernel 6 but the k loop, which has one more
+# int (its epilogue switch).
+_DENSE_ACT = (_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+              _I, _P)
 # name -> argument types, in the order of each extern "C" signature.
 SIGNATURES = {
     "fewbit_matmul_input_sketch": (
@@ -44,8 +48,16 @@ SIGNATURES = {
         _I, _P),
     "fewbit_act_forward": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
     "fewbit_act_backward": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
-    "fewbit_dense_act": (
+    "fewbit_dense_act_simt": (
         _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fewbit_dense_act_kloop": (
+        _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _I, _P),
+    "fewbit_dense_act_direct": _DENSE_ACT,
+    "fewbit_dense_act_emit": _DENSE_ACT,
+    "fewbit_dense_act_pipelined": _DENSE_ACT,
+    "fewbit_dense_act_resident_smem": (_I, _I, _I, _I, _I),
+    "fewbit_dense_act_pipelined_smem": (_I, _I),
     "fewbit_flash_forward": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "fewbit_flash_backward_dkv": (

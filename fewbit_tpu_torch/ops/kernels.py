@@ -13,8 +13,8 @@ functional` decide, from shapes alone, whether a call is inside the
 envelope, exactly where the JAX package decides between its Pallas and jnp
 paths.
 
-Numerics: the kernels multiply f32 operands in f32 (kernels 1, 2 and 3 as
-three TF32 products on the tensor cores, hi hi + hi lo + lo hi, which keep
+Numerics: the kernels multiply f32 operands in f32 (kernels 1, 2, 3 and 6
+as three TF32 products on the tensor cores, hi hi + hi lo + lo hi, which keep
 f32 accuracy) and bf16 operands with f32 accumulation, and every sketch
 accumulates in f32 and is stored in :func:`sketch_dtype`.  The plain
 versions compute the same function: the product of the f32-widened
@@ -40,7 +40,12 @@ __all__ = ("FFN_BN", "FFN_BM", "ACT_IDS", "sketch_dtype",
            "countsketch_aligned_keff", "countsketch_signed",
            "matmul_sketch_keff", "matmul_sketch_route", "ffn_gemm_route",
            "act_kernel_ok",
-           "dense_act_ok",
+           "dense_act_ok", "DENSE_ACT_SCHEDULES", "dense_act_kloop_route",
+           "dense_act_direct_route", "dense_act_emit_route",
+           "dense_act_pipelined_route", "dense_act_schedule",
+           "PIPELINED_MIN_TILES",
+           "dense_act_kloop", "dense_act_direct", "dense_act_emit",
+           "dense_act_pipelined", "dense_act_simt",
            "fused_matmul_input_sketch", "fused_dense_act_sketch",
            "fused_dense_act_sketch_x", "fused_matmul_lut_backward",
            "fused_forward", "fused_backward", "fused_dense_act",
@@ -201,6 +206,115 @@ def dense_act_ok(spec, kdim: int, m: int, dtype) -> bool:
             and _act_spec_in(spec))
 
 
+# Kernel 6 on the tensor cores: four schedules of one function
+# (csrc/dense_act.cu, dense_act_direct.cu, dense_act_pipelined.cu), the
+# counterparts of the four variants of the JAX package's
+# tools/exp_megakernel.py.  Each takes any N, K and M multiples of 128 and
+# the tile widths of FG_TILE_N; the direct and the emit schedule also need
+# their weight panel to fit in shared memory.
+DENSE_ACT_SCHEDULES = ("kloop", "direct", "emit", "pipelined")
+PP_BM = 64  # rows of a tile of the pipelined schedule: one warpgroup's
+
+
+def _out_dtype_ok(dtype, out_dtype) -> bool:
+    """The type pairs of kernel 6's schedules: f32 -> f32, bf16 -> bf16 and
+    bf16 -> f32."""
+    return (dtype in _DTYPES and out_dtype in _DTYPES
+            and (out_dtype == dtype or dtype == torch.bfloat16))
+
+
+def _dense_act_resident_smem(dtype, out_dtype, kdim: int, bn: int,
+                             tma_store: bool) -> int:
+    """Dynamic shared memory of a block of the direct and the emit
+    schedule, as ``da_resident_smem`` in the source: the ring of x tiles,
+    the K x bn weight panel (f32: its two TF32 halves), with ``tma_store``
+    the two staged tiles of y, the table, the barriers and 1024 bytes of
+    alignment slack."""
+    parts, elem = (2, 4) if dtype == torch.float32 else (1, 2)
+    out = 4 if out_dtype == torch.float32 else 2
+    return (FG_STAGES * FG_BM * 128 + parts * bn * kdim * elem
+            + (2 * FG_BM * bn * out if tma_store else 0) + 64 * 4
+            + (2 * FG_STAGES + 1) * 8 + 1024)
+
+
+def _dense_act_pipelined_smem(dtype, bn: int) -> int:
+    """Dynamic shared memory of a block of the pipelined schedule, as
+    ``pp_smem`` in the source: the ring (64 rows of x and bn of w, for f32
+    twice), the table, the barriers and the alignment slack."""
+    parts = 2 if dtype == torch.float32 else 1
+    return (FG_STAGES * (PP_BM + parts * bn) * 128 + 64 * 4
+            + 2 * FG_STAGES * 8 + 1024)
+
+
+def dense_act_kloop_route(m: int, dtype) -> int:
+    """The k loop's tile width: kernel 2's (:func:`ffn_gemm_route`), 96
+    where it divides M, else 64, which divides every M of kernel 6's
+    envelope."""
+    return ffn_gemm_route(m, dtype)
+
+
+def _resident_route(kdim: int, m: int, dtype, out_dtype,
+                    tma_store: bool) -> Optional[int]:
+    out_dtype = dtype if out_dtype is None else out_dtype
+    if not _out_dtype_ok(dtype, out_dtype) or kdim > 16384:
+        return None
+    for bn in FG_TILE_N:
+        if (m % bn == 0 and _dense_act_resident_smem(
+                dtype, out_dtype, kdim, bn, tma_store) <= FG_SMEM_LIMIT):
+            return bn
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def dense_act_direct_route(kdim: int, m: int, dtype,
+                           out_dtype=None) -> Optional[int]:
+    """Envelope of the direct schedule inside kernel 6's: the widest tile
+    width that divides M and whose K x bn weight panel fits in shared
+    memory beside the ring, or None where none does (f32, whose panel has
+    two halves, from K = 512 on).  A function of shapes and types alone,
+    never of a failed launch."""
+    return _resident_route(kdim, m, dtype, out_dtype, False)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_act_emit_route(kdim: int, m: int, dtype,
+                         out_dtype=None) -> Optional[int]:
+    """Envelope of the emit schedule: as :func:`dense_act_direct_route`,
+    with the two staged tiles of y beside the panel."""
+    return _resident_route(kdim, m, dtype, out_dtype, True)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_act_pipelined_route(m: int, dtype) -> int:
+    """The pipelined schedule's tile width: 96 where it divides M, else
+    64; its block fits at either."""
+    for bn in FG_TILE_N:
+        if m % bn == 0 and _dense_act_pipelined_smem(dtype,
+                                                     bn) <= FG_SMEM_LIMIT:
+            return bn
+    raise ValueError(f"M={m}: no tile width of {FG_TILE_N} divides it")
+
+
+# From this many 64 x bn tiles on, some 15 per SM of an H100, the pipelined
+# schedule beats the k loop in bf16 by 4-8% (8192 x 768 -> 3072: 0.245
+# against 0.262 ms on an H100 SXM at 700 W); below it the two are level.
+PIPELINED_MIN_TILES = 2048
+
+
+def dense_act_schedule(n: int, m: int, dtype) -> str:
+    """The schedule :func:`fused_dense_act` launches for a call inside
+    :func:`dense_act_ok`, a rule of shapes and dtype alone: the fastest of
+    the two that take the whole envelope, as measured on the H100.  The k
+    loop, except for bf16 calls of at least ``PIPELINED_MIN_TILES`` tiles,
+    where hiding the epilogue (half of the k loop's time in bf16) pays for
+    the pipelined schedule's narrower tiles; in f32 it does not."""
+    if dtype == torch.bfloat16:
+        bn = dense_act_pipelined_route(m, dtype)
+        if _cdiv(n, PP_BM) * (m // bn) >= PIPELINED_MIN_TILES:
+            return "pipelined"
+    return "kloop"
+
+
 # ---------------------------------------------------------------------------
 # Plain versions.
 # ---------------------------------------------------------------------------
@@ -281,12 +395,21 @@ def act_backward_plain(spec, packed, levels, g):
     return (apply_lut(codes, levels, spec.bits) * g.float()).to(g.dtype)
 
 
-def dense_act_plain(spec, x, w, bias, borders):
+def dense_act_plain(spec, x, w, bias, borders, out_dtype=None,
+                    epilogue: bool = True):
+    """The plain version of kernel 6 and of all four of its schedules.
+    ``out_dtype``: y's type (x's unless given).  Without ``epilogue``, the
+    ablation: ``(z, zero words of one plane)``."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
     z = dot_f32(x, w)
     if bias is not None:
         z = z + bias.float()
+    if not epilogue:
+        return z.to(out_dtype), torch.zeros(
+            packed_shape(x.shape[0], w.shape[1], 1), dtype=torch.int32,
+            device=x.device)
     packed = pack_codes(spec.codes(z, borders, spec.args), spec.bits)
-    return spec.fwd(z, spec.args).to(x.dtype), packed
+    return spec.fwd(z, spec.args).to(out_dtype), packed
 
 
 # ---------------------------------------------------------------------------
@@ -628,19 +751,15 @@ def fused_backward(spec, packed: torch.Tensor, levels: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def fused_dense_act(spec, x: torch.Tensor, w: torch.Tensor,
-                    bias: Optional[torch.Tensor], borders: torch.Tensor):
-    """``y = act(x @ w + b)`` with the packed codes of the pre-activation
-    (``(bits, N / 32, M)`` int32).  ``x``: (N, K); ``w``: the logical
-    (K, M) weight, row-major or the ``.t()`` of a row-major (M, K) tensor.
-    Returns ``(y, packed)``."""
-    if x.device.type == "cpu":
-        return dense_act_plain(spec, x, w, bias, borders)
+def _dense_act_args(spec, x, w, bias, borders):
+    """The checks kernel 6 and its schedules share; returns
+    ``(n, kdim, m, dev, dt, trans)``."""
     _require(x.is_cuda, f"x on {x.device}: neither CPU nor CUDA")
     _require(x.ndim == 2 and w.ndim == 2, "x and w must be 2-D")
     n, kdim = x.shape
     m = w.shape[1]
     dev, dt = x.device, x.dtype
+    _require(n >= 1, "x has no rows")
     _require(dense_act_ok(spec, kdim, m, dt),
              f"{spec.name} at {spec.bits} bits, K={kdim}, M={m}, {dt}: "
              f"outside the envelope of dense_act_ok")
@@ -649,15 +768,147 @@ def fused_dense_act(spec, x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         _check("bias", bias, dev, (m,), dt)
     _check("borders", borders, dev, (spec.n_borders,), torch.float32)
+    return n, kdim, m, dev, dt, trans
+
+
+def _dense_act_tensor_core(schedule: str, spec, x, w, bias, borders,
+                           out_dtype=None, epilogue: bool = True,
+                           bn: Optional[int] = None):
+    """Launch one tensor-core schedule of kernel 6 on CUDA tensors; raises
+    outside its envelope.  Counts nothing: the public wrappers do."""
+    n, kdim, m, dev, dt, trans = _dense_act_args(spec, x, w, bias, borders)
+    out_dtype = dt if out_dtype is None else out_dtype
+    _require(_out_dtype_ok(dt, out_dtype),
+             f"{dt} -> {out_dtype}: the schedules take f32 -> f32, bf16 -> "
+             f"bf16 and bf16 -> f32")
+    _require(epilogue or schedule == "kloop",
+             "only the k loop has the epilogue ablation")
+    route = {"kloop": lambda: dense_act_kloop_route(m, dt),
+             "direct": lambda: dense_act_direct_route(kdim, m, dt, out_dtype),
+             "emit": lambda: dense_act_emit_route(kdim, m, dt, out_dtype),
+             "pipelined": lambda: dense_act_pipelined_route(m, dt)}[schedule]()
+    _require(route is not None,
+             f"K={kdim}, M={m}, {dt} -> {out_dtype}: outside the envelope "
+             f"of the {schedule} schedule (its weight panel does not fit)")
+    if bn is None:
+        bn = route
+    else:
+        # A narrower tile than the route's, where the schedule is built for
+        # it: the route's width is the widest that fits.
+        _require(bn in FG_TILE_N and bn <= route and m % bn == 0,
+                 f"tile width {bn} outside the {schedule} schedule's "
+                 f"envelope at M={m} (its route gives {route})")
+    _tma_ok(x, "x", w, "w", trans)
+    bits = spec.bits if epilogue else 1
+    y = torch.empty(n, m, dtype=out_dtype, device=dev)
+    packed = torch.empty(packed_shape(n, m, bits), dtype=torch.int32,
+                         device=dev)
+    w_prep = _weight_scratch(trans, m, kdim, dt, dev)
+    args = [x.data_ptr(), w.data_ptr(), trans, _ptr(bias),
+            borders.data_ptr(), spec.n_borders, ACT_IDS[spec.name],
+            y.data_ptr(), packed.data_ptr(), _ptr(w_prep), n, kdim, m, bits,
+            bn, int(dt == torch.bfloat16), int(out_dtype == torch.bfloat16)]
+    if schedule == "kloop":
+        args.append(int(epilogue))
+    _launch(f"fewbit_dense_act_{schedule}", dev, *args)
+    return y, packed
+
+
+def dense_act_kloop(spec, x, w, bias, borders, out_dtype=None,
+                    epilogue: bool = True):
+    """Kernel 6's function by the k loop (the TPU tool's ``make_variant``):
+    one block per 128 x bn tile of y, the k tiles through the TMA ring, the
+    accumulator carried over them, the epilogue after the last.  Arguments
+    as :func:`fused_dense_act`'s; ``out_dtype`` f32 for a bf16 ``x`` gives
+    the tool's default rows.  Without ``epilogue``: ``(z, zero words of
+    one plane)``, the ablation that measures the epilogue's share."""
+    if x.device.type == "cpu":
+        return dense_act_plain(spec, x, w, bias, borders, out_dtype,
+                               epilogue)
+    out = _dense_act_tensor_core("kloop", spec, x, w, bias, borders,
+                                 out_dtype, epilogue)
+    dense_act_kloop.launches += 1
+    return out
+
+
+def dense_act_direct(spec, x, w, bias, borders, out_dtype=None,
+                     bn: Optional[int] = None):
+    """Kernel 6's function with the weight panel resident in shared memory
+    (the TPU tool's ``make_direct``): a persistent block walks the row
+    tiles of its K x bn panel, only x streams.  ``bn``: a panel narrower
+    than the route's (the experiment times both).  Raises outside
+    :func:`dense_act_direct_route`'s envelope."""
+    if x.device.type == "cpu":
+        return dense_act_plain(spec, x, w, bias, borders, out_dtype)
+    out = _dense_act_tensor_core("direct", spec, x, w, bias, borders,
+                                 out_dtype, bn=bn)
+    dense_act_direct.launches += 1
+    return out
+
+
+def dense_act_emit(spec, x, w, bias, borders, out_dtype=None,
+                   bn: Optional[int] = None):
+    """The direct schedule with the output pipelined too (the TPU tool's
+    ``make_emit``): y staged in shared memory, written by TMA bulk stores
+    under the next tile's product.  Raises outside
+    :func:`dense_act_emit_route`'s envelope."""
+    if x.device.type == "cpu":
+        return dense_act_plain(spec, x, w, bias, borders, out_dtype)
+    out = _dense_act_tensor_core("emit", spec, x, w, bias, borders,
+                                 out_dtype, bn=bn)
+    dense_act_emit.launches += 1
+    return out
+
+
+def dense_act_pipelined(spec, x, w, bias, borders, out_dtype=None):
+    """Kernel 6's function with one tile's epilogue under the next tile's
+    product (the TPU tool's ``make_pipelined``): a persistent grid whose
+    two consumer warpgroups take 64-row tiles in turns."""
+    if x.device.type == "cpu":
+        return dense_act_plain(spec, x, w, bias, borders, out_dtype)
+    out = _dense_act_tensor_core("pipelined", spec, x, w, bias, borders,
+                                 out_dtype)
+    dense_act_pipelined.launches += 1
+    return out
+
+
+def dense_act_simt(spec, x, w, bias, borders):
+    """Kernel 6's function by the first, CUDA-core kernel: what the
+    tensor-core schedules are measured against.  No model path runs it."""
+    if x.device.type == "cpu":
+        return dense_act_plain(spec, x, w, bias, borders)
+    n, kdim, m, dev, dt, trans = _dense_act_args(spec, x, w, bias, borders)
     y = torch.empty(n, m, dtype=dt, device=dev)
     packed = torch.empty(packed_shape(n, m, spec.bits), dtype=torch.int32,
                          device=dev)
-    _launch("fewbit_dense_act", dev, x.data_ptr(), w.data_ptr(), trans,
+    _launch("fewbit_dense_act_simt", dev, x.data_ptr(), w.data_ptr(), trans,
             _ptr(bias), borders.data_ptr(), spec.n_borders,
             ACT_IDS[spec.name], y.data_ptr(), packed.data_ptr(), n, kdim, m,
             spec.bits, int(dt == torch.bfloat16))
-    fused_dense_act.launches += 1
+    dense_act_simt.launches += 1
     return y, packed
+
+
+def fused_dense_act(spec, x: torch.Tensor, w: torch.Tensor,
+                    bias: Optional[torch.Tensor], borders: torch.Tensor):
+    """``y = act(x @ w + b)`` with the packed codes of the pre-activation
+    (``(bits, N / 32, M)`` int32).  ``x``: (N, K); ``w``: the logical
+    (K, M) weight, row-major or the ``.t()`` of a row-major (M, K) tensor.
+    Returns ``(y, packed)``.
+
+    On the card the product runs on the tensor cores by the schedule
+    :func:`dense_act_schedule` names; the kernel reads B K-major from
+    scratch (f32: its TF32 halves, 2 M K elements; bf16 row-major ``w``:
+    its transpose), written by a prologue kernel."""
+    if x.device.type == "cpu":
+        return dense_act_plain(spec, x, w, bias, borders)
+    _require(x.is_cuda and x.ndim == 2 and w.ndim == 2,
+             "x and w must be 2-D CUDA tensors")
+    out = _dense_act_tensor_core(
+        dense_act_schedule(x.shape[0], w.shape[1], x.dtype), spec, x, w, bias,
+        borders)
+    fused_dense_act.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -793,10 +1044,23 @@ KERNELS = {
         fused_backward, act_backward_plain,
         "fewbit_tpu/ops/pallas_kernels.py:285",
         "fewbit_tpu_torch/csrc/activation.cu"),
-    "dense_act": (
+    "dense_act": (  # by dense_act_schedule; also dense_act_pipelined.cu
         fused_dense_act, dense_act_plain,
         "fewbit_tpu/ops/pallas_kernels.py:411",
         "fewbit_tpu_torch/csrc/dense_act.cu"),
+    # The four schedules of kernel 6's function.
+    "dense_act_kloop": (
+        dense_act_kloop, dense_act_plain, "tools/exp_megakernel.py:88",
+        "fewbit_tpu_torch/csrc/dense_act.cu"),
+    "dense_act_direct": (
+        dense_act_direct, dense_act_plain, "tools/exp_megakernel.py:186",
+        "fewbit_tpu_torch/csrc/dense_act_direct.cu"),
+    "dense_act_emit": (
+        dense_act_emit, dense_act_plain, "tools/exp_megakernel.py:246",
+        "fewbit_tpu_torch/csrc/dense_act_direct.cu"),
+    "dense_act_pipelined": (
+        dense_act_pipelined, dense_act_plain, "tools/exp_megakernel.py:312",
+        "fewbit_tpu_torch/csrc/dense_act_pipelined.cu"),
     "dense_act_sketch_x": (
         fused_dense_act_sketch_x, dense_act_sketch_x_plain,
         "fewbit_tpu/ops/pallas_kernels.py:687 (_kernel_skx)",
@@ -821,6 +1085,7 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for wrapper, *_ in KERNELS.values():
         wrapper.launches = 0
+    dense_act_simt.launches = 0  # on no path: not one of KERNELS
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,92 @@
+"""Registers, spills and static shared memory of the package's CUDA kernels,
+as ``ptxas`` reports them.
+
+    python3 -m fewbit_tpu_torch.tools.registers [name ...]
+
+Compiles each ``fewbit_tpu_torch/csrc/<name>.cu`` (all of them without
+arguments) with the library's own flags plus ``-Xptxas -v``, one ``nvcc``
+per source, all started together, and prints one line per kernel
+instantiation: its demangled name, registers per thread, bytes of spill
+stores and loads, and static shared memory.  A 288-thread block of the
+tensor-core kernels may have 168 registers a thread.  Needs ``nvcc``; builds
+nothing that the library loads.
+"""
+
+from __future__ import annotations
+
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+from fewbit_tpu_torch.ops._build import CSRC, NVCC_FLAGS, _nvcc
+
+__all__ = ("report", "main")
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)' for '(sm_\w+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def _demangle(names):
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True, check=True).stdout
+    clean = []
+    for line in out.splitlines():
+        line = line.replace("(anonymous namespace)::", "")
+        line = re.sub(r"^void ", "", line)
+        # Drop the parameter list: what follows the template arguments, or
+        # the name of a kernel that has none.
+        depth = 0
+        for i, ch in enumerate(line):
+            depth += ch == "<"
+            depth -= ch == ">"
+            if ch == "(" and depth == 0:
+                line = line[:i]
+                break
+        clean.append(line)
+    return clean
+
+
+def report(sources):
+    """``[(source, kernel, registers, spill stores, spill loads, static
+    shared bytes), ...]`` for the given ``.cu`` paths."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c", "-o",
+             str(Path(tmp) / f"{src.stem}.o"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in sources]
+        outs = [(src, proc.communicate()[0], proc.returncode)
+                for src, proc in procs]
+    rows = []
+    for src, text, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}) on {src}:\n{text}")
+        chunks = _ENTRY.split(text)[1:]  # name, arch, body, name, ...
+        names = _demangle(chunks[0::3])
+        for name, body in zip(names, chunks[2::3]):
+            spill = _SPILL.search(body)
+            smem = _SMEM.search(body)
+            rows.append((src.name, name, int(_USED.search(body).group(1)),
+                         int(spill.group(1)), int(spill.group(2)),
+                         int(smem.group(1)) if smem else 0))
+    return rows
+
+
+def main(argv=None):
+    names = list(sys.argv[1:] if argv is None else argv)
+    sources = ([CSRC / f"{n}.cu" for n in names] if names
+               else sorted(CSRC.glob("*.cu")))
+    rows = report(sources)
+    for src, name, regs, stores, loads, smem in rows:
+        print(f"{src}: {name}: {regs} registers, spill {stores} + {loads} B, "
+              f"static smem {smem} B", flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -494,3 +494,209 @@ def test_flash_attention_function_on_cuda(cuda):
         K.flash_forward(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):  # segment ids for one side only
         K.flash_forward(q, k, v, ids, None)
+
+
+# ---------------------------------------------------------------------------
+# The four tensor-core schedules of kernel 6.
+# ---------------------------------------------------------------------------
+
+_SCHEDULES = {"kloop": K.dense_act_kloop, "direct": K.dense_act_direct,
+              "emit": K.dense_act_emit, "pipelined": K.dense_act_pipelined}
+_PAIRS = {"f32": (torch.float32, torch.float32),
+          "bf16_f32": (torch.bfloat16, torch.float32),
+          "bf16": (torch.bfloat16, torch.bfloat16)}
+
+
+def _schedule_route(schedule, kdim, m, dt, out_dt):
+    """The tile width the schedule's envelope gives, None outside it."""
+    if schedule == "kloop":
+        return K.dense_act_kloop_route(m, dt)
+    if schedule == "pipelined":
+        return K.dense_act_pipelined_route(m, dt)
+    route = (K.dense_act_direct_route if schedule == "direct"
+             else K.dense_act_emit_route)
+    return route(kdim, m, dt, out_dt)
+
+
+def _dense_act_inputs(cuda, dt, n, kdim, m, trans, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, kdim, generator=gen, device=cuda).to(dt)
+    w = (torch.randn(m, kdim, generator=gen, device=cuda)
+         * kdim ** -0.5).to(dt)
+    w = w.t() if trans else w.t().contiguous()
+    bias = (torch.randn(m, generator=gen, device=cuda) * 0.1).to(dt)
+    return x, w, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", list(_PAIRS))
+@pytest.mark.parametrize("bits", [1, 3, 5])
+@pytest.mark.parametrize("trans", [1, 0])
+@pytest.mark.parametrize("kdim", [128, 768, 1024])
+@pytest.mark.parametrize("m", [128, 512, 3072])
+@pytest.mark.parametrize("schedule", list(_SCHEDULES))
+def test_dense_act_schedules_match_plain_on_cuda(cuda, schedule, m, kdim,
+                                                 trans, bits, pair):
+    """Each schedule against the one plain version: 64- and 96-wide tiles,
+    both weight layouts, with and without bias, 1, 3 and 5 (custom LUT)
+    bits, the three type pairs, N = 8192, a ragged N and an N under one
+    tile.  Outside its envelope a schedule raises and launches nothing."""
+    dt, out_dt = _PAIRS[pair]
+    tol = 1e-4 if out_dt == torch.float32 else 2e-2
+    wrapper = _SCHEDULES[schedule]
+    spec, borders, _ = _lut(cuda, bits)
+    x, w, bias = _dense_act_inputs(cuda, dt, 8192, kdim, m, trans,
+                                   m + kdim + bits)
+    K.reset_launch_counts()
+    name = f"dense_act_{schedule}"
+    if _schedule_route(schedule, kdim, m, dt, out_dt) is None:
+        assert schedule in ("direct", "emit")
+        with pytest.raises(ValueError, match="envelope"):
+            wrapper(spec, x, w, bias, borders, out_dt)
+        assert K.launch_counts() == {k: 0 for k in K.KERNELS}
+        return
+    calls = 0
+    for n in (8192, 1000, 100):
+        for b in (bias, None):
+            y, packed = wrapper(spec, x[:n], w, b, borders, out_dt)
+            y0, packed0 = K.dense_act_plain(spec, x[:n], w, b, borders,
+                                            out_dt)
+            torch.cuda.synchronize()
+            calls += 1
+            _close(f"y n={n}", y, y0, tol)
+            assert packed.dtype == packed0.dtype
+            assert packed.shape == packed0.shape
+            z0 = K.dot_f32(x[:n], w)
+            if b is not None:
+                z0 = z0 + b.float()
+            _flips_ok(packed, packed0, z0, borders, spec.bits)
+    assert K.launch_counts() == {k: 0 for k in K.KERNELS} | {name: calls}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", list(_PAIRS))
+@pytest.mark.parametrize("n,m", [(8192, 3072), (1000, 512)])
+def test_dense_act_kloop_ablation_on_cuda(cuda, pair, n, m):
+    """The k loop without its epilogue: z and one plane of zero words."""
+    dt, out_dt = _PAIRS[pair]
+    tol = 1e-4 if out_dt == torch.float32 else 2e-2
+    spec, borders, _ = _lut(cuda, 3)
+    x, w, bias = _dense_act_inputs(cuda, dt, n, 768, m, 1, n)
+    z, packed = K.dense_act_kloop(spec, x, w, bias, borders, out_dt,
+                                  epilogue=False)
+    z0, packed0 = K.dense_act_plain(spec, x, w, bias, borders, out_dt,
+                                    epilogue=False)
+    torch.cuda.synchronize()
+    _close("z", z, z0, tol)
+    assert packed.shape == packed0.shape == (1, -(-n // 32), m)
+    assert torch.equal(packed, packed0)
+    with pytest.raises(ValueError, match="ablation"):
+        K._dense_act_tensor_core("pipelined", spec, x, w, bias, borders,
+                                 out_dt, epilogue=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("schedule", list(_SCHEDULES) + ["simt", "shipped"])
+def test_dense_act_schedules_are_deterministic_on_cuda(cuda, schedule,
+                                                       dtype):
+    """Two calls give bitwise-equal y and codes (no sum is shared between
+    threads), and the codes decode with kernel 5 as the plain ones do."""
+    spec, borders, levels = _lut(cuda, 3)
+    kdim = 768 if dtype == torch.bfloat16 else 128  # inside every envelope
+    x, w, bias = _dense_act_inputs(cuda, dtype, 1000, kdim, 384, 1, 17)
+    wrapper = {**_SCHEDULES, "simt": K.dense_act_simt,
+               "shipped": K.fused_dense_act}[schedule]
+    first = wrapper(spec, x, w, bias, borders)
+    second = wrapper(spec, x, w, bias, borders)
+    g = torch.randn(1000, 384, device=cuda).to(dtype)
+    dz = K.fused_backward(spec, first[1], levels, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(dz, K.act_backward_plain(spec, first[1], levels, g))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    y0, packed0 = K.dense_act_plain(spec, x, w, bias, borders)
+    _close("y", first[0], y0, tol)
+    _flips_ok(first[1], packed0, K.dot_f32(x, w) + bias.float(), borders, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_act_schedule_budgets_are_the_kernels(cuda, dtype):
+    """The host sizes the schedules' shared memory as the sources lay it
+    out, over the whole range of K and both tile widths: the resident
+    panel's (direct and emit) and the pipelined ring's; -1 where the kernel
+    refuses."""
+    from fewbit_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    bf16 = int(dtype == torch.bfloat16)
+    for out_dt in (torch.float32, torch.bfloat16):
+        if not K._out_dtype_ok(dtype, out_dt):
+            continue
+        for kdim in range(128, 4097, 128):
+            for bn in K.FG_TILE_N:
+                for tma in (False, True):
+                    want = K._dense_act_resident_smem(dtype, out_dt, kdim,
+                                                      bn, tma)
+                    if want > K.FG_SMEM_LIMIT:
+                        want = -1
+                    got = lib.fewbit_dense_act_resident_smem(
+                        kdim, bn, bf16, int(out_dt == torch.bfloat16),
+                        int(tma))
+                    assert got == want, (kdim, bn, out_dt, tma)
+    for bn in K.FG_TILE_N:
+        want = K._dense_act_pipelined_smem(dtype, bn)
+        assert want <= K.FG_SMEM_LIMIT
+        assert lib.fewbit_dense_act_pipelined_smem(bn, bf16) == want
+    assert lib.fewbit_dense_act_pipelined_smem(128, bf16) == -1
+    assert lib.fewbit_dense_act_resident_smem(768, 128, bf16, bf16, 0) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", list(_SCHEDULES) + ["shipped"])
+def test_dense_act_schedules_refuse_a_misaligned_base_on_cuda(cuda,
+                                                              schedule):
+    """TMA reads x and a bf16 .t() weight in place: a base off a 16-byte
+    boundary raises, and nothing is launched."""
+    spec, borders, _ = _lut(cuda, 3)
+    x, w, bias = _dense_act_inputs(cuda, torch.bfloat16, 512, 128, 256, 1, 0)
+    wrapper = {**_SCHEDULES, "shipped": K.fused_dense_act}[schedule]
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 and out.is_contiguous()
+        return out
+
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        wrapper(spec, shifted(x), w, bias, borders)
+    with pytest.raises(ValueError, match="16-byte"):
+        wrapper(spec, x, shifted(w.t()).t(), bias, borders)
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [8192, 2048])
+def test_shipped_dense_act_takes_its_rule_on_cuda(cuda, dtype, n):
+    """fused_dense_act on both sides of dense_act_schedule's rule (bf16 at
+    N = 8192 x M = 3072 takes the pipelined schedule, everything else the k
+    loop): the plain version's y and codes either way, counted as kernel 6
+    alone."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    spec, borders, _ = _lut(cuda, 3)
+    x, w, bias = _dense_act_inputs(cuda, dtype, n, 768, 3072, 1, n)
+    want = ("pipelined" if dtype == torch.bfloat16 and n == 8192
+            else "kloop")
+    assert K.dense_act_schedule(n, 3072, dtype) == want
+    K.reset_launch_counts()
+    y, packed = K.fused_dense_act(spec, x, w, bias, borders)
+    torch.cuda.synchronize()
+    y0, packed0 = K.dense_act_plain(spec, x, w, bias, borders)
+    _close("y", y, y0, tol)
+    _flips_ok(packed, packed0, K.dot_f32(x, w) + bias.float(), borders, 3)
+    assert K.launch_counts() == {k: 0 for k in K.KERNELS} | {"dense_act": 1}

@@ -213,6 +213,44 @@ def test_use_flash_matches_jax_rule():
         use_flash("Auto", 4096, 0.0, "cpu")
 
 
+def test_auto_keeps_standard_attention_outside_the_kernels_envelope(
+        monkeypatch):
+    """"auto" takes flash only at a head dimension F1-F3 take
+    (FLASH_HEAD_DIM); True goes on to the kernel, which refuses.  The
+    models hand use_flash their own head dimension."""
+    from fewbit_tpu_torch.models import gpt, roberta
+    from fewbit_tpu_torch.ops.kernels import FLASH_HEAD_DIM
+
+    assert FLASH_HEAD_DIM == 64
+    s = FLASH_AUTO_MIN_SEQ
+    assert use_flash("auto", s, 0.0, "cuda", head_dim=FLASH_HEAD_DIM)
+    assert use_flash("auto", s, 0.0, "cuda", head_dim=None)
+    for d in (32, 128, 96):
+        assert not use_flash("auto", s, 0.0, "cuda", head_dim=d)
+        assert not use_flash("auto", s, 0.1, "cuda", True, d)
+        assert use_flash(True, s, 0.0, "cuda", head_dim=d)
+    # Both models pass their head dimension: hidden 128 over 4 heads is 32.
+    seen = []
+
+    def spy(setting, seq_len, dropout, device, deterministic=False,
+            head_dim=None):
+        seen.append(head_dim)
+        return False
+
+    ids = torch.zeros(1, 8, dtype=torch.long)
+    small = dict(vocab_size=50, hidden_size=128, num_layers=1, num_heads=4,
+                 intermediate_size=128, flash_attention="auto")
+    for mod, model in (
+            (roberta, RobertaForSequenceClassification(
+                RobertaConfig(**small))),
+            (gpt, GPTForCausalLM(GPTConfig(**small)))):
+        assert mod.use_flash is use_flash
+        monkeypatch.setattr(mod, "use_flash", spy)
+        with torch.no_grad():
+            model(ids, torch.ones_like(ids))
+    assert seen == [32, 32]
+
+
 @pytest.mark.parametrize("cls", [RobertaConfig, GPTConfig])
 def test_configs_take_the_flash_fields(cls):
     """Both configs take flash_attention and flash_blocks, and validate them

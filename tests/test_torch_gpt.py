@@ -242,3 +242,29 @@ def test_vanilla_adamw_steps_match_jax():
             tmodel, jax.tree_util.tree_map(np.asarray, state.params)):
         np.testing.assert_allclose(param.detach().numpy(), want, rtol=0,
                                    atol=2e-4)
+
+
+@pytest.mark.parametrize("scan", [True, False], ids=["scanned", "unrolled"])
+def test_config_takes_scan_layers(scan):
+    """``scan_layers`` is the JAX config's field: accepted, the reference's
+    default, and without effect on the port's Python loop: the logits equal
+    the JAX model's under either setting."""
+    fields = JaxConfig.__dataclass_fields__
+    assert GPTConfig().scan_layers is fields["scan_layers"].default
+    jmodel, params, _, b = _models({}, scan)
+    tmodel = GPTForCausalLM(GPTConfig(**SMALL, scan_layers=scan))
+    assert tmodel.cfg.scan_layers is scan
+    load_flax_params(tmodel, params)
+    _, jlogits, _ = _jax_loss_grads(jmodel, params, b)
+    _, tlogits = _torch_loss_grads(tmodel, b)
+    np.testing.assert_allclose(tlogits, jlogits, rtol=1e-4, atol=1e-5)
+
+
+def test_config_takes_tp_fields_and_refuses_tensor_parallelism():
+    fields = JaxConfig.__dataclass_fields__
+    cfg = GPTConfig(tp_axis=None, tp_size=1)
+    assert cfg.tp_axis is fields["tp_axis"].default is None
+    assert cfg.tp_size == fields["tp_size"].default == 1
+    for kw in (dict(tp_size=2), dict(tp_axis="model")):
+        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+            GPTConfig(**kw)

@@ -230,3 +230,31 @@ def test_fewbit_ffn_branches_match_jax(monkeypatch, extra):
         assert _close_by_norm(got, want)
         np.testing.assert_allclose(got, want, rtol=1e-2,
                                    atol=1e-2 * np.abs(want).max() + 1e-6)
+
+
+@pytest.mark.parametrize("scan", [True, False], ids=["scanned", "unrolled"])
+def test_config_takes_scan_layers(scan):
+    """``scan_layers`` is the JAX config's field: the port accepts it, its
+    default is the reference's, and it changes nothing (a Python loop over
+    the layers either way): the logits equal the JAX model's, whose
+    parameter tree is stacked or per layer."""
+    fields = JaxConfig.__dataclass_fields__
+    assert RobertaConfig().scan_layers is fields["scan_layers"].default
+    jmodel, params, tmodel, b = _models_for({"scan_layers": scan})
+    assert tmodel.cfg.scan_layers is scan
+    _, jlogits, _ = _jax_loss_grads(jmodel, params, b)
+    _, tlogits = _torch_loss_grads(tmodel, b)
+    np.testing.assert_allclose(tlogits, jlogits, rtol=1e-4, atol=1e-5)
+
+
+def test_config_takes_tp_fields_and_refuses_tensor_parallelism():
+    """``tp_axis``/``tp_size`` exist with the reference's defaults; any
+    other value raises, naming the ROADMAP item that ports it."""
+    fields = JaxConfig.__dataclass_fields__
+    cfg = RobertaConfig(tp_axis=None, tp_size=1)
+    assert cfg.tp_axis is fields["tp_axis"].default is None
+    assert cfg.tp_size == fields["tp_size"].default == 1
+    for kw in (dict(tp_size=2), dict(tp_axis="model"),
+               dict(tp_axis="model", tp_size=4)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+            RobertaConfig(**kw)
