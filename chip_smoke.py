@@ -19,6 +19,13 @@ Phases (any failure raises and exits non-zero; no result is printed):
    function (``scaled_dot_product_attention`` and its backward): a
    yardstick that the port never calls.  The GEMM kernels have no such
    call; the bare ``torch.matmul`` of their product is printed as context.
+   F2 and F3 (the tensor-core kernels) are also held against an f64
+   evaluation of the plain formulas on a batch slice, where their error
+   must be nonzero and within the tolerance (the plain versions' and the
+   replaced CUDA-core kernels' errors against f64 are printed beside);
+   they write into outputs filled with NaN, two launches must give equal
+   bits, and at the GPT shape they must not be slower than the CUDA-core
+   kernels they replaced.
 3. RoBERTa-base (12 layers, hidden 768, 12 heads, FFN 3072; random weights
    from a seed), the fused few-bit FFN: an MRPC-shaped batch, bs 64, seq
    128, 3-bit GELU, countsketch at ratio 0.2, dropout on: 3 f32 steps and
@@ -74,8 +81,9 @@ and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``python3 chip_smoke.py --profile PATH`` runs only the device phase and the
-profiled steps of one path (a name in ``PATHS``): the way to read an older
-tree's device time per step with this script.
+few-bit steps of one path (a name in ``PATHS``), four timed without the
+profiler and two under it: the way to read an older tree's step and device
+time per step with this script.
 """
 
 import json
@@ -374,9 +382,60 @@ def _schedule_cases(results, spec, borders, x, up_w, up_b, z0):
                 "library_ms": None})
 
 
+def _flash_backward_f64(q, k, v, ids, lse, do, di, causal, scale):
+    """``(dk, dv, dq)`` by the plain formulas in f64, on the same inputs
+    (the kernel's lse and di): what the kernels' and the plain versions'
+    rounding is measured against."""
+    from fewbit_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE
+
+    q, k, v, do, lse, di = (t.double() for t in (q, k, v, do, lse, di))
+    keep = (ids[:, :, None] == ids[:, None, :])[:, None]
+    if causal:
+        keep = keep.tril()
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    s = s + torch.where(keep, 0.0, DEFAULT_MASK_VALUE)
+    p = torch.exp(s - lse[..., None])
+    del s, keep
+    ds = (torch.einsum("bhqd,bhkd->bhqk", do, v) - di[..., None]) * p * scale
+    return (torch.einsum("bhqk,bhqd->bhkd", ds, q),
+            torch.einsum("bhqk,bhqd->bhkd", p, do),
+            torch.einsum("bhqk,bhkd->bhqd", ds, k))
+
+
+def _nan_like(*like):
+    """Outputs for a kernel to write into, full of NaN: an element it leaves
+    unwritten cannot pass a comparison."""
+    return tuple(torch.full_like(t, float("nan")) for t in like)
+
+
+def _held_to_f64(tag, names, got, simt, plain, want, tol):
+    """Errors of a tensor-core kernel, the CUDA-core kernel it replaced and
+    the plain version against the f64 evaluation ``want``, on its batch
+    slice.  The tensor-core kernel sums in another order than f64 and on
+    other units: an error of exactly 0 would mean the check cannot fail."""
+    out = {}
+    nb = want[0].shape[0]
+    for name, g, s0, p0, w in zip(names, got, simt, plain, want):
+        err = compare(f"{tag} {name} against f64", g[:nb], w, tol)
+        if not err > 0:
+            raise AssertionError(f"{tag} {name}: error against f64 is {err}")
+        out[name] = {
+            "kernel": err,
+            "simt": compare(f"{tag} {name} CUDA-core kernel against f64",
+                            s0[:nb], w, tol),
+            "plain": compare(f"{tag} {name} plain against f64", p0[:nb], w,
+                             tol),
+            "simt_equals_plain": bool(torch.equal(s0, p0))}
+    return out
+
+
 def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     """F1-F3 on one input against their plain versions (the backward ones
-    on the kernel's lse and di, the same inputs), each timed."""
+    on the kernel's lse and di, the same inputs), each timed.  F2 and F3
+    also: against an f64 evaluation of the plain formulas on a batch slice
+    (with the plain versions' and the replaced CUDA-core kernels' errors
+    beside), outputs filled with NaN first, two launches held to equal bits,
+    and the time of the CUDA-core kernel each replaced."""
     from fewbit_tpu_torch.ops import kernels as K
     from fewbit_tpu_torch.ops.flash_attention import (
         flash_backward_dkv_plain, flash_backward_dq_plain,
@@ -390,7 +449,8 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     if causal:
         keep = keep.tril()
     pair_ops = 2 * HEAD_DIM * HEADS * int(keep.sum())
-    fwd_lib, bwd_lib = _sdpa_ms(q, k, v, do, keep, ids, causal, scale)
+    fwd_lib, bwd_lib, bwd_lib_device = _sdpa_ms(q, k, v, do, keep, ids,
+                                                causal, scale)
     del keep
     rate = gemm_rate(q.dtype)
     fargs = (q, k, v, ids, ids, causal, scale)
@@ -410,30 +470,66 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     del o0, lse0
     di = (o.float() * do.float()).sum(-1)
     bargs = (q, k, v, ids, ids, lse, do, di, causal, scale)
-    dk, dv = K.flash_backward_dkv(*bargs)
-    dk0, dv0 = flash_backward_dkv_plain(*bargs)
+    # The f64 evaluation, on as many batch rows as keep its (s, s) tensors
+    # near 2^25 elements per head.
+    nb = max(1, min(q.shape[0], 2 ** 25 // (HEADS * q.shape[2] ** 2)))
+    dk64, dv64, dq64 = _flash_backward_f64(
+        q[:nb], k[:nb], v[:nb], ids[:nb], lse[:nb], do[:nb], di[:nb], causal,
+        scale)
     library = ("scaled_dot_product_attention, backward: dq, dk and dv in "
                "one call (F2 and F3 together)")
-    results["flash_backward_dkv"].append({
+    dk, dv = K.flash_backward_dkv(*bargs, out=_nan_like(k, v))
+    dk2, dv2 = K.flash_backward_dkv(*bargs, out=_nan_like(k, v))
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"F2 {tag} {shape}: two launches differ")
+    del dk2, dv2
+    dk0, dv0 = flash_backward_dkv_plain(*bargs)
+    dks, dvs = K.flash_backward_dkv_simt(*bargs)
+    case = {
         "mode": mode, "dtype": tag,
         "errors": {"dk": compare(f"F2 {tag} {shape} dk", dk, dk0, tol),
                    "dv": compare(f"F2 {tag} {shape} dv", dv, dv0, tol)},
+        "f64_errors": _held_to_f64(f"F2 {tag} {shape}", ("dk", "dv"),
+                                   (dk, dv), (dks, dvs), (dk0, dv0),
+                                   (dk64, dv64), tol),
+        "f64_batch_rows": nb,
         "ms": cuda_ms(lambda: K.flash_backward_dkv(*bargs)),
+        "device_ms": device_ms(lambda: K.flash_backward_dkv(*bargs)),
         "plain_ms": cuda_ms(lambda: flash_backward_dkv_plain(*bargs)),
+        # The CUDA-core kernel it replaced, same inputs, same call.
+        "simt_ms": cuda_ms(lambda: K.flash_backward_dkv_simt(*bargs)),
         **bound(4 * pair_ops, rate,
                 tensor_bytes(q, k, v, ids, ids, lse, do, di, dk, dv)),
-        "library_ms": bwd_lib, "library": library})
-    del dk0, dv0
-    dq = K.flash_backward_dq(*bargs)
+        "library_ms": bwd_lib, "library_device_ms": bwd_lib_device,
+        "library": library}
+    results["flash_backward_dkv"].append(case)
+    del dk0, dv0, dks, dvs, dk64, dv64
+    dq = K.flash_backward_dq(*bargs, out=_nan_like(q))
+    if not torch.equal(dq, K.flash_backward_dq(*bargs, out=_nan_like(q))):
+        raise AssertionError(f"F3 {tag} {shape}: two launches differ")
     dq0 = flash_backward_dq_plain(*bargs)
+    dqs = K.flash_backward_dq_simt(*bargs)
     results["flash_backward_dq"].append({
         "mode": mode, "dtype": tag,
         "errors": {"dq": compare(f"F3 {tag} {shape} dq", dq, dq0, tol)},
+        "f64_errors": _held_to_f64(f"F3 {tag} {shape}", ("dq",), (dq,),
+                                   (dqs,), (dq0,), (dq64,), tol),
+        "f64_batch_rows": nb,
         "ms": cuda_ms(lambda: K.flash_backward_dq(*bargs)),
+        "device_ms": device_ms(lambda: K.flash_backward_dq(*bargs)),
         "plain_ms": cuda_ms(lambda: flash_backward_dq_plain(*bargs)),
+        "simt_ms": cuda_ms(lambda: K.flash_backward_dq_simt(*bargs)),
         **bound(3 * pair_ops, rate,
                 tensor_bytes(q, k, v, ids, ids, lse, do, di, dq)),
-        "library_ms": bwd_lib, "library": library})
+        "library_ms": bwd_lib, "library_device_ms": bwd_lib_device,
+        "library": library})
+    if shape == "gpt2_small":
+        for name in ("flash_backward_dkv", "flash_backward_dq"):
+            c = results[name][-1]
+            if not c["ms"] <= c["simt_ms"]:
+                raise AssertionError(
+                    f"{name} {tag}: the tensor-core kernel takes {c['ms']} "
+                    f"ms, the CUDA-core kernel it replaced {c['simt_ms']} ms")
 
 
 def _sdpa_ms(q, k, v, do, keep, ids, causal, scale):
@@ -441,7 +537,9 @@ def _sdpa_ms(q, k, v, do, keep, ids, causal, scale):
     flash kernels' inputs, forward and backward (dq, dk and dv in one
     call): the library's time for the same function.  A yardstick only:
     the port never calls it.  All-ones segment ids with ``causal`` are its
-    ``is_causal``; any other mask is passed as a boolean ``attn_mask``."""
+    ``is_causal``; any other mask is passed as a boolean ``attn_mask``.
+    Returns the forward's and the backward's time per call and the
+    backward's device time (the profiler's)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     if causal and bool((ids == 1).all()):
@@ -451,9 +549,10 @@ def _sdpa_ms(q, k, v, do, keep, ids, causal, scale):
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
     fwd = cuda_ms(lambda: sdpa(*ins, scale=scale, **kwargs))
     out = sdpa(*ins, scale=scale, **kwargs)
-    bwd = cuda_ms(lambda: torch.autograd.grad(out, ins, do,
-                                              retain_graph=True))
-    return fwd, bwd
+    def backward():
+        torch.autograd.grad(out, ins, do, retain_graph=True)
+
+    return fwd, cuda_ms(backward), device_ms(backward)
 
 
 def phase_kernels():
@@ -621,6 +720,13 @@ def phase_kernels():
             if "simt_ms" in c:
                 extra += (f"; the CUDA-core kernel it replaced "
                           f"{c['simt_ms']:.3f} ms")
+            if "f64_errors" in c:
+                extra += (f"; device {c['device_ms']:.4f} ms "
+                          f"({100 * c['bound_ms'] / c['device_ms']:.1f}% of "
+                          f"the bound), the library's "
+                          f"{c['library_device_ms']:.4f} ms device; against "
+                          f"f64 on {c['f64_batch_rows']} batch rows: "
+                          f"{c['f64_errors']}")
             if "route" in c:
                 extra += (f"; {c['route']}, tile {c['tile']}; device "
                           f"{c['device_ms']:.4f} ms ({c['tflops']:.1f} "
@@ -875,12 +981,16 @@ def profiled_steps(path, step, batches, gen, n=2):
 
 
 def phase_profile(path):
-    """Only the profiled steps of a path, after two warm-up steps."""
+    """Only a path's few-bit steps: two to warm up, four timed without the
+    profiler, two under it."""
     batches = _batches(path, SEED)
     gen = torch.Generator().manual_seed(SEED)
     model, step = _model(path, torch.float32, fewbit=True)
     for _ in range(2):
         step(next(batches), gen)
+    timed = [_timed_step(step, next(batches), gen)[1] * 1e3 for _ in range(4)]
+    log(f"{path}: few-bit f32 step ms, unprofiled: {timed} (median "
+        f"{statistics.median(timed):.2f})")
     return profiled_steps(path, step, batches, gen)
 
 

@@ -1,5 +1,7 @@
-// Flash attention for head dimension 64: the forward, the dK/dV backward and
-// the dQ backward, each one kernel.
+// Flash attention for head dimension 64 on CUDA cores: the forward (F1), and
+// the first dK/dV and dQ backward kernels, which the tensor-core ones of
+// flash_backward.cu replaced on every path (entry points ..._dkv_simt and
+// ..._dq_simt: kept to be measured against).
 //
 // Replaces JAX's Pallas TPU library kernel
 // (jax/experimental/pallas/ops/tpu/flash_attention.py), which the JAX models
@@ -14,9 +16,9 @@
 // What bounds it on this card: at GPT-2 small (8 x 12 heads, seq 1024) the
 // forward is 2 * 2 * 96 * 1024^2 * 64 = 25.8 GFLOP (half of it under the
 // causal mask) against 75 MB of q, k, v and o in f32: compute bound.  This
-// simple core multiplies on CUDA cores with FMA; tensor cores (mma.sync or
-// wgmma) and TMA are later work.  What it saves is memory: the (s, s)
-// probabilities never reach device memory, only one f32 log-sum-exp per row.
+// simple core multiplies on CUDA cores with FMA; the forward on tensor cores
+// is later work.  What it saves is memory: the (s, s) probabilities never
+// reach device memory, only one f32 log-sum-exp per row.
 //
 // Design: the TPU grid walked kv blocks sequentially and carried m, l and the
 // accumulator in scratch between grid steps.  Here one block of 256 threads
@@ -36,7 +38,7 @@
 // (b, s, h, d) projections need no transposed copy.
 #include <math.h>
 
-#include "common.cuh"
+#include "flash_params.cuh"
 
 namespace fewbit {
 namespace {
@@ -46,25 +48,6 @@ constexpr int FB = 64;      // rows of a query tile and of a kv tile
 constexpr int FNT = 256;    // threads per block
 constexpr int FP = FD + 1;  // padded shared-memory row, in floats
 constexpr int TILE = FB * FP;
-// The library's DEFAULT_MASK_VALUE, rounded from the double product as
-// Python rounds it.
-constexpr float MASK_VALUE =
-    static_cast<float>(-0.7 * 3.40282346638528859812e+38);
-
-struct Strides {
-  long long b, h, s;  // in elements; the stride along d is 1
-};
-
-struct FlashParams {
-  const void *q, *k, *v, *dout;
-  const int *seg_q, *seg_kv;
-  const float *lse_in, *di;
-  void *o, *dq, *dk, *dv;
-  float* lse_out;
-  Strides st_q, st_k, st_v, st_o, st_do, st_dq, st_dk, st_dv;
-  int h, sq, sk, causal;
-  float scale;
-};
 
 template <typename T>
 __device__ __forceinline__ const T* slice(const void* p, const Strides& st,
@@ -456,31 +439,6 @@ __global__ void __launch_bounds__(FNT)
   }
 }
 
-// Fills the parameters shared by the three entry points.  strides holds
-// (b, h, s) strides of q, k, v, o, dO, dq, dk, dv in that order (24 values,
-// host memory; 0 for a tensor a kernel does not take).
-FlashParams make_params(const void* q, const void* k, const void* v,
-                        const void* seg_q, const void* seg_kv,
-                        const long long* strides, int h, int sq, int sk,
-                        int causal, float scale) {
-  FlashParams p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.seg_q = static_cast<const int*>(seg_q);
-  p.seg_kv = static_cast<const int*>(seg_kv);
-  Strides* st[8] = {&p.st_q,  &p.st_k,  &p.st_v,  &p.st_o,
-                    &p.st_do, &p.st_dq, &p.st_dk, &p.st_dv};
-  for (int t = 0; t < 8; ++t)
-    *st[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
-  p.h = h;
-  p.sq = sq;
-  p.sk = sk;
-  p.causal = causal;
-  p.scale = scale;
-  return p;
-}
-
 // Launches kernel over grid (tiles, b * h) with `tiles` shared-memory tiles;
 // above 48 KB the kernel has to be allowed the dynamic shared memory first.
 template <typename Kernel>
@@ -524,20 +482,17 @@ extern "C" int fewbit_flash_forward(const void* q, const void* k,
 }
 
 // As above, with the forward's lse, the output gradient dout (any strides)
-// and di = sum(dout * o) (b, h, sq) f32 contiguous; writes dk and dv.
-extern "C" int fewbit_flash_backward_dkv(
+// and di = sum(dout * o) (b, h, sq) f32 contiguous; writes dk and dv.  The
+// CUDA-core kernel that flash_backward.cu's fewbit_flash_backward_dkv
+// replaced.
+extern "C" int fewbit_flash_backward_dkv_simt(
     const void* q, const void* k, const void* v, const void* seg_q,
     const void* seg_kv, const void* lse, const void* dout, const void* di,
     void* dk, void* dv, const void* strides, int b, int h, int sq, int sk,
     int causal, float scale, int is_bf16, void* stream) {
   using namespace fewbit;
-  FlashParams p =
-      make_params(q, k, v, seg_q, seg_kv,
-                  static_cast<const long long*>(strides), h, sq, sk, causal,
-                  scale);
-  p.lse_in = static_cast<const float*>(lse);
-  p.dout = dout;
-  p.di = static_cast<const float*>(di);
+  FlashParams p = make_backward_params(q, k, v, seg_q, seg_kv, lse, dout, di,
+                                       strides, h, sq, sk, causal, scale);
   p.dk = dk;
   p.dv = dv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -548,20 +503,15 @@ extern "C" int fewbit_flash_backward_dkv(
                 st);
 }
 
-// As fewbit_flash_backward_dkv; writes dq.
-extern "C" int fewbit_flash_backward_dq(
+// As fewbit_flash_backward_dkv_simt; writes dq.
+extern "C" int fewbit_flash_backward_dq_simt(
     const void* q, const void* k, const void* v, const void* seg_q,
     const void* seg_kv, const void* lse, const void* dout, const void* di,
     void* dq, const void* strides, int b, int h, int sq, int sk, int causal,
     float scale, int is_bf16, void* stream) {
   using namespace fewbit;
-  FlashParams p =
-      make_params(q, k, v, seg_q, seg_kv,
-                  static_cast<const long long*>(strides), h, sq, sk, causal,
-                  scale);
-  p.lse_in = static_cast<const float*>(lse);
-  p.dout = dout;
-  p.di = static_cast<const float*>(di);
+  FlashParams p = make_backward_params(q, k, v, seg_q, seg_kv, lse, dout, di,
+                                       strides, h, sq, sk, causal, scale);
   p.dq = dq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)

@@ -3,7 +3,9 @@
 // warp and consumer warpgroups share, TMA bulk stores of a staged output
 // tile, named barriers between warpgroups, shared-memory matrix descriptors
 // for the 128-byte swizzle, wgmma wrappers (bf16 with both operands in shared
-// memory; tf32 with A in registers), and the round-to-nearest TF32 split.
+// memory, or A in registers and B optionally MN-major; tf32 with A in
+// registers), the round-to-nearest TF32 split, and the register hand-over
+// between a producer and its consumer warpgroups (setmaxnreg).
 //
 // Layout convention: every operand tile is K-major with rows of exactly 128
 // bytes (32 f32 or 64 bf16 elements of K), loaded by TMA with
@@ -64,6 +66,15 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
       : "memory");
 }
 
+// Adds `bytes` to what the barrier's current phase waits for, without
+// arriving: the issuing thread arrives later (mbar_arrive).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
 // Waits until the phase of parity `parity` has completed.  A wait that
 // spins for about 2^28 polls (seconds) traps, so a broken ring ends the
 // launch with an error instead of hanging the card.
@@ -96,6 +107,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// As tma_load_2d, for a map of four dimensions (c0 innermost).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -196,6 +219,33 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, bool bf16,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A map of a (b, h, s, d) tensor at `base` with unit stride along d and
+// the byte strides `stride_s`, `stride_h`, `stride_b` (each a multiple of
+// 16, as `base`; any order, so the transposed view of a (b, s, h, d)
+// projection is read in place).  Dimensions run (d, s, h, b); a box is
+// (box_rows of s, 128 bytes of d) of one head, swizzled for wgmma, and rows
+// past s arrive as zeros.  Returns false when the encode is unavailable or
+// refuses the arguments.
+inline bool make_tile_map_4d(CUtensorMap* map, const void* base, bool bf16,
+                             uint64_t b, uint64_t h, uint64_t s, uint64_t d,
+                             uint64_t stride_b, uint64_t stride_h,
+                             uint64_t stride_s, uint32_t box_rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const uint32_t elem = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {d, s, h, b};
+  const cuuint64_t strides[3] = {stride_s, stride_h, stride_b};
+  const cuuint32_t box[4] = {ROW_BYTES / elem, box_rows, 1, 1};
+  const cuuint32_t estrides[4] = {1, 1, 1, 1};
+  return encode(map,
+                bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                4, const_cast<void*>(base), dims, strides, box, estrides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A map of the same matrix whose boxes are dense (box_rows, box_cols) tiles
 // without swizzle: the target of tma_store_2d.  box_cols * elem_bytes must
 // be a multiple of 16.
@@ -231,7 +281,10 @@ __device__ __forceinline__ uint32_t swizzled_offset(int row, int col,
 // ---------------------------------------------------------------------------
 
 // Descriptor of a K-major tile with 128-byte swizzle at shared address
-// `addr` (1024-byte aligned atoms; 8-row groups 1024 bytes apart).
+// `addr` (1024-byte aligned atoms; 8-row groups 1024 bytes apart).  The same
+// descriptor reads a bf16 tile of 64-element rows MN-major (wgmma's
+// transpose bit): its rows are then k, eight of them 1024 bytes, so the
+// k-th k16 step starts 2048 k bytes on.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(1) << 16) |            // leading offset: unused
@@ -284,16 +337,34 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
   lo = to_tf32(v - __uint_as_float(hi));
 }
 
+// A warpgroup hands registers over (dealloc, a producer) or takes more
+// (alloc, a consumer) than the launch bounds gave every thread: counts are
+// multiples of 8, and the block's total must not grow.  Every warp of the
+// warpgroup executes it, in a branch that the other role never joins again.
+template <int REGS>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(REGS));
+}
+
 // D (64 x N, f32, the warpgroup's accumulator fragment) += A (64 x k) B
 // (k x N).  tf32_rs: A from registers (the m16n8k8 tf32 fragment of each
 // warp's 16 rows), B a K-major tile in shared memory; k = 8.  bf16_ss: both
-// from K-major tiles in shared memory; k = 16.  Fragment of D: d[4i + 2h + e]
-// is row 16 warp + lane / 4 + 8 h, column 8 i + 2 (lane % 4) + e.
+// from K-major tiles in shared memory; k = 16.  bf16_rs (N = 64 only): A
+// from registers (the m16n8k16 bf16 fragment: packed pairs of rows g and
+// g + 8, columns 2 t and 2 t + 8 on), B K-major or, with TRANS_B, MN-major.
+// scale_d = 0 overwrites D instead of adding to it (N = 64 only).  Fragment
+// of D: d[4i + 2h + e] is row 16 warp + lane / 4 + 8 h, column
+// 8 i + 2 (lane % 4) + e.
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<64> {
   static __device__ __forceinline__ void tf32_rs(
-      float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+      float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
@@ -309,10 +380,10 @@ template <> struct Wgmma<64> {
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(1));
+          "r"(scale_d));
   }
   static __device__ __forceinline__ void bf16_ss(
-      float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+      float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -327,7 +398,28 @@ template <> struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+  template <int TRANS_B>
+  static __device__ __forceinline__ void bf16_rs(
+      float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d), "n"(TRANS_B));
   }
 };
 

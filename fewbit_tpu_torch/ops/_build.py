@@ -33,6 +33,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # int (its epilogue switch).
 _DENSE_ACT = (_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
               _I, _P)
+# The flash backward kernels, on the tensor cores and on CUDA cores.
+_FLASH_DKV = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+              _F, _I, _P)
+_FLASH_DQ = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+             _I, _P)
 # name -> argument types, in the order of each extern "C" signature.
 SIGNATURES = {
     "fewbit_matmul_input_sketch": (
@@ -60,12 +65,10 @@ SIGNATURES = {
     "fewbit_dense_act_pipelined_smem": (_I, _I),
     "fewbit_flash_forward": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
-    "fewbit_flash_backward_dkv": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-        _I, _P),
-    "fewbit_flash_backward_dq": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-        _P),
+    "fewbit_flash_backward_dkv": _FLASH_DKV,
+    "fewbit_flash_backward_dq": _FLASH_DQ,
+    "fewbit_flash_backward_dkv_simt": _FLASH_DKV,
+    "fewbit_flash_backward_dq_simt": _FLASH_DQ,
 }
 
 _build_seconds = 0.0

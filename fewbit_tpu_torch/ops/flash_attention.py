@@ -14,8 +14,9 @@ The ``autograd.Function`` keeps q, k, v, o and one f32 log-sum-exp per row
 ``di = sum(dO * O)`` in plain torch, as the library does in jnp, and then
 the dK/dV and dQ kernels, which recompute ``P = exp(S - lse)``.
 
-On a CUDA tensor the three steps are the kernels of
-``csrc/flash_attention.cu`` (wrappers in :mod:`fewbit_tpu_torch.ops.
+On a CUDA tensor the forward is the kernel of ``csrc/flash_attention.cu``
+and the two backward steps are the tensor-core kernels of
+``csrc/flash_backward.cu`` (wrappers in :mod:`fewbit_tpu_torch.ops.
 kernels`); on the CPU their plain versions below.  The plain versions
 follow ``mha_reference_no_custom_vjp`` and ``mha_reference_bwd`` of the
 library, in f32 on the widened operands.  They form the whole ``(s, s)``
@@ -124,7 +125,13 @@ class _FlashAttention(torch.autograd.Function):
         from fewbit_tpu_torch.ops import kernels as K
 
         q, k, v, o, lse, seg_q, seg_kv = ctx.saved_tensors
-        if do.stride(-1) != 1:
+        # Autograd may hand over an expanded or oddly strided gradient: the
+        # kernels read unit stride along d, and through TMA only strides
+        # and bases that are multiples of 16 bytes.
+        per16 = 16 // do.element_size()
+        if (do.stride(-1) != 1 or do.data_ptr() % 16
+                or any(n > 1 and (st <= 0 or st % per16)
+                       for n, st in zip(do.shape[:3], do.stride()[:3]))):
             do = do.contiguous()
         di = (o.float() * do.float()).sum(-1)
         args = (q, k, v, seg_q, seg_kv, lse, do, di, ctx.causal,

@@ -50,6 +50,8 @@ __all__ = ("FFN_BN", "FFN_BM", "ACT_IDS", "sketch_dtype",
            "fused_dense_act_sketch_x", "fused_matmul_lut_backward",
            "fused_forward", "fused_backward", "fused_dense_act",
            "flash_forward", "flash_backward_dkv", "flash_backward_dq",
+           "flash_backward_dkv_simt", "flash_backward_dq_simt",
+           "flash_backward_envelope",
            "FLASH_HEAD_DIM", "matmul_input_sketch_plain",
            "dense_act_sketch_plain", "dense_act_sketch_x_plain",
            "matmul_lut_backward_plain", "act_forward_plain",
@@ -983,43 +985,144 @@ def _flash_backward_checks(q, k, v, seg_q, seg_kv, lse, do, di):
     return b, h, sq, sk, dev, dt
 
 
-def flash_backward_dkv(q, k, v, seg_q, seg_kv, lse, do, di,
-                       causal: bool = False, sm_scale: float = 1.0):
-    """F2: ``(dk, dv)`` from the forward's ``lse``, the output gradient
-    ``do`` and ``di = sum(do * o, -1)`` (f32); k's and v's strides."""
-    if q.device.type == "cpu":
-        return flash_backward_dkv_plain(q, k, v, seg_q, seg_kv, lse, do, di,
-                                        causal, sm_scale)
+def flash_backward_envelope(dtype, shape, strides) -> None:
+    """What the tensor-core F2 and F3 (csrc/flash_backward.cu) ask of an
+    operand beyond _flash_checks, from its dtype, ``(b, h, s)`` shape and
+    strides (in elements) alone: TMA reads strides that are positive
+    multiples of 16 bytes, in every dimension of more than one element.
+    There is one route, whatever the sequence: outside the envelope this
+    raises."""
+    _require(dtype in _DTYPES, f"dtype {dtype} not in {_DTYPES}")
+    per16 = 16 * 8 // torch.finfo(dtype).bits
+    for n, st in zip(shape, strides):
+        _require(n >= 1, f"shape {tuple(shape)}")
+        _require(n == 1 or (st > 0 and st % per16 == 0),
+                 f"stride {st}: TMA reads strides that are positive "
+                 f"multiples of 16 bytes ({per16} elements)")
+
+
+def _flash_tma_checks(*tensors):
+    """The envelope of the tensor-core backward beyond _flash_checks: 16-byte
+    aligned bases and (b, h, s) strides of q, k, v and dO."""
+    for t in tensors:
+        _require(t.data_ptr() % 16 == 0,
+                 "q, k, v and dO must be 16-byte aligned (TMA reads them)")
+        flash_backward_envelope(t.dtype, t.shape[:3], t.stride()[:3])
+
+
+def _flash_outputs(out, likes, names):
+    """The tensors a backward kernel writes: new ones with the strides of
+    ``likes``, or the caller's ``out`` (a check can fill them first and see
+    every element written)."""
+    if out is None:
+        return tuple(torch.empty_like(t) for t in likes)
+    _require(len(out) == len(likes), f"out must hold {names}")
+    for name, o, t in zip(names, out, likes):
+        _require(o.device == t.device and o.dtype == t.dtype
+                 and o.shape == t.shape and o.stride(-1) == 1,
+                 f"out {name} {tuple(o.shape)} {o.dtype} on {o.device} does "
+                 f"not fit {tuple(t.shape)} {t.dtype} with unit stride "
+                 f"along d")
+    return tuple(out)
+
+
+def _flash_backward_dkv(fn_name, tensor_core, q, k, v, seg_q, seg_kv, lse,
+                        do, di, causal, sm_scale, out):
     b, h, sq, sk, dev, dt = _flash_backward_checks(q, k, v, seg_q, seg_kv,
                                                    lse, do, di)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if tensor_core:
+        _flash_tma_checks(q, k, v, do)
+    dk, dv = _flash_outputs(out, (k, v), ("dk", "dv"))
     strides = _strides(q, k, v, None, do, None, dk, dv)
-    _launch("fewbit_flash_backward_dkv", dev, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), _ptr(seg_q), _ptr(seg_kv), lse.data_ptr(),
-            do.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+    _launch(fn_name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(seg_q), _ptr(seg_kv), lse.data_ptr(), do.data_ptr(),
+            di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             ctypes.addressof(strides), b, h, sq, sk, int(causal),
             float(sm_scale), int(dt == torch.bfloat16))
-    flash_backward_dkv.launches += 1
     return dk, dv
 
 
+def _flash_backward_dq(fn_name, tensor_core, q, k, v, seg_q, seg_kv, lse, do,
+                       di, causal, sm_scale, out):
+    b, h, sq, sk, dev, dt = _flash_backward_checks(q, k, v, seg_q, seg_kv,
+                                                   lse, do, di)
+    if tensor_core:
+        _flash_tma_checks(q, k, v, do)
+    dq, = _flash_outputs(out, (q,), ("dq",))
+    strides = _strides(q, k, v, None, do, dq, None, None)
+    _launch(fn_name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(seg_q), _ptr(seg_kv), lse.data_ptr(), do.data_ptr(),
+            di.data_ptr(), dq.data_ptr(), ctypes.addressof(strides), b, h,
+            sq, sk, int(causal), float(sm_scale), int(dt == torch.bfloat16))
+    return dq
+
+
+def _into(out, got):
+    """The plain version's results, copied into the caller's ``out``."""
+    if out is None:
+        return got
+    for o, g in zip(out, got):
+        o.copy_(g)
+    return tuple(out)
+
+
+def flash_backward_dkv(q, k, v, seg_q, seg_kv, lse, do, di,
+                       causal: bool = False, sm_scale: float = 1.0, *,
+                       out=None):
+    """F2: ``(dk, dv)`` from the forward's ``lse``, the output gradient
+    ``do`` and ``di = sum(do * o, -1)`` (f32); k's and v's strides, or
+    written into ``out = (dk, dv)``.  On the card every product runs on the
+    tensor cores (bf16, or f32 as three TF32 products), fed by TMA: bases
+    and strides are multiples of 16 bytes."""
+    if q.device.type == "cpu":
+        return _into(out, flash_backward_dkv_plain(
+            q, k, v, seg_q, seg_kv, lse, do, di, causal, sm_scale))
+    out = _flash_backward_dkv("fewbit_flash_backward_dkv", True, q, k, v,
+                              seg_q, seg_kv, lse, do, di, causal, sm_scale,
+                              out)
+    flash_backward_dkv.launches += 1
+    return out
+
+
 def flash_backward_dq(q, k, v, seg_q, seg_kv, lse, do, di,
-                      causal: bool = False, sm_scale: float = 1.0):
-    """F3: ``dq`` (q's strides), from the arguments of F2."""
+                      causal: bool = False, sm_scale: float = 1.0, *,
+                      out=None):
+    """F3: ``dq`` (q's strides, or written into ``out = (dq,)``), from the
+    arguments of F2, on the tensor cores as F2."""
+    if q.device.type == "cpu":
+        return _into(out, (flash_backward_dq_plain(
+            q, k, v, seg_q, seg_kv, lse, do, di, causal, sm_scale),))[0]
+    out = _flash_backward_dq("fewbit_flash_backward_dq", True, q, k, v, seg_q,
+                             seg_kv, lse, do, di, causal, sm_scale, out)
+    flash_backward_dq.launches += 1
+    return out
+
+
+def flash_backward_dkv_simt(q, k, v, seg_q, seg_kv, lse, do, di,
+                            causal: bool = False, sm_scale: float = 1.0):
+    """F2's function by the first, CUDA-core kernel: what the tensor-core
+    kernel is measured against.  No model path runs it."""
+    if q.device.type == "cpu":
+        return flash_backward_dkv_plain(q, k, v, seg_q, seg_kv, lse, do, di,
+                                        causal, sm_scale)
+    out = _flash_backward_dkv("fewbit_flash_backward_dkv_simt", False, q, k,
+                              v, seg_q, seg_kv, lse, do, di, causal, sm_scale,
+                              None)
+    flash_backward_dkv_simt.launches += 1
+    return out
+
+
+def flash_backward_dq_simt(q, k, v, seg_q, seg_kv, lse, do, di,
+                           causal: bool = False, sm_scale: float = 1.0):
+    """F3's function by the first, CUDA-core kernel; on no model path."""
     if q.device.type == "cpu":
         return flash_backward_dq_plain(q, k, v, seg_q, seg_kv, lse, do, di,
                                        causal, sm_scale)
-    b, h, sq, sk, dev, dt = _flash_backward_checks(q, k, v, seg_q, seg_kv,
-                                                   lse, do, di)
-    dq = torch.empty_like(q)
-    strides = _strides(q, k, v, None, do, dq, None, None)
-    _launch("fewbit_flash_backward_dq", dev, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), _ptr(seg_q), _ptr(seg_kv), lse.data_ptr(),
-            do.data_ptr(), di.data_ptr(), dq.data_ptr(),
-            ctypes.addressof(strides), b, h, sq, sk, int(causal),
-            float(sm_scale), int(dt == torch.bfloat16))
-    flash_backward_dq.launches += 1
-    return dq
+    out = _flash_backward_dq("fewbit_flash_backward_dq_simt", False, q, k, v,
+                             seg_q, seg_kv, lse, do, di, causal, sm_scale,
+                             None)
+    flash_backward_dq_simt.launches += 1
+    return out
 
 
 # name -> (wrapper, plain version, TPU kernel it replaces, CUDA source).
@@ -1074,18 +1177,21 @@ KERNELS = {
     "flash_backward_dkv": (
         flash_backward_dkv, flash_backward_dkv_plain,
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
-        "fewbit_tpu_torch/csrc/flash_attention.cu"),
+        "fewbit_tpu_torch/csrc/flash_backward.cu"),
     "flash_backward_dq": (
         flash_backward_dq, flash_backward_dq_plain,
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
-        "fewbit_tpu_torch/csrc/flash_attention.cu"),
+        "fewbit_tpu_torch/csrc/flash_backward.cu"),
 }
 
 
 def reset_launch_counts() -> None:
     for wrapper, *_ in KERNELS.values():
         wrapper.launches = 0
-    dense_act_simt.launches = 0  # on no path: not one of KERNELS
+    # On no path, so not among KERNELS: the CUDA-core kernels replaced.
+    for wrapper in (dense_act_simt, flash_backward_dkv_simt,
+                    flash_backward_dq_simt):
+        wrapper.launches = 0
 
 
 def launch_counts() -> dict:

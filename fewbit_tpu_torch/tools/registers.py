@@ -8,8 +8,11 @@ arguments) with the library's own flags plus ``-Xptxas -v``, one ``nvcc``
 per source, all started together, and prints one line per kernel
 instantiation: its demangled name, registers per thread, bytes of spill
 stores and loads, and static shared memory.  A 288-thread block of the
-tensor-core kernels may have 168 registers a thread.  Needs ``nvcc``; builds
-nothing that the library loads.
+tensor-core kernels may have 168 registers a thread; so may the 384-thread
+blocks of the flash backward kernels, which ``ptxas`` reports at that figure
+whatever their warpgroups take after ``setmaxnreg`` (40 for the producer,
+232 for the consumers).  Needs ``nvcc``; builds nothing that the library
+loads.
 """
 
 from __future__ import annotations

@@ -425,56 +425,171 @@ def test_dense_act_sketch_x_matches_plain_on_cuda(cuda, dtype):
     assert K.launch_counts()["dense_act_sketch"] == 0
 
 
-def _flash_inputs(cuda, dtype, b, h, s, seed):
-    """(b, h, s, 64) q, k, v, dO as the models pass them (transposed
-    views of (b, s, h, 64) tensors) and padded segment ids."""
+def _flash_inputs(cuda, dtype, b, h, s, seed, sk=None, contiguous=False):
+    """(b, h, s, 64) q and dO, (b, h, sk, 64) k and v, as the models pass
+    them (transposed views of (b, s, h, 64) tensors) or contiguous, and
+    padded segment ids of both sides (every batch row keeps at least one
+    padded position where the two lengths differ)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    qkv = [torch.randn(b, s, h, 64, generator=gen, device=cuda).to(dtype)
-           .transpose(1, 2) for _ in range(4)]
-    lengths = torch.randint(s // 2, s + 1, (b,), generator=gen, device=cuda)
-    ids = (torch.arange(s, device=cuda)[None] < lengths[:, None]).int()
-    return qkv, ids
+    sk = s if sk is None else sk
+
+    def rand(n):
+        if contiguous:
+            return torch.randn(b, h, n, 64, generator=gen,
+                               device=cuda).to(dtype)
+        return (torch.randn(b, n, h, 64, generator=gen, device=cuda)
+                .to(dtype).transpose(1, 2))
+
+    def ids(n):
+        top = n + 1 if sk == s else n
+        lengths = torch.randint(n // 2, max(top, n // 2 + 1), (b,),
+                                generator=gen, device=cuda)
+        return (torch.arange(n, device=cuda)[None] < lengths[:, None]).int()
+
+    q, k, v, do = rand(s), rand(sk), rand(sk), rand(s)
+    ids_q = ids(s)
+    return (q, k, v, do), ids_q, (ids_q if sk == s else ids(sk))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,causal,seg", [(1000, True, True),
-                                          (1000, False, False),
-                                          (256, True, False),
-                                          (128, False, True)])
-def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, causal, seg):
-    """F1-F3 against their plain versions, ragged s = 1000 included."""
+@pytest.mark.parametrize("s,sk,causal,seg,contiguous", [
+    (1000, 1000, True, True, False), (1000, 1000, False, False, False),
+    (256, 256, True, False, False), (128, 128, False, True, False),
+    (64, 64, True, False, False), (65, 65, False, False, True),
+    (127, 127, True, True, True), (2048, 2048, True, False, False),
+    (2048, 2048, False, True, True), (300, 1000, False, True, False),
+    (1000, 300, True, False, False), (65, 127, False, False, True),
+    (127, 64, True, False, True), (1, 1, True, True, True)])
+def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
+                                           contiguous):
+    """F1-F3 against their plain versions: ragged sequences, sq != sk,
+    transposed views and contiguous operands, segment ids with and without
+    the causal mask.  F2 and F3 on the tensor cores, into outputs filled with
+    NaN so that an element left unwritten cannot pass, twice for equal bits,
+    and by the CUDA-core kernels they replaced."""
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    (q, k, v, do), ids = _flash_inputs(cuda, dtype, 2, 3, s, s + causal)
-    seg_q = seg_kv = ids if seg else None
+    (q, k, v, do), ids_q, ids_kv = _flash_inputs(cuda, dtype, 2, 3, s,
+                                                 s + causal, sk, contiguous)
+    seg_q, seg_kv = (ids_q, ids_kv) if seg else (None, None)
     scale = 0.125
     K.reset_launch_counts()
     o, lse = K.flash_forward(q, k, v, seg_q, seg_kv, causal, scale)
     o0, lse0 = flash_forward_plain(q, k, v, seg_q, seg_kv, causal, scale)
     assert o.stride() == q.stride()
     di = (o.float() * do.float()).sum(-1)
-    dk, dv = K.flash_backward_dkv(q, k, v, seg_q, seg_kv, lse, do, di,
-                                  causal, scale)
-    dq = K.flash_backward_dq(q, k, v, seg_q, seg_kv, lse, do, di, causal,
-                             scale)
+    bargs = (q, k, v, seg_q, seg_kv, lse, do, di, causal, scale)
+    nan = [torch.full_like(t, float("nan")) for t in (k, v, q)]
+    dk, dv = K.flash_backward_dkv(*bargs, out=nan[:2])
+    dq = K.flash_backward_dq(*bargs, out=nan[2:])
+    assert all(a is b for a, b in zip((dk, dv, dq), nan))
     dq0, dk0, dv0 = flash_backward_plain(q, k, v, seg_q, seg_kv, o0, lse0,
                                          do, causal, scale)
+    dks, dvs = K.flash_backward_dkv_simt(*bargs)
+    dqs = K.flash_backward_dq_simt(*bargs)
     torch.cuda.synchronize()
+    assert (dk.stride(), dv.stride(), dq.stride()) == (
+        k.stride(), v.stride(), q.stride())
     for name, a, b in (("o", o, o0), ("lse", lse, lse0), ("dq", dq, dq0),
-                       ("dk", dk, dk0), ("dv", dv, dv0)):
+                       ("dk", dk, dk0), ("dv", dv, dv0), ("dq simt", dqs, dq0),
+                       ("dk simt", dks, dk0), ("dv simt", dvs, dv0)):
         err = (a.float() - b.float()).abs().max().item()
         assert err <= tol * max(1.0, b.float().abs().max().item()), \
             (name, err)
+    # Nothing is summed across blocks: a second launch gives the same bits.
+    dk2, dv2 = K.flash_backward_dkv(*bargs)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, K.flash_backward_dq(*bargs))
     assert [K.launch_counts()[n] for n in ("flash_forward",
                                            "flash_backward_dkv",
-                                           "flash_backward_dq")] == [1, 1, 1]
+                                           "flash_backward_dq")] == [1, 2, 2]
+    assert K.flash_backward_dkv_simt.launches == 1
+    assert K.flash_backward_dq_simt.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_refuses_what_tma_cannot_read(cuda, dtype):
+    """A base or a stride that is not a multiple of 16 bytes: the
+    tensor-core wrappers raise (nothing falls back); the CUDA-core kernels
+    take such operands."""
+    b, h, s = 2, 2, 96
+    (q, k, v, do), _, _ = _flash_inputs(cuda, dtype, b, h, s, 11,
+                                        contiguous=True)
+    o, lse = K.flash_forward(q, k, v, None, None, True, 0.125)
+    di = (o.float() * do.float()).sum(-1)
+    # Rows of 66 elements: unit stride along d, 264 (132) bytes a row.
+    wide = torch.zeros(b, h, s, 66, dtype=dtype, device=cuda)[..., :64]
+    wide.copy_(k)
+    # The same values one element off a 16-byte boundary.
+    flat = torch.zeros(k.numel() + 1, dtype=dtype, device=cuda)
+    shifted = flat[1:].view(b, h, s, 64)
+    shifted.copy_(k)
+    want = K.flash_backward_dkv(q, k, v, None, None, lse, do, di, True, 0.125)
+    for bad in (wide, shifted):
+        args = (q, bad, v, None, None, lse, do, di, True, 0.125)
+        for wrapper in (K.flash_backward_dkv, K.flash_backward_dq):
+            with pytest.raises(ValueError, match="16"):
+                wrapper(*args)
+        for got, ref in zip(K.flash_backward_dkv_simt(*args), want):
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            assert err <= tol * max(1.0, ref.float().abs().max().item())
+    with pytest.raises(ValueError):  # head dimension 32
+        K.flash_backward_dq(q[..., :32], k[..., :32], v[..., :32], None, None,
+                            lse, do[..., :32], di)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_repeats_its_bits_under_load(cuda, dtype, causal):
+    """Long sequences (up to 64 looped tiles a block, the f32 producer
+    refilling its one stage while the consumers multiply), launched on three
+    streams at once and again and again, so that a block's warps are held up
+    differently each time: every launch gives the first one's bits, and
+    those agree with the plain versions."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    s = 4096
+    (q, k, v, do), _, _ = _flash_inputs(cuda, dtype, 2, 4, s, 21)
+    scale = 0.125
+    o, lse = K.flash_forward(q, k, v, None, None, causal, scale)
+    di = (o.float() * do.float()).sum(-1)
+    bargs = (q, k, v, None, None, lse, do, di, causal, scale)
+    first = (*K.flash_backward_dkv(*bargs), K.flash_backward_dq(*bargs))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in range(3)]
+    for _ in range(4):
+        got = []
+        for stream in streams:
+            with torch.cuda.stream(stream):
+                nan = [torch.full_like(t, float("nan")) for t in (k, v, q)]
+                K.flash_backward_dkv(*bargs, out=nan[:2])
+                K.flash_backward_dq(*bargs, out=nan[2:])
+                got.append(nan)
+        torch.cuda.synchronize()
+        for outs in got:
+            for name, a, b in zip(("dk", "dv", "dq"), outs, first):
+                assert torch.equal(a, b), name
+    want = []
+    for i in range(q.shape[0]):  # one batch row at a time: (h, s, s) f32
+        qi, ki, vi, lsei, doi, dii = (t[i:i + 1]
+                                      for t in (q, k, v, lse, do, di))
+        pargs = (qi, ki, vi, None, None, lsei, doi, dii, causal, scale)
+        want.append((*K.flash_backward_dkv_plain(*pargs),
+                     K.flash_backward_dq_plain(*pargs)))
+    for j, name in enumerate(("dk", "dv", "dq")):
+        b = torch.cat([w[j] for w in want])
+        err = (first[j].float() - b.float()).abs().max().item()
+        assert err <= tol * max(1.0, b.float().abs().max().item()), (name,
+                                                                     err)
 
 
 @pytest.mark.cuda
 def test_flash_attention_function_on_cuda(cuda):
     """The autograd op on the card: gradients of the plain autograd path,
     and the wrappers refuse what the kernels do not take."""
-    (q, k, v, do), ids = _flash_inputs(cuda, torch.float32, 2, 2, 200, 5)
+    (q, k, v, do), ids, _ = _flash_inputs(cuda, torch.float32, 2, 2, 200, 5)
     grads = []
     for use_op in (True, False):
         ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -494,6 +609,28 @@ def test_flash_attention_function_on_cuda(cuda):
         K.flash_forward(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):  # segment ids for one side only
         K.flash_forward(q, k, v, ids, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["sum", "sum_over_s"])
+def test_flash_attention_backward_takes_expanded_gradients(cuda, loss):
+    """A loss whose gradient reaches the op expanded (stride 0 along some or
+    all dimensions, which TMA cannot read) is copied first, not refused."""
+    (q, k, v, _), ids, _ = _flash_inputs(cuda, torch.float32, 2, 2, 130, 9)
+    w = torch.randn(2, 2, 64, device=cuda)
+    grads = []
+    for use_op in (True, False):
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        if use_op:
+            out = flash_attention(*ins, SegmentIds(ids, ids), causal=True,
+                                  sm_scale=0.125)
+        else:
+            out = flash_forward_plain(*ins, ids, ids, True, 0.125)[0]
+        (out.sum() if loss == "sum" else (out.sum(2) * w).sum()).backward()
+        grads.append([t.grad for t in ins])
+    for a, b in zip(*grads):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * max(1.0, b.abs().max().item()), err
 
 
 # ---------------------------------------------------------------------------
