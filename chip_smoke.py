@@ -15,17 +15,18 @@ Phases (any failure raises and exits non-zero; no result is printed):
    and the operations it does on these inputs (``bound``).  Kernels 1, 2
    and 3 also by the profiler (device time), with the route and tile their
    host chose, the achieved TFLOP/s and the share of the bound reached.
+   Kernels 4 and 5 also by device time, with their share of the bound.
    F1, and F2 with F3, beside the one PyTorch call that computes the same
-   function (``scaled_dot_product_attention`` and its backward): a
-   yardstick that the port never calls.  The GEMM kernels have no such
-   call; the bare ``torch.matmul`` of their product is printed as context.
-   F2 and F3 (the tensor-core kernels) are also held against an f64
-   evaluation of the plain formulas on a batch slice, where their error
-   must be nonzero and within the tolerance (the plain versions' and the
-   replaced CUDA-core kernels' errors against f64 are printed beside);
-   they write into outputs filled with NaN, two launches must give equal
-   bits, and at the GPT shape they must not be slower than the CUDA-core
-   kernels they replaced.
+   function (``scaled_dot_product_attention`` and its backward, per call
+   and on the device): a yardstick that the port never calls.  The GEMM
+   kernels have no such call; the bare ``torch.matmul`` of their product
+   is printed as context.  F1, F2 and F3 (the tensor-core kernels) are also
+   held against an f64 evaluation of the plain formulas on a batch slice,
+   where their error must be nonzero and within the tolerance (the plain
+   versions' and the replaced CUDA-core kernels' errors against f64 are
+   printed beside); they write into outputs filled with NaN, two launches
+   must give equal bits, and at the GPT shape they must not be slower than
+   the CUDA-core kernels they replaced.
 3. RoBERTa-base (12 layers, hidden 768, 12 heads, FFN 3072; random weights
    from a seed), the fused few-bit FFN: an MRPC-shaped batch, bs 64, seq
    128, 3-bit GELU, countsketch at ratio 0.2, dropout on: 3 f32 steps and
@@ -71,8 +72,9 @@ slower than the CUDA-core kernel it replaced.
 The kernel phase also holds kernel 2' (kernel 2 with the input sketch,
 which no path runs) against its plain version, and times flash attention
 (F1, then F2 and F3 through the autograd op) against the standard
-attention's forward and backward at seq 128 and 1024: the card's own
-crossover for ``flash_attention="auto"``, printed, not acted on.
+attention's forward and backward at seq 128, 256, 512 and 1024 (8192
+tokens) in f32 and bf16: the card's own crossover for
+``flash_attention="auto"``, printed, not acted on.
 
 Every loss must be finite.  Each path's launch counts start at 0 just
 before it.  The experiment's rows are a JSON line of their own; the line
@@ -246,22 +248,26 @@ def phase_device():
     return smi
 
 
-def device_ms(fn, reps=10):
+def device_ms(fn, reps=10, tries=3):
     """Device milliseconds of ``fn`` per call: the time of the CUDA
     kernels it launches, summed over a profiled run of ``reps`` calls
-    (torch.profiler), without the host's share of the call."""
+    (torch.profiler), without the host's share of the call.  A profiled
+    run that reports no device time at all (the profiler's, not the
+    kernel's: the kernel's results were checked before) is taken again,
+    up to ``tries`` runs."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages())
-    if not total > 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages())
+        if total > 0:
+            return total / reps / 1e3
+    raise AssertionError("the profiler saw no device time")
 
 
 def _gemm_case(results, name, mode, tag, wrapper, plain, args, errs, route,
@@ -402,6 +408,22 @@ def _flash_backward_f64(q, k, v, ids, lse, do, di, causal, scale):
             torch.einsum("bhqk,bhkd->bhqd", ds, k))
 
 
+def _flash_forward_f64(q, k, v, ids, causal, scale):
+    """``(o, lse)`` by the plain formulas in f64, on the same inputs."""
+    from fewbit_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE
+
+    q, k, v = (t.double() for t in (q, k, v))
+    keep = (ids[:, :, None] == ids[:, None, :])[:, None]
+    if causal:
+        keep = keep.tril()
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    s = s + torch.where(keep, 0.0, DEFAULT_MASK_VALUE)
+    del keep
+    lse = torch.logsumexp(s, -1)
+    return (torch.einsum("bhqk,bhkd->bhqd", torch.exp(s - lse[..., None]),
+                         v), lse)
+
+
 def _nan_like(*like):
     """Outputs for a kernel to write into, full of NaN: an element it leaves
     unwritten cannot pass a comparison."""
@@ -431,11 +453,11 @@ def _held_to_f64(tag, names, got, simt, plain, want, tol):
 
 def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     """F1-F3 on one input against their plain versions (the backward ones
-    on the kernel's lse and di, the same inputs), each timed.  F2 and F3
-    also: against an f64 evaluation of the plain formulas on a batch slice
-    (with the plain versions' and the replaced CUDA-core kernels' errors
-    beside), outputs filled with NaN first, two launches held to equal bits,
-    and the time of the CUDA-core kernel each replaced."""
+    on the kernel's lse and di, the same inputs), each timed, and each
+    against an f64 evaluation of the plain formulas on a batch slice (with
+    the plain versions' and the replaced CUDA-core kernels' errors beside),
+    into outputs filled with NaN first, two launches held to equal bits, and
+    beside the time of the CUDA-core kernel each replaced."""
     from fewbit_tpu_torch.ops import kernels as K
     from fewbit_tpu_torch.ops.flash_attention import (
         flash_backward_dkv_plain, flash_backward_dq_plain,
@@ -449,30 +471,44 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     if causal:
         keep = keep.tril()
     pair_ops = 2 * HEAD_DIM * HEADS * int(keep.sum())
-    fwd_lib, bwd_lib, bwd_lib_device = _sdpa_ms(q, k, v, do, keep, ids,
-                                                causal, scale)
+    lib = _sdpa_ms(q, k, v, do, keep, ids, causal, scale)
     del keep
     rate = gemm_rate(q.dtype)
+    # The f64 evaluations, on as many batch rows as keep their (s, s)
+    # tensors near 2^25 elements per head.
+    nb = max(1, min(q.shape[0], 2 ** 25 // (HEADS * q.shape[2] ** 2)))
     fargs = (q, k, v, ids, ids, causal, scale)
-    o, lse = K.flash_forward(*fargs)
-    o0, lse0 = flash_forward_plain(*fargs)
+    lse_like = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    o, lse = K.flash_forward(*fargs, out=_nan_like(q, lse_like))
+    o2, lse2 = K.flash_forward(*fargs, out=_nan_like(q, lse_like))
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"F1 {tag} {shape}: two launches differ")
+    del o2, lse2
     if o.stride() != q.stride():
         raise AssertionError(f"F1 {tag}: o strides {o.stride()}")
+    o0, lse0 = flash_forward_plain(*fargs)
+    os_, lses = K.flash_forward_simt(*fargs)
+    o64, lse64 = _flash_forward_f64(q[:nb], k[:nb], v[:nb], ids[:nb],
+                                    causal, scale)
     results["flash_forward"].append({
         "mode": mode, "dtype": tag,
         "errors": {"o": compare(f"F1 {tag} {shape} o", o, o0, tol),
                    "lse": compare(f"F1 {tag} {shape} lse", lse, lse0, tol)},
+        "f64_errors": _held_to_f64(f"F1 {tag} {shape}", ("o", "lse"),
+                                   (o, lse), (os_, lses), (o0, lse0),
+                                   (o64, lse64), tol),
+        "f64_batch_rows": nb,
         "ms": cuda_ms(lambda: K.flash_forward(*fargs)),
+        "device_ms": device_ms(lambda: K.flash_forward(*fargs)),
         "plain_ms": cuda_ms(lambda: flash_forward_plain(*fargs)),
+        # The CUDA-core kernel it replaced, same inputs, same call.
+        "simt_ms": cuda_ms(lambda: K.flash_forward_simt(*fargs)),
         **bound(2 * pair_ops, rate, tensor_bytes(q, k, v, ids, ids, o, lse)),
-        "library_ms": fwd_lib,
+        "library_ms": lib["fwd_ms"], "library_device_ms": lib["fwd_device_ms"],
         "library": "scaled_dot_product_attention, forward"})
-    del o0, lse0
+    del o0, lse0, os_, lses, o64, lse64
     di = (o.float() * do.float()).sum(-1)
     bargs = (q, k, v, ids, ids, lse, do, di, causal, scale)
-    # The f64 evaluation, on as many batch rows as keep its (s, s) tensors
-    # near 2^25 elements per head.
-    nb = max(1, min(q.shape[0], 2 ** 25 // (HEADS * q.shape[2] ** 2)))
     dk64, dv64, dq64 = _flash_backward_f64(
         q[:nb], k[:nb], v[:nb], ids[:nb], lse[:nb], do[:nb], di[:nb], causal,
         scale)
@@ -500,7 +536,7 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         "simt_ms": cuda_ms(lambda: K.flash_backward_dkv_simt(*bargs)),
         **bound(4 * pair_ops, rate,
                 tensor_bytes(q, k, v, ids, ids, lse, do, di, dk, dv)),
-        "library_ms": bwd_lib, "library_device_ms": bwd_lib_device,
+        "library_ms": lib["bwd_ms"], "library_device_ms": lib["bwd_device_ms"],
         "library": library}
     results["flash_backward_dkv"].append(case)
     del dk0, dv0, dks, dvs, dk64, dv64
@@ -521,10 +557,11 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         "simt_ms": cuda_ms(lambda: K.flash_backward_dq_simt(*bargs)),
         **bound(3 * pair_ops, rate,
                 tensor_bytes(q, k, v, ids, ids, lse, do, di, dq)),
-        "library_ms": bwd_lib, "library_device_ms": bwd_lib_device,
+        "library_ms": lib["bwd_ms"], "library_device_ms": lib["bwd_device_ms"],
         "library": library})
     if shape == "gpt2_small":
-        for name in ("flash_backward_dkv", "flash_backward_dq"):
+        for name in ("flash_forward", "flash_backward_dkv",
+                     "flash_backward_dq"):
             c = results[name][-1]
             if not c["ms"] <= c["simt_ms"]:
                 raise AssertionError(
@@ -538,8 +575,8 @@ def _sdpa_ms(q, k, v, do, keep, ids, causal, scale):
     call): the library's time for the same function.  A yardstick only:
     the port never calls it.  All-ones segment ids with ``causal`` are its
     ``is_causal``; any other mask is passed as a boolean ``attn_mask``.
-    Returns the forward's and the backward's time per call and the
-    backward's device time (the profiler's)."""
+    Returns the forward's and the backward's time per call and on the
+    device (the profiler's)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     if causal and bool((ids == 1).all()):
@@ -547,12 +584,18 @@ def _sdpa_ms(q, k, v, do, keep, ids, causal, scale):
     else:
         kwargs = {"attn_mask": keep[:, None]}
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
-    fwd = cuda_ms(lambda: sdpa(*ins, scale=scale, **kwargs))
+
+    def forward():
+        with torch.no_grad():
+            return sdpa(*ins, scale=scale, **kwargs)
+
     out = sdpa(*ins, scale=scale, **kwargs)
+
     def backward():
         torch.autograd.grad(out, ins, do, retain_graph=True)
 
-    return fwd, cuda_ms(backward), device_ms(backward)
+    return {"fwd_ms": cuda_ms(forward), "fwd_device_ms": device_ms(forward),
+            "bwd_ms": cuda_ms(backward), "bwd_device_ms": device_ms(backward)}
 
 
 def phase_kernels():
@@ -674,13 +717,16 @@ def phase_kernels():
             raise AssertionError(f"k4 {tag}: packed codes differ")
         errs = {"y": compare(f"k4 {tag} y", y, y0, tol), "code_flips": 0}
         # Per element: one compare per border and the GELU, on CUDA cores.
-        results["fused_forward"].append({
+        case = {
             "mode": "forward", "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_forward(*args)),
+            "device_ms": device_ms(lambda: K.fused_forward(*args)),
             "plain_ms": cuda_ms(lambda: K.act_forward_plain(*args)),
             **bound(h.numel() * (spec.n_borders + 1), "simt",
                     tensor_bytes(args, y, packed4)),
-            "library_ms": None})
+            "library_ms": None}
+        case["bound_share"] = case["bound_ms"] / case["device_ms"]
+        results["fused_forward"].append(case)
 
         # Kernel 5 on the codes of kernel 6 (GPT) and of kernel 4 (RoBERTa
         # unfused), with an (N, FFN) output gradient.
@@ -690,15 +736,18 @@ def phase_kernels():
             args = (spec, packed, levels, g_ffn)
             dx = K.fused_backward(*args)
             dx0 = K.act_backward_plain(*args)
-            results["fused_backward"].append({
+            case = {
                 "mode": f"backward on {source}", "dtype": tag,
                 "errors": {"dx": compare(f"k5 {tag} {source}", dx, dx0,
                                          tol)},
                 "ms": cuda_ms(lambda: K.fused_backward(*args)),
+                "device_ms": device_ms(lambda: K.fused_backward(*args)),
                 "plain_ms": cuda_ms(lambda: K.act_backward_plain(*args)),
                 # Per element: one multiply, on CUDA cores.
                 **bound(g_ffn.numel(), "simt", tensor_bytes(args, dx)),
-                "library_ms": None})
+                "library_ms": None}
+            case["bound_share"] = case["bound_ms"] / case["device_ms"]
+            results["fused_backward"].append(case)
 
         # F1-F3 at both paths' shapes, on (b, s, h, d) projections seen
         # through transpose(1, 2), as the models pass them.
@@ -727,6 +776,9 @@ def phase_kernels():
                           f"{c['library_device_ms']:.4f} ms device; against "
                           f"f64 on {c['f64_batch_rows']} batch rows: "
                           f"{c['f64_errors']}")
+            if "bound_share" in c and "route" not in c:
+                extra += (f"; device {c['device_ms']:.4f} ms "
+                          f"({100 * c['bound_share']:.1f}% of the bound)")
             if "route" in c:
                 extra += (f"; {c['route']}, tile {c['tile']}; device "
                           f"{c['device_ms']:.4f} ms ({c['tflops']:.1f} "
@@ -742,47 +794,54 @@ def phase_kernels():
 
 
 def _standard_attention(q, k, v, mask, scale):
-    """The models' standard causal attention on (b, s, h, d) projections."""
+    """The models' standard causal attention on (b, s, h, d) projections,
+    the probabilities in v's type."""
     s = q.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).float()
     keep = (torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
             [None, None] & (mask[:, None, None, :] > 0))
     logits = logits + torch.where(keep, 0.0, torch.finfo(torch.float32).min)
-    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def phase_crossover():
-    """Attention forward and backward, f32, causal, 8192 tokens: the flash
-    op (F1, then F2 and F3) against the standard attention, at seq 128 and
-    1024 -- the card's own crossover for ``flash_attention="auto"``
-    (printed, not acted on)."""
+    """Attention forward and backward, causal, 8192 tokens, f32 and bf16:
+    the flash op (F1, then F2 and F3) against the standard attention, at
+    seq 128, 256, 512 and 1024 -- the card's own crossover for
+    ``flash_attention="auto"`` (printed, not acted on)."""
     from fewbit_tpu_torch.ops.flash_attention import (SegmentIds,
                                                       flash_attention)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     scale = HEAD_DIM ** -0.5
     out = {}
-    for b, s in ((BS, SEQ), (GPT_BS, GPT_SEQ)):
-        q, k, v, do = (torch.randn(b, s, HEADS, HEAD_DIM, generator=gen,
-                                   device="cuda") for _ in range(4))
-        for t in (q, k, v):
-            t.requires_grad_()
-        ids = torch.ones(b, s, dtype=torch.int32, device="cuda")
-        seg = SegmentIds(ids, ids)
+    for dt in (torch.float32, torch.bfloat16):
+        for s in (128, 256, 512, 1024):
+            b = N // s
+            q, k, v, do = (torch.randn(b, s, HEADS, HEAD_DIM, generator=gen,
+                                       device="cuda").to(dt)
+                           for _ in range(4))
+            for t in (q, k, v):
+                t.requires_grad_()
+            ids = torch.ones(b, s, dtype=torch.int32, device="cuda")
+            seg = SegmentIds(ids, ids)
 
-        def flash():
-            flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), seg, causal=True,
-                            sm_scale=scale).backward(do.transpose(1, 2))
+            def flash():
+                flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), seg, causal=True,
+                                sm_scale=scale).backward(do.transpose(1, 2))
 
-        def standard():
-            _standard_attention(q, k, v, ids, scale).backward(do)
+            def standard():
+                _standard_attention(q, k, v, ids, scale).backward(do)
 
-        out[f"seq{s}"] = {"batch": b, "flash_ms": cuda_ms(flash),
-                          "standard_ms": cuda_ms(standard)}
-        log(f"crossover seq {s} bs {b}: attention fwd+bwd flash "
-            f"{out[f'seq{s}']['flash_ms']:.3f} ms, standard "
-            f"{out[f'seq{s}']['standard_ms']:.3f} ms")
+            key = f"{gemm_rate(dt)} seq{s}"
+            out[key] = {"batch": b, "flash_ms": cuda_ms(flash),
+                        "standard_ms": cuda_ms(standard)}
+            log(f"crossover {key} bs {b}: attention fwd+bwd flash "
+                f"{out[key]['flash_ms']:.3f} ms, standard "
+                f"{out[key]['standard_ms']:.3f} ms")
+            del q, k, v, do
     return out
 
 
@@ -948,6 +1007,7 @@ KERNEL_GROUPS = {
     "weight_prologue": ("prep_weight_kernel",),
     "column_partials": ("sum_partials_kernel",),
     "flash": ("flash_",),
+    "flash_forward": ("flash_forward",),
 }
 
 
@@ -982,15 +1042,18 @@ def profiled_steps(path, step, batches, gen, n=2):
 
 def phase_profile(path):
     """Only a path's few-bit steps: two to warm up, four timed without the
-    profiler, two under it."""
+    profiler (their ms and their largest peak above held, in bytes), two
+    under it."""
     batches = _batches(path, SEED)
     gen = torch.Generator().manual_seed(SEED)
     model, step = _model(path, torch.float32, fewbit=True)
     for _ in range(2):
         step(next(batches), gen)
-    timed = [_timed_step(step, next(batches), gen)[1] * 1e3 for _ in range(4)]
+    runs = [_timed_step(step, next(batches), gen) for _ in range(4)]
+    timed = [sec * 1e3 for _, sec, _ in runs]
     log(f"{path}: few-bit f32 step ms, unprofiled: {timed} (median "
-        f"{statistics.median(timed):.2f})")
+        f"{statistics.median(timed):.2f}); peak above held "
+        f"{max(peak for *_, peak in runs)} B")
     return profiled_steps(path, step, batches, gen)
 
 

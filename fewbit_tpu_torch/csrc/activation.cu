@@ -1,66 +1,179 @@
 // Elementwise few-bit activation, forward and backward.
 //
-// Forward: y = act(x), the interval code of x against the LUT's interior
-// borders, packed into bit planes.  Replaces
+// Forward (kernel 4): y = act(x), the interval code of x against the LUT's
+// interior borders, packed into bit planes.  Replaces
 // fewbit_tpu/ops/pallas_kernels.py: fused_forward (_forward_kernel).
-// Backward: the codes decoded from the bit planes, dx = levels[code] * g in
-// f32, stored in g's type.  Replaces fused_backward (_backward_kernel).
+// Backward (kernel 5): the codes decoded from the bit planes, dx =
+// levels[code] * g in f32, stored in g's type.  Replaces fused_backward
+// (_backward_kernel).
 //
 // What bounds them on this card: bytes.  At the RoBERTa FFN activation
 // (8192 x 3072, f32) the forward reads x and writes y (201 MB) plus
 // bits / 8 bytes of codes per element (9.4 MB at 3 bits), and the backward
 // reads g and the codes and writes dx: about 60-65 us each at 3.35 TB/s.
 // The arithmetic (one erff and 2^bits - 1 compares, or one shared-memory
-// LUT read per element) is far below the card's rate.
+// LUT read per element) is below the card's rate, if no loop of runtime
+// length runs per element.
 //
 // Design: the packed layout (bits, ceil(R / 32), C) puts 32 consecutive rows
-// of one column in a word.  A thread owns one word position (32 rows of one
-// column) and walks its rows, so neighbouring threads of a warp touch
-// neighbouring columns (coalesced reads and writes of x, y, g and dx), and
-// the pack and unpack are shifts within the thread's registers: no shared
-// memory, no ballot, no atomics.  Rows past R give zero bits and are neither
-// read nor written.  The TPU kernels aliased y onto x and dx onto g; these
-// write fresh outputs.
+// of one column in a word.  A thread owns one word position (32 rows) of
+// its columns, so the pack and unpack are shifts within the thread's
+// registers: no shared memory, no ballot, no atomics.  The forward's thread
+// owns 16 bytes of neighbouring columns (4 f32 or 8 bf16), read and written
+// by one 16-byte access a row (a warp moves 512 bytes a row), and loads a
+// group of rows before it computes any, so several rows are in flight.  Its
+// code counts the borders below x from a table padded with +inf to 2^TB
+// entries (TB, the table's bits, a template parameter), four borders to a
+// read: no runtime-length loop per element.  A row or column past the edge
+// is neither read nor written and gives zero bits; where C or an address
+// does not allow 16-byte accesses, each element is read alone.  The
+// backward's thread owns one column.  The TPU kernels aliased y onto x and
+// dx onto g; these write fresh outputs.
 #include "common.cuh"
 
 namespace fewbit {
 namespace {
 
-constexpr int ACT_NT = 128;     // threads per block, one column each
+constexpr int ACT_NT = 128;     // threads per block
 constexpr int MAX_BITS = 6;     // the wrappers' envelope
 constexpr int MAX_GRID_Y = 65535;
 
-template <typename T>
+// Kernel 4's thread: V columns of one type, 16 bytes; ROWS rows loaded
+// before any is computed.
+template <typename T> struct ActVec;
+template <> struct ActVec<float> {
+  static constexpr int V = 4, ROWS = 8;
+  static __device__ __forceinline__ void load(float (&v)[4], const float* p) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct ActVec<__nv_bfloat16> {
+  static constexpr int V = 8, ROWS = 4;
+  static __device__ __forceinline__ void load(float (&v)[8],
+                                              const __nv_bfloat16* p) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// Kernel 4.  TB: the bits of the padded table (at least `bits`, and 2^TB - 1
+// >= n_borders); VEC: 16-byte accesses (C a multiple of V, x, y and packed
+// 16-byte aligned), else one element at a time.
+template <typename T, int TB, bool VEC>
 __global__ void __launch_bounds__(ACT_NT)
     act_forward_kernel(const T* __restrict__ x,
                        const float* __restrict__ borders, int n_borders,
                        int act, int r, int c, int bits, T* __restrict__ y,
                        uint32_t* __restrict__ packed) {
-  __shared__ float bord[64];
-  const int tid = threadIdx.x;
-  if (tid < n_borders) bord[tid] = borders[tid];
+  using A = ActVec<T>;
+  constexpr int V = A::V, ROWS = A::ROWS;
+  constexpr int NQ = ((1 << TB) + 3) / 4;  // float4s of the table
+  __shared__ float4 table[NQ];
+  for (int i = threadIdx.x; i < 4 * NQ; i += ACT_NT)
+    reinterpret_cast<float*>(table)[i] =
+        i < n_borders ? borders[i] : __int_as_float(0x7f800000);
   __syncthreads();
-  const int col = blockIdx.x * ACT_NT + tid;
-  if (col >= c) return;
+  const int col0 = (blockIdx.x * ACT_NT + threadIdx.x) * V;
+  if (col0 >= c) return;
   const int words = (r + 31) / 32;
   for (int w = blockIdx.y; w < words; w += gridDim.y) {
-    const int row0 = w * 32, rows = min(32, r - row0);
-    uint32_t word[MAX_BITS];
+    const int row0 = w * 32;
+    uint32_t word[TB][V];
 #pragma unroll
-    for (int b = 0; b < MAX_BITS; ++b) word[b] = 0u;
-#pragma unroll 4
-    for (int i = 0; i < rows; ++i) {
-      const size_t idx = (size_t)(row0 + i) * c + col;
-      const float v = to_f(x[idx]);
-      y[idx] = from_f<T>(act_forward(act, v));
-      const unsigned code = border_code(v, bord, n_borders);
+    for (int b = 0; b < TB; ++b)
 #pragma unroll
-      for (int b = 0; b < MAX_BITS; ++b)
-        word[b] |= ((code >> b) & 1u) << i;
+      for (int j = 0; j < V; ++j) word[b][j] = 0u;
+#pragma unroll 1
+    for (int i0 = 0; i0 < 32; i0 += ROWS) {
+      float v[ROWS][V];
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        const int row = row0 + i0 + u;
+        const size_t at = (size_t)row * c + col0;
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[u][j] = 0.f;
+        if (row < r) {
+          if constexpr (VEC) {
+            A::load(v[u], x + at);
+          } else {
+#pragma unroll
+            for (int j = 0; j < V; ++j)
+              if (col0 + j < c) v[u][j] = to_f(x[at + j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        const int row = row0 + i0 + u;
+        if (row >= r) break;
+        unsigned code[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) code[j] = 0u;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float4 bd = table[q];
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            code[j] += (v[u][j] > bd.x ? 1u : 0u) + (v[u][j] > bd.y ? 1u : 0u) +
+                       (v[u][j] > bd.z ? 1u : 0u) + (v[u][j] > bd.w ? 1u : 0u);
+        }
+        float out[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          out[j] = act_forward(act, v[u][j]);
+#pragma unroll
+          for (int b = 0; b < TB; ++b)
+            word[b][j] |= ((code[j] >> b) & 1u) << (i0 + u);
+        }
+        const size_t at = (size_t)row * c + col0;
+        if constexpr (VEC) {
+          A::store(y + at, out);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            if (col0 + j < c) y[at + j] = from_f<T>(out[j]);
+        }
+      }
     }
 #pragma unroll
-    for (int b = 0; b < MAX_BITS; ++b)
-      if (b < bits) packed[((size_t)b * words + w) * c + col] = word[b];
+    for (int b = 0; b < TB; ++b) {
+      if (b >= bits) break;
+      uint32_t* dst = packed + ((size_t)b * words + w) * c + col0;
+      if constexpr (VEC) {
+#pragma unroll
+        for (int j = 0; j < V; j += 4)
+          *reinterpret_cast<uint4*>(dst + j) = make_uint4(
+              word[b][j], word[b][j + 1], word[b][j + 2], word[b][j + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (col0 + j < c) dst[j] = word[b][j];
+      }
+    }
   }
 }
 
@@ -100,32 +213,77 @@ dim3 act_grid(int r, int c) {
                                                             : MAX_GRID_Y);
 }
 
+template <typename T, int TB>
+void launch_forward(bool vec, dim3 grid, cudaStream_t st, const void* x,
+                    const float* bd, int n_borders, int act, int r, int c,
+                    int bits, void* y, uint32_t* pk) {
+  auto kernel = vec ? act_forward_kernel<T, TB, true>
+                    : act_forward_kernel<T, TB, false>;
+  kernel<<<grid, ACT_NT, 0, st>>>(static_cast<const T*>(x), bd, n_borders,
+                                  act, r, c, bits, static_cast<T*>(y), pk);
+}
+
+template <typename T>
+void launch_forward(int tb, cudaStream_t st, const void* x, const float* bd,
+                    int n_borders, int act, int r, int c, int bits, void* y,
+                    uint32_t* pk) {
+  constexpr int V = ActVec<T>::V;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = c % V == 0 && aligned(x) && aligned(y) && aligned(pk);
+  const int words = (r + 31) / 32;
+  const dim3 grid(((c + V - 1) / V + ACT_NT - 1) / ACT_NT,
+                  words < MAX_GRID_Y ? words : MAX_GRID_Y);
+  switch (tb) {
+    case 1:
+      return launch_forward<T, 1>(vec, grid, st, x, bd, n_borders, act, r, c,
+                                  bits, y, pk);
+    case 2:
+      return launch_forward<T, 2>(vec, grid, st, x, bd, n_borders, act, r, c,
+                                  bits, y, pk);
+    case 3:
+      return launch_forward<T, 3>(vec, grid, st, x, bd, n_borders, act, r, c,
+                                  bits, y, pk);
+    case 4:
+      return launch_forward<T, 4>(vec, grid, st, x, bd, n_borders, act, r, c,
+                                  bits, y, pk);
+    case 5:
+      return launch_forward<T, 5>(vec, grid, st, x, bd, n_borders, act, r, c,
+                                  bits, y, pk);
+    default:
+      return launch_forward<T, 6>(vec, grid, st, x, bd, n_borders, act, r, c,
+                                  bits, y, pk);
+  }
+}
+
 }  // namespace
 }  // namespace fewbit
 
 // x (r, c), borders (n_borders,) f32 with n_borders < 64, act an activation
 // id (common.cuh); outputs y (r, c) and packed (bits, ceil(r / 32), c)
-// 32-bit words, bits in 1..6.  Returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue without launching for an unknown act or bits.
+// 32-bit words, bits in 1..6; any r and c.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue without launching for an
+// unknown act or bits.
 extern "C" int fewbit_act_forward(const void* x, const void* borders,
                                   int n_borders, int act, void* y,
                                   void* packed, int r, int c, int bits,
                                   int is_bf16, void* stream) {
   using namespace fewbit;
-  if (!act_known(act) || bits < 1 || bits > MAX_BITS || n_borders > 63)
+  if (!act_known(act) || bits < 1 || bits > MAX_BITS || n_borders < 0 ||
+      n_borders > 63)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (r <= 0 || c <= 0) return 0;
+  int tb = bits;  // the padded table holds every border
+  while ((1 << tb) - 1 < n_borders) ++tb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bd = static_cast<const float*>(borders);
   uint32_t* pk = static_cast<uint32_t*>(packed);
-  const dim3 grid = act_grid(r, c);
   if (is_bf16)
-    act_forward_kernel<__nv_bfloat16><<<grid, ACT_NT, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), bd, n_borders, act, r, c, bits,
-        static_cast<__nv_bfloat16*>(y), pk);
+    launch_forward<__nv_bfloat16>(tb, st, x, bd, n_borders, act, r, c, bits,
+                                  y, pk);
   else
-    act_forward_kernel<float><<<grid, ACT_NT, 0, st>>>(
-        static_cast<const float*>(x), bd, n_borders, act, r, c, bits,
-        static_cast<float*>(y), pk);
+    launch_forward<float>(tb, st, x, bd, n_borders, act, r, c, bits, y, pk);
   return static_cast<int>(cudaGetLastError());
 }
 

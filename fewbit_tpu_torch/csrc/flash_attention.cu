@@ -1,7 +1,8 @@
-// Flash attention for head dimension 64 on CUDA cores: the forward (F1), and
-// the first dK/dV and dQ backward kernels, which the tensor-core ones of
-// flash_backward.cu replaced on every path (entry points ..._dkv_simt and
-// ..._dq_simt: kept to be measured against).
+// Flash attention for head dimension 64 on CUDA cores: the first forward
+// (F1) and dK/dV and dQ backward kernels, which the tensor-core ones of
+// flash_forward.cu and flash_backward.cu replaced on every path (entry
+// points ..._forward_simt, ..._dkv_simt and ..._dq_simt: kept to be
+// measured against).
 //
 // Replaces JAX's Pallas TPU library kernel
 // (jax/experimental/pallas/ops/tpu/flash_attention.py), which the JAX models
@@ -15,10 +16,10 @@
 //
 // What bounds it on this card: at GPT-2 small (8 x 12 heads, seq 1024) the
 // forward is 2 * 2 * 96 * 1024^2 * 64 = 25.8 GFLOP (half of it under the
-// causal mask) against 75 MB of q, k, v and o in f32: compute bound.  This
-// simple core multiplies on CUDA cores with FMA; the forward on tensor cores
-// is later work.  What it saves is memory: the (s, s) probabilities never
-// reach device memory, only one f32 log-sum-exp per row.
+// causal mask) against 75 MB of q, k, v and o in f32: compute bound.  These
+// simple cores multiply on CUDA cores with FMA.  What they save is memory:
+// the (s, s) probabilities never reach device memory, only one f32
+// log-sum-exp per row.
 //
 // Design: the TPU grid walked kv blocks sequentially and carried m, l and the
 // accumulator in scratch between grid steps.  Here one block of 256 threads
@@ -123,7 +124,8 @@ __device__ __forceinline__ int kv_tiles(const FlashParams& p, int q0) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(FNT) flash_forward_kernel(FlashParams p) {
+__global__ void __launch_bounds__(FNT)
+    flash_forward_simt_kernel(FlashParams p) {
   extern __shared__ float smem[];
   float *qs = smem, *ks = qs + TILE, *vs = ks + TILE, *ps = vs + TILE;
   __shared__ int ids_q[FB], ids_kv[FB];
@@ -459,14 +461,16 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // q (b, h, sq, 64), k and v (b, h, sk, 64) of f32 or bf16 (is_bf16), any
 // (b, h, s) strides; seg_q (b, sq) and seg_kv (b, sk) int32 or both null.
-// Writes o (b, h, sq, 64) and lse (b, h, sq) f32, contiguous.  Returns the
-// CUDA error of the launch (0 when it was accepted).
-extern "C" int fewbit_flash_forward(const void* q, const void* k,
-                                    const void* v, const void* seg_q,
-                                    const void* seg_kv, void* o, void* lse,
-                                    const void* strides, int b, int h,
-                                    int sq, int sk, int causal, float scale,
-                                    int is_bf16, void* stream) {
+// Writes o (q's shape, its own strides) and lse (b, h, sq) f32 contiguous.
+// Returns the CUDA error of the launch (0 when it was accepted).  The
+// CUDA-core kernel that flash_forward.cu's fewbit_flash_forward replaced.
+extern "C" int fewbit_flash_forward_simt(const void* q, const void* k,
+                                         const void* v, const void* seg_q,
+                                         const void* seg_kv, void* o,
+                                         void* lse, const void* strides,
+                                         int b, int h, int sq, int sk,
+                                         int causal, float scale,
+                                         int is_bf16, void* stream) {
   using namespace fewbit;
   FlashParams p =
       make_params(q, k, v, seg_q, seg_kv,
@@ -476,9 +480,10 @@ extern "C" int fewbit_flash_forward(const void* q, const void* k,
   p.lse_out = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch(flash_forward_kernel<__nv_bfloat16>, cdiv(sq, FB), b * h,
-                  4, p, st);
-  return launch(flash_forward_kernel<float>, cdiv(sq, FB), b * h, 4, p, st);
+    return launch(flash_forward_simt_kernel<__nv_bfloat16>, cdiv(sq, FB),
+                  b * h, 4, p, st);
+  return launch(flash_forward_simt_kernel<float>, cdiv(sq, FB), b * h, 4, p,
+                st);
 }
 
 // As above, with the forward's lse, the output gradient dout (any strides)

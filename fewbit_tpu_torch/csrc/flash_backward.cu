@@ -68,43 +68,21 @@
 
 #include <type_traits>
 
-#include "flash_params.cuh"
-#include "hopper_gemm.cuh"
+#include "flash_hopper.cuh"
 
 namespace fewbit {
 namespace {
 
-constexpr int HB_BLOCK = 128;      // rows of a block's own side
-constexpr int HB_TILE = 64;        // rows of a looped tile
-constexpr int HB_CONSUMERS = 256;  // two consumer warpgroups
-constexpr int HB_PRODUCERS = 128;  // one producer warpgroup
-constexpr int HB_THREADS = HB_CONSUMERS + HB_PRODUCERS;
 // Words of a looped tile's row values: lse, di and segment ids, and for
 // each of the two warps that load the ids whether its 32 are all one id, and
 // which.
 constexpr int HB_AUX = 3 * HB_TILE + 4;
-constexpr int HB_SMEM_LIMIT = 232448;  // dynamic shared memory of a block
-constexpr float LOG2E = 1.4426950408889634f;
 
-// Per element type, at head dimension D: the 128-byte sub-tiles of a row,
-// the parts of a B operand (f32: TF32 hi and lo), wgmma k steps over 64
-// elements, the ring's depth and the buffers of per-tile row values.
+// The ring's depth and the buffers of per-tile row values.
 template <typename T, int D>
-struct HbShape {
-  static_assert(D == 64, "other head dimensions need a tile layout of "
-                         "their own");
-  static constexpr int ELT = sizeof(T);
-  static constexpr bool BF16 = ELT == 2;
-  static constexpr int SUB = D * ELT / hopper::ROW_BYTES;
-  static constexpr int PARTS = Operand<T>::PARTS;
-  static constexpr int KSTEPS = HB_TILE * ELT / 32;
-  static constexpr int STAGES = BF16 ? 4 : 1;
-  static constexpr int NAUX = BF16 ? STAGES : 2;
-  static constexpr int TILE_BYTES = HB_TILE * D * ELT;  // one plane
-  static constexpr int RES_BYTES = HB_BLOCK * D * ELT;
-  static constexpr int RES_SUB_BYTES = HB_BLOCK * hopper::ROW_BYTES;
-  static constexpr int TILE_SUB_BYTES = HB_TILE * hopper::ROW_BYTES;
-  static constexpr int STAGE_BYTES = 2 * PARTS * TILE_BYTES;
+struct HbBwdShape : HbShape<T, D> {
+  static constexpr int STAGES = HbShape<T, D>::BF16 ? 4 : 1;
+  static constexpr int NAUX = HbShape<T, D>::BF16 ? STAGES : 2;
 };
 
 // Dynamic shared memory of a block: the block's own two operands, the ring
@@ -121,98 +99,6 @@ constexpr int hb_smem(bool bf16, bool dkv) {
          (bf16 ? stages : 2) * HB_AUX * 4 + 128 + 1024;
 }
 
-// Byte offset of the 16-byte chunk c16 (four floats) of row `row` in a
-// K-major plane of 64 rows x 64 floats: two sub-tiles of 32 floats a row,
-// swizzled as TMA would.
-__device__ __forceinline__ int plane_chunk(int row, int c16) {
-  return (c16 >> 3) * (HB_TILE * hopper::ROW_BYTES) +
-         row * hopper::ROW_BYTES + (((c16 & 7) ^ (row & 7)) << 4);
-}
-
-constexpr int HB_PLANE = HB_TILE * 64 * 4;  // bytes of an f32 plane
-
-// The f32 producer, first half: tile rows l0 .. l0 + 63 of the head at `src`
-// copied raw (cp.async, 16 bytes a chunk, nothing held in registers while
-// they fly) to where the lo plane at `planes` + HB_PLANE will lie.  Rows
-// past n_rows arrive as zeros.
-__device__ __forceinline__ void fetch_tile(uint8_t* planes, const float* src,
-                                           long long stride_s, int l0,
-                                           int n_rows, int ptid) {
-#pragma unroll
-  for (int it = 0; it < 8; ++it) {
-    const int chunk = ptid + HB_PRODUCERS * it;
-    const int row = chunk >> 4, c16 = chunk & 15;
-    const bool in = l0 + row < n_rows;
-    const float* from = in ? src + (l0 + row) * stride_s + 4 * c16 : src;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                     hopper::smem_u32(planes + HB_PLANE +
-                                      plane_chunk(row, c16))),
-                 "l"(from), "r"(in ? 16 : 0)
-                 : "memory");
-  }
-}
-
-// Second half, once the thread's own copies have landed: each chunk split
-// in place into the TF32 hi plane at `planes` and the lo plane one plane on,
-// K-major.
-__device__ __forceinline__ void split_fetched(uint8_t* planes, int ptid) {
-#pragma unroll 4
-  for (int it = 0; it < 8; ++it) {
-    const int chunk = ptid + HB_PRODUCERS * it;
-    const int off = plane_chunk(chunk >> 4, chunk & 15);
-    const float4 v = *reinterpret_cast<const float4*>(planes + HB_PLANE + off);
-    uint4 hi, lo;
-    hopper::split_tf32(v.x, hi.x, lo.x);
-    hopper::split_tf32(v.y, hi.y, lo.y);
-    hopper::split_tf32(v.z, hi.z, lo.z);
-    hopper::split_tf32(v.w, hi.w, lo.w);
-    *reinterpret_cast<uint4*>(planes + off) = hi;
-    *reinterpret_cast<uint4*>(planes + HB_PLANE + off) = lo;
-  }
-}
-
-// Column of the transposed tile that holds looped row rr: within each group
-// of eight rows (one tf32 wgmma step), row a sits where the A fragment built
-// from an accumulator fragment expects it: fragment column kappa holds
-// accumulator column 2 kappa (kappa < 4) or 2 (kappa - 4) + 1.
-__device__ __forceinline__ int permuted_k(int rr) {
-  const int a = rr & 7;
-  return (rr & ~7) + ((a & 1) ? 4 + (a >> 1) : (a >> 1));
-}
-
-// The f32 producer: the hi and lo planes at `src` (as split_fetched wrote
-// them) transposed, out[d][permuted_k(row)], again as hi and lo planes of 64
-// rows (d) x 64 floats, K-major for the second products.  A warp's lanes
-// take 32 different rows, so its 16-byte reads and its stores of one d are
-// free of bank conflicts.
-__device__ __forceinline__ void transpose_planes(uint8_t* planes,
-                                                 const uint8_t* src,
-                                                 int ptid) {
-  const int w = ptid >> 5, lane = ptid & 31;
-#pragma unroll 2
-  for (int it = 0; it < 8; ++it) {
-    const int rr = lane + 32 * (it & 1), c16 = 4 * w + (it >> 1);
-    const int from = plane_chunk(rr, c16);
-    const uint4 hi = *reinterpret_cast<const uint4*>(src + from);
-    const uint4 lo = *reinterpret_cast<const uint4*>(src + HB_PLANE + from);
-    const uint32_t his[4] = {hi.x, hi.y, hi.z, hi.w};
-    const uint32_t los[4] = {lo.x, lo.y, lo.z, lo.w};
-    const int kcol = permuted_k(rr);
-    uint8_t* sub = planes + (kcol >> 5) * (HB_TILE * hopper::ROW_BYTES);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t off = hopper::swizzled_offset(4 * c16 + i, kcol & 31, 4);
-      *reinterpret_cast<uint32_t*>(sub + off) = his[i];
-      *reinterpret_cast<uint32_t*>(sub + HB_PLANE + off) = los[i];
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // F2 (DKV) or F3.  map_r1, map_r2: the block's own operands (K and V in F2,
 // Q and dO in F3), boxes of 128 rows; map_l1, map_l2: the looped ones (Q and
 // dO in F2, K and V in F3), boxes of 64 rows, read by TMA for bf16 only.
@@ -224,7 +110,7 @@ __global__ void __launch_bounds__(HB_THREADS, 1)
                           const __grid_constant__ CUtensorMap map_l2,
                           FlashParams p) {
   using namespace hopper;
-  using S = HbShape<T, D>;
+  using S = HbBwdShape<T, D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* res = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* part1 = res + 2 * S::RES_BYTES;
@@ -581,41 +467,11 @@ __global__ void __launch_bounds__(HB_THREADS, 1)
       } else {
         mbar_wait(full2, ph2);
         __syncwarp();
-        // acc += v B, v an accumulator fragment and B the hi and lo planes
-        // at `planes`.  Accumulator columns 2 t, 2 t + 1 of step j are the
-        // A fragment's columns t, t + 4: the order transpose_planes wrote
-        // B's k in.  One product at a time: its 64 fragment registers are
-        // free again before the next one's are made.
-        auto second_product = [&](float (&acc)[D / 2], const float (&v)[32],
-                                  uint32_t planes) {
-          uint32_t vh[8][4], vl[8][4];
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-              split_tf32(v[4 * j + 2 * (r & 1) + (r >> 1)], vh[j][r],
-                         vl[j][r]);
-          fence_operands(acc);
-          wgmma_fence();
-#pragma unroll
-          for (int j = 0; j < S::KSTEPS; ++j) {
-            const uint32_t b =
-                planes + (j / 4) * S::TILE_SUB_BYTES + 32 * (j % 4);
-            const uint64_t bh = desc_sw128(b);
-            const uint64_t bl = desc_sw128(b + S::TILE_BYTES);
-            Wgmma<D>::tf32_rs(acc, vh[j], bh);
-            Wgmma<D>::tf32_rs(acc, vh[j], bl);
-            Wgmma<D>::tf32_rs(acc, vl[j], bh);
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          keep_alive(vh);
-          keep_alive(vl);
-          fence_operands(acc);
-        };
+        // One product at a time: its 64 fragment registers are free again
+        // before the next one's are made.
         if constexpr (DKV)
-          second_product(db, x, smem_u32(part2) + 2 * S::TILE_BYTES);
-        second_product(da, y, smem_u32(part2));
+          tf32_rows_product<D>(db, x, smem_u32(part2) + 2 * S::TILE_BYTES);
+        tf32_rows_product<D>(da, y, smem_u32(part2));
         mbar_arrive(empty2);
         ph2 ^= 1;
       }
@@ -645,24 +501,6 @@ __global__ void __launch_bounds__(HB_THREADS, 1)
   }
 }
 
-// The 4-D map of one operand: boxes of box_rows rows of one head.  A
-// dimension of one element takes a stride TMA accepts whatever the tensor
-// says.  False when the base or a stride is not 16-byte aligned, or the
-// encode fails.
-template <typename T>
-bool operand_map(CUtensorMap* map, const void* ptr, const Strides& st, int b,
-                 int h, int s, uint32_t box_rows) {
-  const long long elt = sizeof(T), unit = 64 * elt;
-  const long long sb = b > 1 ? st.b * elt : unit;
-  const long long sh = h > 1 ? st.h * elt : unit;
-  const long long ss = s > 1 ? st.s * elt : unit;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || sb <= 0 || sb % 16 ||
-      sh <= 0 || sh % 16 || ss <= 0 || ss % 16)
-    return false;
-  return hopper::make_tile_map_4d(map, ptr, sizeof(T) == 2, b, h, s, 64, sb,
-                                  sh, ss, box_rows);
-}
-
 template <typename T, bool DKV>
 int launch(const FlashParams& p, int b, cudaStream_t st) {
   if (b <= 0 || p.h <= 0 || p.sq <= 0 || p.sk <= 0) return -1;
@@ -687,17 +525,8 @@ int launch(const FlashParams& p, int b, cudaStream_t st) {
   auto kernel = flash_backward_kernel<T, 64, DKV>;
   constexpr int smem = hb_smem(BF16, DKV);
   static_assert(smem <= HB_SMEM_LIMIT, "the block's shared memory");
-  // The kernel is allowed its dynamic shared memory once per device.
   static unsigned allowed = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;  // 0: every launch
-  if (!(allowed & bit)) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed |= bit;
-  }
+  if (const int err = allow_smem(kernel, smem, allowed)) return err;
   const int n_res = DKV ? p.sk : p.sq;
   kernel<<<dim3(b * p.h, (n_res + HB_BLOCK - 1) / HB_BLOCK), HB_THREADS, smem,
            st>>>(r1, r2, l1, l2, p);

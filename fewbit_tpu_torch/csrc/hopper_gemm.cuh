@@ -4,7 +4,7 @@
 // tile, named barriers between warpgroups, shared-memory matrix descriptors
 // for the 128-byte swizzle, wgmma wrappers (bf16 with both operands in shared
 // memory, or A in registers and B optionally MN-major; tf32 with A in
-// registers), the round-to-nearest TF32 split, and the register hand-over
+// registers or shared memory), the round-to-nearest TF32 split, and the register hand-over
 // between a producer and its consumer warpgroups (setmaxnreg).
 //
 // Layout convention: every operand tile is K-major with rows of exactly 128
@@ -352,8 +352,9 @@ __device__ __forceinline__ void reg_dealloc() {
 
 // D (64 x N, f32, the warpgroup's accumulator fragment) += A (64 x k) B
 // (k x N).  tf32_rs: A from registers (the m16n8k8 tf32 fragment of each
-// warp's 16 rows), B a K-major tile in shared memory; k = 8.  bf16_ss: both
-// from K-major tiles in shared memory; k = 16.  bf16_rs (N = 64 only): A
+// warp's 16 rows), B a K-major tile in shared memory; k = 8.  tf32_ss
+// (N = 64 only) and bf16_ss: both from K-major tiles in shared memory;
+// k = 8 and 16.  bf16_rs (N = 64 only): A
 // from registers (the m16n8k16 bf16 fragment: packed pairs of rows g and
 // g + 8, columns 2 t and 2 t + 8 on), B K-major or, with TRANS_B, MN-major.
 // scale_d = 0 overwrites D instead of adding to it (N = 64 only).  Fragment
@@ -381,6 +382,24 @@ template <> struct Wgmma<64> {
           "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
           "r"(scale_d));
+  }
+  static __device__ __forceinline__ void tf32_ss(
+      float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   }
   static __device__ __forceinline__ void bf16_ss(
       float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d = 1) {

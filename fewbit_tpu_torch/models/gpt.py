@@ -19,6 +19,9 @@ attention mask, or the standard masked softmax.  ``flash_blocks`` is
 accepted for parity with the JAX config and not read: the CUDA kernels
 choose their own tiles.
 
+The model builds on the card unless the caller asks otherwise (``device``
+None is ``"cuda"``; without a card it raises and names ``device="cpu"``).
+
 ``scan_layers`` is accepted and has no effect (the layers are a Python
 loop); ``tp_axis``/``tp_size`` are accepted and raise unless ``None``/1:
 tensor parallelism is not ported (ROADMAP queue 1 item 13).
@@ -38,6 +41,7 @@ from fewbit_tpu_torch.models.roberta import (LayerNorm, _dense, _dense_pairs,
                                              _flash_context,
                                              _fused_dense_gelu, _index,
                                              _norm_pairs, dropout,
+                                             model_device,
                                              validate_tp_config)
 
 __all__ = ("GPTConfig", "GPTModel", "GPTForCausalLM")
@@ -159,7 +163,10 @@ class GPTModel(nn.Module):
     (tied: the token embedding matrix, transposed)."""
 
     def __init__(self, cfg: GPTConfig, device=None, generator=None):
+        """``device`` None: the card (:func:`~fewbit_tpu_torch.models.
+        roberta.model_device`)."""
         super().__init__()
+        device = model_device(device)
         self.cfg = cfg
         h = cfg.hidden_size
         self.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=device)
@@ -206,6 +213,7 @@ class GPTForCausalLM(nn.Module):
 
     def __init__(self, cfg: GPTConfig, device=None,
                  generator: Optional[torch.Generator] = None):
+        """``device`` None: the card (:class:`GPTModel`)."""
         super().__init__()
         self.cfg = cfg
         self.transformer = GPTModel(cfg, device, generator)

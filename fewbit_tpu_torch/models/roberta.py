@@ -22,6 +22,10 @@ Two config switches inject the memory-efficient path, as in the JAX model:
   are one ``FusedDenseActivation`` named ``intermediate``; without
   ``fused_ffn``, ``intermediate`` -> few-bit ``gelu`` -> ``ffn_output``.
 
+The models build on the card unless the caller asks otherwise: ``device``
+None is ``"cuda"``, and without a card the constructor raises and names
+``device="cpu"``.
+
 ``dtype`` is the activation precision; parameters stay f32.  Randomness
 comes from two explicit generators per forward, ``dropout_generator`` and
 ``sketch_generator``, the counterparts of flax's ``'dropout'`` and
@@ -49,6 +53,18 @@ from fewbit_tpu_torch.ops.flash_attention import SegmentIds, flash_attention
 __all__ = ("RobertaConfig", "RobertaModel",
            "RobertaForSequenceClassification", "load_flax_params",
            "flax_param_pairs", "dropout")
+
+
+def model_device(device) -> torch.device:
+    """The device a model builds on: ``device``, or the card when it is
+    None.  Without a card None raises: a model on the CPU is asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the models build on the card unless asked "
+            "otherwise; pass device=\"cpu\" to build one on the CPU")
+    return torch.device("cuda")
 
 
 def validate_tp_config(cfg) -> None:
@@ -312,7 +328,9 @@ class RobertaLayer(nn.Module):
 class RobertaModel(nn.Module):
 
     def __init__(self, cfg: RobertaConfig, device=None, generator=None):
+        """``device`` None: the card (:func:`model_device`)."""
         super().__init__()
+        device = model_device(device)
         self.cfg = cfg
         self.embeddings = RobertaEmbeddings(cfg, device, generator)
         self.layers = nn.ModuleList(RobertaLayer(cfg, device, generator)
@@ -335,7 +353,9 @@ class RobertaForSequenceClassification(nn.Module):
 
     def __init__(self, cfg: RobertaConfig, device=None,
                  generator: Optional[torch.Generator] = None):
+        """``device`` None: the card (:func:`model_device`)."""
         super().__init__()
+        device = model_device(device)
         self.cfg = cfg
         h = cfg.hidden_size
         self.roberta = RobertaModel(cfg, device, generator)

@@ -33,7 +33,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # int (its epilogue switch).
 _DENSE_ACT = (_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
               _I, _P)
-# The flash backward kernels, on the tensor cores and on CUDA cores.
+# The flash kernels, on the tensor cores and on CUDA cores: forward, dK/dV,
+# dQ.
+_FLASH_FWD = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)
 _FLASH_DKV = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
               _F, _I, _P)
 _FLASH_DQ = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -63,8 +65,8 @@ SIGNATURES = {
     "fewbit_dense_act_pipelined": _DENSE_ACT,
     "fewbit_dense_act_resident_smem": (_I, _I, _I, _I, _I),
     "fewbit_dense_act_pipelined_smem": (_I, _I),
-    "fewbit_flash_forward": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "fewbit_flash_forward": _FLASH_FWD,
+    "fewbit_flash_forward_simt": _FLASH_FWD,
     "fewbit_flash_backward_dkv": _FLASH_DKV,
     "fewbit_flash_backward_dq": _FLASH_DQ,
     "fewbit_flash_backward_dkv_simt": _FLASH_DKV,

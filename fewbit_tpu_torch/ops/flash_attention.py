@@ -14,10 +14,11 @@ The ``autograd.Function`` keeps q, k, v, o and one f32 log-sum-exp per row
 ``di = sum(dO * O)`` in plain torch, as the library does in jnp, and then
 the dK/dV and dQ kernels, which recompute ``P = exp(S - lse)``.
 
-On a CUDA tensor the forward is the kernel of ``csrc/flash_attention.cu``
-and the two backward steps are the tensor-core kernels of
+On a CUDA tensor the forward and the two backward steps are the
+tensor-core kernels of ``csrc/flash_forward.cu`` and
 ``csrc/flash_backward.cu`` (wrappers in :mod:`fewbit_tpu_torch.ops.
-kernels`); on the CPU their plain versions below.  The plain versions
+kernels`), which read q, k, v and dO through TMA: bases and strides are
+multiples of 16 bytes; on the CPU their plain versions below.  The plain versions
 follow ``mha_reference_no_custom_vjp`` and ``mha_reference_bwd`` of the
 library, in f32 on the widened operands.  They form the whole ``(s, s)``
 matrix: only the kernels keep attention linear in memory.

@@ -50,7 +50,8 @@ __all__ = ("FFN_BN", "FFN_BM", "ACT_IDS", "sketch_dtype",
            "fused_dense_act_sketch_x", "fused_matmul_lut_backward",
            "fused_forward", "fused_backward", "fused_dense_act",
            "flash_forward", "flash_backward_dkv", "flash_backward_dq",
-           "flash_backward_dkv_simt", "flash_backward_dq_simt",
+           "flash_forward_simt", "flash_backward_dkv_simt",
+           "flash_backward_dq_simt",
            "flash_backward_envelope",
            "FLASH_HEAD_DIM", "matmul_input_sketch_plain",
            "dense_act_sketch_plain", "dense_act_sketch_x_plain",
@@ -196,8 +197,9 @@ def _act_spec_in(spec) -> bool:
 
 
 def act_kernel_ok(spec, c: int, dtype) -> bool:
-    """Envelope of kernels 4 and 5 on an ``(R, C)`` view: C a multiple of
-    128, f32 or bf16, as ``_eligible`` in the JAX package."""
+    """Where the callers take kernels 4 and 5 on an ``(R, C)`` view: C a
+    multiple of 128, f32 or bf16, as ``_eligible`` in the JAX package.
+    Kernel 4's wrapper itself takes any C."""
     return dtype in _DTYPES and c % 128 == 0 and _act_spec_in(spec)
 
 
@@ -692,21 +694,26 @@ def fused_matmul_lut_backward(spec, packed: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _act_kernel_checks(spec, t: torch.Tensor, what: str) -> None:
+def _act_kernel_checks(spec, t: torch.Tensor, what: str,
+                       any_width: bool = False) -> None:
     _require(t.is_cuda, f"{what} on {t.device}: neither CPU nor CUDA")
     _require(t.ndim == 2, f"{what} must be 2-D (R, C)")
-    _require(act_kernel_ok(spec, t.shape[1], t.dtype),
-             f"{spec.name} at {spec.bits} bits, C={t.shape[1]}, {t.dtype}: "
-             f"outside the envelope of act_kernel_ok")
+    c, dt = t.shape[1], t.dtype
+    ok = (dt in _DTYPES and _act_spec_in(spec) and c >= 1 if any_width
+          else act_kernel_ok(spec, c, dt))
+    _require(ok, f"{spec.name} at {spec.bits} bits, C={c}, {dt}: outside "
+                 f"the envelope of " + ("kernel 4" if any_width
+                                        else "act_kernel_ok"))
 
 
 def fused_forward(spec, x: torch.Tensor, borders: torch.Tensor):
     """``y = act(x)`` and the packed codes of ``x``
-    (``(bits, R / 32, C)`` int32).  ``x``: (R, C).  Returns
-    ``(y, packed)``."""
+    (``(bits, R / 32, C)`` int32).  ``x``: (R, C), any R and C: the kernel
+    moves 16 bytes of a row at a time where C and the addresses allow it,
+    one element otherwise.  Returns ``(y, packed)``."""
     if x.device.type == "cpu":
         return act_forward_plain(spec, x, borders)
-    _act_kernel_checks(spec, x, "x")
+    _act_kernel_checks(spec, x, "x", any_width=True)
     r, c = x.shape
     dev = x.device
     _check("x", x, dev, (r, c), x.dtype)
@@ -956,22 +963,62 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _into(out, got):
+    """The plain version's results, copied into the caller's ``out``."""
+    if out is None:
+        return got
+    for o, g in zip(out, got):
+        o.copy_(g)
+    return tuple(out)
+
+
+def _flash_forward(fn_name, tensor_core, q, k, v, seg_q, seg_kv, causal,
+                   sm_scale, out):
+    b, h, sq, sk, dev, dt = _flash_checks(q, k, v, seg_q, seg_kv)
+    if tensor_core:
+        _flash_tma_checks(q, k, v)
+    if out is None:
+        o = torch.empty_like(q)
+        lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
+    else:
+        _require(len(out) == 2, "out must hold o and lse")
+        o, = _flash_outputs(out[:1], (q,), ("o",))
+        lse = out[1]
+        _check("out lse", lse, dev, (b, h, sq), torch.float32)
+    strides = _strides(q, k, v, o, None, None, None, None)
+    _launch(fn_name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(seg_q), _ptr(seg_kv), o.data_ptr(), lse.data_ptr(),
+            ctypes.addressof(strides), b, h, sq, sk, int(causal),
+            float(sm_scale), int(dt == torch.bfloat16))
+    return o, lse
+
+
 def flash_forward(q, k, v, seg_q=None, seg_kv=None, causal: bool = False,
-                  sm_scale: float = 1.0):
-    """F1: ``(o, lse)``, the attention output (q's dtype and strides) and
-    the f32 log-sum-exp of each row's masked logits ``(b, h, sq)``."""
+                  sm_scale: float = 1.0, *, out=None):
+    """F1: ``(o, lse)``, the attention output (q's dtype and strides, or
+    written into ``out = (o, lse)``) and the f32 log-sum-exp of each row's
+    masked logits ``(b, h, sq)``, contiguous.  On the card both products
+    run on the tensor cores (bf16, or f32 as three TF32 products), fed by
+    TMA: bases and strides are multiples of 16 bytes."""
+    if q.device.type == "cpu":
+        return _into(out, flash_forward_plain(q, k, v, seg_q, seg_kv, causal,
+                                              sm_scale))
+    out = _flash_forward("fewbit_flash_forward", True, q, k, v, seg_q,
+                         seg_kv, causal, sm_scale, out)
+    flash_forward.launches += 1
+    return out
+
+
+def flash_forward_simt(q, k, v, seg_q=None, seg_kv=None, causal: bool = False,
+                       sm_scale: float = 1.0):
+    """F1's function by the first, CUDA-core kernel: what the tensor-core
+    kernel is measured against.  No model path runs it."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, seg_q, seg_kv, causal, sm_scale)
-    b, h, sq, sk, dev, dt = _flash_checks(q, k, v, seg_q, seg_kv)
-    o = torch.empty_like(q)
-    lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
-    strides = _strides(q, k, v, o, None, None, None, None)
-    _launch("fewbit_flash_forward", dev, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), _ptr(seg_q), _ptr(seg_kv), o.data_ptr(),
-            lse.data_ptr(), ctypes.addressof(strides), b, h, sq, sk,
-            int(causal), float(sm_scale), int(dt == torch.bfloat16))
-    flash_forward.launches += 1
-    return o, lse
+    out = _flash_forward("fewbit_flash_forward_simt", False, q, k, v, seg_q,
+                         seg_kv, causal, sm_scale, None)
+    flash_forward_simt.launches += 1
+    return out
 
 
 def _flash_backward_checks(q, k, v, seg_q, seg_kv, lse, do, di):
@@ -1055,15 +1102,6 @@ def _flash_backward_dq(fn_name, tensor_core, q, k, v, seg_q, seg_kv, lse, do,
             di.data_ptr(), dq.data_ptr(), ctypes.addressof(strides), b, h,
             sq, sk, int(causal), float(sm_scale), int(dt == torch.bfloat16))
     return dq
-
-
-def _into(out, got):
-    """The plain version's results, copied into the caller's ``out``."""
-    if out is None:
-        return got
-    for o, g in zip(out, got):
-        o.copy_(g)
-    return tuple(out)
 
 
 def flash_backward_dkv(q, k, v, seg_q, seg_kv, lse, do, di,
@@ -1173,7 +1211,7 @@ KERNELS = {
     "flash_forward": (
         flash_forward, flash_forward_plain,
         "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
-        "fewbit_tpu_torch/csrc/flash_attention.cu"),
+        "fewbit_tpu_torch/csrc/flash_forward.cu"),
     "flash_backward_dkv": (
         flash_backward_dkv, flash_backward_dkv_plain,
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
@@ -1189,8 +1227,8 @@ def reset_launch_counts() -> None:
     for wrapper, *_ in KERNELS.values():
         wrapper.launches = 0
     # On no path, so not among KERNELS: the CUDA-core kernels replaced.
-    for wrapper in (dense_act_simt, flash_backward_dkv_simt,
-                    flash_backward_dq_simt):
+    for wrapper in (dense_act_simt, flash_forward_simt,
+                    flash_backward_dkv_simt, flash_backward_dq_simt):
         wrapper.launches = 0
 
 

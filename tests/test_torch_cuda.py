@@ -344,6 +344,47 @@ def test_elementwise_kernels_match_plain_on_cuda(cuda, dtype, r, c, bits):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c,bits", [(1000, 100, 3), (77, 12, 1),
+                                      (2049, 3076, 5), (33, 1, 2),
+                                      (8192, 3072, 3)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_act_forward_takes_any_width_on_cuda(cuda, dtype, r, c, bits,
+                                             offset):
+    """Kernel 4 at any (R, C): R % 32 != 0, C not a multiple of 8 (or of
+    4), a base one element off 16 bytes (each element read alone), and the
+    path's shape; builtin LUTs and a custom 32-level one.  The decoded codes
+    equal the plain version's, y within the tolerance, and the values at a
+    border, +-inf and NaN code as compare_codes says."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=cuda).manual_seed(r + c)
+    spec, borders, _ = _lut(cuda, bits)
+    flat = torch.randn(r * c + offset, generator=gen, device=cuda) * 2
+    special = torch.cat([borders, torch.tensor(
+        [float("inf"), -float("inf"), float("nan")], device=cuda)])
+    n = min(special.numel(), r * c)
+    flat[offset:offset + n] = special[:n]
+    x = flat.to(dtype)[offset:].view(r, c)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    y, packed = K.fused_forward(spec, x, borders)
+    y0, packed0 = K.act_forward_plain(spec, x, borders)
+    assert torch.equal(unpack_codes(packed, spec.bits, r),
+                       unpack_codes(packed0, spec.bits, r))
+    assert torch.equal(packed, packed0)  # rows past R: zero bits in both
+    fin = torch.isfinite(y0)
+    assert torch.equal(fin, torch.isfinite(y))
+    err = (y.float() - y0.float())[fin].abs().max().item()
+    assert err <= tol * max(1.0, y0.float()[fin].abs().max().item()), err
+    # Two launches, equal bits.
+    y2, packed2 = K.fused_forward(spec, x, borders)
+    assert torch.equal(packed2, packed)
+    assert torch.equal(y2.view(torch.int16 if dtype == torch.bfloat16
+                               else torch.int32),
+                       y.view(torch.int16 if dtype == torch.bfloat16
+                              else torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,trans", [(1000, True), (512, False)])
 def test_dense_act_kernel_matches_plain_on_cuda(cuda, dtype, n, trans):
     """Kernel 6 with ragged N and either weight layout; its codes decode
@@ -379,8 +420,11 @@ def test_wrappers_refuse_outside_envelope_on_cuda(cuda):
         K.fused_matmul_input_sketch(x[:512].double(), w.double(), None,
                                     sigma[:512], 256)
     spec, borders, levels = resolve_activation("gelu", bits=3, device=cuda)
+    # Kernel 4 takes any C (test_act_forward_takes_any_width_on_cuda);
+    # kernel 5 C a multiple of 128.
+    _, narrow = K.fused_forward(spec, x[:, :100].contiguous(), borders)
     with pytest.raises(ValueError):  # C not a multiple of 128
-        K.fused_forward(spec, x[:, :100].contiguous(), borders)
+        K.fused_backward(spec, narrow, levels, x[:, :100].contiguous())
     with pytest.raises(ValueError):
         K.fused_forward(spec, x.double(), borders)
     _, packed = K.fused_forward(spec, x, borders)
@@ -465,7 +509,7 @@ def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
                                            contiguous):
     """F1-F3 against their plain versions: ragged sequences, sq != sk,
     transposed views and contiguous operands, segment ids with and without
-    the causal mask.  F2 and F3 on the tensor cores, into outputs filled with
+    the causal mask.  F1-F3 on the tensor cores, into outputs filled with
     NaN so that an element left unwritten cannot pass, twice for equal bits,
     and by the CUDA-core kernels they replaced."""
     tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -474,9 +518,17 @@ def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
     seg_q, seg_kv = (ids_q, ids_kv) if seg else (None, None)
     scale = 0.125
     K.reset_launch_counts()
-    o, lse = K.flash_forward(q, k, v, seg_q, seg_kv, causal, scale)
     o0, lse0 = flash_forward_plain(q, k, v, seg_q, seg_kv, causal, scale)
+    fout = (torch.full_like(q, float("nan")),
+            torch.full_like(lse0, float("nan")))
+    o, lse = K.flash_forward(q, k, v, seg_q, seg_kv, causal, scale,
+                             out=fout)
+    assert o is fout[0] and lse is fout[1]
     assert o.stride() == q.stride()
+    o2, lse2 = K.flash_forward(q, k, v, seg_q, seg_kv, causal, scale)
+    assert o2.stride() == q.stride()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    os_, lses = K.flash_forward_simt(q, k, v, seg_q, seg_kv, causal, scale)
     di = (o.float() * do.float()).sum(-1)
     bargs = (q, k, v, seg_q, seg_kv, lse, do, di, causal, scale)
     nan = [torch.full_like(t, float("nan")) for t in (k, v, q)]
@@ -490,7 +542,9 @@ def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
     torch.cuda.synchronize()
     assert (dk.stride(), dv.stride(), dq.stride()) == (
         k.stride(), v.stride(), q.stride())
-    for name, a, b in (("o", o, o0), ("lse", lse, lse0), ("dq", dq, dq0),
+    for name, a, b in (("o", o, o0), ("lse", lse, lse0),
+                       ("o simt", os_, o0), ("lse simt", lses, lse0),
+                       ("dq", dq, dq0),
                        ("dk", dk, dk0), ("dv", dv, dv0), ("dq simt", dqs, dq0),
                        ("dk simt", dks, dk0), ("dv simt", dvs, dv0)):
         err = (a.float() - b.float()).abs().max().item()
@@ -502,7 +556,8 @@ def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
     assert torch.equal(dq, K.flash_backward_dq(*bargs))
     assert [K.launch_counts()[n] for n in ("flash_forward",
                                            "flash_backward_dkv",
-                                           "flash_backward_dq")] == [1, 2, 2]
+                                           "flash_backward_dq")] == [2, 2, 2]
+    assert K.flash_forward_simt.launches == 1
     assert K.flash_backward_dkv_simt.launches == 1
     assert K.flash_backward_dq_simt.launches == 1
 
@@ -511,8 +566,8 @@ def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_refuses_what_tma_cannot_read(cuda, dtype):
     """A base or a stride that is not a multiple of 16 bytes: the
-    tensor-core wrappers raise (nothing falls back); the CUDA-core kernels
-    take such operands."""
+    tensor-core wrappers of F1-F3 raise (nothing falls back); the CUDA-core
+    kernels take such operands."""
     b, h, s = 2, 2, 96
     (q, k, v, do), _, _ = _flash_inputs(cuda, dtype, b, h, s, 11,
                                         contiguous=True)
@@ -527,6 +582,13 @@ def test_flash_backward_refuses_what_tma_cannot_read(cuda, dtype):
     shifted.copy_(k)
     want = K.flash_backward_dkv(q, k, v, None, None, lse, do, di, True, 0.125)
     for bad in (wide, shifted):
+        with pytest.raises(ValueError, match="16"):
+            K.flash_forward(q, bad, v, None, None, True, 0.125)
+        for got, ref in zip(K.flash_forward_simt(q, bad, v, None, None, True,
+                                                 0.125), (o, lse)):
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            assert err <= tol * max(1.0, ref.float().abs().max().item())
         args = (q, bad, v, None, None, lse, do, di, True, 0.125)
         for wrapper in (K.flash_backward_dkv, K.flash_backward_dq):
             with pytest.raises(ValueError, match="16"):
@@ -544,32 +606,37 @@ def test_flash_backward_refuses_what_tma_cannot_read(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_repeats_its_bits_under_load(cuda, dtype, causal):
-    """Long sequences (up to 64 looped tiles a block, the f32 producer
-    refilling its one stage while the consumers multiply), launched on three
-    streams at once and again and again, so that a block's warps are held up
-    differently each time: every launch gives the first one's bits, and
-    those agree with the plain versions."""
+    """Long sequences (up to 64 looped tiles a block, the f32 producers
+    refilling their stages while the consumers multiply), F1-F3 launched on
+    three streams at once and again and again, so that a block's warps are
+    held up differently each time: every launch gives the first one's bits,
+    and those agree with the plain versions."""
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     s = 4096
     (q, k, v, do), _, _ = _flash_inputs(cuda, dtype, 2, 4, s, 21)
     scale = 0.125
-    o, lse = K.flash_forward(q, k, v, None, None, causal, scale)
+    fargs = (q, k, v, None, None, causal, scale)
+    o, lse = K.flash_forward(*fargs)
     di = (o.float() * do.float()).sum(-1)
     bargs = (q, k, v, None, None, lse, do, di, causal, scale)
-    first = (*K.flash_backward_dkv(*bargs), K.flash_backward_dq(*bargs))
+    first = (*K.flash_backward_dkv(*bargs), K.flash_backward_dq(*bargs), o,
+             lse)
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(cuda) for _ in range(3)]
     for _ in range(4):
         got = []
         for stream in streams:
             with torch.cuda.stream(stream):
-                nan = [torch.full_like(t, float("nan")) for t in (k, v, q)]
+                nan = [torch.full_like(t, float("nan"))
+                       for t in (k, v, q, q, lse)]
                 K.flash_backward_dkv(*bargs, out=nan[:2])
-                K.flash_backward_dq(*bargs, out=nan[2:])
+                K.flash_backward_dq(*bargs, out=nan[2:3])
+                K.flash_forward(*fargs, out=nan[3:])
                 got.append(nan)
         torch.cuda.synchronize()
         for outs in got:
-            for name, a, b in zip(("dk", "dv", "dq"), outs, first):
+            for name, a, b in zip(("dk", "dv", "dq", "o", "lse"), outs,
+                                  first):
                 assert torch.equal(a, b), name
     want = []
     for i in range(q.shape[0]):  # one batch row at a time: (h, s, s) f32
@@ -577,8 +644,10 @@ def test_flash_backward_repeats_its_bits_under_load(cuda, dtype, causal):
                                       for t in (q, k, v, lse, do, di))
         pargs = (qi, ki, vi, None, None, lsei, doi, dii, causal, scale)
         want.append((*K.flash_backward_dkv_plain(*pargs),
-                     K.flash_backward_dq_plain(*pargs)))
-    for j, name in enumerate(("dk", "dv", "dq")):
+                     K.flash_backward_dq_plain(*pargs),
+                     *flash_forward_plain(qi, ki, vi, None, None, causal,
+                                          scale)))
+    for j, name in enumerate(("dk", "dv", "dq", "o", "lse")):
         b = torch.cat([w[j] for w in want])
         err = (first[j].float() - b.float()).abs().max().item()
         assert err <= tol * max(1.0, b.float().abs().max().item()), (name,

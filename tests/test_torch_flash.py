@@ -55,10 +55,10 @@ def _close(got, want, rtol=1e-4, atol=1e-5):
                                atol=atol * max(1.0, np.abs(want).max()))
 
 
-def _op_inputs(s, seed):
-    """q, k, v, dO ``(B, H, s, D)`` and padded segment ids ``(B, s)``."""
+def _op_inputs(s, seed, d=D):
+    """q, k, v, dO ``(B, H, s, d)`` and padded segment ids ``(B, s)``."""
     rng = np.random.RandomState(seed)
-    q, k, v, do = (rng.randn(B, H, s, D).astype(np.float32)
+    q, k, v, do = (rng.randn(B, H, s, d).astype(np.float32)
                    for _ in range(4))
     lengths = rng.randint(s // 2, s + 1, size=B)
     ids = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
@@ -70,45 +70,48 @@ def _op_inputs(s, seed):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("d", [64, 32], ids=["d64", "d32"])
 @pytest.mark.parametrize("s", [128, 100])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("seg", [False, True], ids=["noseg", "seg"])
-def test_plain_matches_library_reference(s, causal, seg):
+def test_plain_matches_library_reference(s, causal, seg, d):
     """The plain forward and backward against the library's reference and
-    its VJP, at every row (padded query rows included)."""
-    q, k, v, do, ids = _op_inputs(s, s + 2 * causal + seg)
+    its VJP, at every row (padded query rows included), at the head
+    dimension the kernels take and at 32 (the plain versions take any)."""
+    q, k, v, do, ids = _op_inputs(s, s + 2 * causal + seg, d)
+    scale = d ** -0.5
     jseg = fa.SegmentIds(q=jnp.asarray(ids), kv=jnp.asarray(ids)) \
         if seg else None
 
     def ref(q_, k_, v_):
         return fa.mha_reference_no_custom_vjp(
-            q_, k_, v_, segment_ids=jseg, causal=causal, sm_scale=SCALE)
+            q_, k_, v_, segment_ids=jseg, causal=causal, sm_scale=scale)
 
     want, vjp = jax.vjp(ref, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     dq_want, dk_want, dv_want = vjp(jnp.asarray(do))
     _, l, m = fa.mha_reference_no_custom_vjp(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), segment_ids=jseg,
-        causal=causal, sm_scale=SCALE, save_residuals=True)
+        causal=causal, sm_scale=scale, save_residuals=True)
 
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     tids = torch.from_numpy(ids) if seg else None
-    o, lse = flash_forward_plain(tq, tk, tv, tids, tids, causal, SCALE)
+    o, lse = flash_forward_plain(tq, tk, tv, tids, tids, causal, scale)
     _close(o, want)
     _close(lse, np.asarray(m) + np.log(np.asarray(l)))
     dq, dk, dv = flash_backward_plain(tq, tk, tv, tids, tids, o, lse, tdo,
-                                      causal, SCALE)
+                                      causal, scale)
     _close(dq, dq_want)
     _close(dk, dk_want)
     _close(dv, dv_want)
     # On the CPU the wrappers are the plain versions and launch nothing.
     launches = K.launch_counts()
-    o2, lse2 = K.flash_forward(tq, tk, tv, tids, tids, causal, SCALE)
+    o2, lse2 = K.flash_forward(tq, tk, tv, tids, tids, causal, scale)
     assert torch.equal(o2, o) and torch.equal(lse2, lse)
     di = (o * tdo).sum(-1)
     dk2, dv2 = K.flash_backward_dkv(tq, tk, tv, tids, tids, lse, tdo, di,
-                                    causal, SCALE)
+                                    causal, scale)
     dq2 = K.flash_backward_dq(tq, tk, tv, tids, tids, lse, tdo, di, causal,
-                              SCALE)
+                              scale)
     for a, b in ((dq2, dq), (dk2, dk), (dv2, dv)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert K.launch_counts() == launches
@@ -242,8 +245,8 @@ def test_auto_keeps_standard_attention_outside_the_kernels_envelope(
                  intermediate_size=128, flash_attention="auto")
     for mod, model in (
             (roberta, RobertaForSequenceClassification(
-                RobertaConfig(**small))),
-            (gpt, GPTForCausalLM(GPTConfig(**small)))):
+                RobertaConfig(**small), device="cpu")),
+            (gpt, GPTForCausalLM(GPTConfig(**small), device="cpu"))):
         assert mod.use_flash is use_flash
         monkeypatch.setattr(mod, "use_flash", spy)
         with torch.no_grad():
@@ -361,7 +364,7 @@ def test_gpt_flash_matches_jax(monkeypatch, fewbit):
     cfg = dict(SMALL, max_position_embeddings=SEQ, **extra)
     # Unrolled layers, as in tests/test_torch_gpt.py's few-bit test.
     jmodel = JaxGPT(JaxGPTConfig(**cfg, scan_layers=False))
-    tmodel = GPTForCausalLM(GPTConfig(**cfg))
+    tmodel = GPTForCausalLM(GPTConfig(**cfg), device="cpu")
     b = next(synthetic_lm(BS, SEQ, vocab_size=SMALL["vocab_size"], seed=2))
     params = _transplant(jmodel, tmodel, b)
     jl, jlogits, jgrads = _jax_loss_grads(jmodel, params, b, jax_lm_loss)
@@ -378,7 +381,8 @@ def test_roberta_flash_matches_jax_on_padded_batch(monkeypatch, fewbit):
     extra = FEWBIT if fewbit else {}
     cfg = dict(SMALL, max_position_embeddings=SEQ + 2, **extra)
     jmodel = JaxRoberta(JaxRobertaConfig(**cfg))
-    tmodel = RobertaForSequenceClassification(RobertaConfig(**cfg))
+    tmodel = RobertaForSequenceClassification(RobertaConfig(**cfg),
+                                              device="cpu")
     b = next(synthetic_glue(BS, SEQ, vocab_size=SMALL["vocab_size"], seed=1))
     assert (b["attention_mask"] == 0).any()  # padded rows are exercised
     params = _transplant(jmodel, tmodel, b)

@@ -62,7 +62,7 @@ def _models(extra, scan_layers=True):
                          jnp.asarray(b["attention_mask"]),
                          deterministic=True)["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
-    tmodel = GPTForCausalLM(GPTConfig(**SMALL, **extra))
+    tmodel = GPTForCausalLM(GPTConfig(**SMALL, **extra), device="cpu")
     load_flax_params(tmodel, params)
     return jmodel, params, tmodel, b
 
@@ -183,7 +183,7 @@ def test_fewbit_slice_matches_jax(monkeypatch):
 
 def test_causality():
     """Logits at position t do not depend on tokens after t."""
-    tmodel = GPTForCausalLM(GPTConfig(**SMALL),
+    tmodel = GPTForCausalLM(GPTConfig(**SMALL), device="cpu",
                             generator=torch.Generator().manual_seed(0))
     ids = torch.from_numpy(_batch()["input_ids"]).long()
     with torch.no_grad():
@@ -203,7 +203,7 @@ def test_config_guards():
     outs = []
     for flash in (True, False):
         model = GPTForCausalLM(
-            GPTConfig(**SMALL, flash_attention=flash),
+            GPTConfig(**SMALL, flash_attention=flash), device="cpu",
             generator=torch.Generator().manual_seed(0))
         with torch.no_grad():
             outs.append(model(ids, torch.ones_like(ids)))
@@ -213,7 +213,8 @@ def test_config_guards():
     with pytest.raises(ValueError, match="flash_attention"):
         GPTConfig(flash_attention="Auto")
     model = GPTForCausalLM(GPTConfig(**{**SMALL, "max_position_embeddings":
-                                        16}, flash_attention="auto"))
+                                        16}, flash_attention="auto"),
+                           device="cpu")
     with pytest.raises(ValueError, match="max_position_embeddings"):
         model(torch.zeros(1, 17, dtype=torch.long))
 
@@ -252,7 +253,8 @@ def test_config_takes_scan_layers(scan):
     fields = JaxConfig.__dataclass_fields__
     assert GPTConfig().scan_layers is fields["scan_layers"].default
     jmodel, params, _, b = _models({}, scan)
-    tmodel = GPTForCausalLM(GPTConfig(**SMALL, scan_layers=scan))
+    tmodel = GPTForCausalLM(GPTConfig(**SMALL, scan_layers=scan),
+                            device="cpu")
     assert tmodel.cfg.scan_layers is scan
     load_flax_params(tmodel, params)
     _, jlogits, _ = _jax_loss_grads(jmodel, params, b)

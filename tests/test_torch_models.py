@@ -65,8 +65,8 @@ def _models_for(extra):
                          jnp.asarray(b["attention_mask"]),
                          deterministic=True)["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
-    tmodel = RobertaForSequenceClassification(RobertaConfig(**SMALL,
-                                                            **extra))
+    tmodel = RobertaForSequenceClassification(
+        RobertaConfig(**SMALL, **extra), device="cpu")
     load_flax_params(tmodel, params)
     return jmodel, params, tmodel, b
 
@@ -258,3 +258,28 @@ def test_config_takes_tp_fields_and_refuses_tensor_parallelism():
                dict(tp_axis="model", tp_size=4)):
         with pytest.raises(NotImplementedError, match="queue 1 item 13"):
             RobertaConfig(**kw)
+
+
+@pytest.mark.parametrize("which", ["roberta", "roberta_backbone", "gpt",
+                                   "gpt_backbone"])
+def test_models_build_on_the_card_unless_asked(monkeypatch, which):
+    """``device`` None means the card: without one the constructor raises
+    and names ``device="cpu"`` (no model quietly lands on the CPU), and
+    ``device="cpu"`` builds on the CPU."""
+    from fewbit_tpu_torch.models import GPTConfig, GPTForCausalLM, GPTModel
+    from fewbit_tpu_torch.models import RobertaModel
+
+    tiny = dict(vocab_size=50, hidden_size=64, num_layers=1, num_heads=2,
+                intermediate_size=128, max_position_embeddings=16)
+    build = {"roberta": lambda **kw: RobertaForSequenceClassification(
+                 RobertaConfig(**tiny), **kw),
+             "roberta_backbone": lambda **kw: RobertaModel(
+                 RobertaConfig(**tiny), **kw),
+             "gpt": lambda **kw: GPTForCausalLM(GPTConfig(**tiny), **kw),
+             "gpt_backbone": lambda **kw: GPTModel(GPTConfig(**tiny),
+                                                   **kw)}[which]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build()
+    model = build(device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
