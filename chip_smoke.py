@@ -70,10 +70,16 @@ also in f32 at K = 128; and it checks that the shipped kernel 6 is not
 slower than the CUDA-core kernel it replaced.
 
 The kernel phase also holds kernel 2' (kernel 2 with the input sketch,
-which no path runs) against its plain version, and times flash attention
-(F1, then F2 and F3 through the autograd op) against the standard
-attention's forward and backward at seq 128, 256, 512 and 1024 (8192
-tokens) in f32 and bf16: the card's own crossover for
+which no path runs) against its plain version on the route its host chose
+(printed with the tile width), into outputs filled with NaN, two launches
+to equal bits, with its device time and share of the bound as kernels 1-3
+have them, beside the CUDA-core kernel it replaced and the separate sketch
+pass alone, and times the three ways to get (y, codes, sk_y, sk_x): kernel
+2 then the plain sketch of x (the FFN's forward), kernel 2 then the
+separate pass, and kernel 2'; each on a line of its own.  It times flash
+attention (F1, then F2 and F3 through the autograd op) against the
+standard attention's forward and backward at seq 128, 256, 512 and 1024
+(8192 tokens) in f32 and bf16: the card's own crossover for
 ``flash_attention="auto"``, printed, not acted on.
 
 Every loss must be finite.  Each path's launch counts start at 0 just
@@ -326,6 +332,87 @@ def _ffn_case(results, name, mode, tag, wrapper, plain, args, errs, a, w):
                a, w)
 
 
+def _sketch_x_case(results, spec, borders, args, sigma_x, z0, tag, tol):
+    """Kernel 2' at the FFN up projection (``args``: kernel 2's) against its
+    plain version, into NaN-filled outputs, twice for equal bits; timed as
+    kernels 1-3 are (``_gemm_case``), beside the CUDA-core kernel it
+    replaced and the separate sketch pass alone; and the three ways to get
+    (y, codes, sk_y, sk_x), twice in turns: (a) kernel 2, then the plain
+    ``countsketch_signed`` of x (what the FFN's forward does), (b) kernel
+    2, then the separate pass ``input_sketch``, (c) kernel 2'."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    x, w = args[1], args[2]
+    dt = x.dtype
+    xargs = (*args, sigma_x)
+    want = K.dense_act_sketch_x_plain(*xargs)
+    got = K.fused_dense_act_sketch_x(*xargs, out=_nan_like(*want))
+    again = K.fused_dense_act_sketch_x(*xargs, out=_nan_like(*want))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"k2' {tag}: two launches differ")
+    del again
+    names = ("y", "sketch_y", "sketch_x")
+    errs = {name: compare(f"k2' {tag} {name}", a, b, tol)
+            for name, a, b in zip(names, got[:1] + got[2:],
+                                  want[:1] + want[2:])}
+    errs["code_flips"] = code_flips(f"k2' {tag}", got[1], want[1], z0,
+                                    borders, spec.bits)
+    simt = K.dense_act_sketch_x_simt(*xargs)
+    simt_errs = {name: compare(f"k2' simt {tag} {name}", a, b, tol)
+                 for name, a, b in zip(names, simt[:1] + simt[2:],
+                                       want[:1] + want[2:])}
+    simt_errs["code_flips"] = code_flips(f"k2' simt {tag}", simt[1],
+                                         want[1], z0, borders, spec.bits)
+    sep = K.input_sketch(x, sigma_x, K_EFF, out=_nan_like(want[3]))
+    sep_err = compare(f"input_sketch {tag}", sep, want[3], tol)
+    del got, simt
+    fused, bn = K.dense_act_sketch_x_route(HIDDEN, FFN, dt)
+    route = ("fused x sketch from the ring" if fused else
+             "kernel 2, then the separate sketch pass")
+    _gemm_case(results, "dense_act_sketch_x", "forward", tag,
+               K.fused_dense_act_sketch_x, K.dense_act_sketch_x_plain, xargs,
+               errs, route, f"{K.FG_BM}x{bn}", 2 * N * HIDDEN * FFN, x, w)
+    case = results["dense_act_sketch_x"][-1]
+    case.update({
+        "fused": fused, "bn": bn, "simt_errors": simt_errs,
+        "simt_ms": cuda_ms(lambda: K.dense_act_sketch_x_simt(*xargs)),
+        "simt_device_ms": device_ms(lambda: K.dense_act_sketch_x_simt(
+            *xargs))})
+    log(f"kernel 2' [{tag}]: route {route}, BN {bn} "
+        f"(dense_act_sketch_x_route({HIDDEN}, {FFN}))")
+    log(f"kernel 2' [{tag}]: the CUDA-core kernel it replaced "
+        f"(dense_act_sketch_x_simt) per call {case['simt_ms']:.4f} ms, "
+        f"device {case['simt_device_ms']:.4f} ms, errors {simt_errs}; "
+        f"kernel 2' per call {case['ms']:.4f} ms, device "
+        f"{case['device_ms']:.4f} ms")
+    # The separate pass alone: one multiply-add per element of x.
+    case["input_sketch"] = {
+        "error": sep_err,
+        "ms": cuda_ms(lambda: K.input_sketch(x, sigma_x, K_EFF)),
+        "device_ms": device_ms(lambda: K.input_sketch(x, sigma_x, K_EFF)),
+        **bound(x.numel(), "simt", tensor_bytes(x, sigma_x, sep))}
+    c = case["input_sketch"]
+    log(f"input_sketch [{tag}] ({N} x {HIDDEN}, k_eff {K_EFF}): error "
+        f"{sep_err}, per call {c['ms']:.4f} ms, device {c['device_ms']:.4f} "
+        f"ms, bound {c['bound_ms']:.4f} ms by {c['bound_by']}")
+    ways = {"a": lambda: (K.fused_dense_act_sketch(*args),
+                          K.countsketch_signed(x, sigma_x, K_EFF)),
+            "b": lambda: (K.fused_dense_act_sketch(*args),
+                          K.input_sketch(x, sigma_x, K_EFF)),
+            "c": lambda: K.fused_dense_act_sketch_x(*xargs)}
+    timed = {key: {"ms": [], "device_ms": []} for key in ways}
+    for order in ("abc", "cba"):
+        for key in order:
+            timed[key]["ms"].append(cuda_ms(ways[key]))
+            timed[key]["device_ms"].append(device_ms(ways[key]))
+    case["ways"] = timed
+    fastest = min(timed, key=lambda k: statistics.mean(timed[k]["ms"]))
+    log(f"kernel 2' [{tag}] ways to (y, codes, sk_y, sk_x), two rounds in "
+        f"turns abc, cba: (a) kernel 2 + countsketch_signed, (b) kernel 2 + "
+        f"input_sketch, (c) kernel 2': {json.dumps(timed)}; fastest per "
+        f"call: ({fastest})")
+
+
 def _schedule_cases(results, spec, borders, x, up_w, up_b, z0):
     """The four tensor-core schedules of kernel 6 on the up projection
     (x, the (out, in) weight through .t(), the bias; ``z0`` the plain
@@ -425,9 +512,11 @@ def _flash_forward_f64(q, k, v, ids, causal, scale):
 
 
 def _nan_like(*like):
-    """Outputs for a kernel to write into, full of NaN: an element it leaves
-    unwritten cannot pass a comparison."""
-    return tuple(torch.full_like(t, float("nan")) for t in like)
+    """Outputs for a kernel to write into, full of NaN (integer ones with
+    every bit set): an element it leaves unwritten cannot pass a
+    comparison."""
+    return tuple(torch.full_like(t, float("nan") if t.is_floating_point()
+                                 else -1) for t in like)
 
 
 def _held_to_f64(tag, names, got, simt, plain, want, tol):
@@ -652,22 +741,9 @@ def phase_kernels():
                   errs, x, up_w.t())
 
         # Kernel 2': kernel 2 that also sketches x (sum of N / k_eff = 4
-        # rows per bucket).
-        xargs = (*args, sigma_x)
-        y, packed2x, sky, skx = K.fused_dense_act_sketch_x(*xargs)
-        y0, packed0, sky0, skx0 = K.dense_act_sketch_x_plain(*xargs)
-        errs = {"y": compare(f"k2' {tag} y", y, y0, tol),
-                "sketch_y": compare(f"k2' {tag} sketch_y", sky, sky0, tol),
-                "sketch_x": compare(f"k2' {tag} sketch_x", skx, skx0, tol),
-                "code_flips": code_flips(f"k2' {tag}", packed2x, packed0,
-                                         z0, borders, spec.bits)}
-        results["dense_act_sketch_x"].append({
-            "mode": "forward", "dtype": tag, "errors": errs,
-            "ms": cuda_ms(lambda: K.fused_dense_act_sketch_x(*xargs)),
-            "plain_ms": cuda_ms(lambda: K.dense_act_sketch_x_plain(*xargs)),
-            **bound(ffn_flop, gemm_rate(dt),
-                    tensor_bytes(xargs, y, packed2x, sky, skx)),
-            "library_ms": None})
+        # rows per bucket), on the route dense_act_sketch_x_route gives,
+        # into outputs filled first, two launches equal to the bit.
+        _sketch_x_case(results, spec, borders, args, sigma_x, z0, tag, tol)
 
         # Kernel 3: the FFN backward on kernel 2's codes, with the down
         # projection's (out, in) weight as wt.
@@ -769,6 +845,8 @@ def phase_kernels():
             if "simt_ms" in c:
                 extra += (f"; the CUDA-core kernel it replaced "
                           f"{c['simt_ms']:.3f} ms")
+            if "simt_device_ms" in c:
+                extra += f" ({c['simt_device_ms']:.4f} ms device)"
             if "f64_errors" in c:
                 extra += (f"; device {c['device_ms']:.4f} ms "
                           f"({100 * c['bound_ms'] / c['device_ms']:.1f}% of "

@@ -44,16 +44,28 @@
 // 0.51 ms in f32 (46% of the bound) and 0.26 ms in bf16 (15%), a quarter to
 // two fifths of it the epilogue's arithmetic.
 //
-// With sigma_x (dense_act_sketch_x_kernel): the first, simple design on the
-// CUDA-core gemm_tile of common.cuh.  A block owns one tile of BM buckets
-// and BN columns and loops over the passes; the sketch tile is summed in
-// registers; only the blocks of the first column tile sum sk_x, each thread
-// adding sigma_x x for the elements of x it loads into shared memory to an
-// f32 accumulator it alone reads and writes, pass after pass; a bf16
-// model's sketch is converted by the same thread at the end.  Codes go
-// through shared memory so that one warp holds 32 consecutive rows of one
-// column, and each bit plane is one __ballot_sync.  No model path runs this
-// mode.
+// With sigma_x (kernel 2', dense_act_sketch_wgmma_kernel<T, BN, true>): the
+// same mainloop and epilogue, and the countsketch of x from the A tiles of
+// the ring, as kernel 1 takes its own (SketchSlice in hopper_gemm.cuh):
+// column tile j of J owns sk_x columns [j K / J, (j + 1) K / J) of its 128
+// buckets, an f32 slice in shared memory beside kernel 2's block (12 KB at
+// 768 -> 3072, BN 96); a consumer thread adds sigma_x x of the raw operand
+// (f32 x, not its TF32 halves) for a fixed 16 (f32) or 32 (bf16) elements
+// of each k tile that holds the slice, between issuing the tile's first
+// wgmma group and handing its stage back (fg_consume_pass's on_tile), and
+// writes its own elements once, after the last pass.  sigma_x is read where
+// it is used, so that f32's 144 registers do not grow (loading it a pass
+// ahead and handing it round by shuffles made no difference).  The host
+// (dense_act_sketch_x_route in ops/kernels.py) takes 96, then 64, where
+// the slice fits beside the block, and otherwise runs kernel 2 and then
+// kernel 1's separate sketch pass on x (fewbit_input_sketch).
+//
+// The first, CUDA-core design stays as dense_act_sketch_x_kernel (entry
+// fewbit_dense_act_sketch_x_simt), on no path, what kernel 2' is measured
+// against: a block owns one tile of BM buckets and BN columns on the
+// CUDA-core gemm_tile of common.cuh, only the first column tile's blocks sum
+// sk_x into a global f32 scratch, codes are staged in shared memory and
+// packed by __ballot_sync.  No model path runs kernel 2' in either design.
 #include "ffn_gemm.cuh"
 
 namespace fewbit {
@@ -69,9 +81,29 @@ struct K2Params {
   T* sk;                 // (k_eff, m)
   int kdim, m, words, bits, n_borders;
   int passes, pass_stride;  // rows of pass c: c pass_stride + 128 blockIdx.x
+  // Kernel 2' only: sigma_x (n,), sk_x (k_eff, kdim), the column tiles and
+  // the slice's row stride (SketchSlice).
+  const float* sigma_x;
+  T* skx;
+  int jt, kcp;
 };
 
-template <typename T, int BN>
+// Dynamic shared memory of a block of kernel 2': kernel 2's (fg_smem) and
+// the x sketch's slice, 128 buckets of ceil(K / J) f32 columns (J = m / bn
+// column tiles), past the barriers; -1 where the width is not built or
+// does not divide m, or the block would exceed FG_SMEM_LIMIT.
+// _sketch_x_smem in fewbit_tpu_torch/ops/kernels.py computes the same;
+// fewbit_dense_act_sketch_x_smem exports this one.
+template <typename T>
+int sketch_x_smem(int kdim, int m, int bn) {
+  const int base = fg_smem_or_refuse<T>(bn);
+  if (base < 0 || m <= 0 || m % bn || kdim <= 0) return -1;
+  const int jt = m / bn;
+  const int smem = base + FG_BM * ((kdim + jt - 1) / jt) * 4;
+  return smem > FG_SMEM_LIMIT ? -1 : smem;
+}
+
+template <typename T, int BN, bool SKX>
 __global__ void __launch_bounds__(FG_THREADS, 1)
     dense_act_sketch_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                                   const __grid_constant__ CUtensorMap map_b,
@@ -92,13 +124,31 @@ __global__ void __launch_bounds__(FG_THREADS, 1)
   float* ska = s.ska + threadIdx.x;  // element idx at ska[idx * FG_CONSUMERS]
   const int word_half = th.warp & 1;  // the half of the words it writes
   const int border_quads = (p.n_borders + 3) / 4;
+  // Kernel 2': this block's slice of sk_x, past the barriers.
+  const SketchSlice<T> xs(th.wg, threadIdx.x % 128, blockIdx.y, p.jt,
+                          p.kdim);
+  float* slice = reinterpret_cast<float*>(s.empty + FG_STAGES);
   int st = 0;
   uint32_t ph = 0;
   for (int c = 0; c < p.passes; ++c) {
     const int r0 = c * p.pass_stride + bucket0;
     const bool first = c == 0, last = c == p.passes - 1;
     float acc[BN / 2];
-    fg_consume_pass<T, BN>(acc, s, th, k_tiles, st, ph);
+    if constexpr (SKX) {
+      // sigma_x of the thread's rows read where they are used, not held
+      // across the pass: f32 has 24 registers to spare.
+      fg_consume_pass<T, BN>(
+          acc, s, th, k_tiles, st, ph, nullptr,
+          [&](const uint8_t* tile_a, int kt) {
+            if (xs.owns(kt))
+              xs.add(tile_a, kt, slice, p.kcp, first, [&](int i) {
+                return __ldg(p.sigma_x + r0 + xs.row(i));
+              });
+            __syncwarp();
+          });
+    } else {
+      fg_consume_pass<T, BN>(acc, s, th, k_tiles, st, ph);
+    }
     float sg[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) sg[h] = p.sigma[r0 + th.row + 8 * h];
@@ -186,6 +236,8 @@ __global__ void __launch_bounds__(FG_THREADS, 1)
       }
     }
   }
+  if constexpr (SKX)
+    xs.store(slice, p.kcp, p.skx + (size_t)bucket0 * p.kdim, p.kdim);
 }
 
 template <typename T, bool TRANS_B>
@@ -282,31 +334,37 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int BN>
+template <typename T, int BN, bool SKX>
 int launch_wgmma_bn(const CUtensorMap& ma, const CUtensorMap& mb,
                     const CUtensorMap& mb_lo, const K2Params<T>& p, int k_eff,
-                    cudaStream_t st) {
-  auto kernel = dense_act_sketch_wgmma_kernel<T, BN>;
+                    int smem, cudaStream_t st) {
+  auto kernel = dense_act_sketch_wgmma_kernel<T, BN, SKX>;
   static unsigned allowed = 0;
   const int err =
       fg_allow_smem(reinterpret_cast<const void*>(kernel), allowed);
   if (err != 0) return err;
-  kernel<<<dim3(k_eff / FG_BM, p.m / BN), FG_THREADS,
-           fg_smem(Operand<T>::PARTS, BN), st>>>(ma, mb, mb_lo, p);
+  kernel<<<dim3(k_eff / FG_BM, p.m / BN), FG_THREADS, smem, st>>>(ma, mb,
+                                                                  mb_lo, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_wgmma(const void* x, const void* w, int w_trans, const void* bias,
                  const float* borders, int n_borders, const float* sigma,
-                 void* y, void* packed, void* sk, void* w_prep, int n,
-                 int kdim, int m, int k_eff, int bits, int bn,
-                 cudaStream_t st) {
+                 void* y, void* packed, void* sk, const float* sigma_x,
+                 void* skx, void* w_prep, int n, int kdim, int m, int k_eff,
+                 int bits, int bn, cudaStream_t st) {
   if (n_borders < 0 || n_borders > FG_TABLE || bits < 1 || bits > 6) return -1;
+  const bool skx_on = sigma_x != nullptr;
+  if (skx_on && skx == nullptr) return -1;
+  const int smem = skx_on ? sketch_x_smem<T>(kdim, m, bn)
+                          : fg_smem_or_refuse<T>(bn);
+  if (smem < 0) return -1;
   CUtensorMap ma, mb, mb_lo;
   const int rc = fg_operands<T>(x, w, w_trans, w_prep, n, kdim, m, k_eff, bn,
                                 &ma, &mb, &mb_lo, st);
   if (rc != 0) return rc;
+  const int jt = m / bn;
   K2Params<T> p{static_cast<const T*>(bias),
                 borders,
                 sigma,
@@ -319,9 +377,19 @@ int launch_wgmma(const void* x, const void* w, int w_trans, const void* bias,
                 bits,
                 n_borders,
                 n / k_eff,
-                k_eff};
-  return bn == 96 ? launch_wgmma_bn<T, 96>(ma, mb, mb_lo, p, k_eff, st)
-                  : launch_wgmma_bn<T, 64>(ma, mb, mb_lo, p, k_eff, st);
+                k_eff,
+                sigma_x,
+                static_cast<T*>(skx),
+                jt,
+                (kdim + jt - 1) / jt};
+  if (skx_on)
+    return bn == 96
+               ? launch_wgmma_bn<T, 96, true>(ma, mb, mb_lo, p, k_eff, smem, st)
+               : launch_wgmma_bn<T, 64, true>(ma, mb, mb_lo, p, k_eff, smem,
+                                              st);
+  return bn == 96
+             ? launch_wgmma_bn<T, 96, false>(ma, mb, mb_lo, p, k_eff, smem, st)
+             : launch_wgmma_bn<T, 64, false>(ma, mb, mb_lo, p, k_eff, smem, st);
 }
 
 template <typename T>
@@ -353,18 +421,15 @@ void launch_x(const void* x, const void* w, int w_trans, const void* bias,
 // w_trans), bias (m,) or null, borders (n_borders,) f32 with n_borders < 64,
 // sigma (n,) f32; outputs y (n, m), packed (bits, ceil(n / 32), m) 32-bit
 // words and sk (k_eff, m).  k_eff must be a multiple of 128 that divides n,
-// and bits at most 6.
+// kdim a multiple of 128, m of bn (the host's tile width: 96 or 64), and
+// bits at most 6; x and a bf16 transposed w 16-byte aligned; w_prep is
+// scratch for the K-major B: (2, m, kdim) for f32 (hi, lo), (m, kdim) for
+// bf16 with w_trans = 0, null for bf16 with w_trans = 1.
 //
-// Without sigma_x, the wgmma kernel: kdim a multiple of 128, m of bn (the
-// host's tile width, ffn_gemm_route: 96 or 64), x and a bf16 transposed w
-// 16-byte aligned; w_prep is scratch for the K-major B: (2, m, kdim) for
-// f32 (hi, lo), (m, kdim) for bf16 with w_trans = 0, null for bf16 with
-// w_trans = 1.
-//
-// With sigma_x (n,) f32, the sigma_x mode (w_prep and bn unused): also sk_x
-// (k_eff, kdim), summed in skx_acc (k_eff, kdim) f32, which is the result
-// when skx_out is null (f32 models) and is converted into skx_out otherwise
-// (bf16).
+// Without sigma_x, kernel 2 at ffn_gemm_route's width.  With sigma_x (n,)
+// f32, kernel 2' on its fused route (dense_act_sketch_x_route): also sk_x
+// into skx (k_eff, kdim) of x's type, at a width whose block holds the
+// slice (fewbit_dense_act_sketch_x_smem).
 //
 // Returns cudaGetLastError() after the launches, -1 for arguments the
 // kernels do not take (nothing launched), -2 when the TMA descriptors cannot
@@ -372,22 +437,37 @@ void launch_x(const void* x, const void* w, int w_trans, const void* bias,
 extern "C" int fewbit_dense_act_sketch(
     const void* x, const void* w, int w_trans, const void* bias,
     const void* borders, int n_borders, const void* sigma, void* y,
-    void* packed, void* sk, const void* sigma_x, void* skx_acc, void* skx_out,
-    void* w_prep, int n, int kdim, int m, int k_eff, int bits, int bn,
-    int is_bf16, void* stream) {
+    void* packed, void* sk, const void* sigma_x, void* skx, void* w_prep,
+    int n, int kdim, int m, int k_eff, int bits, int bn, int is_bf16,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bd = static_cast<const float*>(borders);
   const float* sg = static_cast<const float*>(sigma);
-  if (sigma_x == nullptr) {
-    if (is_bf16)
-      return fewbit::launch_wgmma<__nv_bfloat16>(x, w, w_trans, bias, bd,
-                                                 n_borders, sg, y, packed, sk,
-                                                 w_prep, n, kdim, m, k_eff,
-                                                 bits, bn, st);
-    return fewbit::launch_wgmma<float>(x, w, w_trans, bias, bd, n_borders, sg,
-                                       y, packed, sk, w_prep, n, kdim, m,
-                                       k_eff, bits, bn, st);
-  }
+  const float* sgx = static_cast<const float*>(sigma_x);
+  if (is_bf16)
+    return fewbit::launch_wgmma<__nv_bfloat16>(x, w, w_trans, bias, bd,
+                                               n_borders, sg, y, packed, sk,
+                                               sgx, skx, w_prep, n, kdim, m,
+                                               k_eff, bits, bn, st);
+  return fewbit::launch_wgmma<float>(x, w, w_trans, bias, bd, n_borders, sg,
+                                     y, packed, sk, sgx, skx, w_prep, n, kdim,
+                                     m, k_eff, bits, bn, st);
+}
+
+// Kernel 2''s function by the first, CUDA-core kernel (on no
+// path; what the tensor-core kernel is measured against): the arguments of
+// fewbit_dense_act_sketch without w_prep and bn, sk_x summed in skx_acc
+// (k_eff, kdim) f32, which is the result when skx_out is null (f32 models)
+// and is converted into skx_out otherwise (bf16).  Returns
+// cudaGetLastError() after the launch.
+extern "C" int fewbit_dense_act_sketch_x_simt(
+    const void* x, const void* w, int w_trans, const void* bias,
+    const void* borders, int n_borders, const void* sigma, void* y,
+    void* packed, void* sk, const void* sigma_x, void* skx_acc, void* skx_out,
+    int n, int kdim, int m, int k_eff, int bits, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* bd = static_cast<const float*>(borders);
+  const float* sg = static_cast<const float*>(sigma);
   const float* sgx = static_cast<const float*>(sigma_x);
   float* acc = static_cast<float*>(skx_acc);
   uint32_t* pk = static_cast<uint32_t*>(packed);
@@ -401,11 +481,19 @@ extern "C" int fewbit_dense_act_sketch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dynamic shared memory that a block of the FFN kernels (this one
-// without sigma_x, and fewbit_matmul_lut_backward) takes at tile width bn,
-// or -1 where they refuse it (a width not built, or over the block's
-// limit).  Launches nothing.
+// The dynamic shared memory that a block of the FFN kernels (kernel 2, and
+// fewbit_matmul_lut_backward) takes at tile width bn, or -1 where they
+// refuse it (a width not built, or over the block's limit).  Launches
+// nothing.
 extern "C" int fewbit_ffn_gemm_smem(int bn, int is_bf16) {
   return is_bf16 ? fewbit::fg_smem_or_refuse<__nv_bfloat16>(bn)
                  : fewbit::fg_smem_or_refuse<float>(bn);
+}
+
+// The dynamic shared memory that a block of kernel 2' takes at (kdim, m,
+// bn), or -1 where it refuses it (sketch_x_smem).  Launches nothing.
+extern "C" int fewbit_dense_act_sketch_x_smem(int kdim, int m, int bn,
+                                              int is_bf16) {
+  return is_bf16 ? fewbit::sketch_x_smem<__nv_bfloat16>(kdim, m, bn)
+                 : fewbit::sketch_x_smem<float>(kdim, m, bn);
 }

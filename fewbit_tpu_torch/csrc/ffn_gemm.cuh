@@ -156,6 +156,11 @@ struct FgThread {
   }
 };
 
+// The default of fg_consume_pass's on_tile: nothing.
+struct FgNoTile {
+  __device__ __forceinline__ void operator()(const uint8_t*, int) const {}
+};
+
 // One pass of a consumer thread: acc = the thread's fragment of A @ B over
 // all k tiles, taken from the ring at (st, ph), which it advances.  Every
 // stage is handed back to the producer by the end.
@@ -165,11 +170,15 @@ struct FgThread {
 // the ring: k tile kt of it (its PARTS tiles of B_BYTES) stays at
 // panel + kt PARTS B_BYTES, loaded once by the caller, and a stage holds A
 // alone.  th.wg selects the warpgroup's 64 rows of the stage's A tile (0
-// where the tile has only 64).
-template <typename T, int BN, typename Smem>
+// where the tile has only 64).  on_tile(tile_a, kt) runs once a k tile,
+// after its first wgmma group is issued and before its stage goes back to
+// the producer, so it may read the stage's A tile (kernel 2''s x sketch);
+// it must leave the warp converged.
+template <typename T, int BN, typename Smem, typename OnTile = FgNoTile>
 __device__ __forceinline__ void fg_consume_pass(
     float (&acc)[BN / 2], const Smem& s, const FgThread& th, int k_tiles,
-    int& st, uint32_t& ph, const uint8_t* panel = nullptr) {
+    int& st, uint32_t& ph, const uint8_t* panel = nullptr,
+    OnTile on_tile = {}) {
   using namespace hopper;
   using S = Smem;
   // f32: A's TF32 fragments of the two halves of a k tile (k 0..15 and
@@ -225,6 +234,7 @@ __device__ __forceinline__ void fg_consume_pass(
                            desc_sw128(b_addr + 32 * ks));
     }
     wgmma_commit();
+    on_tile(tile_a, kt);  // while the tensor cores run
     // One group stays in flight.  The one before it is done: the previous
     // tile's last, so its stage goes back to the producer (and for f32 the
     // registers of its A fragments may be written again).

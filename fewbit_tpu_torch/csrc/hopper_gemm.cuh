@@ -16,8 +16,9 @@
 // 32 k bytes.
 //
 // Below the hopper namespace: what the kernels built on these pieces share
-// (the per-type tile constants, the paired store of an accumulator
-// fragment, and the prologue that writes a weight K-major for wgmma).
+// (the per-type tile constants, the input-sketch read of kernels 1 and 2'
+// from the ring, the paired store of an accumulator fragment, and the
+// prologue that writes a weight K-major for wgmma).
 #pragma once
 
 #include <cuda.h>
@@ -493,14 +494,83 @@ template <> struct Wgmma<96> {
 }  // namespace hopper
 
 // Per element type: K per 128-byte tile row, B parts (f32: hi and lo) and
-// row groups of a warpgroup in kernel 1's sketch read (128 threads / BK
-// columns).
+// row groups of a warpgroup in the sketch read (SketchSlice: 128 threads /
+// BK columns).
 template <typename T> struct Operand;
 template <> struct Operand<float> {
   static constexpr int BK = 32, PARTS = 2, GROUPS = 4;
 };
 template <> struct Operand<__nv_bfloat16> {
   static constexpr int BK = 64, PARTS = 1, GROUPS = 2;
+};
+
+// The input countsketch of kernels 1 and 2', read from the x tiles of the
+// ring (128 rows x 128 bytes, swizzled) while the tensor cores run.  Column
+// tile j of J owns sketch columns [c_lo, c_hi) = [j K / J, (j + 1) K / J)
+// of its 128 buckets and keeps them in an f32 slice in shared memory, kcp
+// columns a row.  Consumer thread lt (0..127) of warpgroup wg reads column
+// co = lt % BK of each k tile at rows 64 wg + rg + G i (rg = lt / BK,
+// i < ROWS): a fixed ROWS elements a k tile, and only the k tiles that hold
+// the slice do any of it.  Every (bucket, column) of the slice has one
+// owning thread, which alone reads and writes it: no atomics, the passes
+// summed in order.  The caller reads before the stage's empty arrive and
+// converges the warp after (the wgmma that follows is .aligned).
+template <typename T>
+struct SketchSlice {
+  static constexpr int BK = Operand<T>::BK, G = Operand<T>::GROUPS;
+  static constexpr int ROWS = 64 / G;
+  int co, row0, c_lo, c_hi;
+
+  __device__ __forceinline__ SketchSlice(int wg, int lt, int j, int jt,
+                                         int kdim)
+      : co(lt % BK),
+        row0(64 * wg + lt / BK),
+        c_lo(j * kdim / jt),
+        c_hi((j + 1) * kdim / jt) {}
+
+  // Tile row of the thread's i-th element.
+  __device__ __forceinline__ int row(int i) const { return row0 + G * i; }
+  // Whether k tile kt's column co is the block's; its slice column.
+  __device__ __forceinline__ bool owns(int kt) const {
+    const int gk = kt * BK + co;
+    return gk >= c_lo && gk < c_hi;
+  }
+  __device__ __forceinline__ int col(int kt) const {
+    return kt * BK + co - c_lo;
+  }
+
+  // slice[row(i), col(kt)] = (first ? 0 : itself) + sig(i) x[row(i), co]
+  // for the raw operand of tile_a, k tile kt (owns(kt)).  Returns the sum
+  // of those x (the thread's share of the column sum).
+  template <typename Sig>
+  __device__ __forceinline__ float add(const uint8_t* tile_a, int kt,
+                                       float* slice, int kcp, bool first,
+                                       Sig sig) const {
+    const int cc = col(kt);
+    float colsum = 0.f;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const float v = to_f(*reinterpret_cast<const T*>(
+          tile_a + hopper::swizzled_offset(row(i), co, sizeof(T))));
+      float* dst = slice + row(i) * kcp + cc;
+      *dst = first ? sig(i) * v : *dst + sig(i) * v;
+      colsum += v;
+    }
+    return colsum;
+  }
+
+  // Writes the thread's own slice elements as T into sk, the block's 128
+  // bucket rows of kdim columns, after its last add (so no barrier).
+  __device__ __forceinline__ void store(const float* slice, int kcp, T* sk,
+                                        int kdim) const {
+    for (int kt = c_lo / BK; kt * BK < c_hi; ++kt) {
+      if (!owns(kt)) continue;
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+        sk[(size_t)row(i) * kdim + kt * BK + co] =
+            from_f<T>(slice[row(i) * kcp + col(kt)]);
+    }
+  }
 };
 
 // Two neighbouring columns of an accumulator fragment, stored as T.

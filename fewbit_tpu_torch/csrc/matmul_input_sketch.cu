@@ -45,10 +45,13 @@
 //   and writes each sketch element once at the end; the column sum is
 //   per-slab partials of the same slice, summed in order by
 //   sum_partials_kernel.  Every element has one owning thread: no atomics,
-//   deterministic.  Where that slice does not fit shared memory, the host
-//   (matmul_sketch_route in ops/kernels.py) chooses the separate pass
-//   (input_sketch_kernel) instead, from the shapes alone.  Both routes
-//   write one column-sum partial per 128 buckets.
+//   deterministic.  The read is SketchSlice (hopper_gemm.cuh), which
+//   kernel 2' shares.  Where that slice does not fit shared memory, the
+//   host (matmul_sketch_route in ops/kernels.py) chooses the separate pass
+//   instead, from the shapes alone: input_sketch_kernel, launched after
+//   the GEMM through its own entry point (fewbit_input_sketch, the
+//   wrapper input_sketch), as kernel 2' launches it on its separate route.
+//   Both routes write one column-sum partial per 128 buckets.
 // - Tile width BN is 96 where it divides M, to fill the 132 SMs: at
 //   768 -> 768 with k_eff 2048, 16 x 8 = 128 blocks (128-wide tiles would
 //   give 96).  Elsewhere, or where the sketch slice does not fit at 96, 64.
@@ -96,7 +99,7 @@ __global__ void __launch_bounds__(K1_THREADS, 1)
                          K1Params<T> p) {
   using namespace hopper;
   constexpr int BK = Operand<T>::BK, PARTS = Operand<T>::PARTS;
-  constexpr int G = Operand<T>::GROUPS, ROWS = 64 / G;
+  constexpr int G = Operand<T>::GROUPS, ROWS = SketchSlice<T>::ROWS;
   constexpr int A_BYTES = K1_BM * ROW_BYTES, B_BYTES = BN * ROW_BYTES;
   constexpr int STAGE_BYTES = A_BYTES + PARTS * B_BYTES;
 
@@ -148,11 +151,10 @@ __global__ void __launch_bounds__(K1_THREADS, 1)
   // Consumers: warpgroup wg computes rows 64 wg .. 64 wg + 63 of the tile.
   const int wg = tid / 128, lt = tid % 128, warp = lt / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  // The sketch read: column s_co of each k tile, rows s_rg + G i of the
-  // warpgroup's 64; the slice [c_lo, c_hi) of K is this block's.
-  const int s_co = lt % BK, s_rg = lt / BK;
-  const int c_lo = SKETCH ? blockIdx.y * p.kdim / p.jt : 0;
-  const int c_hi = SKETCH ? (blockIdx.y + 1) * p.kdim / p.jt : 0;
+  // The sketch read (SketchSlice): this block's slice [c_lo, c_hi) of K;
+  // the thread's column-sum row is G wg + lt / BK.
+  const SketchSlice<T> xs(wg, lt, blockIdx.y, SKETCH ? p.jt : 1,
+                          SKETCH ? p.kdim : 0);
   float acc[BN / 2];
   // f32: A's TF32 fragments of the two halves of a k tile (k 0..15 and
   // 16..31), each half in registers of its own, so one half's wgmma can run
@@ -193,8 +195,7 @@ __global__ void __launch_bounds__(K1_THREADS, 1)
     float sig[ROWS];
     if (SKETCH) {
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        sig[i] = p.sigma[r0 + 64 * wg + s_rg + G * i];
+      for (int i = 0; i < ROWS; ++i) sig[i] = p.sigma[r0 + xs.row(i)];
     }
     for (int kt = 0; kt < k_tiles; ++kt) {
       mbar_wait(&full[st], ph);
@@ -215,20 +216,10 @@ __global__ void __launch_bounds__(K1_THREADS, 1)
       }
       wgmma_commit();
       if (SKETCH) {  // while the tensor cores run
-        const int gk = kt * BK + s_co;
-        if (gk >= c_lo && gk < c_hi) {
-          const int cc = gk - c_lo;
-          float colsum = 0.f;
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i) {
-            const int row = 64 * wg + s_rg + G * i;
-            const float v = to_f(*reinterpret_cast<const T*>(
-                tile_a + swizzled_offset(row, s_co, sizeof(T))));
-            float* dst = sk_acc + row * kcp + cc;
-            *dst = c == 0 ? sig[i] * v : *dst + sig[i] * v;
-            colsum += v;
-          }
-          float* cdst = cs_acc + (G * wg + s_rg) * kcp + cc;
+        if (xs.owns(kt)) {
+          const float colsum = xs.add(tile_a, kt, sk_acc, kcp, c == 0,
+                                      [&](int i) { return sig[i]; });
+          float* cdst = cs_acc + (G * wg + lt / BK) * kcp + xs.col(kt);
           *cdst = c == 0 ? colsum : *cdst + colsum;
         }
         __syncwarp();
@@ -279,17 +270,17 @@ __global__ void __launch_bounds__(K1_THREADS, 1)
   }
   if constexpr (SKETCH) {
     asm volatile("bar.sync 1, %0;" ::"n"(K1_CONSUMERS) : "memory");
-    const int width = c_hi - c_lo;
+    const int width = xs.c_hi - xs.c_lo;
     for (int e = tid; e < K1_BM * width; e += K1_CONSUMERS) {
       const int r = e / width, cc = e % width;
-      p.sk[(size_t)(blockIdx.x * K1_BM + r) * p.kdim + c_lo + cc] =
+      p.sk[(size_t)(blockIdx.x * K1_BM + r) * p.kdim + xs.c_lo + cc] =
           from_f<T>(sk_acc[r * kcp + cc]);
     }
     if (p.cs_partial == nullptr) return;
     for (int cc = tid; cc < width; cc += K1_CONSUMERS) {
       float s = 0.f;
       for (int q = 0; q < 2 * G; ++q) s += cs_acc[q * kcp + cc];
-      p.cs_partial[(size_t)blockIdx.x * p.kdim + c_lo + cc] = s;
+      p.cs_partial[(size_t)blockIdx.x * p.kdim + xs.c_lo + cc] = s;
     }
   }
 }
@@ -300,7 +291,7 @@ constexpr int SB = K1_BM;
 constexpr int SC = 32;  // columns per block of the separate sketch pass
 
 // The separate sketch pass, for the shapes whose sketch slice does not fit
-// the GEMM's shared memory.  Block (SC, 8) threads; blockIdx.x picks SC
+// the GEMM's shared memory (of kernel 1, or of kernel 2').  Block (SC, 8) threads; blockIdx.x picks SC
 // columns, blockIdx.y SB buckets; each thread owns (bucket, column) pairs
 // and loops over the passes of its bucket.
 template <typename T>
@@ -420,19 +411,31 @@ int launch(const void* x, const void* w, int w_trans, const void* bias,
                 jt,
                 kcp};
   const int grid_x = (fused ? k_eff : n) / K1_BM;
-  int rc = fused ? launch_gemm_bn<T, true>(bn, ma, mb, mb_lo, p, grid_x,
-                                           smem, st)
-                 : launch_gemm_bn<T, false>(bn, ma, mb, mb_lo, p, grid_x,
-                                            smem, st);
-  if (rc != 0) return rc;
   if (!fused)
-    input_sketch_kernel<T><<<dim3((kdim + SC - 1) / SC, k_eff / SB),
-                             dim3(SC, 8), 0, st>>>(
-        static_cast<const T*>(x), sigma, n, kdim, k_eff, static_cast<T*>(sk),
-        cs_partial);
+    return launch_gemm_bn<T, false>(bn, ma, mb, mb_lo, p, grid_x, smem, st);
+  const int rc =
+      launch_gemm_bn<T, true>(bn, ma, mb, mb_lo, p, grid_x, smem, st);
+  if (rc != 0) return rc;
   if (cs_partial != nullptr)
     sum_partials_kernel<<<(kdim + 255) / 256, 256, 0, st>>>(
         cs_partial, k_eff / K1_BM, kdim, cs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_input_sketch(const void* x, const float* sigma, void* sk,
+                        float* cs_partial, float* cs, int n, int kdim,
+                        int k_eff, cudaStream_t st) {
+  if (n <= 0 || kdim <= 0 || k_eff <= 0 || k_eff % SB || n % k_eff ||
+      (cs_partial == nullptr) != (cs == nullptr))
+    return -1;
+  input_sketch_kernel<T><<<dim3((kdim + SC - 1) / SC, k_eff / SB),
+                           dim3(SC, 8), 0, st>>>(
+      static_cast<const T*>(x), sigma, n, kdim, k_eff, static_cast<T*>(sk),
+      cs_partial);
+  if (cs_partial != nullptr)
+    sum_partials_kernel<<<(kdim + 255) / 256, 256, 0, st>>>(
+        cs_partial, k_eff / SB, kdim, cs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -445,9 +448,11 @@ int launch(const void* x, const void* w, int w_trans, const void* bias,
 // for bf16 with w_trans = 0, null for bf16 with w_trans = 1; cs_partial
 // (k_eff / 128, kdim) f32 and cs (kdim,) f32, both null when no column sum
 // is wanted.  bn (96 or 64) and fused are the host's route
-// (matmul_sketch_route).  Returns cudaGetLastError() after the launches, -1
-// for arguments the kernels do not take (nothing launched), -2 when the TMA
-// descriptors cannot be encoded.
+// (matmul_sketch_route).  Without fused, only y: sigma, sk, cs_partial and
+// cs are unread, and the host launches the separate pass
+// (fewbit_input_sketch) after it.  Returns cudaGetLastError() after the
+// launches, -1 for arguments the kernels do not take (nothing launched), -2
+// when the TMA descriptors cannot be encoded.
 extern "C" int fewbit_matmul_input_sketch(
     const void* x, const void* w, int w_trans, const void* bias,
     const void* sigma, void* y, void* sk, void* w_prep, void* cs_partial,
@@ -463,6 +468,26 @@ extern "C" int fewbit_matmul_input_sketch(
                                          bn, fused != 0, st);
   return fewbit::launch<float>(x, w, w_trans, bias, sg, y, sk, w_prep, cp, c,
                                n, kdim, m, k_eff, bn, fused != 0, st);
+}
+
+// The separate sketch pass of kernels 1 and 2': sk (k_eff, kdim) of x
+// (n, kdim) with sigma (n,) f32, and with cs_partial (k_eff / 128, kdim) f32
+// and cs (kdim,) f32 the column sum of x (both null for none).  k_eff a
+// multiple of 128 that divides n.  Returns cudaGetLastError() after the
+// launches, -1 for arguments it does not take (nothing launched).
+extern "C" int fewbit_input_sketch(const void* x, const void* sigma,
+                                   void* sk, void* cs_partial, void* cs,
+                                   int n, int kdim, int k_eff, int is_bf16,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sg = static_cast<const float*>(sigma);
+  float* cp = static_cast<float*>(cs_partial);
+  float* c = static_cast<float*>(cs);
+  if (is_bf16)
+    return fewbit::launch_input_sketch<__nv_bfloat16>(x, sg, sk, cp, c, n,
+                                                      kdim, k_eff, st);
+  return fewbit::launch_input_sketch<float>(x, sg, sk, cp, c, n, kdim, k_eff,
+                                            st);
 }
 
 // The dynamic shared memory that the GEMM block of this (kdim, m, bn,

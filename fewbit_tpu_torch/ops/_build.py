@@ -46,10 +46,15 @@ SIGNATURES = {
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _P),
     "fewbit_matmul_sketch_smem": (_I, _I, _I, _I, _I),
+    "fewbit_input_sketch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "fewbit_dense_act_sketch": (
-        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-        _I, _I, _I, _I, _P),
+        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _I, _I, _P),
+    "fewbit_dense_act_sketch_x_simt": (
+        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _I, _P),
     "fewbit_ffn_gemm_smem": (_I, _I),
+    "fewbit_dense_act_sketch_x_smem": (_I, _I, _I, _I),
     "fewbit_matmul_lut_backward": (
         _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _I, _P),

@@ -13,9 +13,9 @@ functional` decide, from shapes alone, whether a call is inside the
 envelope, exactly where the JAX package decides between its Pallas and jnp
 paths.
 
-Numerics: the kernels multiply f32 operands in f32 (kernels 1, 2, 3 and 6
-as three TF32 products on the tensor cores, hi hi + hi lo + lo hi, which keep
-f32 accuracy) and bf16 operands with f32 accumulation, and every sketch
+Numerics: the kernels multiply f32 operands in f32 (kernels 1, 2, 2', 3 and
+6 as three TF32 products on the tensor cores, hi hi + hi lo + lo hi, which
+keep f32 accuracy) and bf16 operands with f32 accumulation, and every sketch
 accumulates in f32 and is stored in :func:`sketch_dtype`.  The plain
 versions compute the same function: the product of the f32-widened
 operands, the epilogue on the f32 result.
@@ -39,22 +39,24 @@ from fewbit_tpu_torch.ops.flash_attention import (flash_backward_dkv_plain,
 __all__ = ("FFN_BN", "FFN_BM", "ACT_IDS", "sketch_dtype",
            "countsketch_aligned_keff", "countsketch_signed",
            "matmul_sketch_keff", "matmul_sketch_route", "ffn_gemm_route",
-           "act_kernel_ok",
+           "dense_act_sketch_x_route", "act_kernel_ok",
            "dense_act_ok", "DENSE_ACT_SCHEDULES", "dense_act_kloop_route",
            "dense_act_direct_route", "dense_act_emit_route",
            "dense_act_pipelined_route", "dense_act_schedule",
            "PIPELINED_MIN_TILES",
            "dense_act_kloop", "dense_act_direct", "dense_act_emit",
            "dense_act_pipelined", "dense_act_simt",
-           "fused_matmul_input_sketch", "fused_dense_act_sketch",
-           "fused_dense_act_sketch_x", "fused_matmul_lut_backward",
+           "fused_matmul_input_sketch", "input_sketch",
+           "fused_dense_act_sketch", "fused_dense_act_sketch_x",
+           "dense_act_sketch_x_simt", "fused_matmul_lut_backward",
            "fused_forward", "fused_backward", "fused_dense_act",
            "flash_forward", "flash_backward_dkv", "flash_backward_dq",
            "flash_forward_simt", "flash_backward_dkv_simt",
            "flash_backward_dq_simt",
            "flash_backward_envelope",
            "FLASH_HEAD_DIM", "matmul_input_sketch_plain",
-           "dense_act_sketch_plain", "dense_act_sketch_x_plain",
+           "input_sketch_plain", "dense_act_sketch_plain",
+           "dense_act_sketch_x_plain",
            "matmul_lut_backward_plain", "act_forward_plain",
            "act_backward_plain", "dense_act_plain", "launch_counts",
            "reset_launch_counts", "KERNELS")
@@ -187,6 +189,31 @@ def ffn_gemm_route(m: int, dtype) -> int:
         if m % bn == 0 and _ffn_smem(dtype, bn) <= FG_SMEM_LIMIT:
             return bn
     raise ValueError(f"M={m}: no tile width of {FG_TILE_N} divides it")
+
+
+def _sketch_x_smem(dtype, bn: int, kdim: int, m: int) -> int:
+    """Dynamic shared memory of a block of kernel 2', as ``sketch_x_smem``
+    in the source: kernel 2's (:func:`_ffn_smem`) and the f32 slice of the
+    x sketch that the block owns, 128 buckets of ``ceil(K / (M / bn))``
+    columns."""
+    return _ffn_smem(dtype, bn) + FG_BM * _cdiv(kdim, m // bn) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def dense_act_sketch_x_route(kdim: int, m: int, dtype) -> tuple:
+    """Kernel 2''s plan for a call inside kernel 2's envelope:
+    ``(fused, bn)``.  ``fused``: the sketch of x comes from the kernel's
+    own read of x (the slice of kernel 1's design beside kernel 2's block),
+    at the first tile width of 96, 64 that divides M and leaves room for
+    the slice (f32 at 768 -> 3072: 217,408 + 12,288 of 232,448 bytes);
+    where it fits at neither, kernel 2 at :func:`ffn_gemm_route`'s width
+    and then :func:`input_sketch`, the separate pass.  A function of the
+    shapes alone, never of a failed launch."""
+    for bn in FG_TILE_N:
+        if (m % bn == 0
+                and _sketch_x_smem(dtype, bn, kdim, m) <= FG_SMEM_LIMIT):
+            return True, bn
+    return False, ffn_gemm_route(m, dtype)
 
 
 def _act_spec_in(spec) -> bool:
@@ -362,6 +389,11 @@ def matmul_input_sketch_plain(x, w, bias, sigma, k_eff: int,
     return y.to(x.dtype), sk
 
 
+def input_sketch_plain(x, sigma, k_eff: int, want_colsum: bool = False):
+    sk = countsketch_signed(x, sigma, k_eff)
+    return (sk, x.float().sum(0)) if want_colsum else sk
+
+
 def dense_act_sketch_plain(spec, x, w, bias, borders, sigma, k_eff: int,
                            sigma_x=None):
     z = dot_f32(x, w)
@@ -497,6 +529,20 @@ def _weight_scratch(trans: int, m: int, kdim: int, dt, dev):
     return None
 
 
+def _outputs(out, specs, dev):
+    """The tensors a kernel writes: new ones of ``specs`` (``(name, shape,
+    dtype)`` each), or the caller's ``out``, checked against them (a check
+    can fill them first and see every element written)."""
+    if out is None:
+        return [torch.empty(shape, dtype=dt, device=dev)
+                for _, shape, dt in specs]
+    _require(len(out) == len(specs),
+             f"out must hold {[name for name, *_ in specs]}")
+    for o, (name, shape, dt) in zip(out, specs):
+        _check(f"out {name}", o, dev, shape, dt)
+    return list(out)
+
+
 def _ffn_rows_ok(n: int, m: int, k_eff: int) -> None:
     _require(n % FFN_BN == 0 and m % FFN_BM == 0,
              f"N={n} or M={m} not a multiple of {FFN_BN}")
@@ -544,19 +590,65 @@ def fused_matmul_input_sketch(x: torch.Tensor, w: torch.Tensor,
     _tma_ok(x, "x", w, "w", trans)
     fused, bn = matmul_sketch_route(kdim, m, dt)
     y = torch.empty(n, m, dtype=dt, device=dev)
-    sk = torch.empty(k_eff, kdim, dtype=sketch_dtype(dt), device=dev)
+    sk = cs_partial = cs = None
+    if fused:
+        sk = torch.empty(k_eff, kdim, dtype=sketch_dtype(dt), device=dev)
     w_prep = _weight_scratch(trans, m, kdim, dt, dev)
-    cs_partial = cs = None
-    if want_colsum:
+    if fused and want_colsum:
         cs_partial = torch.empty(k_eff // K1_BM, kdim, dtype=torch.float32,
                                  device=dev)
         cs = torch.empty(kdim, dtype=torch.float32, device=dev)
     _launch("fewbit_matmul_input_sketch", dev, x.data_ptr(), w.data_ptr(),
-            trans, _ptr(bias), sigma.data_ptr(), y.data_ptr(), sk.data_ptr(),
+            trans, _ptr(bias), sigma.data_ptr(), y.data_ptr(), _ptr(sk),
             _ptr(w_prep), _ptr(cs_partial), _ptr(cs), n, kdim, m, k_eff, bn,
             int(fused), int(dt == torch.bfloat16))
+    if not fused:
+        got = input_sketch(x, sigma, k_eff, want_colsum)
+        sk, cs = got if want_colsum else (got, None)
     fused_matmul_input_sketch.launches += 1
     return (y, sk, cs) if want_colsum else (y, sk)
+
+
+def input_sketch(x: torch.Tensor, sigma: torch.Tensor, k_eff: int,
+                 want_colsum: bool = False, *, out=None):
+    """The separate sketch pass of kernels 1 and 2': the stride-partition
+    countsketch of ``x`` (``(k_eff, K)``, summed in f32, stored in
+    :func:`sketch_dtype`) and, with ``want_colsum``, the f32 column sum of
+    ``x``.  Returns ``sketch`` or ``(sketch, colsum)``, written into
+    ``out`` (the same, as a tuple) where given.
+
+    On the card one pass over x, each thread owning (bucket, column) pairs
+    and summing their rows in pass order: what kernel 1 and kernel 2'
+    launch after their GEMM where the sketch's slice does not fit its
+    shared memory (:func:`matmul_sketch_route`,
+    :func:`dense_act_sketch_x_route`)."""
+    if x.device.type == "cpu":
+        got = input_sketch_plain(x, sigma, k_eff, want_colsum)
+        if out is None:
+            return got
+        got = _into(out, got if want_colsum else (got,))
+        return got if want_colsum else got[0]
+    _require(x.is_cuda, f"x on {x.device}: neither CPU nor CUDA")
+    _require(x.ndim == 2, "x must be 2-D")
+    n, kdim = x.shape
+    dev, dt = x.device, x.dtype
+    _require(dt in _DTYPES, f"dtype {dt} not in {_DTYPES}")
+    _check("x", x, dev, (n, kdim), dt)
+    _check("sigma", sigma, dev, (n,), torch.float32)
+    _require(k_eff > 0 and k_eff % K1_BM == 0 and n % k_eff == 0,
+             f"k_eff={k_eff} is not a multiple of {K1_BM} dividing N={n}")
+    specs = [("sketch", (k_eff, kdim), sketch_dtype(dt))]
+    if want_colsum:
+        specs.append(("colsum", (kdim,), torch.float32))
+    got = _outputs(out, specs, dev)
+    cs_partial = (torch.empty(k_eff // K1_BM, kdim, dtype=torch.float32,
+                              device=dev) if want_colsum else None)
+    _launch("fewbit_input_sketch", dev, x.data_ptr(), sigma.data_ptr(),
+            got[0].data_ptr(), _ptr(cs_partial),
+            got[1].data_ptr() if want_colsum else None, n, kdim, k_eff,
+            int(dt == torch.bfloat16))
+    input_sketch.launches += 1
+    return tuple(got) if want_colsum else got[0]
 
 
 # ---------------------------------------------------------------------------
@@ -564,29 +656,9 @@ def fused_matmul_input_sketch(x: torch.Tensor, w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def fused_dense_act_sketch(spec, x: torch.Tensor, w: torch.Tensor,
-                           bias: Optional[torch.Tensor],
-                           borders: torch.Tensor, sigma: torch.Tensor,
-                           k_eff: int, sigma_x: Optional[torch.Tensor] = None):
-    """``y = act(x @ w + b)`` with the packed codes of the pre-activation
-    (``(bits, N / 32, M)`` int32) and the countsketch of ``y``
-    (``(k_eff, M)``).  Returns ``(y, packed, sketch)``.
-
-    On the card the product runs on the tensor cores (TMA ring and wgmma;
-    f32 as three TF32 products) at :func:`ffn_gemm_route`'s tile width; the
-    kernel reads B K-major from scratch (f32: its TF32 halves, 2 M K
-    elements; bf16 row-major ``w``: its transpose), written by a prologue
-    kernel.
-
-    With ``sigma_x`` ((N,) f32 signs), kernel 2' (the TPU kernel's
-    ``_kernel_skx``): also the countsketch of ``x`` (``(k_eff, K)``,
-    summed in f32 from the kernel's own read of x, stored in
-    :func:`sketch_dtype`), counted as ``fused_dense_act_sketch_x``; returns
-    ``(y, packed, sketch_y, sketch_x)``.  No model path passes it, as in
-    the JAX package; this mode keeps the first CUDA-core kernel."""
-    if x.device.type == "cpu":
-        return dense_act_sketch_plain(spec, x, w, bias, borders, sigma,
-                                      k_eff, sigma_x)
+def _ffn_forward_args(spec, x, w, bias, borders, sigma, k_eff):
+    """The checks kernels 2 and 2' share, on CUDA tensors; returns
+    ``(n, kdim, m, dev, dt, trans)``."""
     _require(x.is_cuda, f"x on {x.device}: neither CPU nor CUDA")
     _ffn_spec_ok(spec)
     _require(x.ndim == 2 and w.ndim == 2, "x and w must be 2-D")
@@ -602,39 +674,107 @@ def fused_dense_act_sketch(spec, x: torch.Tensor, w: torch.Tensor,
         _check("bias", bias, dev, (m,), dt)
     _check("borders", borders, dev, (spec.n_borders,), torch.float32)
     _check("sigma", sigma, dev, (n,), torch.float32)
-    y = torch.empty(n, m, dtype=dt, device=dev)
-    packed = torch.empty(packed_shape(n, m, spec.bits), dtype=torch.int32,
-                         device=dev)
-    sk = torch.empty(k_eff, m, dtype=sketch_dtype(dt), device=dev)
-    skx_acc = skx = w_prep = None
-    bn = 0
+    return n, kdim, m, dev, dt, trans
+
+
+def _ffn_forward_specs(spec, n, kdim, m, k_eff, dt, sketch_x: bool):
+    """What kernels 2 and 2' write: y, the packed codes, the sketch of y
+    and, for 2', the sketch of x."""
+    specs = [("y", (n, m), dt),
+             ("packed", packed_shape(n, m, spec.bits), torch.int32),
+             ("sketch_y", (k_eff, m), sketch_dtype(dt))]
+    if sketch_x:
+        specs.append(("sketch_x", (k_eff, kdim), sketch_dtype(dt)))
+    return specs
+
+
+def fused_dense_act_sketch(spec, x: torch.Tensor, w: torch.Tensor,
+                           bias: Optional[torch.Tensor],
+                           borders: torch.Tensor, sigma: torch.Tensor,
+                           k_eff: int, sigma_x: Optional[torch.Tensor] = None,
+                           *, out=None):
+    """``y = act(x @ w + b)`` with the packed codes of the pre-activation
+    (``(bits, N / 32, M)`` int32) and the countsketch of ``y``
+    (``(k_eff, M)``).  Returns ``(y, packed, sketch)``.
+
+    On the card the product runs on the tensor cores (TMA ring and wgmma;
+    f32 as three TF32 products) at :func:`ffn_gemm_route`'s tile width; the
+    kernel reads B K-major from scratch (f32: its TF32 halves, 2 M K
+    elements; bf16 row-major ``w``: its transpose), written by a prologue
+    kernel.
+
+    With ``sigma_x`` ((N,) f32 signs), kernel 2' (the TPU kernel's
+    ``_kernel_skx``): also the countsketch of ``x`` (``(k_eff, K)``,
+    summed in f32 over the raw x, stored in :func:`sketch_dtype`), counted
+    as ``fused_dense_act_sketch_x``; returns ``(y, packed, sketch_y,
+    sketch_x)``.  By :func:`dense_act_sketch_x_route`: from the same
+    kernel's own read of x where its block has room for the sketch's
+    slice, else kernel 2 and then :func:`input_sketch`.  No model path
+    passes it, as in the JAX package.
+
+    ``out``: tensors to write into, as this returns them (a check can fill
+    them first and see every element written)."""
+    if x.device.type == "cpu":
+        return _into(out, dense_act_sketch_plain(spec, x, w, bias, borders,
+                                                 sigma, k_eff, sigma_x))
+    n, kdim, m, dev, dt, trans = _ffn_forward_args(spec, x, w, bias,
+                                                   borders, sigma, k_eff)
+    _tma_ok(x, "x", w, "w", trans)
     if sigma_x is None:
-        _tma_ok(x, "x", w, "w", trans)
-        bn = ffn_gemm_route(m, dt)
-        w_prep = _weight_scratch(trans, m, kdim, dt, dev)
+        fused, bn = False, ffn_gemm_route(m, dt)
     else:
         _check("sigma_x", sigma_x, dev, (n,), torch.float32)
-        skx_acc = torch.empty(k_eff, kdim, dtype=torch.float32, device=dev)
-        skx = (skx_acc if sketch_dtype(dt) == torch.float32 else
-               torch.empty(k_eff, kdim, dtype=sketch_dtype(dt), device=dev))
+        fused, bn = dense_act_sketch_x_route(kdim, m, dt)
+    got = _outputs(out, _ffn_forward_specs(spec, n, kdim, m, k_eff, dt,
+                                           sigma_x is not None), dev)
+    w_prep = _weight_scratch(trans, m, kdim, dt, dev)
     _launch("fewbit_dense_act_sketch", dev, x.data_ptr(), w.data_ptr(),
             trans, _ptr(bias), borders.data_ptr(), spec.n_borders,
-            sigma.data_ptr(), y.data_ptr(), packed.data_ptr(), sk.data_ptr(),
-            _ptr(sigma_x), _ptr(skx_acc),
-            None if skx is skx_acc else skx.data_ptr(), _ptr(w_prep), n, kdim,
-            m, k_eff, spec.bits, bn, int(dt == torch.bfloat16))
+            sigma.data_ptr(), *(t.data_ptr() for t in got[:3]),
+            _ptr(sigma_x) if fused else None,
+            got[3].data_ptr() if fused else None, _ptr(w_prep), n, kdim, m,
+            k_eff, spec.bits, bn, int(dt == torch.bfloat16))
     if sigma_x is None:
         fused_dense_act_sketch.launches += 1
-        return y, packed, sk
+        return tuple(got)
+    if not fused:
+        input_sketch(x, sigma_x, k_eff, out=got[3:])
     fused_dense_act_sketch_x.launches += 1
-    return y, packed, sk, skx
+    return tuple(got)
 
 
 def fused_dense_act_sketch_x(spec, x, w, bias, borders, sigma, k_eff: int,
-                             sigma_x: torch.Tensor):
+                             sigma_x: torch.Tensor, *, out=None):
     """Kernel 2': :func:`fused_dense_act_sketch` with ``sigma_x``."""
     return fused_dense_act_sketch(spec, x, w, bias, borders, sigma, k_eff,
-                                  sigma_x)
+                                  sigma_x, out=out)
+
+
+def dense_act_sketch_x_simt(spec, x, w, bias, borders, sigma, k_eff: int,
+                            sigma_x: torch.Tensor):
+    """Kernel 2''s function by the first, CUDA-core kernel (``gemm_tile``,
+    the sketch of x summed in a global f32 scratch by the first column
+    tile's blocks): what the tensor-core kernel is measured against.  No
+    model path runs it."""
+    if x.device.type == "cpu":
+        return dense_act_sketch_x_plain(spec, x, w, bias, borders, sigma,
+                                        k_eff, sigma_x)
+    n, kdim, m, dev, dt, trans = _ffn_forward_args(spec, x, w, bias,
+                                                   borders, sigma, k_eff)
+    _check("sigma_x", sigma_x, dev, (n,), torch.float32)
+    got = _outputs(None, _ffn_forward_specs(spec, n, kdim, m, k_eff, dt,
+                                            True), dev)
+    skx_acc = (got[3] if dt == torch.float32 else
+               torch.empty(k_eff, kdim, dtype=torch.float32, device=dev))
+    _launch("fewbit_dense_act_sketch_x_simt", dev, x.data_ptr(),
+            w.data_ptr(), trans, _ptr(bias), borders.data_ptr(),
+            spec.n_borders, sigma.data_ptr(),
+            *(t.data_ptr() for t in got[:3]), sigma_x.data_ptr(),
+            skx_acc.data_ptr(),
+            None if skx_acc is got[3] else got[3].data_ptr(), n, kdim, m,
+            k_eff, spec.bits, int(dt == torch.bfloat16))
+    dense_act_sketch_x_simt.launches += 1
+    return tuple(got)
 
 
 # ---------------------------------------------------------------------------
@@ -1226,9 +1366,11 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for wrapper, *_ in KERNELS.values():
         wrapper.launches = 0
-    # On no path, so not among KERNELS: the CUDA-core kernels replaced.
-    for wrapper in (dense_act_simt, flash_forward_simt,
-                    flash_backward_dkv_simt, flash_backward_dq_simt):
+    # Not among KERNELS: the separate sketch pass of kernels 1 and 2', and
+    # the CUDA-core kernels replaced, on no path.
+    for wrapper in (input_sketch, dense_act_simt, dense_act_sketch_x_simt,
+                    flash_forward_simt, flash_backward_dkv_simt,
+                    flash_backward_dq_simt):
         wrapper.launches = 0
 
 

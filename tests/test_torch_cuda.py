@@ -440,33 +440,136 @@ def test_wrappers_refuse_outside_envelope_on_cuda(cuda):
         K.fused_forward(wide, x, wb)
 
 
+# Kernel 2' cases: (K, M) -> its route per dtype.  768 -> 3072 is the
+# path shape (96-wide, half the f32 slices straddle two k tiles); 1024 ->
+# 3072 takes 64 in f32 (96 in bf16); 256 -> 512 is 64-wide; 1024 -> 512
+# has no room for the f32 slice (kernel 2, then the separate pass).
+SKETCH_X_ROUTES = {
+    (768, 3072): {torch.float32: (True, 96), torch.bfloat16: (True, 96)},
+    (1024, 3072): {torch.float32: (True, 64), torch.bfloat16: (True, 96)},
+    (256, 512): {torch.float32: (True, 64), torch.bfloat16: (True, 64)},
+    (1024, 512): {torch.float32: (False, 64), torch.bfloat16: (True, 64)},
+}
+
+
+def _sketch_x_args(cuda, dtype, n, kdim, m, k_eff, seed):
+    spec, borders, _ = _lut(cuda, 3)
+    x, _, w_up, _, bias, sigma = _ffn_inputs(cuda, dtype, n, kdim, m, 1,
+                                             seed)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    sigma_x = torch.randint(0, 2, (n,), generator=gen,
+                            device=cuda).float() * 2 - 1
+    return (spec, x, w_up, bias, borders, sigma, k_eff, sigma_x)
+
+
+def _nan_outputs(like):
+    """Outputs filled so that an element a kernel leaves unwritten cannot
+    pass: NaN, and all bits set in the code words."""
+    return tuple(torch.full_like(t, -1 if t.dtype == torch.int32
+                                 else float("nan")) for t in like)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dense_act_sketch_x_matches_plain_on_cuda(cuda, dtype):
-    """Kernel 2': the sketch of x beside kernel 2's outputs."""
+@pytest.mark.parametrize("passes", [1, 4])
+@pytest.mark.parametrize("kdim,m", list(SKETCH_X_ROUTES))
+def test_dense_act_sketch_x_matches_plain_on_cuda(cuda, kdim, m, passes,
+                                                  dtype):
+    """Kernel 2': the sketch of x beside kernel 2's outputs, on the route
+    dense_act_sketch_x_route gives (fused at 96 or 64, or the separate
+    pass), into outputs filled first, two launches equal to the bit."""
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    gen = torch.Generator(device=cuda).manual_seed(2)
-    n, kdim, m, k_eff = 2048, 256, 512, 512
-    spec, borders, _ = resolve_activation("gelu", bits=3, device=cuda)
-    x = torch.randn(n, kdim, generator=gen, device=cuda).to(dtype)
-    w = (torch.randn(m, kdim, generator=gen, device=cuda) * 0.06).to(dtype)
-    signs = [torch.randint(0, 2, (n,), generator=gen, device=cuda).float()
-             * 2 - 1 for _ in range(2)]
-    args = (spec, x, w.t(), None, borders, *signs[:1], k_eff, signs[1])
+    n = 2048
+    args = _sketch_x_args(cuda, dtype, n, kdim, m, n // passes,
+                          kdim + m + passes)
+    fused, bn = K.dense_act_sketch_x_route(kdim, m, dtype)
+    assert (fused, bn) == SKETCH_X_ROUTES[kdim, m][dtype]
+    want = K.dense_act_sketch_x_plain(*args)
     K.reset_launch_counts()
-    got = K.fused_dense_act_sketch(*args[:-1], sigma_x=args[-1])
+    got = K.fused_dense_act_sketch_x(*args, out=_nan_outputs(want))
+    again = K.fused_dense_act_sketch_x(*args, out=_nan_outputs(want))
+    torch.cuda.synchronize()
+    spec, x, w_up, bias, borders = args[:5]
+    for name, a, b in zip(("y", "packed", "sketch_y", "sketch_x"), got,
+                          want):
+        if name == "packed":
+            assert a.dtype == b.dtype and a.shape == b.shape
+            _flips_ok(a, b, K.dot_f32(x, w_up) + bias.float(), borders,
+                      spec.bits)
+        else:
+            _close(name, a, b, tol)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS} | {
+        "dense_act_sketch_x": 2}
+    assert K.input_sketch.launches == (0 if fused else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_act_sketch_x_simt_matches_plain_on_cuda(cuda, dtype):
+    """The first, CUDA-core kernel of 2' (on no path) against the plain
+    version."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    args = _sketch_x_args(cuda, dtype, 2048, 256, 512, 512, 2)
+    K.reset_launch_counts()
+    got = K.dense_act_sketch_x_simt(*args)
     want = K.dense_act_sketch_x_plain(*args)
     torch.cuda.synchronize()
-    for name, a, b in zip(("y", "packed", "sk_y", "sk_x"), got, want):
-        assert a.dtype == b.dtype and a.shape == b.shape, name
+    for name, a, b in zip(("y", "packed", "sketch_y", "sketch_x"), got,
+                          want):
         if name == "packed":
-            flips = unpack_codes(a, 3, n) != unpack_codes(b, 3, n)
+            flips = unpack_codes(a, 3, 2048) != unpack_codes(b, 3, 2048)
             assert flips.float().mean().item() <= 1e-4
-            continue
-        err = (a.float() - b.float()).abs().max().item()
-        assert err <= tol * max(1.0, b.float().abs().max().item()), name
-    assert K.launch_counts()["dense_act_sketch_x"] == 1
-    assert K.launch_counts()["dense_act_sketch"] == 0
+        else:
+            _close(name, a, b, tol)
+    assert K.dense_act_sketch_x_simt.launches == 1
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("colsum", [False, True])
+def test_input_sketch_matches_plain_on_cuda(cuda, dtype, colsum):
+    """The separate sketch pass alone, with and without the column sum,
+    into outputs filled first."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n, kdim, k_eff = 8192, 768, 2048
+    x = torch.randn(n, kdim, generator=gen, device=cuda).to(dtype)
+    sigma = torch.randint(0, 2, (n,), generator=gen,
+                          device=cuda).float() * 2 - 1
+    want = K.input_sketch_plain(x, sigma, k_eff, colsum)
+    want = want if colsum else (want,)
+    K.reset_launch_counts()
+    got = K.input_sketch(x, sigma, k_eff, colsum, out=_nan_outputs(want))
+    torch.cuda.synchronize()
+    got = got if colsum else (got,)
+    _close("sketch", got[0], want[0],
+           1e-4 if dtype == torch.float32 else 2e-2)
+    if colsum:
+        _close("colsum", got[1], want[1], 1e-3)
+    assert K.input_sketch.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_act_sketch_x_budget_is_the_kernels(cuda, dtype):
+    """The host sizes kernel 2''s shared memory as the source lays it out:
+    over K up to 4096 and M up to 8192, both widths, _sketch_x_smem within
+    FG_SMEM_LIMIT gives what sketch_x_smem gives, and -1 beyond it or for
+    a width that does not divide M or is not built."""
+    from fewbit_tpu_torch.ops._build import load_library
+
+    query = load_library().fewbit_dense_act_sketch_x_smem
+    bf16 = int(dtype == torch.bfloat16)
+    for kdim in range(128, 4097, 128):
+        for m in range(512, 8193, 512):
+            for bn in K.FG_TILE_N:
+                want = K._sketch_x_smem(dtype, bn, kdim, m)
+                if m % bn or want > K.FG_SMEM_LIMIT:
+                    want = -1
+                assert query(kdim, m, bn, bf16) == want, (kdim, m, bn)
+    assert query(768, 3072, 128, bf16) == -1
 
 
 def _flash_inputs(cuda, dtype, b, h, s, seed, sk=None, contiguous=False):

@@ -189,35 +189,47 @@ def test_dense_act_sketch_matches_pallas(interpret, n):
                                   jcodes)
 
 
-@pytest.mark.parametrize("n", [512, 1024])
-def test_dense_act_sketch_x_matches_pallas(interpret, n):
+@pytest.mark.parametrize("n,bf16", [
+    pytest.param(512, False, id="512"), pytest.param(1024, False, id="1024"),
+    pytest.param(512, True, id="bf16-512"),
+    pytest.param(1024, True, id="bf16-1024")])
+def test_dense_act_sketch_x_matches_pallas(interpret, n, bf16):
     """Kernel 2' (sigma_x): the plain (y, packed, sk_y, sk_x) against the
-    Pallas kernel's _kernel_skx mode, as tests/test_ffn.py calls it."""
+    Pallas kernel's _kernel_skx mode, as tests/test_ffn.py calls it; and on
+    bf16 operands, where y and both sketches are stored in bf16.  The
+    Pallas kernel adds its bf16 sketch blocks in bf16, the plain version in
+    f32 rounded once: they differ by at most a bf16 rounding step of the
+    result (2^-8 to 2^-7 relative), as y may where the f32 products of the
+    two sides round to neighbouring bf16 values."""
     rng, x, w, b = _ffn_inputs(n, 200 + n)
     sigma, sigma_x = _signs(rng, n), _signs(rng, n)
     k_eff = 512
+    jdt, dt = ((jnp.bfloat16, torch.bfloat16) if bf16 else
+               (jnp.float32, torch.float32))
     jspec, jb, _ = jax_resolve("gelu", bits=3)
     spec, bd, _ = resolve_activation("gelu", bits=3)
     ref = pk.fused_dense_act_sketch(
-        jspec, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jb,
-        jnp.asarray(sigma), k_eff, y_dtype=jnp.float32,
+        jspec, jnp.asarray(x, jdt), jnp.asarray(w, jdt), jnp.asarray(b, jdt),
+        jb, jnp.asarray(sigma), k_eff, y_dtype=jdt,
         sigma_x=jnp.asarray(sigma_x))
     launches = K.launch_counts()
-    got = K.fused_dense_act_sketch(spec, _t(x), _t(w), _t(b), bd, _t(sigma),
-                                   k_eff, sigma_x=_t(sigma_x))
+    tx, tw, tb = (_t(a).to(dt) for a in (x, w, b))
+    got = K.fused_dense_act_sketch(spec, tx, tw, tb, bd, _t(sigma), k_eff,
+                                   sigma_x=_t(sigma_x))
     assert len(got) == len(ref) == 4
     y, packed, sk, skx = got
     jy, jpacked, jsk, jskx = ref
-    _close(y, jy)
-    _close(sk, jsk)
-    assert tuple(skx.shape) == (k_eff, 128) and skx.dtype == torch.float32
-    _close(skx, jskx)
+    tol = dict(rtol=2.0 ** -7, atol=2.0 ** -8) if bf16 else {}
+    for ours, theirs in ((y, jy), (sk, jsk), (skx, jskx)):
+        assert ours.dtype == dt and np.asarray(theirs).dtype == jdt
+        _close(ours.float(), np.asarray(theirs, np.float32), **tol)
+    assert tuple(skx.shape) == (k_eff, 128)
     np.testing.assert_array_equal(
         unpack_codes(packed, 3, n).numpy(),
         np.asarray(pk.unpack_block_layout(jpacked, 3, (n, 512))))
     # Its own entry among the kernels, the same function.
-    again = K.fused_dense_act_sketch_x(spec, _t(x), _t(w), _t(b), bd,
-                                       _t(sigma), k_eff, _t(sigma_x))
+    again = K.fused_dense_act_sketch_x(spec, tx, tw, tb, bd, _t(sigma),
+                                       k_eff, _t(sigma_x))
     for a, c in zip(again, got):
         assert torch.equal(a, c)
     assert K.launch_counts() == launches
