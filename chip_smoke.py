@@ -55,7 +55,26 @@ Phases (any failure raises and exits non-zero; no result is printed):
 7. RoBERTa-base fused few-bit FFN with flash attention and the padded
    batch: 2 f32 steps, each launching kernels 1, 2, 3 and F1-F3 exactly
    96, 12, 12 and 12 each.
-8. The megakernel experiment (``fewbit_tpu_torch.tools.exp_megakernel``) at
+8. RoBERTa-base at the reference's default few-bit config,
+   ``RobertaConfig(gelu_bits=3, proj_dim_ratio=0.2)``: the gaussian sketch
+   in every projection and ``FusedDenseActivation`` for the FFN, bs 64 x
+   seq 128: the forward check, 3 f32 steps each launching kernels 6 and 5
+   exactly 12 times and no other kernel, vanilla against few-bit (the
+   few-bit peak lower), two profiled steps, one bf16 step; the eval step
+   on a held batch under ``FEWBIT_TPU_STRICT_SKETCH=1``; a checkpoint
+   saved after step 2 and restored into a fresh model and step, whose step
+   3 must give the uninterrupted run's loss to the bit.
+9. The MLP tower of ``benchmark/bench_linear.py:30-31``, ``MLP(features=
+   (3072, 3072, 3072, 768), gelu_bits=3, proj_dim_ratio=0.2)`` on x of
+   (8192, 768), SGD on the mean square output: the forward check against
+   the exact MLP, 3 f32 steps each launching kernels 4 and 5 exactly 3
+   times, exact against few-bit in turns (the few-bit peak lower), one
+   bf16 step.
+10. The sketch kinds: ``linear_grp`` at (8192, 768) -> 768 for each kind
+   and ``linear_crs``, f32 and bf16: forward and dx against the exact
+   ``linear`` (asserted), dW's relative error against the exact dW over
+   four draws, the bytes the backward keeps, forward + backward ms.
+11. The megakernel experiment (``fewbit_tpu_torch.tools.exp_megakernel``) at
    its own shape, N = 8192, K = 768, M = 3072, 3-bit GELU: the four
    tensor-core schedules of kernel 6 (k loop with its epilogue ablation,
    direct, emit, pipelined), the shipped ``fused_dense_act``, the first
@@ -95,9 +114,11 @@ time per step with this script.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -124,7 +145,11 @@ PATHS = {
                          "fused_backward": 12, **FLASH},
     "roberta_flash": {"matmul_input_sketch": 96, "dense_act_sketch": 12,
                       "matmul_lut_backward": 12, **FLASH},
+    # The reference's default config: a gaussian sketch never takes kernel 1.
+    "roberta_default": {"dense_act": 12, "fused_backward": 12},
+    "mlp": {"fused_forward": 3, "fused_backward": 3},
 }
+MLP_FEATURES = (FFN, FFN, FFN, HIDDEN)   # benchmark/bench_linear.py:30-31
 # The megakernel experiment: calls per row (one to size the outputs, two to
 # warm up, 3 timed blocks of EXP_ITERS), and the rows per kernel at its
 # shape: the shipped kernel 6 in f32 and bf16; the k loop with and without
@@ -923,11 +948,95 @@ def phase_crossover():
     return out
 
 
+def _saved_bytes(fn):
+    """``fn()``'s output and the bytes of the tensors its backward keeps
+    (``saved_tensors_hooks``), each tensor counted once."""
+    saved = {}
+
+    def pack(t):
+        saved[id(t)] = t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, sum(saved.values())
+
+
+def phase_sketch_kinds(draws=4):
+    """``linear_grp`` at (8192, 768) -> 768, bias on, for each sketch kind
+    (ratio 0.2: k = 1638), and ``linear_crs`` (384 sampled columns, the
+    ``DenseCRS`` default), in f32 and bf16: the forward and dx against the
+    exact ``linear`` (within TOL), dW's relative 2-norm error against the
+    exact dW over ``draws`` draws, the bytes the backward keeps, and the
+    forward + backward ms (CUDA events)."""
+    from fewbit_tpu_torch.functional import linear, linear_crs, linear_grp
+    from fewbit_tpu_torch.functional.linear import MATMUL_KINDS
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = gemm_rate(dt)
+        x, g = (torch.randn(N, HIDDEN, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        w = (torch.randn(HIDDEN, HIDDEN, generator=gen, device="cuda")
+             * HIDDEN ** -0.5).to(dt)
+        b = (torch.randn(HIDDEN, generator=gen, device="cuda") * 0.1).to(dt)
+
+        def run(fn, seed):
+            xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+            key = torch.Generator(device="cuda").manual_seed(seed)
+            y, nbytes = _saved_bytes(lambda: fn(xx, ww, b, key))
+            y.backward(g)
+            return y.detach(), xx.grad, ww.grad.float(), nbytes
+
+        y0, dx0, dw0, exact_bytes = run(lambda xx, ww, bb, _: linear(
+            xx, ww, bb), 0)
+        rows = {"exact": {"residual_bytes": exact_bytes, "ms": cuda_ms(
+            lambda: run(lambda xx, ww, bb, _: linear(xx, ww, bb), 0))}}
+        for kind in MATMUL_KINDS + ("crs",):
+            if kind == "crs":
+                def fn(xx, ww, bb, key):
+                    return linear_crs(xx, ww, bb, key, HIDDEN // 2)
+            else:
+                def fn(xx, ww, bb, key, kind=kind):
+                    return linear_grp(xx, ww, bb, key, proj_dim_ratio=0.2,
+                                      matmul=kind)
+            rel, errs = [], {}
+            for i in range(draws):
+                y, dx, dw, nbytes = run(fn, 100 + i)
+                if i == 0:
+                    errs = {
+                        "forward": compare(f"{kind} {tag}: forward vs "
+                                           f"linear", y, y0, TOL[dt]),
+                        "dx": compare(f"{kind} {tag}: dx vs exact", dx, dx0,
+                                      TOL[dt])}
+                rel.append((torch.linalg.norm(dw - dw0)
+                            / torch.linalg.norm(dw0)).item())
+            row = {**errs, "dw_rel_err": rel, "residual_bytes": nbytes,
+                   "ms": cuda_ms(lambda: run(fn, 200))}
+            rows[kind] = row
+            log(f"sketch {kind} {tag}: forward err {row['forward']:.3g}, dx "
+                f"err {row['dx']:.3g} against the exact linear; dW relative "
+                f"error over {draws} draws {[round(r, 4) for r in rel]}; "
+                f"backward keeps {nbytes} B (exact linear "
+                f"{exact_bytes} B); fwd+bwd {row['ms']:.3f} ms (exact "
+                f"{rows['exact']['ms']:.3f})")
+        out[tag] = rows
+        del x, g, w, b, y0, dx0, dw0
+        torch.cuda.empty_cache()
+    return out
+
+
 def _batches(path, seed):
     """Endless batches of a path on the card: MRPC-shaped for RoBERTa,
-    ``synthetic_lm`` for GPT."""
+    ``synthetic_lm`` for GPT, normal x of (8192, 768) for the MLP."""
     from fewbit_tpu_torch.train import synthetic_glue, synthetic_lm
 
+    if path == "mlp":
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        while True:
+            yield {"x": torch.randn(N, HIDDEN, generator=gen,
+                                    device="cuda")}
     if path.startswith("gpt2_small"):
         source = synthetic_lm(GPT_BS, GPT_SEQ, seed=seed)
     else:
@@ -942,7 +1051,7 @@ def _model(path, dt, fewbit, flash=None):
     SEED) and its training step.  On a flash path attention dropout is 0
     and the few-bit model takes flash attention (unless ``flash`` says
     otherwise); vanilla takes the standard attention."""
-    from fewbit_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+    from fewbit_tpu_torch.models import (MLP, GPTConfig, GPTForCausalLM,
                                          RobertaConfig,
                                          RobertaForSequenceClassification)
     from fewbit_tpu_torch.train import (TrainConfig, causal_lm_loss,
@@ -950,27 +1059,64 @@ def _model(path, dt, fewbit, flash=None):
 
     flash_path = bool(set(PATHS[path]) & set(FLASH))
     switches = dict(dtype=dt, gelu_bits=3 if fewbit else None,
-                    proj_dim_ratio=0.2 if fewbit else None,
-                    sketch="countsketch",
-                    flash_attention=(flash_path and fewbit if flash is None
-                                     else flash))
+                    proj_dim_ratio=0.2 if fewbit else None)
+    if path not in ("roberta_default", "mlp"):
+        # The reference's default sketch is gaussian: the paths of kernels
+        # 1-3 ask for the countsketch.
+        switches.update(sketch="countsketch",
+                        flash_attention=(flash_path and fewbit
+                                         if flash is None else flash))
     if flash_path:
         switches["attention_dropout"] = 0.0
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    if path.startswith("gpt2_small"):
-        model = GPTForCausalLM(GPTConfig(**switches), device="cuda",
-                               generator=gen)
+    if path == "mlp":
+        model = MLP(MLP_FEATURES, **switches, device="cuda", generator=gen,
+                    in_features=HIDDEN)
+        return model, _mlp_step(model)
+    loss_fn = classification_loss
+    if path == "roberta_default":
+        # sketch and fused_ffn left at the reference's defaults.
+        cfg = RobertaConfig(**switches)
+    elif path.startswith("gpt2_small"):
+        cfg = GPTConfig(**switches)
         loss_fn = causal_lm_loss
     else:
         cfg = RobertaConfig(**switches,
                             fused_ffn=path != "roberta_unfused_ffn")
-        model = RobertaForSequenceClassification(cfg, device="cuda",
-                                                 generator=gen)
-        loss_fn = classification_loss
+    model_cls = (GPTForCausalLM if path.startswith("gpt2_small")
+                 else RobertaForSequenceClassification)
+    model = model_cls(cfg, device="cuda", generator=gen)
     step = make_train_step(model, TrainConfig(total_steps=100,
                                               learning_rate=1e-5),
                            loss_fn=loss_fn)
     return model, step
+
+
+def _mlp_step(model):
+    """The MLP's training step, as the RoBERTa step's interface: SGD (lr
+    1e-3, ``benchmark/bench_linear.py``) on the mean square output, the
+    sketch generator seeded from ``generator``."""
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+
+    def step(batch, generator):
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+        sketch_gen = torch.Generator(device="cuda").manual_seed(seed)
+        loss = (model(batch["x"], sketch_gen) ** 2).mean()
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return {"loss": loss.detach()}
+
+    return step
+
+
+def _forward(path, model, batch, gen=None):
+    """A model's output on a batch of its path, without gradients."""
+    with torch.no_grad():
+        if path == "mlp":
+            return model(batch["x"], gen)
+        return model(batch["input_ids"], batch["attention_mask"],
+                     sketch_generator=gen)
 
 
 def _timed_step(step, batch, gen):
@@ -1002,10 +1148,8 @@ def phase_forward_check(path, model):
     vanilla.load_state_dict(state)
     batch = next(_batches(path, SEED + 7))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    with torch.no_grad():
-        got = model(batch["input_ids"], batch["attention_mask"],
-                    sketch_generator=gen)
-        want = vanilla(batch["input_ids"], batch["attention_mask"])
+    got = _forward(path, model, batch, gen)
+    want = _forward(path, vanilla, batch)
     err = compare(f"{path}: few-bit forward vs vanilla logits", got, want,
                   1e-3)
     log(f"{path}: few-bit forward logits {tuple(got.shape)} vs vanilla: "
@@ -1086,6 +1230,11 @@ KERNEL_GROUPS = {
     "column_partials": ("sum_partials_kernel",),
     "flash": ("flash_",),
     "flash_forward": ("flash_forward",),
+    # Library calls (no kernel of the port's has these in its name): every
+    # cuBLAS GEMM, among them the dense sketches' products, and torch's
+    # random draws (the gaussian projections' blocks, dropout masks).
+    "library_gemm": ("gemm",),
+    "random_draws": ("distribution",),
 }
 
 
@@ -1149,8 +1298,10 @@ def phase_path(path):
     out = {"f32_losses": losses,
            **_vanilla_vs_fewbit(path, {"vanilla": vstep, "fewbit": step},
                                 batches, gen, turns=2)}
-    if path in ("roberta_fused_ffn", "gpt2_small_flash"):
+    if path in ("roberta_fused_ffn", "gpt2_small_flash", "roberta_default"):
         out["profile"] = profiled_steps(path, step, batches, gen)
+    if path == "roberta_default":
+        out["eval"] = _strict_eval(path, model)
     del model, step, vmodel, vstep
     torch.cuda.empty_cache()
     if path == "gpt2_small_flash":
@@ -1161,7 +1312,64 @@ def phase_path(path):
                                      next(_batches(path, SEED)), gen)
     del bmodel, bstep
     torch.cuda.empty_cache()
+    if path == "roberta_default":
+        out["checkpoint"] = _checkpoint_round_trip(path)
     return out, counts
+
+
+def _strict_eval(path, model):
+    """The eval step on a held batch under FEWBIT_TPU_STRICT_SKETCH=1 (a
+    sketched module without a generator would raise): finite accuracy and
+    loss."""
+    from fewbit_tpu_torch.train import make_eval_step
+
+    os.environ["FEWBIT_TPU_STRICT_SKETCH"] = "1"
+    metrics = make_eval_step(model)(next(_batches(path, SEED + 9)))
+    del os.environ["FEWBIT_TPU_STRICT_SKETCH"]
+    out = {k: v.item() for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"{path} eval: {out}")
+    log(f"{path}: eval step on a held batch, strict sketch mode: {out}")
+    return out
+
+
+def _checkpoint_round_trip(path):
+    """Four f32 steps, a checkpoint after the second; a fresh model and
+    step restored from it take steps 3 and 4 on the same batches and
+    generator.  Step 3's loss must equal the uninterrupted run's to the
+    bit; step 4's (after the restored optimizer's update) is printed."""
+    from fewbit_tpu_torch.train import restore_checkpoint, save_checkpoint
+
+    batches = _batches(path, SEED + 11)
+    batch = [next(batches) for _ in range(4)]
+    gen = torch.Generator().manual_seed(SEED)
+    model, step = _model(path, torch.float32, fewbit=True)
+    losses = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt.pt")
+        for i in range(4):
+            if i == 2:
+                save_checkpoint(ckpt, model, step)
+                state = gen.get_state()
+            losses.append(step(batch[i], gen)["loss"].item())
+        del model, step
+        torch.cuda.empty_cache()
+        model, step = _model(path, torch.float32, fewbit=True)
+        count = restore_checkpoint(ckpt, model, step)
+    gen = torch.Generator()
+    gen.set_state(state)
+    resumed = [step(b, gen)["loss"].item() for b in batch[2:]]
+    del model, step
+    torch.cuda.empty_cache()
+    out = {"restored_step": count, "losses": losses, "resumed": resumed,
+           "step3_equal": resumed[0] == losses[2],
+           "step4_abs_diff": abs(resumed[1] - losses[3])}
+    log(f"{path}: checkpoint after step {count}: uninterrupted losses "
+        f"{losses}, resumed steps 3, 4: {resumed}; step 3 equal to the bit: "
+        f"{out['step3_equal']}, step 4 differs by {out['step4_abs_diff']}")
+    if count != 2 or not out["step3_equal"]:
+        raise AssertionError(f"{path} checkpoint round trip: {out}")
+    return out
 
 
 def _fewbit_standard(path, batches, gen):
@@ -1236,8 +1444,11 @@ def main():
                       ("gpt2_small", phase_path),
                       ("roberta_unfused_ffn", phase_steps),
                       ("gpt2_small_flash", phase_path),
-                      ("roberta_flash", phase_steps)):
+                      ("roberta_flash", phase_steps),
+                      ("roberta_default", phase_path),
+                      ("mlp", phase_path)):
         train[path], counts[path] = run(path)
+    sketch_kinds = phase_sketch_kinds()
     exp_rows, counts["exp_megakernel"] = phase_exp_megakernel()
     from fewbit_tpu_torch.ops import kernels as K
 
@@ -1260,7 +1471,8 @@ def main():
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "cases": cases})
-    log(json.dumps({"train": train, "crossover": crossover, "card": smi}))
+    log(json.dumps({"train": train, "crossover": crossover,
+                    "sketch_kinds": sketch_kinds, "card": smi}))
     log(json.dumps({"exp_megakernel": exp_rows, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

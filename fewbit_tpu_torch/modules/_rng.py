@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from fewbit_tpu_torch.functional.linear import draw_signs
+
 __all__ = ("sketch_generator", "draw_signs", "lecun_normal_")
 
 _WARNING = (
@@ -39,14 +41,6 @@ def sketch_generator(module, generator: Optional[torch.Generator],
         raise RuntimeError(msg)
     warnings.warn(msg, stacklevel=3)
     return torch.Generator(device=device).manual_seed(0)
-
-
-def draw_signs(generator: torch.Generator, n: int, device) -> torch.Tensor:
-    """``(n,)`` f32 random signs in {-1, +1}, drawn on the generator's
-    device and moved to ``device``."""
-    bits = torch.randint(0, 2, (n,), generator=generator,
-                         device=generator.device)
-    return bits.to(device=device, dtype=torch.float32) * 2.0 - 1.0
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,

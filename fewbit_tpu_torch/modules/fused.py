@@ -9,8 +9,7 @@ import torch
 from torch import nn
 
 from fewbit_tpu_torch.functional.fused import fewbit_dense_act
-from fewbit_tpu_torch.modules._rng import (draw_signs, lecun_normal_,
-                                           sketch_generator)
+from fewbit_tpu_torch.modules._rng import lecun_normal_, sketch_generator
 
 __all__ = ("FusedDenseActivation",)
 
@@ -22,7 +21,8 @@ class FusedDenseActivation(nn.Module):
     Parameters are named like ``Dense`` (``weight`` ``(out, in)``,
     ``bias``), so swapping a Dense + activation pair for this module keeps
     checkpoints loadable.  With a ``proj_dim*`` setting the weight gradient
-    is countsketched, its signs drawn from the sketch generator.
+    is sketched (``matmul``, any kind of ``RandomizedDense``), its
+    projection drawn from the sketch generator.
     """
 
     def __init__(self, in_features: int, out_features: int,
@@ -51,13 +51,11 @@ class FusedDenseActivation(nn.Module):
         dtype = self.dtype or x.dtype
         x = x.to(dtype)
         bias = self.bias.to(dtype) if self.bias is not None else None
-        sigma = None
+        key = None
         if self.proj_dim_ratio is not None or self.proj_dim is not None:
-            n = x.numel() // x.shape[-1]
-            sigma = draw_signs(sketch_generator(self, generator, x.device), n,
-                               x.device)
+            key = sketch_generator(self, generator, x.device)
         return fewbit_dense_act(
-            x, self.weight.to(dtype).t(), bias, sigma,
+            x, self.weight.to(dtype).t(), bias, key,
             activation=self.activation, bits=self.bits,
             act_args=self.act_args, proj_dim_ratio=self.proj_dim_ratio,
             proj_dim=self.proj_dim, proj_dim_min=self.proj_dim_min,

@@ -1,10 +1,11 @@
-"""Training step on one device: optimizer, schedule, loss, as in
-``fewbit_tpu/train/loop.py``.
+"""Training and eval steps on one device, optimizer, schedule, loss and
+checkpoints, as in ``fewbit_tpu/train/loop.py``.
 
 AdamW with betas (0.9, 0.98), eps 1e-6 and weight decay 0.1 on all
 parameters, and a linear warmup (6% of the steps, from 0) followed by a
 linear decay to 0, the same recipe and the same per-step learning rates as
-the JAX package's optax chain.
+the JAX package's optax chain.  Checkpoints hold the model, the optimizer,
+the schedule and the step count (``torch.save``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 import torch.nn.functional as TF
 
 __all__ = ("TrainConfig", "make_schedule", "make_optimizer",
-           "classification_loss", "causal_lm_loss", "make_train_step")
+           "classification_loss", "causal_lm_loss", "make_train_step",
+           "make_eval_step", "save_checkpoint", "restore_checkpoint")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,3 +114,43 @@ def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
 
     step.optimizer, step.scheduler = opt, sched
     return step
+
+
+def make_eval_step(model: torch.nn.Module) -> Callable:
+    """Build ``step(batch) -> {"accuracy", "loss"}``: the deterministic
+    forward without gradients.  Sketches only shape gradients, but an
+    explicit sketch generator (seeded 0, on the model's device) is passed
+    anyway, so eval never takes the constant-key fallback (nor trips its
+    strict mode)."""
+    device = next(model.parameters()).device
+
+    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        gen = torch.Generator(device=device).manual_seed(0)
+        with torch.no_grad():
+            logits = model(batch["input_ids"], batch.get("attention_mask"),
+                           deterministic=True, sketch_generator=gen)
+            labels = batch["labels"].long()
+            preds = logits.argmax(-1)
+            return {"accuracy": (preds == labels).float().mean(),
+                    "loss": classification_loss(logits, labels)}
+
+    return step
+
+
+def save_checkpoint(path, model: torch.nn.Module, step: Callable) -> None:
+    """Write ``model``, the optimizer and schedule of ``step`` (from
+    :func:`make_train_step`) and the count of steps taken to ``path``."""
+    torch.save({"model": model.state_dict(),
+                "optimizer": step.optimizer.state_dict(),
+                "scheduler": step.scheduler.state_dict(),
+                "step": step.scheduler.last_epoch}, path)
+
+
+def restore_checkpoint(path, model: torch.nn.Module, step: Callable) -> int:
+    """Read a :func:`save_checkpoint` file into ``model`` and ``step``;
+    returns the count of steps it had taken."""
+    state = torch.load(path, map_location=next(model.parameters()).device)
+    model.load_state_dict(state["model"])
+    step.optimizer.load_state_dict(state["optimizer"])
+    step.scheduler.load_state_dict(state["scheduler"])
+    return int(state["step"])

@@ -24,6 +24,7 @@ from fewbit_tpu.train import TrainConfig as JaxTrainConfig
 from fewbit_tpu.train import make_schedule as jax_make_schedule
 
 from fewbit_tpu_torch.functional import fewbit_ffn, linear_grp_native
+from fewbit_tpu_torch.functional.linear import MATMUL_KINDS
 from fewbit_tpu_torch.modules import FewBitFFN, RandomizedDense
 from fewbit_tpu_torch.train import (TrainConfig, make_optimizer,
                                     make_schedule)
@@ -83,10 +84,21 @@ def test_linear_grp_matches_jax(monkeypatch, case):
 
 
 def test_linear_grp_unported_kinds_raise():
-    x = torch.zeros(8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        linear_grp_native(x, torch.zeros(16, 4), None, torch.ones(8),
-                          proj_dim=4, matmul="gaussian")
+    """No kind is left unported: every kind of MATMUL_KINDS runs forward
+    and backward (the forward exact, within f32 rounding), and an unknown
+    kind still raises ValueError."""
+    x = torch.randn(8, 16, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    w = torch.randn(4, 16, generator=torch.Generator().manual_seed(1))
+    for kind in MATMUL_KINDS:
+        kernel = w.t().clone().requires_grad_()
+        y = linear_grp_native(x, kernel, None,
+                              torch.Generator().manual_seed(2), proj_dim=4,
+                              matmul=kind)
+        y.sum().backward()
+        _close(y, (x @ w.t()).detach().numpy(), atol=1e-5)
+        assert kernel.grad.shape == (16, 4)
+        assert torch.isfinite(kernel.grad).all(), kind
     with pytest.raises(ValueError):
         linear_grp_native(x, torch.zeros(16, 4), None, torch.ones(8),
                           proj_dim=4, matmul="nope")
@@ -191,7 +203,7 @@ def test_residuals_hold_no_full_tensor(n):
 
 def test_modules_draw_signs_from_the_generator():
     torch.manual_seed(0)
-    lin = RandomizedDense(128, 64, proj_dim_ratio=0.25,
+    lin = RandomizedDense(128, 64, proj_dim_ratio=0.25, matmul="countsketch",
                           generator=torch.Generator().manual_seed(0))
     x = torch.randn(4, 256, 128)
 

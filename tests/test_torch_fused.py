@@ -105,9 +105,13 @@ def test_arguments_are_checked():
     w = torch.randn(KDIM, M)
     with pytest.raises(ValueError, match="sigma"):
         fewbit_dense_act(x, w, None, None, bits=3, proj_dim_ratio=0.25)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Every kind is ported: a gaussian sketch takes a generator, not signs.
+    with pytest.raises(TypeError, match="Generator"):
         fewbit_dense_act(x, w, None, torch.ones(64), bits=3,
                          proj_dim_ratio=0.25, matmul="gaussian")
+    y = fewbit_dense_act(x, w, None, torch.Generator().manual_seed(0),
+                         bits=3, proj_dim_ratio=0.25, matmul="gaussian")
+    assert y.shape == (64, M)
     with pytest.raises(ValueError, match="unknown matmul"):
         fewbit_dense_act(x, w, None, torch.ones(64), bits=3,
                          proj_dim_ratio=0.25, matmul="nope")
