@@ -88,6 +88,22 @@ ablation too, and the two whose f32 weight panel does not fit at K = 768
 also in f32 at K = 128; and it checks that the shipped kernel 6 is not
 slower than the CUDA-core kernel it replaced.
 
+The activation phase (after the kernel phase; ``python3 chip_smoke.py
+--activations`` runs it alone) holds every activation id of ``ACT_IDS``
+(the default arguments, the ids that take arguments once more with
+others; ``stepwise`` by parity, with and without a shift, a 5-level LUT
+and a 6-bit one) through kernels 4 and 5 at the MLP tower's (8192, 3072),
+every id but ``stepwise`` through kernel 6's scheduled route and kernel 5
+at 8192 x 768 -> 3072, and ``relu`` and ``silu`` (and ``gelu``, timed)
+through kernels 2 and 3 at the FFN shape, in f32 and bf16, each against
+its plain version: kernel 4's codes and every dx equal, codes of kernels 6
+and 2 flipped only within FLIP_BAND of a border or a predicate's
+threshold, y within TOL (kernel 6's outside FLIP_BAND of a jump of the
+forward); device ms per id.  Then its path: ``FewBitFFN(768, 3072, 768,
+activation=...)`` at N = 8192 with ``relu`` and ``silu``, forward equal to
+the exact block within TOL_SUM, backward finite, launching kernels 2 and 3
+once each per call and nothing else.
+
 The kernel phase also holds kernel 2' (kernel 2 with the input sketch,
 which no path runs) against its plain version on the route its host chose
 (printed with the tile width), into outputs filled with NaN, two launches
@@ -896,6 +912,230 @@ def phase_kernels():
     return results
 
 
+# The activation phase: every id of ACT_IDS but stepwise with its default
+# arguments (3-bit builtin LUT for the continuous ones), the ids that take
+# arguments once more with others (in bf16 not all of them bf16 numbers),
+# and stepwise by parity, with and without a shift, a 5-level LUT among
+# them and a 6-bit one.
+ACT_OTHER_ARGS = {"hardshrink": (0.3,), "hardtanh": (-0.7, 0.3),
+                  "leaky_relu": (0.1,), "softshrink": (0.3,),
+                  "threshold": (0.3, -0.2), "celu": (0.5,), "elu": (1.5,),
+                  "softplus": (2.0, 5.0)}
+STEPWISE_CASES = {
+    "none": ([-1.0, 0.0, 0.7, 1.4], [0.1, 0.3, 0.5, 0.7, 0.9], None, None),
+    "none+shift": ([-1.0, 0.0, 0.7, 1.4], [0.1, 0.3, 0.5, 0.7, 0.9], None,
+                   (0.1, 0.5)),
+    "even": ([0.4, 0.8, 1.6], [1.0, 0.6, 0.3, 0.1], False, None),
+    "even+shift": ([0.4, 0.8, 1.6], [1.0, 0.6, 0.3, 0.1], False,
+                   (-0.2, 0.0)),
+    "odd": ([0.3, 0.9, 1.6, 2.4], [1.0, 0.8, 0.5, 0.2, 0.05], True, None),
+    "odd+shift": ([0.3, 0.9, 1.6, 2.4], [1.0, 0.8, 0.5, 0.2, 0.05], True,
+                  (0.1, 0.25)),
+    "odd 6-bit": (np.linspace(0.1, 3.1, 31), np.linspace(1.0, 0.0, 32),
+                  True, None),
+}
+# Kernel 6's loop and kernel 2 timed for these ids (besides holding all).
+ACT_TIMED_K6, ACT_TIMED_K2 = ("gelu", "relu", "silu", "mish"), ("gelu",
+                                                                 "silu")
+# FewBitFFN launches on the activation path: relu and silu, one forward and
+# backward each.
+FFN_ACTS = ("relu", "silu")
+
+
+def _act_cases(dev):
+    """(tag, spec, borders, levels) of every activation case."""
+    from fewbit_tpu_torch.functional.activations import (resolve_activation,
+                                                         stepwise_triple)
+    from fewbit_tpu_torch.ops.activations import ACT_IDS
+
+    for name in ACT_IDS:
+        if name != "stepwise":
+            yield (name, *resolve_activation(name, device=dev))
+        if name in ACT_OTHER_ARGS:
+            yield (f"{name}{ACT_OTHER_ARGS[name]}",
+                   *resolve_activation(name, args=ACT_OTHER_ARGS[name],
+                                       device=dev))
+    for tag, (b, v, parity, shift) in STEPWISE_CASES.items():
+        yield (f"stepwise {tag}",
+               *stepwise_triple(b, v, parity, shift, device=dev))
+
+
+def _code_borders(spec, borders):
+    """Where a code may flip under a different rounding of z: the borders,
+    or a predicate's thresholds."""
+    from fewbit_tpu_torch.ops.activations import kernel_args
+
+    if spec.code != "predicate":
+        return borders
+    _, _, _, _, lo, hi, on_abs, _, _ = kernel_args(spec, torch.float32)
+    edges = [lo] + ([hi] if np.isfinite(hi) else []) + ([-lo] if on_abs
+                                                        else [])
+    return torch.tensor(edges, device=borders.device)
+
+
+def _fwd_jumps(spec):
+    """Where the forward jumps: hardshrink and threshold at their
+    thresholds, softplus where z * beta meets its threshold.  Where the
+    kernel's z and the plain z lie on either side of one within rounding,
+    y takes either side, as a code does at a border."""
+    a = spec.args
+    if spec.name == "hardshrink":
+        return [a[0], -a[0]]
+    if spec.name == "threshold":
+        return [a[0]]
+    return [a[1] / a[0]] if spec.name == "softplus" else []
+
+
+def compare_y(tag, y, y0, z0, spec, tol):
+    """``compare`` outside FLIP_BAND of the forward's jumps; within it y
+    may differ (either side of the jump) on at most FLIP_FRACTION of the
+    elements."""
+    near = torch.zeros_like(z0, dtype=torch.bool)
+    for edge in _fwd_jumps(spec):
+        near |= (z0 - edge).abs() <= FLIP_BAND
+    scale = max(1.0, y0.float().abs().max().item())
+    jumped = near & ((y.float() - y0.float()).abs() > tol * scale)
+    if jumped.sum().item() > FLIP_FRACTION * near.numel():
+        raise AssertionError(f"{tag}: y differs across a jump of the "
+                             f"forward at {jumped.sum().item()} elements")
+    return compare(tag, y[~near], y0[~near], tol)
+
+
+def phase_activations():
+    """Every activation id through kernels 4 and 5 at the MLP tower's
+    (8192, 3072), and every id but stepwise through kernel 6 (its scheduled
+    route) and 5 at 8192 x 768 -> 3072, each against its plain version in
+    f32 and bf16: codes equal (kernel 4) or flipped only within FLIP_BAND
+    of a border or threshold (kernel 6), dx equal to the bit, y within TOL
+    (for kernel 6 outside FLIP_BAND of a jump of the forward).
+    Kernels 2 and 3 for relu and silu at the FFN shape against their plain
+    versions; then the path: ``FewBitFFN(768, 3072, 768, activation=...)``
+    at N = 8192, forward (equal to the exact block within TOL) and
+    backward, with the counts at 0 just before and read just after.
+    Returns (summary, counts)."""
+    from fewbit_tpu_torch.functional.activations import resolve_activation
+    from fewbit_tpu_torch.modules import FewBitFFN
+    from fewbit_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out = {"fused_forward": {}, "dense_act": {}, "dense_act_sketch": {},
+           "flips": {}}
+    sigma = torch.randint(0, 2, (N,), generator=gen,
+                          device=dev).float() * 2 - 1
+    cases = list(_act_cases(dev))
+    for dt in (torch.float32, torch.bfloat16):
+        tol = TOL[dt]
+        tag = "f32" if dt == torch.float32 else "bf16"
+        h = (torch.randn(N, FFN, generator=gen, device=dev) * 2.5).to(dt)
+        g = torch.randn(N, FFN, generator=gen, device=dev).to(dt)
+        for name, spec, borders, levels in cases:
+            y, packed = K.fused_forward(spec, h, borders)
+            y0, packed0 = K.act_forward_plain(spec, h, borders)
+            if not torch.equal(packed, packed0):
+                raise AssertionError(f"k4 {name} {tag}: codes differ")
+            compare(f"k4 {name} {tag} y", y, y0, tol)
+            dx = K.fused_backward(spec, packed, levels, g)
+            if not torch.equal(dx, K.act_backward_plain(spec, packed,
+                                                        levels, g)):
+                raise AssertionError(f"k5 {name} {tag}: dx differs")
+            out["fused_forward"][f"{name} {tag}"] = device_ms(
+                lambda: K.fused_forward(spec, h, borders))
+        del h, g, y, y0, dx
+        x = torch.randn(N, HIDDEN, generator=gen, device=dev).to(dt)
+        w = (torch.randn(FFN, HIDDEN, generator=gen, device=dev)
+             * HIDDEN ** -0.5).to(dt)
+        b = (torch.randn(FFN, generator=gen, device=dev) * 0.1).to(dt)
+        g = torch.randn(N, FFN, generator=gen, device=dev).to(dt)
+        z0 = K.dot_f32(x, w.t()) + b.float()
+        for name, spec, borders, levels in cases:
+            if spec.code == "stepwise":
+                continue
+            args = (spec, x, w.t(), b, borders)
+            y, packed = K.fused_dense_act(*args)
+            y0, packed0 = K.dense_act_plain(*args)
+            compare_y(f"k6 {name} {tag} y", y, y0, z0, spec, tol)
+            out["flips"][f"k6 {name} {tag}"] = code_flips(
+                f"k6 {name} {tag}", packed, packed0, z0,
+                _code_borders(spec, borders), spec.bits)
+            dz = K.fused_backward(spec, packed, levels, g)
+            if not torch.equal(dz, K.act_backward_plain(spec, packed,
+                                                        levels, g)):
+                raise AssertionError(f"k5 on k6 {name} {tag}: dz differs")
+            if name in ACT_TIMED_K6:
+                out["dense_act"][f"{name} {tag}"] = {
+                    "loop_device_ms": device_ms(
+                        lambda: K.dense_act_kloop(*args)),
+                    "schedule": K.dense_act_schedule(N, FFN, dt),
+                    "device_ms": device_ms(lambda: K.fused_dense_act(*args))}
+            if name not in FFN_ACTS + ACT_TIMED_K2:
+                continue
+            args = (spec, x, w.t(), b, borders, sigma, K_EFF)
+            y, packed, sk = K.fused_dense_act_sketch(*args)
+            y0, packed0, sk0 = K.dense_act_sketch_plain(*args)
+            compare(f"k2 {name} {tag} y", y, y0, tol)
+            compare(f"k2 {name} {tag} sketch", sk, sk0, tol)
+            out["flips"][f"k2 {name} {tag}"] = code_flips(
+                f"k2 {name} {tag}", packed, packed0, z0,
+                _code_borders(spec, borders), spec.bits)
+            down = (torch.randn(HIDDEN, FFN, generator=gen, device=dev)
+                    * FFN ** -0.5).to(dt)
+            gh = torch.randn(N, HIDDEN, generator=gen, device=dev).to(dt)
+            args3 = (spec, packed, levels, gh, down, sigma, K_EFF)
+            got, want = (K.fused_matmul_lut_backward(*args3),
+                         K.matmul_lut_backward_plain(*args3))
+            for what, a, r, t in zip(("dz", "sketch", "db"), got, want,
+                                     (tol, tol, TOL_SUM)):
+                compare(f"k3 {name} {tag} {what}", a, r, t)
+            if name in ACT_TIMED_K2:
+                out["dense_act_sketch"][f"{name} {tag}"] = device_ms(
+                    lambda: K.fused_dense_act_sketch(*args))
+        del x, w, b, g, z0
+        torch.cuda.empty_cache()
+    # The path: FewBitFFN with a non-GELU activation, through kernels 2
+    # and 3 and no plain path.
+    x = torch.randn(BS, SEQ, HIDDEN, generator=gen, device=dev)
+    K.reset_launch_counts()
+    ffn_out = {}
+    for name in FFN_ACTS:
+        mod = FewBitFFN(HIDDEN, FFN, HIDDEN, activation=name,
+                        proj_dim_ratio=0.2, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+        xr = x.clone().requires_grad_()
+        y = mod(xr, torch.Generator(device=dev).manual_seed(2))
+        y.backward(torch.ones_like(y))
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            spec = resolve_activation(name)[0]
+            z = x.reshape(N, HIDDEN) @ mod.up_weight.t() + mod.up_bias
+            want = (spec.fwd(z, spec.args) @ mod.down_weight.t()
+                    + mod.down_bias).reshape(y.shape)
+        err = compare(f"FewBitFFN {name} forward", y, want, TOL_SUM)
+        if not torch.isfinite(xr.grad).all():
+            raise AssertionError(f"FewBitFFN {name}: dx not finite")
+        ffn_out[name] = {"forward_err": err,
+                         "dx_norm": xr.grad.norm().item()}
+    counts = K.launch_counts()
+    expected = {k: 0 for k in counts}
+    expected.update(dense_act_sketch=len(FFN_ACTS),
+                    matmul_lut_backward=len(FFN_ACTS))
+    if counts != expected:
+        raise AssertionError(f"FewBitFFN activations: launches {counts}, "
+                             f"expected {expected}")
+    out["ffn"] = ffn_out
+    log(f"activations, kernel 4 device ms per id at ({N}, {FFN}): "
+        f"{json.dumps(out['fused_forward'])}")
+    log(f"activations, kernel 6 at {N} x {HIDDEN} -> {FFN}, device ms: "
+        f"{json.dumps(out['dense_act'])}")
+    log(f"activations, kernel 2 at {N} x {HIDDEN} -> {FFN}, device ms: "
+        f"{json.dumps(out['dense_act_sketch'])}")
+    log(f"activations, code flips of kernels 6 and 2 against plain: "
+        f"{json.dumps(out['flips'])}")
+    log(f"activations, FewBitFFN path: {json.dumps(ffn_out)}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return out, counts
+
+
 def _standard_attention(q, k, v, mask, scale):
     """The models' standard causal attention on (b, s, h, d) projections,
     the probabilities in v's type."""
@@ -1432,14 +1672,18 @@ def phase_exp_megakernel():
 
 def main():
     smi = phase_device()
+    if sys.argv[1:] == ["--activations"]:
+        phase_activations()
+        return
     if sys.argv[1:2] == ["--profile"]:
         if sys.argv[2:] not in [[path] for path in PATHS]:
             sys.exit(f"chip_smoke: --profile takes one of {list(PATHS)}")
         phase_profile(sys.argv[2])
         return
     results = phase_kernels()
-    crossover = phase_crossover()
     train, counts = {}, {}
+    activations, counts["ffn_activations"] = phase_activations()
+    crossover = phase_crossover()
     for path, run in (("roberta_fused_ffn", phase_path),
                       ("gpt2_small", phase_path),
                       ("roberta_unfused_ffn", phase_steps),
@@ -1472,7 +1716,8 @@ def main():
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "cases": cases})
     log(json.dumps({"train": train, "crossover": crossover,
-                    "sketch_kinds": sketch_kinds, "card": smi}))
+                    "sketch_kinds": sketch_kinds, "activations": activations,
+                    "card": smi}))
     log(json.dumps({"exp_megakernel": exp_rows, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

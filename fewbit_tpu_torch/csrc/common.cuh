@@ -46,24 +46,148 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-// Activation ids shared with fewbit_tpu_torch/ops/kernels.py (ACT_IDS).
-// Only the exact GELU so far; the other activations add cases here.
-constexpr int ACT_GELU = 0;
+// Activation ids, in the order of ACT_IDS in fewbit_tpu_torch/ops/
+// activations.py: GELU, the other continuous functions, the piecewise ones,
+// and the identity forward of the generic stepwise.
+enum ActId {
+  ACT_GELU = 0,
+  ACT_CELU,
+  ACT_ELU,
+  ACT_HARDSWISH,
+  ACT_LOGSIGMOID,
+  ACT_MISH,
+  ACT_SELU,
+  ACT_SIGMOID,
+  ACT_SILU,
+  ACT_SOFTPLUS,
+  ACT_SOFTSIGN,
+  ACT_TANH,
+  ACT_TANHSHRINK,
+  ACT_HARDSHRINK,
+  ACT_HARDSIGMOID,
+  ACT_HARDTANH,
+  ACT_LEAKY_RELU,
+  ACT_RELU,
+  ACT_RELU6,
+  ACT_SOFTSHRINK,
+  ACT_THRESHOLD,
+  ACT_IDENTITY,
+  ACT_COUNT
+};
+
+// How a code is computed (CODE_KINDS in ops/activations.py): the number of
+// borders below z; a piecewise function's 1-bit predicate; stepwise's count
+// on z - s or |z - s|, with a sign bit for an odd derivative.
+enum CodeKind { CODE_BORDERS = 0, CODE_PREDICATE = 1, CODE_STEPWISE = 2 };
+
+// What a kernel reads of an activation spec, passed by value (kernel_args
+// in ops/activations.py fills it; ActArgs in ops/kernels.py is its ctypes
+// twin).  The entry points take it by host address.
+struct ActArgs {
+  int act;       // ActId of the forward
+  int kind;      // CodeKind
+  float a0, a1;  // the forward's arguments (lambda, alpha, slope, min/max,
+                 // beta/threshold, threshold/value), 0 where unused
+  float lo, hi;  // predicate: lo < b and not b >= hi (hi NaN: no upper
+                 // bound), b = |z| when pred_abs, else z
+  int pred_abs;
+  float shift;   // stepwise: s
+  int parity;    // stepwise: -1 (None), 0 (False), 1 (True)
+};
+
+// Host side: the arguments no kernel takes.  Kernels 6 and 2 compute no
+// stepwise codes (no activation name resolves to stepwise).
+inline bool act_known(const ActArgs& a, bool stepwise) {
+  return a.act >= 0 && a.act < ACT_COUNT && a.kind >= CODE_BORDERS &&
+         a.kind <= (stepwise ? CODE_STEPWISE : CODE_PREDICATE) &&
+         a.parity >= -1 && a.parity <= 1;
+}
 
 __device__ __forceinline__ float gelu_exact(float z) {
   return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
 }
 
-// act(z) for an id the entry points have checked with act_known().
-__device__ __forceinline__ float act_forward(int act, float z) {
+// log(1 + e^t) in its stable form.
+__device__ __forceinline__ float softplus_stable(float t) {
+  return fmaxf(t, 0.f) + log1pf(expf(-fabsf(t)));
+}
+
+__device__ __forceinline__ float sigmoid_exact(float z) {
+  return 1.f / (1.f + expf(-z));
+}
+
+// z clamped to [lo, hi], NaN passed through (as jnp.clip).
+__device__ __forceinline__ float clip(float z, float lo, float hi) {
+  return z < lo ? lo : (z > hi ? hi : z);
+}
+
+// act(z) for any id, on the exact libm forms, as the plain versions in
+// fewbit_tpu_torch/functional/activations.py compute them.  Not inlined:
+// one copy serves every call site, called element by element.  The kernels
+// that run GELU with border codes on a training path are built apart for
+// it (gelu_exact inline, independent elements interleaved), so that this
+// switch and its call cost GELU nothing; the host picks the build by the
+// spec, which is uniform over the launch.
+static __device__ __noinline__ float act_forward_any(int act, float a0,
+                                                     float a1, float z) {
   switch (act) {
     case ACT_GELU:
       return gelu_exact(z);
+    case ACT_CELU:
+      return z > 0.f ? z : a0 * expm1f(z / a0);
+    case ACT_ELU:
+      return z > 0.f ? z : a0 * expm1f(z);
+    case ACT_HARDSWISH:
+      return z * clip(z + 3.f, 0.f, 6.f) / 6.f;
+    case ACT_LOGSIGMOID:
+      return -softplus_stable(-z);
+    case ACT_MISH:
+      return z * tanhf(softplus_stable(z));
+    case ACT_SELU:
+      return 1.0507009873554805f *
+             (z > 0.f ? z : 1.6732632423543772f * expm1f(z));
+    case ACT_SIGMOID:
+      return sigmoid_exact(z);
+    case ACT_SILU:
+      return z * sigmoid_exact(z);
+    case ACT_SOFTPLUS: {
+      const float scaled = z * a0;
+      return scaled > a1 ? z : softplus_stable(scaled) / a0;
+    }
+    case ACT_SOFTSIGN:
+      return z / (1.f + fabsf(z));
+    case ACT_TANH:
+      return tanhf(z);
+    case ACT_TANHSHRINK:
+      return z - tanhf(z);
+    case ACT_HARDSHRINK:
+      return fabsf(z) > a0 ? z : 0.f;
+    case ACT_HARDSIGMOID:
+      return clip(z / 6.f + 0.5f, 0.f, 1.f);
+    case ACT_HARDTANH:
+      return clip(z, a0, a1);
+    case ACT_LEAKY_RELU:
+      return z >= 0.f ? z : z * a0;
+    case ACT_RELU:
+      return z < 0.f ? 0.f : z;
+    case ACT_RELU6:
+      return clip(z, 0.f, 6.f);
+    case ACT_SOFTSHRINK:
+      return z > a0 ? z - a0 : (z < -a0 ? z + a0 : 0.f);
+    case ACT_THRESHOLD:
+      return z > a0 ? z : a1;
+    case ACT_IDENTITY:
+      return z;
   }
-  return __int_as_float(0x7fffffff);  // NaN: an unknown id
+  return __int_as_float(0x7fffffff);  // NaN: an id the host refuses
 }
 
-inline bool act_known(int act) { return act == ACT_GELU; }
+// A piecewise function's 1-bit code of z (CODE_PREDICATE).
+__device__ __forceinline__ unsigned predicate_code(const ActArgs& a,
+                                                   float z) {
+  const float b = a.pred_abs ? fabsf(z) : z;
+  return (b > a.lo && !(b >= a.hi)) ? 1u : 0u;
+}
 
 // The interval code of z: the number of borders strictly below it, compared
 // in f32, as compare_codes in fewbit_tpu_torch/ops/activations.py.
@@ -71,6 +195,24 @@ __device__ __forceinline__ unsigned border_code(float z, const float* bord,
                                                 int n_borders) {
   unsigned code = 0;
   for (int k = 0; k < n_borders; ++k) code += z > bord[k] ? 1u : 0u;
+  return code;
+}
+
+// The code of z of any kind, element by element (the CUDA-core kernels and
+// kernel 4's stepwise path): borders counted on z, or for stepwise on z - s
+// or |z - s| with the sign bit `half` below s; a predicate's bit.
+__device__ __forceinline__ unsigned any_code(const ActArgs& a, float z,
+                                             const float* bord,
+                                             int n_borders, unsigned half) {
+  if (a.kind == CODE_PREDICATE) return predicate_code(a, z);
+  float b = z;
+  if (a.kind == CODE_STEPWISE) {
+    b = z - a.shift;
+    if (a.parity >= 0) b = fabsf(b);
+  }
+  unsigned code = border_code(b, bord, n_borders);
+  if (a.kind == CODE_STEPWISE && a.parity == 1 && z - a.shift < 0.f)
+    code += half;
   return code;
 }
 

@@ -40,6 +40,8 @@
 // (activation.cu) decodes.  Rows past N are masked: they read as zero, give
 // zero bits and are not written.  No model path runs it; it is what the
 // tensor-core schedules are measured against.
+#include <type_traits>
+
 #include "dense_act_epilogue.cuh"
 
 namespace fewbit {
@@ -49,8 +51,9 @@ template <typename T, bool TRANS_B>
 __global__ void __launch_bounds__(NT)
     dense_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const T* __restrict__ bias,
-                     const float* __restrict__ borders, int n_borders, int act,
-                     int n, int kdim, int m, int bits, T* __restrict__ y,
+                     const float* __restrict__ borders, int n_borders,
+                     ActArgs act, int n, int kdim, int m, int bits,
+                     T* __restrict__ y,
                      uint32_t* __restrict__ packed) {
   __shared__ GemmSmem s;
   __shared__ unsigned char codes[BN][BM + PAD];
@@ -74,8 +77,9 @@ __global__ void __launch_bounds__(NT)
       unsigned code = 0;
       if (row < n && col < m) {
         const float z = acc[i][j] + bj;
-        y[(size_t)row * m + col] = from_f<T>(act_forward(act, z));
-        code = border_code(z, bord, n_borders);
+        y[(size_t)row * m + col] =
+            from_f<T>(act_forward_any(act.act, act.a0, act.a1, z));
+        code = any_code(act, z, bord, n_borders, 0u);
       }
       codes[tx + 16 * j][ty + 16 * i] = static_cast<unsigned char>(code);
     }
@@ -95,7 +99,7 @@ __global__ void __launch_bounds__(NT)
 
 template <typename T>
 void launch(const void* x, const void* w, int w_trans, const void* bias,
-            const float* borders, int n_borders, int act, void* y,
+            const float* borders, int n_borders, const ActArgs& act, void* y,
             uint32_t* packed, int n, int kdim, int m, int bits,
             cudaStream_t st) {
   dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
@@ -112,12 +116,12 @@ void launch(const void* x, const void* w, int w_trans, const void* bias,
         static_cast<T*>(y), packed);
 }
 
-template <typename TI, typename TO, int BN, bool EPILOGUE>
+template <typename TI, typename TO, int BN, bool EPILOGUE, bool ANY>
 __global__ void __launch_bounds__(FG_THREADS, 1)
     dense_act_kloop_kernel(const __grid_constant__ CUtensorMap map_a,
                            const __grid_constant__ CUtensorMap map_b,
                            const __grid_constant__ CUtensorMap map_b_lo,
-                           DaParams<TI, TO> p) {
+                           DaParams<TI, TO> p, ActArgs act) {
   extern __shared__ uint8_t smem_raw[];
   const FgSmem<TI, BN> s(smem_raw);
   fg_init(s, p.borders, p.n_borders, __int_as_float(0x7f800000));  // +inf
@@ -133,22 +137,22 @@ __global__ void __launch_bounds__(FG_THREADS, 1)
   uint32_t ph = 0;
   float acc[BN / 2];
   fg_consume_pass<TI, BN>(acc, s, th, k_tiles, st, ph);
-  da_epilogue<TI, TO, BN, EPILOGUE>(acc, p, s.table, row0 + 64 * th.wg, col0,
-                                    th.warp, th.g, th.t,
-                                    DaStoreGlobal<TO>{p.y, p.n, p.m});
+  da_epilogue<TI, TO, BN, EPILOGUE, ANY>(
+      acc, p, act, s.table, row0 + 64 * th.wg, col0, th.warp, th.g, th.t,
+      DaStoreGlobal<TO>{p.y, p.n, p.m});
 }
 
-template <typename TI, typename TO, int BN, bool EPILOGUE>
+template <typename TI, typename TO, int BN, bool EPILOGUE, bool ANY>
 int launch_kloop(const CUtensorMap& ma, const CUtensorMap& mb,
                  const CUtensorMap& mb_lo, const DaParams<TI, TO>& p,
-                 cudaStream_t st) {
-  auto kernel = dense_act_kloop_kernel<TI, TO, BN, EPILOGUE>;
+                 const ActArgs& act, cudaStream_t st) {
+  auto kernel = dense_act_kloop_kernel<TI, TO, BN, EPILOGUE, ANY>;
   static unsigned allowed = 0;
   const int err =
       fg_allow_smem(reinterpret_cast<const void*>(kernel), allowed);
   if (err != 0) return err;
   kernel<<<dim3((p.n + FG_BM - 1) / FG_BM, p.m / BN), FG_THREADS,
-           fg_smem(Operand<TI>::PARTS, BN), st>>>(ma, mb, mb_lo, p);
+           fg_smem(Operand<TI>::PARTS, BN), st>>>(ma, mb, mb_lo, p, act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,7 +161,8 @@ int launch_kloop(const CUtensorMap& ma, const CUtensorMap& mb,
 
 // The CUDA-core kernel.  x (n, kdim), w the logical (kdim, m) weight (stored
 // transposed when w_trans), bias (m,) or null, borders (n_borders,) f32 with
-// n_borders < 64, act an activation id (common.cuh); outputs y (n, m) and
+// n_borders < 64, act_args the host address of an ActArgs (common.cuh:
+// border or predicate codes, f32 arguments); outputs y (n, m) and
 // packed (bits, ceil(n / 32), m) 32-bit words, bits in 1..6.  Any n (ragged
 // rows are masked); ceil(n / 128) blocks must fit the grid's y extent
 // (n <= 65535 * 128).
@@ -165,11 +170,12 @@ int launch_kloop(const CUtensorMap& ma, const CUtensorMap& mb,
 // without launching for an unknown act, bits or row count.
 extern "C" int fewbit_dense_act_simt(const void* x, const void* w, int w_trans,
                                 const void* bias, const void* borders,
-                                int n_borders, int act, void* y, void* packed,
-                                int n, int kdim, int m, int bits, int is_bf16,
-                                void* stream) {
+                                int n_borders, const void* act_args, void* y,
+                                void* packed, int n, int kdim, int m, int bits,
+                                int is_bf16, void* stream) {
   using namespace fewbit;
-  if (!act_known(act) || bits < 1 || bits > 6 || n_borders > 63 ||
+  const ActArgs act = *static_cast<const ActArgs*>(act_args);
+  if (!act_known(act, false) || bits < 1 || bits > 6 || n_borders > 63 ||
       (n + BM - 1) / BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -198,12 +204,13 @@ extern "C" int fewbit_dense_act_simt(const void* x, const void* w, int w_trans,
 extern "C" int fewbit_dense_act_kloop(const void* x, const void* w,
                                       int w_trans, const void* bias,
                                       const void* borders, int n_borders,
-                                      int act, void* y, void* packed,
-                                      void* w_prep, int n, int kdim, int m,
-                                      int bits, int bn, int in_bf16,
-                                      int out_bf16, int epilogue,
+                                      const void* act_args, void* y,
+                                      void* packed, void* w_prep, int n,
+                                      int kdim, int m, int bits, int bn,
+                                      int in_bf16, int out_bf16, int epilogue,
                                       void* stream) {
   using namespace fewbit;
+  const ActArgs act = *static_cast<const ActArgs*>(act_args);
   if (!da_args_ok(n_borders, bits, act, epilogue)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return da_dispatch_types(in_bf16, out_bf16, [&](auto ti, auto to) {
@@ -214,12 +221,22 @@ extern "C" int fewbit_dense_act_kloop(const void* x, const void* w,
     const int rc = fg_operands_any_rows<TI>(x, FG_BM, w, w_trans, w_prep, n,
                                             kdim, m, bn, &ma, &mb, &mb_lo, st);
     if (rc != 0) return rc;
-    const DaParams<TI, TO> p = da_params<TI, TO>(
-        bias, borders, n_borders, act, y, packed, n, kdim, m, bits);
+    const DaParams<TI, TO> p = da_params<TI, TO>(bias, borders, n_borders, y,
+                                                 packed, n, kdim, m, bits);
+    const bool any = da_any(act);
+    const auto go = [&](auto bn_c, auto epi_c, auto any_c) {
+      return launch_kloop<TI, TO, decltype(bn_c)::value,
+                          decltype(epi_c)::value, decltype(any_c)::value>(
+          ma, mb, mb_lo, p, act, st);
+    };
+    using B96 = std::integral_constant<int, 96>;
+    using B64 = std::integral_constant<int, 64>;
+    using Y = std::true_type;
+    using N = std::false_type;
     if (bn == 96)
-      return epilogue ? launch_kloop<TI, TO, 96, true>(ma, mb, mb_lo, p, st)
-                      : launch_kloop<TI, TO, 96, false>(ma, mb, mb_lo, p, st);
-    return epilogue ? launch_kloop<TI, TO, 64, true>(ma, mb, mb_lo, p, st)
-                    : launch_kloop<TI, TO, 64, false>(ma, mb, mb_lo, p, st);
+      return !epilogue ? go(B96(), N(), N())
+                       : (any ? go(B96(), Y(), Y()) : go(B96(), Y(), N()));
+    return !epilogue ? go(B64(), N(), N())
+                     : (any ? go(B64(), Y(), Y()) : go(B64(), Y(), N()));
   });
 }

@@ -99,13 +99,13 @@ struct ResidentSmem {
   }
 };
 
-template <typename TI, typename TO, int BN, bool TMA_STORE>
+template <typename TI, typename TO, int BN, bool TMA_STORE, bool ANY>
 __global__ void __launch_bounds__(FG_THREADS, 1)
     dense_act_resident_kernel(const __grid_constant__ CUtensorMap map_a,
                               const __grid_constant__ CUtensorMap map_b,
                               const __grid_constant__ CUtensorMap map_b_lo,
                               const __grid_constant__ CUtensorMap map_y,
-                              DaParams<TI, TO> p) {
+                              DaParams<TI, TO> p, ActArgs act) {
   using namespace hopper;
   using S = ResidentSmem<TI, TO, BN>;
   extern __shared__ uint8_t smem_raw[];
@@ -167,8 +167,8 @@ __global__ void __launch_bounds__(FG_THREADS, 1)
       if (wg_leader) bulk_wait_read<1>();
       bar_sync(wg_bar, 128);
       const DaStoreStage<TO, BN> to_stage{stage, wg_row0, col0};
-      da_epilogue<TI, TO, BN, true>(acc, p, s.table, wg_row0, col0, th.warp,
-                                    th.g, th.t, to_stage);
+      da_epilogue<TI, TO, BN, true, ANY>(acc, p, act, s.table, wg_row0, col0,
+                                         th.warp, th.g, th.t, to_stage);
       fence_proxy_async();
       bar_sync(wg_bar, 128);
       if (wg_leader) {
@@ -177,20 +177,21 @@ __global__ void __launch_bounds__(FG_THREADS, 1)
       }
       buf ^= 1;
     } else {
-      da_epilogue<TI, TO, BN, true>(acc, p, s.table, wg_row0, col0, th.warp,
-                                    th.g, th.t,
-                                    DaStoreGlobal<TO>{p.y, p.n, p.m});
+      da_epilogue<TI, TO, BN, true, ANY>(acc, p, act, s.table, wg_row0, col0,
+                                         th.warp, th.g, th.t,
+                                         DaStoreGlobal<TO>{p.y, p.n, p.m});
     }
   }
   // Shared memory must outlive the stores that read it.
   if (TMA_STORE && wg_leader) bulk_wait<0>();
 }
 
-template <typename TI, typename TO, int BN, bool TMA_STORE>
+template <typename TI, typename TO, int BN, bool TMA_STORE, bool ANY>
 int launch_resident(const CUtensorMap& ma, const CUtensorMap& mb,
                     const CUtensorMap& mb_lo, const CUtensorMap& my,
-                    const DaParams<TI, TO>& p, cudaStream_t st) {
-  auto kernel = dense_act_resident_kernel<TI, TO, BN, TMA_STORE>;
+                    const DaParams<TI, TO>& p, const ActArgs& act,
+                    cudaStream_t st) {
+  auto kernel = dense_act_resident_kernel<TI, TO, BN, TMA_STORE, ANY>;
   static unsigned allowed = 0;
   const int err =
       fg_allow_smem(reinterpret_cast<const void*>(kernel), allowed);
@@ -204,15 +205,15 @@ int launch_resident(const CUtensorMap& ma, const CUtensorMap& mb,
   kernel<<<dim3(per_panel, panels), FG_THREADS,
            da_resident_smem(Operand<TI>::PARTS, p.kdim, BN, sizeof(TO),
                             TMA_STORE),
-           st>>>(ma, mb, mb_lo, my, p);
+           st>>>(ma, mb, mb_lo, my, p, act);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool TMA_STORE>
 int dense_act_resident(const void* x, const void* w, int w_trans,
                        const void* bias, const void* borders, int n_borders,
-                       int act, void* y, void* packed, void* w_prep, int n,
-                       int kdim, int m, int bits, int bn, int in_bf16,
+                       const ActArgs& act, void* y, void* packed, void* w_prep,
+                       int n, int kdim, int m, int bits, int bn, int in_bf16,
                        int out_bf16, cudaStream_t st) {
   if (!da_args_ok(n_borders, bits, act, 1) ||
       da_resident_smem_or_refuse(kdim, bn, in_bf16, out_bf16, TMA_STORE) < 0)
@@ -226,13 +227,17 @@ int dense_act_resident(const void* x, const void* w, int w_trans,
     if (rc != 0) return rc;
     if (!hopper::make_plain_map(&my, y, sizeof(TO) == 2, n, m, 64, bn))
       return -2;
-    const DaParams<TI, TO> p = da_params<TI, TO>(
-        bias, borders, n_borders, act, y, packed, n, kdim, m, bits);
-    return bn == 96
-               ? launch_resident<TI, TO, 96, TMA_STORE>(ma, mb, mb_lo, my, p,
-                                                        st)
-               : launch_resident<TI, TO, 64, TMA_STORE>(ma, mb, mb_lo, my, p,
-                                                        st);
+    const DaParams<TI, TO> p = da_params<TI, TO>(bias, borders, n_borders, y,
+                                                 packed, n, kdim, m, bits);
+    if (da_any(act))
+      return bn == 96 ? launch_resident<TI, TO, 96, TMA_STORE, true>(
+                            ma, mb, mb_lo, my, p, act, st)
+                      : launch_resident<TI, TO, 64, TMA_STORE, true>(
+                            ma, mb, mb_lo, my, p, act, st);
+    return bn == 96 ? launch_resident<TI, TO, 96, TMA_STORE, false>(
+                          ma, mb, mb_lo, my, p, act, st)
+                    : launch_resident<TI, TO, 64, TMA_STORE, false>(
+                          ma, mb, mb_lo, my, p, act, st);
   });
 }
 
@@ -245,26 +250,31 @@ int dense_act_resident(const void* x, const void* w, int w_trans,
 extern "C" int fewbit_dense_act_direct(const void* x, const void* w,
                                        int w_trans, const void* bias,
                                        const void* borders, int n_borders,
-                                       int act, void* y, void* packed,
-                                       void* w_prep, int n, int kdim, int m,
-                                       int bits, int bn, int in_bf16,
-                                       int out_bf16, void* stream) {
+                                       const void* act_args, void* y,
+                                       void* packed, void* w_prep, int n,
+                                       int kdim, int m, int bits, int bn,
+                                       int in_bf16, int out_bf16,
+                                       void* stream) {
   return fewbit::dense_act_resident<false>(
-      x, w, w_trans, bias, borders, n_borders, act, y, packed, w_prep, n, kdim,
-      m, bits, bn, in_bf16, out_bf16, static_cast<cudaStream_t>(stream));
+      x, w, w_trans, bias, borders, n_borders,
+      *static_cast<const fewbit::ActArgs*>(act_args), y, packed, w_prep, n,
+      kdim, m, bits, bn, in_bf16, out_bf16,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The emit schedule: the direct one with y written by TMA stores; y must be
 // 16-byte aligned.
 extern "C" int fewbit_dense_act_emit(const void* x, const void* w, int w_trans,
                                      const void* bias, const void* borders,
-                                     int n_borders, int act, void* y,
-                                     void* packed, void* w_prep, int n,
+                                     int n_borders, const void* act_args,
+                                     void* y, void* packed, void* w_prep, int n,
                                      int kdim, int m, int bits, int bn,
                                      int in_bf16, int out_bf16, void* stream) {
   return fewbit::dense_act_resident<true>(
-      x, w, w_trans, bias, borders, n_borders, act, y, packed, w_prep, n, kdim,
-      m, bits, bn, in_bf16, out_bf16, static_cast<cudaStream_t>(stream));
+      x, w, w_trans, bias, borders, n_borders,
+      *static_cast<const fewbit::ActArgs*>(act_args), y, packed, w_prep, n,
+      kdim, m, bits, bn, in_bf16, out_bf16,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The dynamic shared memory of a block of the direct (tma_store = 0) or the

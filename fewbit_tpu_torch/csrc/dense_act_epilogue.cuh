@@ -5,11 +5,15 @@
 // epilogue on a warpgroup's accumulator fragment, and the host's checks.
 //
 // The epilogue is kernel 2's (dense_act_sketch.cu) without its sketch: per
-// element z = acc + b, y = act(z) stored as TO, and the code of z, the
+// element z = acc + b, y = act(z) stored as TO, and the code of z: the
 // number of borders below it, four borders to a 16-byte read of the table
 // and eight independent elements to a read (one block of 8 consumer warps
-// on an SM makes the epilogue latency bound).  A packed word holds 32
-// consecutive rows of one column; a warp's fragment holds 16 (thread
+// on an SM makes the epilogue latency bound), or a piecewise function's
+// predicate on the f32 z.  Each schedule is built twice: for GELU with
+// border codes (ANY false: gelu_exact inline, the eight elements
+// interleaved), and for any other spec (ANY: act_forward_any, one call per
+// element, and the predicate); the host picks by the spec (da_any).  A
+// packed word holds 32 consecutive rows of one column; a warp's fragment holds 16 (thread
 // (g, t): rows g and g + 8, columns 8 i + 2 t + e), so each thread puts its
 // rows' bits of a plane at bits g and g + 8 of a 16-bit half, two planes to
 // a register, three xor-shuffles OR the halves over the 8 lanes that share
@@ -31,7 +35,7 @@ struct DaParams {
   const float* borders;  // (n_borders,)
   TO* y;                 // (n, m)
   uint16_t* packed;      // (bits, words, m) 32-bit words, as their halves
-  int n, kdim, m, words, bits, n_borders, act;
+  int n, kdim, m, words, bits, n_borders;
 };
 
 // Where the epilogue puts two neighbouring columns of y: device memory, rows
@@ -62,11 +66,14 @@ struct DaStoreStage {
 // (wg_row0, col0), (warp, g, t) the thread's place in the warpgroup, `table`
 // the borders in shared memory padded with +inf to a multiple of four.
 // Without EPILOGUE (the ablation that measures the epilogue's share): y = z
-// and zero words in plane 0, the same stores without the arithmetic.
-template <typename TI, typename TO, int BN, bool EPILOGUE, typename StoreY>
+// and zero words in plane 0, the same stores without the arithmetic.  ANY:
+// any activation and border or predicate codes; else GELU, borders.
+template <typename TI, typename TO, int BN, bool EPILOGUE, bool ANY,
+          typename StoreY>
 __device__ __forceinline__ void da_epilogue(
-    const float (&acc)[BN / 2], const DaParams<TI, TO>& p, const float* table,
-    int wg_row0, int col0, int warp, int g, int t, const StoreY& store_y) {
+    const float (&acc)[BN / 2], const DaParams<TI, TO>& p, const ActArgs& act,
+    const float* table, int wg_row0, int col0, int warp, int g, int t,
+    const StoreY& store_y) {
   const int row = wg_row0 + 16 * warp + g;  // and row + 8
   const bool valid[2] = {row < p.n, row + 8 < p.n};
   // The 32-row group of this warp: rows 32 (warp / 2) .. + 31 of the 64.
@@ -99,6 +106,12 @@ __device__ __forceinline__ void da_epilogue(
           code[j] += (z[j] > bd.x ? 1u : 0u) + (z[j] > bd.y ? 1u : 0u) +
                      (z[j] > bd.z ? 1u : 0u) + (z[j] > bd.w ? 1u : 0u);
       }
+      if constexpr (ANY) {
+        if (act.kind == CODE_PREDICATE) {  // no borders
+#pragma unroll
+          for (int j = 0; j < 8; ++j) code[j] = predicate_code(act, z[j]);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (!valid[(j >> 1) & 1]) code[j] = 0u;  // a row past n: zero bits
@@ -109,11 +122,14 @@ __device__ __forceinline__ void da_epilogue(
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float z0 = z[4 * u + 2 * h], z1 = z[4 * u + 2 * h + 1];
-        if constexpr (EPILOGUE)
-          store_y(row + 8 * h, col, act_forward(p.act, z0),
-                  act_forward(p.act, z1));
-        else
+        if constexpr (!EPILOGUE)
           store_y(row + 8 * h, col, z0, z1);
+        else if constexpr (ANY)
+          store_y(row + 8 * h, col,
+                  act_forward_any(act.act, act.a0, act.a1, z0),
+                  act_forward_any(act.act, act.a0, act.a1, z1));
+        else
+          store_y(row + 8 * h, col, gelu_exact(z0), gelu_exact(z1));
       }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -157,16 +173,23 @@ __device__ __forceinline__ void da_fill_table(
     table[tid] = tid < n_borders ? borders[tid] : __int_as_float(0x7f800000);
 }
 
+// Host side: whether a spec takes the ANY build of a schedule (every spec
+// but GELU with border codes).
+inline bool da_any(const ActArgs& act) {
+  return act.act != ACT_GELU || act.kind != CODE_BORDERS;
+}
+
 // Host side: the arguments every schedule refuses (-1, nothing launched).
-inline bool da_args_ok(int n_borders, int bits, int act, int epilogue) {
-  return n_borders >= 0 && n_borders <= FG_TABLE && act_known(act) &&
+inline bool da_args_ok(int n_borders, int bits, const ActArgs& act,
+                       int epilogue) {
+  return n_borders >= 0 && n_borders <= FG_TABLE && act_known(act, false) &&
          (epilogue ? bits >= 1 && bits <= 6 : bits == 1);
 }
 
 template <typename TI, typename TO>
 DaParams<TI, TO> da_params(const void* bias, const void* borders,
-                           int n_borders, int act, void* y, void* packed,
-                           int n, int kdim, int m, int bits) {
+                           int n_borders, void* y, void* packed, int n,
+                           int kdim, int m, int bits) {
   return DaParams<TI, TO>{static_cast<const TI*>(bias),
                           static_cast<const float*>(borders),
                           static_cast<TO*>(y),
@@ -176,8 +199,7 @@ DaParams<TI, TO> da_params(const void* bias, const void* borders,
                           m,
                           (n + 31) / 32,
                           bits,
-                          n_borders,
-                          act};
+                          n_borders};
 }
 
 // The SMs of the current device (persistent grids size themselves by it).

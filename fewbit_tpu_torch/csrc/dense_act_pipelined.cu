@@ -72,12 +72,12 @@ struct PpSmem {
   }
 };
 
-template <typename TI, typename TO, int BN>
+template <typename TI, typename TO, int BN, bool ANY>
 __global__ void __launch_bounds__(FG_THREADS, 1)
     dense_act_pipelined_kernel(const __grid_constant__ CUtensorMap map_a,
                                const __grid_constant__ CUtensorMap map_b,
                                const __grid_constant__ CUtensorMap map_b_lo,
-                               DaParams<TI, TO> p) {
+                               DaParams<TI, TO> p, ActArgs act) {
   using namespace hopper;
   using S = PpSmem<TI, BN>;
   extern __shared__ uint8_t smem_raw[];
@@ -142,16 +142,17 @@ __global__ void __launch_bounds__(FG_THREADS, 1)
     bar_sync(2 + wg, FG_CONSUMERS);
     fg_consume_pass<TI, BN>(acc, s, th, k_tiles, st, ph);
     bar_arrive(2 + (wg ^ 1), FG_CONSUMERS);
-    da_epilogue<TI, TO, BN, true>(acc, p, s.table, row0, col0, th.warp, th.g,
-                                  th.t, DaStoreGlobal<TO>{p.y, p.n, p.m});
+    da_epilogue<TI, TO, BN, true, ANY>(acc, p, act, s.table, row0, col0,
+                                       th.warp, th.g, th.t,
+                                       DaStoreGlobal<TO>{p.y, p.n, p.m});
   }
 }
 
-template <typename TI, typename TO, int BN>
+template <typename TI, typename TO, int BN, bool ANY>
 int launch_pipelined(const CUtensorMap& ma, const CUtensorMap& mb,
                      const CUtensorMap& mb_lo, const DaParams<TI, TO>& p,
-                     cudaStream_t st) {
-  auto kernel = dense_act_pipelined_kernel<TI, TO, BN>;
+                     const ActArgs& act, cudaStream_t st) {
+  auto kernel = dense_act_pipelined_kernel<TI, TO, BN, ANY>;
   static unsigned allowed = 0;
   const int err =
       fg_allow_smem(reinterpret_cast<const void*>(kernel), allowed);
@@ -160,7 +161,7 @@ int launch_pipelined(const CUtensorMap& ma, const CUtensorMap& mb,
       (long long)((p.n + PP_BM - 1) / PP_BM) * (p.m / BN);
   const int sms = da_sm_count();
   kernel<<<static_cast<unsigned>(tiles < sms ? tiles : sms), FG_THREADS,
-           pp_smem(Operand<TI>::PARTS, BN), st>>>(ma, mb, mb_lo, p);
+           pp_smem(Operand<TI>::PARTS, BN), st>>>(ma, mb, mb_lo, p, act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -173,11 +174,13 @@ int launch_pipelined(const CUtensorMap& ma, const CUtensorMap& mb,
 extern "C" int fewbit_dense_act_pipelined(const void* x, const void* w,
                                           int w_trans, const void* bias,
                                           const void* borders, int n_borders,
-                                          int act, void* y, void* packed,
-                                          void* w_prep, int n, int kdim, int m,
-                                          int bits, int bn, int in_bf16,
-                                          int out_bf16, void* stream) {
+                                          const void* act_args, void* y,
+                                          void* packed, void* w_prep, int n,
+                                          int kdim, int m, int bits, int bn,
+                                          int in_bf16, int out_bf16,
+                                          void* stream) {
   using namespace fewbit;
+  const ActArgs act = *static_cast<const ActArgs*>(act_args);
   if (!da_args_ok(n_borders, bits, act, 1) || (bn != 64 && bn != 96) ||
       n <= 0 || m <= 0 || kdim <= 0 ||
       (long long)((n + PP_BM - 1) / PP_BM) * (m / bn) * (kdim / 32) >
@@ -191,10 +194,17 @@ extern "C" int fewbit_dense_act_pipelined(const void* x, const void* w,
     const int rc = fg_operands_any_rows<TI>(x, PP_BM, w, w_trans, w_prep, n,
                                             kdim, m, bn, &ma, &mb, &mb_lo, st);
     if (rc != 0) return rc;
-    const DaParams<TI, TO> p = da_params<TI, TO>(
-        bias, borders, n_borders, act, y, packed, n, kdim, m, bits);
-    return bn == 96 ? launch_pipelined<TI, TO, 96>(ma, mb, mb_lo, p, st)
-                    : launch_pipelined<TI, TO, 64>(ma, mb, mb_lo, p, st);
+    const DaParams<TI, TO> p = da_params<TI, TO>(bias, borders, n_borders, y,
+                                                 packed, n, kdim, m, bits);
+    if (da_any(act))
+      return bn == 96
+                 ? launch_pipelined<TI, TO, 96, true>(ma, mb, mb_lo, p, act, st)
+                 : launch_pipelined<TI, TO, 64, true>(ma, mb, mb_lo, p, act,
+                                                      st);
+    return bn == 96
+               ? launch_pipelined<TI, TO, 96, false>(ma, mb, mb_lo, p, act, st)
+               : launch_pipelined<TI, TO, 64, false>(ma, mb, mb_lo, p, act,
+                                                     st);
   });
 }
 

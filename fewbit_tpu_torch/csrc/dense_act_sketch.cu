@@ -1,6 +1,7 @@
-// Fused dense + GELU + few-bit codes + output countsketch: z = x @ w + b,
-// y = gelu(z), the interval code of z against the LUT's interior borders
-// packed into bit planes, and sk_y[b] = sum_{r = b mod k_eff} sigma_r y_r.
+// Fused dense + activation + few-bit codes + output countsketch: z = x @ w
+// + b, y = act(z), the code of z (against the LUT's interior borders, or a
+// piecewise function's predicate on the f32 z) packed into bit planes, and
+// sk_y[b] = sum_{r = b mod k_eff} sigma_r y_r.
 // With sigma_x (kernel 2'), also the input countsketch
 // sk_x[b] = sum_{r = b mod k_eff} sigma_x,r x_r, from the kernel's own read
 // of x.
@@ -22,11 +23,14 @@
 // ffn_gemm.cuh (TMA ring, two consumer warpgroups on wgmma, 128 buckets x BN
 // columns per block, the block loops over the N / k_eff passes), and per
 // pass, on the accumulator fragment:
-// - z = acc + b in f32, y = gelu(z) stored as T two columns at a time; the
+// - z = acc + b in f32, y = act(z) stored as T two columns at a time; the
 //   code of z counts the borders below it, four borders to a 16-byte read
 //   of the table and eight elements to a read (the block has 8 consumer
 //   warps, so the epilogue is bound by latency: independent elements are
-//   interleaved);
+//   interleaved), or is a piecewise function's predicate.  The kernel is
+//   built twice: for GELU with border codes (ANY false, gelu_exact inline)
+//   and for any other spec (ANY: act_forward_any, one call per element,
+//   and the predicate);
 // - sk += sigma_row * (y as stored), in the thread's own f32 accumulators
 //   (shared memory, ffn_gemm.cuh), stored once, by the last pass;
 // - the codes.  A packed word holds 32 consecutive rows of one column, but a
@@ -66,6 +70,8 @@
 // CUDA-core gemm_tile of common.cuh, only the first column tile's blocks sum
 // sk_x into a global f32 scratch, codes are staged in shared memory and
 // packed by __ballot_sync.  No model path runs kernel 2' in either design.
+#include <type_traits>
+
 #include "ffn_gemm.cuh"
 
 namespace fewbit {
@@ -103,12 +109,12 @@ int sketch_x_smem(int kdim, int m, int bn) {
   return smem > FG_SMEM_LIMIT ? -1 : smem;
 }
 
-template <typename T, int BN, bool SKX>
+template <typename T, int BN, bool SKX, bool ANY>
 __global__ void __launch_bounds__(FG_THREADS, 1)
     dense_act_sketch_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                                   const __grid_constant__ CUtensorMap map_b,
                                   const __grid_constant__ CUtensorMap map_b_lo,
-                                  K2Params<T> p) {
+                                  K2Params<T> p, ActArgs act) {
   extern __shared__ uint8_t smem_raw[];
   const FgSmem<T, BN> s(smem_raw);
   fg_init(s, p.borders, p.n_borders, __int_as_float(0x7f800000));  // +inf
@@ -184,6 +190,12 @@ __global__ void __launch_bounds__(FG_THREADS, 1)
           code[j] += (z[j] > bd.x ? 1u : 0u) + (z[j] > bd.y ? 1u : 0u) +
                      (z[j] > bd.z ? 1u : 0u) + (z[j] > bd.w ? 1u : 0u);
       }
+      if constexpr (ANY) {
+        if (act.kind == CODE_PREDICATE) {  // no borders
+#pragma unroll
+          for (int j = 0; j < 8; ++j) code[j] = predicate_code(act, z[j]);
+        }
+      }
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int i = i0 + u, col = col0 + 8 * i + 2 * th.t;
@@ -193,7 +205,12 @@ __global__ void __launch_bounds__(FG_THREADS, 1)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int idx = 4 * i + 2 * h + e;
-            yv[e] = round_to<T>(gelu_exact(z[4 * u + 2 * h + e]));
+            const float ze = z[4 * u + 2 * h + e];
+            if constexpr (ANY)
+              yv[e] = round_to<T>(
+                  act_forward_any(act.act, act.a0, act.a1, ze));
+            else
+              yv[e] = round_to<T>(gelu_exact(ze));
             // The sketch sums y as stored, widened to f32.
             skv[e] =
                 fmaf(sg[h], yv[e], first ? 0.f : ska[idx * FG_CONSUMERS]);
@@ -245,7 +262,8 @@ __global__ void __launch_bounds__(NT)
     dense_act_sketch_x_kernel(const T* __restrict__ x, const T* __restrict__ w,
                               const T* __restrict__ bias,
                               const float* __restrict__ borders, int n_borders,
-                              const float* __restrict__ sigma, int n, int kdim,
+                              ActArgs act, const float* __restrict__ sigma,
+                              int n, int kdim,
                               int m, int k_eff, int bits, T* __restrict__ y,
                               uint32_t* __restrict__ packed,
                               T* __restrict__ sk,
@@ -290,9 +308,10 @@ __global__ void __launch_bounds__(NT)
         unsigned code = 0;
         if (row < n && col < m) {
           const float z = acc[i][j] + bj[j];
-          const T yt = from_f<T>(gelu_exact(z));
+          const T yt =
+              from_f<T>(act_forward_any(act.act, act.a0, act.a1, z));
           y[(size_t)row * m + col] = yt;
-          code = border_code(z, bord, n_borders);
+          code = any_code(act, z, bord, n_borders, 0u);
           // The sketch sums y as stored, widened to f32.
           ska[i][j] = fmaf(sg, to_f(yt), ska[i][j]);
         }
@@ -334,27 +353,31 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int BN, bool SKX>
+template <typename T, int BN, bool SKX, bool ANY>
 int launch_wgmma_bn(const CUtensorMap& ma, const CUtensorMap& mb,
-                    const CUtensorMap& mb_lo, const K2Params<T>& p, int k_eff,
-                    int smem, cudaStream_t st) {
-  auto kernel = dense_act_sketch_wgmma_kernel<T, BN, SKX>;
+                    const CUtensorMap& mb_lo, const K2Params<T>& p,
+                    const ActArgs& act, int k_eff, int smem,
+                    cudaStream_t st) {
+  auto kernel = dense_act_sketch_wgmma_kernel<T, BN, SKX, ANY>;
   static unsigned allowed = 0;
   const int err =
       fg_allow_smem(reinterpret_cast<const void*>(kernel), allowed);
   if (err != 0) return err;
-  kernel<<<dim3(k_eff / FG_BM, p.m / BN), FG_THREADS, smem, st>>>(ma, mb,
-                                                                  mb_lo, p);
+  kernel<<<dim3(k_eff / FG_BM, p.m / BN), FG_THREADS, smem, st>>>(
+      ma, mb, mb_lo, p, act);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_wgmma(const void* x, const void* w, int w_trans, const void* bias,
-                 const float* borders, int n_borders, const float* sigma,
+                 const float* borders, int n_borders, const ActArgs& act,
+                 const float* sigma,
                  void* y, void* packed, void* sk, const float* sigma_x,
                  void* skx, void* w_prep, int n, int kdim, int m, int k_eff,
                  int bits, int bn, cudaStream_t st) {
-  if (n_borders < 0 || n_borders > FG_TABLE || bits < 1 || bits > 6) return -1;
+  if (n_borders < 0 || n_borders > FG_TABLE || bits < 1 || bits > 6 ||
+      !act_known(act, false))
+    return -1;
   const bool skx_on = sigma_x != nullptr;
   if (skx_on && skx == nullptr) return -1;
   const int smem = skx_on ? sketch_x_smem<T>(kdim, m, bn)
@@ -382,19 +405,28 @@ int launch_wgmma(const void* x, const void* w, int w_trans, const void* bias,
                 static_cast<T*>(skx),
                 jt,
                 (kdim + jt - 1) / jt};
+  // The ANY build for every spec but GELU with border codes.
+  const bool any = act.act != ACT_GELU || act.kind != CODE_BORDERS;
+  const auto go = [&](auto bn_c, auto skx_c, auto any_c) {
+    return launch_wgmma_bn<T, decltype(bn_c)::value, decltype(skx_c)::value,
+                           decltype(any_c)::value>(ma, mb, mb_lo, p, act,
+                                                   k_eff, smem, st);
+  };
+  using B96 = std::integral_constant<int, 96>;
+  using B64 = std::integral_constant<int, 64>;
+  using Y = std::true_type;
+  using N = std::false_type;
   if (skx_on)
-    return bn == 96
-               ? launch_wgmma_bn<T, 96, true>(ma, mb, mb_lo, p, k_eff, smem, st)
-               : launch_wgmma_bn<T, 64, true>(ma, mb, mb_lo, p, k_eff, smem,
-                                              st);
-  return bn == 96
-             ? launch_wgmma_bn<T, 96, false>(ma, mb, mb_lo, p, k_eff, smem, st)
-             : launch_wgmma_bn<T, 64, false>(ma, mb, mb_lo, p, k_eff, smem, st);
+    return bn == 96 ? (any ? go(B96(), Y(), Y()) : go(B96(), Y(), N()))
+                    : (any ? go(B64(), Y(), Y()) : go(B64(), Y(), N()));
+  return bn == 96 ? (any ? go(B96(), N(), Y()) : go(B96(), N(), N()))
+                  : (any ? go(B64(), N(), Y()) : go(B64(), N(), N()));
 }
 
 template <typename T>
 void launch_x(const void* x, const void* w, int w_trans, const void* bias,
-            const float* borders, int n_borders, const float* sigma, void* y,
+            const float* borders, int n_borders, const ActArgs& act,
+            const float* sigma, void* y,
             uint32_t* packed, void* sk, const float* sigma_x,
             float* skx_acc, void* skx_out, int n, int kdim, int m, int k_eff,
             int bits, cudaStream_t st) {
@@ -404,12 +436,12 @@ void launch_x(const void* x, const void* w, int w_trans, const void* bias,
   const T* bt = static_cast<const T*>(bias);
   if (w_trans)
     dense_act_sketch_x_kernel<T, true><<<grid, NT, 0, st>>>(
-        xt, wt, bt, borders, n_borders, sigma, n, kdim, m, k_eff, bits,
+        xt, wt, bt, borders, n_borders, act, sigma, n, kdim, m, k_eff, bits,
         static_cast<T*>(y), packed, static_cast<T*>(sk), sigma_x, skx_acc,
         static_cast<T*>(skx_out));
   else
     dense_act_sketch_x_kernel<T, false><<<grid, NT, 0, st>>>(
-        xt, wt, bt, borders, n_borders, sigma, n, kdim, m, k_eff, bits,
+        xt, wt, bt, borders, n_borders, act, sigma, n, kdim, m, k_eff, bits,
         static_cast<T*>(y), packed, static_cast<T*>(sk), sigma_x, skx_acc,
         static_cast<T*>(skx_out));
 }
@@ -419,8 +451,10 @@ void launch_x(const void* x, const void* w, int w_trans, const void* bias,
 
 // x (n, kdim), w the logical (kdim, m) weight (stored transposed when
 // w_trans), bias (m,) or null, borders (n_borders,) f32 with n_borders < 64,
-// sigma (n,) f32; outputs y (n, m), packed (bits, ceil(n / 32), m) 32-bit
-// words and sk (k_eff, m).  k_eff must be a multiple of 128 that divides n,
+// act_args the host address of an ActArgs (common.cuh: border or predicate
+// codes, f32 arguments), sigma (n,) f32; outputs y (n, m), packed (bits,
+// ceil(n / 32), m) 32-bit words and sk (k_eff, m).  k_eff must be a
+// multiple of 128 that divides n,
 // kdim a multiple of 128, m of bn (the host's tile width: 96 or 64), and
 // bits at most 6; x and a bf16 transposed w 16-byte aligned; w_prep is
 // scratch for the K-major B: (2, m, kdim) for f32 (hi, lo), (m, kdim) for
@@ -436,22 +470,22 @@ void launch_x(const void* x, const void* w, int w_trans, const void* bias,
 // be encoded.
 extern "C" int fewbit_dense_act_sketch(
     const void* x, const void* w, int w_trans, const void* bias,
-    const void* borders, int n_borders, const void* sigma, void* y,
-    void* packed, void* sk, const void* sigma_x, void* skx, void* w_prep,
-    int n, int kdim, int m, int k_eff, int bits, int bn, int is_bf16,
-    void* stream) {
+    const void* borders, int n_borders, const void* act_args,
+    const void* sigma, void* y, void* packed, void* sk, const void* sigma_x,
+    void* skx, void* w_prep, int n, int kdim, int m, int k_eff, int bits,
+    int bn, int is_bf16, void* stream) {
+  const fewbit::ActArgs act = *static_cast<const fewbit::ActArgs*>(act_args);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bd = static_cast<const float*>(borders);
   const float* sg = static_cast<const float*>(sigma);
   const float* sgx = static_cast<const float*>(sigma_x);
   if (is_bf16)
-    return fewbit::launch_wgmma<__nv_bfloat16>(x, w, w_trans, bias, bd,
-                                               n_borders, sg, y, packed, sk,
-                                               sgx, skx, w_prep, n, kdim, m,
-                                               k_eff, bits, bn, st);
-  return fewbit::launch_wgmma<float>(x, w, w_trans, bias, bd, n_borders, sg,
-                                     y, packed, sk, sgx, skx, w_prep, n, kdim,
-                                     m, k_eff, bits, bn, st);
+    return fewbit::launch_wgmma<__nv_bfloat16>(
+        x, w, w_trans, bias, bd, n_borders, act, sg, y, packed, sk, sgx, skx,
+        w_prep, n, kdim, m, k_eff, bits, bn, st);
+  return fewbit::launch_wgmma<float>(x, w, w_trans, bias, bd, n_borders, act,
+                                     sg, y, packed, sk, sgx, skx, w_prep, n,
+                                     kdim, m, k_eff, bits, bn, st);
 }
 
 // Kernel 2''s function by the first, CUDA-core kernel (on no
@@ -462,9 +496,13 @@ extern "C" int fewbit_dense_act_sketch(
 // cudaGetLastError() after the launch.
 extern "C" int fewbit_dense_act_sketch_x_simt(
     const void* x, const void* w, int w_trans, const void* bias,
-    const void* borders, int n_borders, const void* sigma, void* y,
-    void* packed, void* sk, const void* sigma_x, void* skx_acc, void* skx_out,
-    int n, int kdim, int m, int k_eff, int bits, int is_bf16, void* stream) {
+    const void* borders, int n_borders, const void* act_args,
+    const void* sigma, void* y, void* packed, void* sk, const void* sigma_x,
+    void* skx_acc, void* skx_out, int n, int kdim, int m, int k_eff, int bits,
+    int is_bf16, void* stream) {
+  const fewbit::ActArgs act = *static_cast<const fewbit::ActArgs*>(act_args);
+  if (!fewbit::act_known(act, false))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bd = static_cast<const float*>(borders);
   const float* sg = static_cast<const float*>(sigma);
@@ -472,12 +510,13 @@ extern "C" int fewbit_dense_act_sketch_x_simt(
   float* acc = static_cast<float*>(skx_acc);
   uint32_t* pk = static_cast<uint32_t*>(packed);
   if (is_bf16)
-    fewbit::launch_x<__nv_bfloat16>(x, w, w_trans, bias, bd, n_borders, sg, y,
-                                    pk, sk, sgx, acc, skx_out, n, kdim, m,
-                                    k_eff, bits, st);
+    fewbit::launch_x<__nv_bfloat16>(x, w, w_trans, bias, bd, n_borders, act,
+                                    sg, y, pk, sk, sgx, acc, skx_out, n, kdim,
+                                    m, k_eff, bits, st);
   else
-    fewbit::launch_x<float>(x, w, w_trans, bias, bd, n_borders, sg, y, pk, sk,
-                            sgx, acc, skx_out, n, kdim, m, k_eff, bits, st);
+    fewbit::launch_x<float>(x, w, w_trans, bias, bd, n_borders, act, sg, y,
+                            pk, sk, sgx, acc, skx_out, n, kdim, m, k_eff,
+                            bits, st);
   return static_cast<int>(cudaGetLastError());
 }
 

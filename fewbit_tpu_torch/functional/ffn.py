@@ -37,7 +37,8 @@ from fewbit_tpu_torch.functional.linear import (_countsketch_partition,
                                                 _countsketch_signed,
                                                 _dot_acc_f32, calc_proj_dim)
 from fewbit_tpu_torch.ops import kernels as K
-from fewbit_tpu_torch.ops.activations import apply_lut, compare_codes
+from fewbit_tpu_torch.ops.activations import (apply_lut, compare_codes,
+                                              spec_args)
 from fewbit_tpu_torch.ops.bitpack import pack_codes, unpack_codes
 
 __all__ = ("fewbit_ffn",)
@@ -63,12 +64,15 @@ def _keff(n: int, k: int) -> int:
 
 def _kernel_ok(cfg: _FFNConfig, n: int, kdim: int, m: int, h: int,
                dtype) -> bool:
-    """Whether kernels 2 and 3 take this block: a function of shapes and
-    dtype alone, so forward and backward agree."""
+    """Whether kernels 2 and 3 take this block, by the JAX package's rule
+    (``_pallas_ok``): a function of the spec, shapes and dtype alone, so
+    forward and backward agree."""
     spec = cfg.spec
     if dtype not in (torch.float32, torch.bfloat16):
         return False
-    if spec.bits > 6 or spec.name != "gelu" or spec.codes is not compare_codes:
+    if spec.bits > 6 or spec.code == "stepwise":
+        return False
+    if spec.n_borders > 0 and spec.codes is not compare_codes:
         return False
     if n % K.FFN_BN or m % K.FFN_BM or kdim % 128 or h % 128:
         return False
@@ -92,8 +96,9 @@ class _FFN(torch.autograd.Function):
             z = _dot_acc_f32(x2, w_up)
             if b_up is not None:
                 z = z + b_up
-            packed = pack_codes(spec.codes(z, borders, spec.args), spec.bits)
-            y2 = spec.fwd(z, spec.args).to(x.dtype)
+            args = spec_args(spec, torch.float32)
+            packed = pack_codes(spec.codes(z, borders, args), spec.bits)
+            y2 = spec.fwd(z, args).to(x.dtype)
             sk_y = _countsketch_signed(y2, sig_down, k_eff)
         sk_x = _countsketch_signed(x2, sig_up, k_eff)
 

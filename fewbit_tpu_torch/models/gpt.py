@@ -10,7 +10,9 @@ The config switches are those of the RoBERTa model:
   5 backward): the backward keeps ``bits / 8``-byte codes, never the
   pre-activation;
 * ``proj_dim_ratio`` -- every projection (and the up projection's weight
-  gradient) keeps a countsketch of its input along the batch x seq axis.
+  gradient) keeps a sketch of its input along the batch x seq axis, of the
+  kind ``sketch`` names (``"countsketch"`` by default, as in the JAX
+  config, which takes kernel 1; any kind of ``MATMUL_KINDS``).
 
 ``flash_attention`` chooses the attention op per call
 (:func:`fewbit_tpu_torch.models.flash.use_flash`): the causal flash op of

@@ -30,8 +30,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The tensor-core schedules of kernel 6 but the k loop, which has one more
-# int (its epilogue switch).
-_DENSE_ACT = (_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+# int (its epilogue switch).  The activation's ActArgs goes by address.
+_DENSE_ACT = (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
               _I, _P)
 # The flash kernels, on the tensor cores and on CUDA cores: forward, dK/dV,
 # dQ.
@@ -48,22 +48,22 @@ SIGNATURES = {
     "fewbit_matmul_sketch_smem": (_I, _I, _I, _I, _I),
     "fewbit_input_sketch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "fewbit_dense_act_sketch": (
-        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-        _I, _I, _I, _P),
+        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+        _I, _I, _I, _I, _P),
     "fewbit_dense_act_sketch_x_simt": (
-        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-        _I, _I, _P),
+        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+        _I, _I, _I, _P),
     "fewbit_ffn_gemm_smem": (_I, _I),
     "fewbit_dense_act_sketch_x_smem": (_I, _I, _I, _I),
     "fewbit_matmul_lut_backward": (
         _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _I, _P),
-    "fewbit_act_forward": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
+    "fewbit_act_forward": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "fewbit_act_backward": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
     "fewbit_dense_act_simt": (
-        _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+        _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "fewbit_dense_act_kloop": (
-        _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _I, _P),
     "fewbit_dense_act_direct": _DENSE_ACT,
     "fewbit_dense_act_emit": _DENSE_ACT,

@@ -29,7 +29,9 @@ from typing import Optional
 
 import torch
 
-from fewbit_tpu_torch.ops.activations import apply_lut, compare_codes
+from fewbit_tpu_torch.ops.activations import (ACT_IDS, apply_lut,
+                                              compare_codes, kernel_args,
+                                              spec_args)
 from fewbit_tpu_torch.ops.bitpack import (packed_shape, pack_codes,
                                           unpack_codes)
 from fewbit_tpu_torch.ops.flash_attention import (flash_backward_dkv_plain,
@@ -65,8 +67,23 @@ FFN_BN = 512  # row granularity of the sketch partition (k_eff % FFN_BN)
 FFN_BM = 512  # column granularity of the FFN kernels' envelope
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# Activation ids of the kernels (csrc/common.cuh): the exact GELU so far.
-ACT_IDS = {"gelu": 0}
+
+
+class ActArgs(ctypes.Structure):
+    """What a kernel reads of an activation spec: ``ActArgs`` of
+    ``csrc/common.cuh``, filled by :func:`fewbit_tpu_torch.ops.activations.
+    kernel_args` and handed to an entry point by address."""
+
+    _fields_ = [("act", ctypes.c_int), ("kind", ctypes.c_int),
+                ("a0", ctypes.c_float), ("a1", ctypes.c_float),
+                ("lo", ctypes.c_float), ("hi", ctypes.c_float),
+                ("pred_abs", ctypes.c_int), ("shift", ctypes.c_float),
+                ("parity", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=256)
+def _act_args(spec, dtype) -> ActArgs:
+    return ActArgs(*kernel_args(spec, dtype))
 
 
 def sketch_dtype(dtype) -> torch.dtype:
@@ -216,11 +233,20 @@ def dense_act_sketch_x_route(kdim: int, m: int, dtype) -> tuple:
     return False, ffn_gemm_route(m, dtype)
 
 
-def _act_spec_in(spec) -> bool:
-    """Whether the kernels compute ``spec``: an activation with an id,
-    border codes, at most 6 bits and 63 borders."""
-    return (spec.name in ACT_IDS and spec.codes is compare_codes
-            and 1 <= spec.bits <= 6 and spec.n_borders < 64)
+def _act_spec_in(spec, stepwise: bool = True) -> bool:
+    """Whether the kernels compute ``spec``, by the JAX package's rule
+    (``_eligible``): at most 6 bits, and border codes by
+    ``compare_codes``, a piecewise function's predicate, or (kernels 4
+    and 5) ``stepwise``'s codes; an activation with a kernel id.  A spec
+    over 6 bits (a stepwise LUT of more than 64 levels) takes the plain
+    path."""
+    if spec.name not in ACT_IDS or not 1 <= spec.bits <= 6:
+        return False
+    if spec.code == "borders":
+        return spec.codes is compare_codes
+    if spec.code == "predicate":
+        return spec.n_borders == 0
+    return stepwise and spec.code == "stepwise"
 
 
 def act_kernel_ok(spec, c: int, dtype) -> bool:
@@ -232,9 +258,11 @@ def act_kernel_ok(spec, c: int, dtype) -> bool:
 
 def dense_act_ok(spec, kdim: int, m: int, dtype) -> bool:
     """Envelope of kernel 6: K and M multiples of 128, f32 or bf16; any N
-    (ragged rows are masked)."""
+    (ragged rows are masked); any spec of :func:`act_kernel_ok` but
+    ``stepwise``, which no name resolves to (``resolve_activation``
+    raises for it)."""
     return (dtype in _DTYPES and kdim % 128 == 0 and m % 128 == 0
-            and _act_spec_in(spec))
+            and _act_spec_in(spec, stepwise=False))
 
 
 # Kernel 6 on the tensor cores: four schedules of one function
@@ -399,8 +427,9 @@ def dense_act_sketch_plain(spec, x, w, bias, borders, sigma, k_eff: int,
     z = dot_f32(x, w)
     if bias is not None:
         z = z + bias.float()
-    packed = pack_codes(spec.codes(z, borders, spec.args), spec.bits)
-    y = spec.fwd(z, spec.args).to(x.dtype)
+    args = spec_args(spec, torch.float32)
+    packed = pack_codes(spec.codes(z, borders, args), spec.bits)
+    y = spec.fwd(z, args).to(x.dtype)
     out = (y, packed, countsketch_signed(y, sigma, k_eff))
     if sigma_x is None:
         return out
@@ -422,8 +451,12 @@ def matmul_lut_backward_plain(spec, packed, levels, g, wt, sigma,
 
 
 def act_forward_plain(spec, x, borders):
-    packed = pack_codes(spec.codes(x, borders, spec.args), spec.bits)
-    return spec.fwd(x, spec.args).to(x.dtype), packed
+    """Kernel 4's function: the forward and the codes of the f32-widened
+    ``x`` with the arguments in x's type (:func:`spec_args`), y stored
+    once in x's type."""
+    args, xf = spec_args(spec, x.dtype), x.float()
+    packed = pack_codes(spec.codes(xf, borders, args), spec.bits)
+    return spec.fwd(xf, args).to(x.dtype), packed
 
 
 def act_backward_plain(spec, packed, levels, g):
@@ -444,8 +477,9 @@ def dense_act_plain(spec, x, w, bias, borders, out_dtype=None,
         return z.to(out_dtype), torch.zeros(
             packed_shape(x.shape[0], w.shape[1], 1), dtype=torch.int32,
             device=x.device)
-    packed = pack_codes(spec.codes(z, borders, spec.args), spec.bits)
-    return spec.fwd(z, spec.args).to(out_dtype), packed
+    args = spec_args(spec, torch.float32)
+    packed = pack_codes(spec.codes(z, borders, args), spec.bits)
+    return spec.fwd(z, args).to(out_dtype), packed
 
 
 # ---------------------------------------------------------------------------
@@ -503,9 +537,10 @@ def _launch(fn_name: str, device, *args) -> None:
 
 
 def _ffn_spec_ok(spec) -> None:
-    _require(spec.name == "gelu" and _act_spec_in(spec),
-             f"the FFN kernels compute the exact GELU with border codes at "
-             f"1..6 bits, not {spec.name!r} at {spec.bits} bits")
+    _require(_act_spec_in(spec, stepwise=False),
+             f"kernel 2 computes an activation with border or predicate "
+             f"codes at 1..6 bits, not {spec.name!r} ({spec.code}) at "
+             f"{spec.bits} bits")
 
 
 def _tma_ok(a: torch.Tensor, a_name: str, w: torch.Tensor, w_name: str,
@@ -730,6 +765,7 @@ def fused_dense_act_sketch(spec, x: torch.Tensor, w: torch.Tensor,
     w_prep = _weight_scratch(trans, m, kdim, dt, dev)
     _launch("fewbit_dense_act_sketch", dev, x.data_ptr(), w.data_ptr(),
             trans, _ptr(bias), borders.data_ptr(), spec.n_borders,
+            ctypes.byref(_act_args(spec, torch.float32)),
             sigma.data_ptr(), *(t.data_ptr() for t in got[:3]),
             _ptr(sigma_x) if fused else None,
             got[3].data_ptr() if fused else None, _ptr(w_prep), n, kdim, m,
@@ -768,7 +804,8 @@ def dense_act_sketch_x_simt(spec, x, w, bias, borders, sigma, k_eff: int,
                torch.empty(k_eff, kdim, dtype=torch.float32, device=dev))
     _launch("fewbit_dense_act_sketch_x_simt", dev, x.data_ptr(),
             w.data_ptr(), trans, _ptr(bias), borders.data_ptr(),
-            spec.n_borders, sigma.data_ptr(),
+            spec.n_borders, ctypes.byref(_act_args(spec, torch.float32)),
+            sigma.data_ptr(),
             *(t.data_ptr() for t in got[:3]), sigma_x.data_ptr(),
             skx_acc.data_ptr(),
             None if skx_acc is got[3] else got[3].data_ptr(), n, kdim, m,
@@ -862,7 +899,8 @@ def fused_forward(spec, x: torch.Tensor, borders: torch.Tensor):
     packed = torch.empty(packed_shape(r, c, spec.bits), dtype=torch.int32,
                          device=dev)
     _launch("fewbit_act_forward", dev, x.data_ptr(), borders.data_ptr(),
-            spec.n_borders, ACT_IDS[spec.name], y.data_ptr(),
+            spec.n_borders, ctypes.byref(_act_args(spec, x.dtype)),
+            y.data_ptr(),
             packed.data_ptr(), r, c, spec.bits,
             int(x.dtype == torch.bfloat16))
     fused_forward.launches += 1
@@ -954,8 +992,9 @@ def _dense_act_tensor_core(schedule: str, spec, x, w, bias, borders,
                          device=dev)
     w_prep = _weight_scratch(trans, m, kdim, dt, dev)
     args = [x.data_ptr(), w.data_ptr(), trans, _ptr(bias),
-            borders.data_ptr(), spec.n_borders, ACT_IDS[spec.name],
-            y.data_ptr(), packed.data_ptr(), _ptr(w_prep), n, kdim, m, bits,
+            borders.data_ptr(), spec.n_borders,
+            ctypes.byref(_act_args(spec, torch.float32)), y.data_ptr(),
+            packed.data_ptr(), _ptr(w_prep), n, kdim, m, bits,
             bn, int(dt == torch.bfloat16), int(out_dtype == torch.bfloat16)]
     if schedule == "kloop":
         args.append(int(epilogue))
@@ -1032,7 +1071,8 @@ def dense_act_simt(spec, x, w, bias, borders):
                          device=dev)
     _launch("fewbit_dense_act_simt", dev, x.data_ptr(), w.data_ptr(), trans,
             _ptr(bias), borders.data_ptr(), spec.n_borders,
-            ACT_IDS[spec.name], y.data_ptr(), packed.data_ptr(), n, kdim, m,
+            ctypes.byref(_act_args(spec, torch.float32)), y.data_ptr(),
+            packed.data_ptr(), n, kdim, m,
             spec.bits, int(dt == torch.bfloat16))
     dense_act_simt.launches += 1
     return y, packed

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as TF
 
 __all__ = ("TrainConfig", "make_schedule", "make_optimizer",
-           "classification_loss", "causal_lm_loss", "make_train_step",
+           "classification_loss", "causal_lm_loss", "clip_by_global_norm_",
+           "make_train_step",
            "make_eval_step", "save_checkpoint", "restore_checkpoint")
 
 
@@ -79,6 +80,19 @@ def causal_lm_loss(logits: torch.Tensor,
     return total / valid.sum().clamp_min(1)
 
 
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """Scale the gradients of ``params`` in place by ``max_norm / norm``
+    where their global 2-norm is at least ``max_norm``, as
+    ``optax.clip_by_global_norm`` does (each gradient ``g / norm *
+    max_norm``; no epsilon).  Returns the norm, without a host sync."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+    return norm
+
+
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
                     loss_fn: Callable = classification_loss) -> Callable:
     """Build ``step(batch, generator) -> {"loss": tensor}``.
@@ -105,7 +119,7 @@ def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
         loss = loss_fn(logits, batch["labels"])
         loss.backward()
         if cfg.max_grad_norm:
-            torch.nn.utils.clip_grad_norm_(params, cfg.max_grad_norm)
+            clip_by_global_norm_(params, cfg.max_grad_norm)
         opt.step()
         sched.step()
         # Gradients live only inside the step, as in the JAX step.

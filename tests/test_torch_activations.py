@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 import fewbit_tpu.functional as JF
+from fewbit_tpu.functional import activations as jax_acts
 from fewbit_tpu.functional.activations import \
     resolve_activation as jax_resolve
 from fewbit_tpu.ops import activations as jax_act
@@ -132,12 +133,21 @@ def test_plain_kernels_4_5_match_pallas(interpret, lut, shape):
 
 
 def test_act_envelope_matches_jax_eligible():
-    for lut in (dict(bits=3), LUT32):
-        spec, _, _ = resolve_activation("gelu", **lut)
-        jspec, _, _ = jax_resolve("gelu", **lut)
-        for c in (64, 100, 128, 384, 3072):
-            for dt, jdt in ((torch.float32, jnp.float32),
-                            (torch.bfloat16, jnp.bfloat16),
-                            (torch.float16, jnp.float16)):
-                assert K.act_kernel_ok(spec, c, dt) == pk._eligible(
-                    jspec, (16, c), jnp.dtype(jdt))
+    """Kernels 4 and 5 (``act_kernel_ok``) and kernel 6 (``dense_act_ok``)
+    take what ``_eligible`` takes, for every activation name with a
+    builtin LUT (or its predicate) and a custom 32-level one."""
+    names = jax_acts.CONTINUOUS + tuple(
+        n for n in jax_acts.STEPWISE if n != "stepwise")
+    for name in names:
+        luts = ((dict(bits=3), LUT32) if name in jax_acts.CONTINUOUS
+                else ({},))
+        for lut in luts:
+            spec, _, _ = resolve_activation(name, **lut)
+            jspec, _, _ = jax_resolve(name, **lut)
+            for c in (64, 100, 128, 384, 3072):
+                for dt, jdt in ((torch.float32, jnp.float32),
+                                (torch.bfloat16, jnp.bfloat16),
+                                (torch.float16, jnp.float16)):
+                    want = pk._eligible(jspec, (16, c), jnp.dtype(jdt))
+                    assert K.act_kernel_ok(spec, c, dt) == want, name
+                    assert K.dense_act_ok(spec, 128, c, dt) == want, name

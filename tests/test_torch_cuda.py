@@ -11,6 +11,8 @@ thousands of rows (1e-3).  Codes may flip only where z lies within
 rounding of a border, on at most 1e-4 of the elements.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -1009,3 +1011,146 @@ def test_shipped_dense_act_takes_its_rule_on_cuda(cuda, dtype, n):
     _close("y", y, y0, tol)
     _flips_ok(packed, packed0, K.dot_f32(x, w) + bias.float(), borders, 3)
     assert K.launch_counts() == {k: 0 for k in K.KERNELS} | {"dense_act": 1}
+
+
+# Every activation id, with its default arguments and (for the ids that take
+# them) another set that bf16 cannot hold exactly; stepwise by parity, with
+# a shift, a 5-level LUT and a 6-bit one.
+ACT_OTHER_ARGS = {"hardshrink": (0.3,), "hardtanh": (-0.7, 0.3),
+                  "leaky_relu": (0.1,), "softshrink": (0.3,),
+                  "threshold": (0.3, -0.2), "celu": (0.5,), "elu": (1.5,),
+                  "softplus": (2.0, 5.0)}
+ACT_NAMES = [n for n in K.ACT_IDS if n != "stepwise"]
+ACT_CASES = ([(n, ()) for n in ACT_NAMES]
+             + [(n, a) for n, a in ACT_OTHER_ARGS.items()])
+STEPWISE_CUDA = {
+    "none+shift": ([-1.0, 0.0, 0.7, 1.4], [0.1, 0.3, 0.5, 0.7, 0.9], None,
+                   (0.1, 0.5)),
+    "even": ([0.4, 0.8, 1.6], [1.0, 0.6, 0.3, 0.1], False, None),
+    "odd+shift": ([0.3, 0.9, 1.6, 2.4], [1.0, 0.8, 0.5, 0.2, 0.05], True,
+                  (0.1, 0.25)),
+    "odd 6-bit": (torch.linspace(0.1, 3.1, 31).tolist(),
+                  torch.linspace(1.0, 0.0, 32).tolist(), True, None),
+}
+
+
+def _act(cuda, case):
+    from fewbit_tpu_torch.functional.activations import stepwise_triple
+
+    if case in STEPWISE_CUDA:
+        return stepwise_triple(*STEPWISE_CUDA[case], device=cuda)
+    name, args = case
+    return resolve_activation(name, args=args, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ACT_CASES + list(STEPWISE_CUDA),
+                         ids=[f"{n}{a}" for n, a in ACT_CASES]
+                         + [f"stepwise {k}" for k in STEPWISE_CUDA])
+def test_every_activation_kernels_4_5_match_plain_on_cuda(cuda, dtype, case):
+    """Kernels 4 and 5 for every activation id and code kind, ragged R and
+    C not a multiple of 128 for kernel 4: the packed words and dx equal to
+    the plain version's, y within the tolerance."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    spec, borders, levels = _act(cuda, case)
+    for r, c in ((1000, 384), (77, 100)):
+        x = (torch.randn(r, c, generator=gen, device=cuda) * 2.5).to(dtype)
+        y, packed = K.fused_forward(spec, x, borders)
+        y0, packed0 = K.act_forward_plain(spec, x, borders)
+        assert torch.equal(packed, packed0)
+        err = (y.float() - y0.float()).abs().max().item()
+        assert err <= tol * max(1.0, y0.float().abs().max().item()), err
+    x = (torch.randn(1000, 384, generator=gen, device=cuda) * 2.5).to(dtype)
+    _, packed = K.fused_forward(spec, x, borders)
+    g = torch.randn(1000, 384, generator=gen, device=cuda).to(dtype)
+    assert torch.equal(K.fused_backward(spec, packed, levels, g),
+                       K.act_backward_plain(spec, packed, levels, g))
+
+
+def _edges(spec, borders):
+    """Where a code may flip: the borders, or a predicate's thresholds."""
+    from fewbit_tpu_torch.ops.activations import kernel_args
+
+    if spec.code != "predicate":
+        return borders
+    lo, hi, on_abs = kernel_args(spec, torch.float32)[4:7]
+    edges = [lo] + ([] if math.isnan(hi) else [hi]) + ([-lo] if on_abs
+                                                       else [])
+    return torch.tensor(edges, device=borders.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ACT_CASES,
+                         ids=[f"{n}{a}" for n, a in ACT_CASES])
+def test_every_activation_kernels_6_5_match_plain_on_cuda(cuda, dtype, case):
+    """Kernel 6 on every schedule its envelope admits, for every id but
+    stepwise, ragged N: y within the tolerance (away from a jump of the
+    forward), codes flipped only near a border or threshold, and kernel 5
+    on its codes equal to plain."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n, kdim, m = 1000, 256, 384
+    spec, borders, levels = _act(cuda, case)
+    x = torch.randn(n, kdim, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(m, kdim, generator=gen, device=cuda) * 0.1).to(dtype)
+    bias = (torch.randn(m, generator=gen, device=cuda) * 0.1).to(dtype)
+    z = K.dot_f32(x, w.t()) + bias.float()
+    g = torch.randn(n, m, generator=gen, device=cuda).to(dtype)
+    y0, packed0 = K.dense_act_plain(spec, x, w.t(), bias, borders)
+    wrappers = [K.fused_dense_act, K.dense_act_kloop, K.dense_act_pipelined]
+    if K.dense_act_direct_route(kdim, m, dtype) is not None:
+        wrappers.append(K.dense_act_direct)
+    if K.dense_act_emit_route(kdim, m, dtype) is not None:
+        wrappers.append(K.dense_act_emit)
+    # y may take either side of a jump of the forward (hardshrink and
+    # threshold at their thresholds, softplus at threshold / beta) where z
+    # lies within rounding of it, as a code does at a border.
+    a = spec.args
+    jumps = ([a[0], -a[0]] if spec.name == "hardshrink" else
+             [a[0]] if spec.name == "threshold" else
+             [a[1] / a[0]] if spec.name == "softplus" else [])
+    far = torch.ones_like(z, dtype=torch.bool)
+    for edge in jumps:
+        far &= (z - edge).abs() > 1e-3
+    for wrapper in wrappers:
+        y, packed = wrapper(spec, x, w.t(), bias, borders)
+        err = (y.float() - y0.float())[far].abs().max().item()
+        assert err <= tol * max(1.0, y0.float().abs().max().item()), err
+        _flips_ok(packed, packed0, z, _edges(spec, borders), spec.bits)
+        assert torch.equal(K.fused_backward(spec, packed, levels, g),
+                           K.act_backward_plain(spec, packed, levels, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [("relu", ()), ("silu", ()),
+                                  ("hardtanh", (-0.7, 0.3)), ("mish", ())],
+                         ids=["relu", "silu", "hardtanh", "mish"])
+def test_non_gelu_ffn_kernels_2_3_match_plain_on_cuda(cuda, dtype, case):
+    """Kernels 2 and 3 with other activations than GELU, kernel 3 on kernel
+    2's codes; and fewbit_ffn takes them for such a spec."""
+    from fewbit_tpu_torch.functional import ffn as port_ffn
+
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    n, kdim, m, k_eff = 2048, 256, 512, 1024
+    spec, borders, levels = _act(cuda, case)
+    x, g, w_up, w_down, bias, sigma = _ffn_inputs(cuda, dtype, n, kdim, m, 1,
+                                                  5)
+    args = (spec, x, w_up, bias, borders, sigma, k_eff)
+    y, packed, sk = K.fused_dense_act_sketch(*args)
+    y0, packed0, sk0 = K.dense_act_sketch_plain(*args)
+    _close("y", y, y0, tol)
+    _close("sketch", sk, sk0, tol)
+    z = K.dot_f32(x, w_up) + bias.float()
+    _flips_ok(packed, packed0, z, _edges(spec, borders), spec.bits)
+    args = (spec, packed, levels, g, w_down, sigma, k_eff)
+    for name, a, b, t in zip(("dz", "sketch", "db"),
+                             K.fused_matmul_lut_backward(*args),
+                             K.matmul_lut_backward_plain(*args),
+                             (tol, tol, 1e-3)):
+        _close(name, a, b, t)
+    cfg = port_ffn._FFNConfig(spec, k_eff, True, True)
+    assert port_ffn._kernel_ok(cfg, n, kdim, m, kdim, dtype)

@@ -154,12 +154,25 @@ def test_vanilla_slice_matches_jax(extra):
 
 
 def test_fewbit_slice_matches_jax(monkeypatch):
+    _check_fewbit_slice(monkeypatch, FEWBIT)
+
+
+@pytest.mark.parametrize("sketch", ["gaussian", "srht"])
+def test_fewbit_slice_sketch_kinds_match_jax(monkeypatch, sketch):
+    """The few-bit slice with the gaussian sketch and a structured one
+    (srht) in place of the default countsketch: no kernel 1, and every
+    sketch of the kind's own draws; logits, loss and every unsketched
+    gradient as above."""
+    _check_fewbit_slice(monkeypatch, {**FEWBIT, "sketch": sketch})
+
+
+def _check_fewbit_slice(monkeypatch, extra):
     monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
     # Unrolled layers: XLA compiles a scanned body with other fusions, and
     # activations a few ulps apart flip a code lying within 1e-6 of a
     # border more often (one flip moves a bias gradient by ~5e-4 of its
     # norm).  The transplant of scanned trees is tested above.
-    jmodel, params, tmodel, b = _models(FEWBIT, scan_layers=False)
+    jmodel, params, tmodel, b = _models(extra, scan_layers=False)
     jl, jlogits, jgrads = _jax_loss_grads(jmodel, params, b)
     tl, tlogits = _torch_loss_grads(tmodel, b)
     # The forward is exact in both packages.

@@ -89,8 +89,18 @@ def test_codes_and_lut_select_match_jax(bits):
 
 
 def test_unported_activation_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_activation("silu", bits=3)
+    """ROADMAP queue 1 item 7 is done: silu resolves as in the JAX
+    package; what the JAX package refuses (stepwise, which has no builtin
+    LUT, and unknown names) raises its ValueError."""
+    spec, b, v = resolve_activation("silu", bits=3)
+    jspec, jb, jv = jax_resolve("silu", bits=3)
+    assert (spec.name, spec.bits, spec.n_borders) == (
+        jspec.name, jspec.bits, jspec.n_borders)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    for name in ("stepwise", "nope"):
+        with pytest.raises(ValueError, match="unknown activation"):
+            resolve_activation(name)
 
 
 # ---------------------------------------------------------------------------

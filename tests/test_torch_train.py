@@ -13,6 +13,8 @@ other draws and are not compared.  The checkpoint round trip is exact.
 """
 
 import numpy as np
+import optax
+import pytest
 import torch
 
 import jax
@@ -24,6 +26,7 @@ from fewbit_tpu.train import TrainConfig as JaxTrainConfig
 from fewbit_tpu.train import create_train_state
 from fewbit_tpu.train.loop import classification_loss as jax_loss
 from fewbit_tpu.train.loop import make_eval_step as jax_make_eval_step
+from fewbit_tpu.train.loop import make_train_step as jax_make_train_step
 
 from fewbit_tpu_torch.models import (RobertaConfig,
                                      RobertaForSequenceClassification,
@@ -33,6 +36,7 @@ from fewbit_tpu_torch.train import (TrainConfig, classification_loss,
                                     make_eval_step, make_train_step,
                                     restore_checkpoint, save_checkpoint,
                                     synthetic_glue)
+from fewbit_tpu_torch.train.loop import clip_by_global_norm_
 
 SMALL = dict(vocab_size=1000, hidden_size=64, num_layers=2, num_heads=2,
              intermediate_size=128, max_position_embeddings=66,
@@ -166,3 +170,61 @@ def test_checkpoint_round_trip_resumes_exactly(tmp_path):
     for (n, p), (_, q) in zip(model.named_parameters(),
                               model2.named_parameters()):
         assert torch.equal(p, q), n
+
+
+@pytest.mark.parametrize("where", ["above", "below"])
+def test_clip_by_global_norm_matches_optax(where):
+    """F-5: the port's clip scales by max_norm / norm where the global norm
+    reaches the bound, as ``optax.clip_by_global_norm`` does, with no
+    epsilon (``clip_grad_norm_``'s max_norm / (norm + 1e-6) is 5% off at
+    this norm of 2e-5)."""
+    rng = np.random.RandomState(3)
+    grads = [rng.randn(*s).astype(np.float32) for s in ((7, 5), (5,), (3,))]
+    norm = np.sqrt(sum((g.astype(np.float64) ** 2).sum() for g in grads))
+    grads = [g * np.float32(2e-5 / norm) for g in grads]
+    max_norm = 1e-5 if where == "above" else 1e-4
+    tx = optax.clip_by_global_norm(max_norm)
+    want, _ = tx.update([jnp.asarray(g) for g in grads], tx.init(grads))
+    params = [torch.nn.Parameter(torch.zeros(g.shape)) for g in grads]
+    for p, g in zip(params, grads):
+        p.grad = torch.from_numpy(g.copy())
+    got = clip_by_global_norm_(params, max_norm)
+    assert abs(got.item() - 2e-5) < 1e-10
+    for p, w in zip(params, want):
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=0)
+    scale = 0.5 if where == "above" else 1.0
+    np.testing.assert_allclose(params[0].grad.numpy(), grads[0] * scale,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("where", ["above", "below"])
+def test_train_step_with_max_grad_norm_matches_jax(where):
+    """F-5: two steps of the exact tiny model with ``max_grad_norm`` set,
+    once below the gradient's norm (clipped) and once above it, give the
+    JAX step's parameters.  Adam's eps is 1 so that the update follows the
+    clipped gradient's scale (with eps 1e-6 Adam divides it out); the first
+    step's learning rate is 0, so the second step's update is compared."""
+    jmodel, params, tmodel, b = _models()
+    max_norm = 1e-3 if where == "above" else 1e3
+    common = dict(total_steps=4, learning_rate=1e-2, eps=1.0,
+                  max_grad_norm=max_norm)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    state = create_train_state(jmodel, JaxTrainConfig(**common), jb)
+    state = state.replace(params=jax.tree_util.tree_map(jnp.asarray, params))
+    jstep = jax.jit(jax_make_train_step(jmodel))
+    step = make_train_step(tmodel, TrainConfig(**common))
+    gen = torch.Generator().manual_seed(0)
+    before = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
+    for i in range(2):
+        state, metrics = jstep(state, jb, jax.random.key(i))
+        loss = step(_torch_batch(b), gen)["loss"]
+        assert abs(loss.item() - float(metrics["loss"])) < 1e-5
+    moved = 0
+    for param, want in flax_param_pairs(tmodel, jax.tree_util.tree_map(
+            np.asarray, state.params)):
+        np.testing.assert_allclose(param.detach().numpy(), want, rtol=1e-5,
+                                   atol=1e-7)
+    for n, p in tmodel.named_parameters():
+        moved += int(not torch.equal(p, before[n]))
+    assert moved == len(before)
