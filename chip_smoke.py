@@ -95,9 +95,10 @@ others; ``stepwise`` by parity, with and without a shift, a 5-level LUT
 and a 6-bit one) through kernels 4 and 5 at the MLP tower's (8192, 3072),
 every id but ``stepwise`` through kernel 6's scheduled route and kernel 5
 at 8192 x 768 -> 3072, and ``relu`` and ``silu`` (and ``gelu``, timed)
-through kernels 2 and 3 at the FFN shape, in f32 and bf16, each against
-its plain version: kernel 4's codes and every dx equal, codes of kernels 6
-and 2 flipped only within FLIP_BAND of a border or a predicate's
+through kernels 2 and 3 at the FFN shape (``relu`` and ``silu`` also
+through kernel 2' and its CUDA-core kernel), in f32 and bf16, each against
+its plain version: kernel 4's codes and every dx equal, codes of kernels
+6, 2 and 2' flipped only within FLIP_BAND of a border or a predicate's
 threshold, y within TOL (kernel 6's outside FLIP_BAND of a jump of the
 forward); device ms per id.  Then its path: ``FewBitFFN(768, 3072, 768,
 activation=...)`` at N = 8192 with ``relu`` and ``silu``, forward equal to
@@ -295,26 +296,12 @@ def phase_device():
     return smi
 
 
-def device_ms(fn, reps=10, tries=3):
-    """Device milliseconds of ``fn`` per call: the time of the CUDA
-    kernels it launches, summed over a profiled run of ``reps`` calls
-    (torch.profiler), without the host's share of the call.  A profiled
-    run that reports no device time at all (the profiler's, not the
-    kernel's: the kernel's results were checked before) is taken again,
-    up to ``tries`` runs."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, reps=10):
+    """Device milliseconds of ``fn`` per call, by the profiler
+    (``fewbit_tpu_torch.tools.act_timing.device_ms``)."""
+    from fewbit_tpu_torch.tools.act_timing import device_ms as profiled
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.key_averages())
-        if total > 0:
-            return total / reps / 1e3
-    raise AssertionError("the profiler saw no device time")
+    return profiled(fn, reps)
 
 
 def _gemm_case(results, name, mode, tag, wrapper, plain, args, errs, route,
@@ -1008,11 +995,12 @@ def phase_activations():
     f32 and bf16: codes equal (kernel 4) or flipped only within FLIP_BAND
     of a border or threshold (kernel 6), dx equal to the bit, y within TOL
     (for kernel 6 outside FLIP_BAND of a jump of the forward).
-    Kernels 2 and 3 for relu and silu at the FFN shape against their plain
-    versions; then the path: ``FewBitFFN(768, 3072, 768, activation=...)``
-    at N = 8192, forward (equal to the exact block within TOL) and
-    backward, with the counts at 0 just before and read just after.
-    Returns (summary, counts)."""
+    Kernels 2, 2' (its route and its CUDA-core kernel) and 3 for relu and
+    silu at the FFN shape against their plain versions; then the path:
+    ``FewBitFFN(768, 3072, 768, activation=...)`` at N = 8192, forward
+    (equal to the exact block within TOL) and backward, with the counts at
+    0 just before and read just after (its launches stay in the returned
+    summary, apart from the training paths' counts)."""
     from fewbit_tpu_torch.functional.activations import resolve_activation
     from fewbit_tpu_torch.modules import FewBitFFN
     from fewbit_tpu_torch.ops import kernels as K
@@ -1021,8 +1009,9 @@ def phase_activations():
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     out = {"fused_forward": {}, "dense_act": {}, "dense_act_sketch": {},
            "flips": {}}
-    sigma = torch.randint(0, 2, (N,), generator=gen,
-                          device=dev).float() * 2 - 1
+    sigma, sigma_x = (torch.randint(0, 2, (N,), generator=gen,
+                                    device=dev).float() * 2 - 1
+                      for _ in range(2))
     cases = list(_act_cases(dev))
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[dt]
@@ -1090,6 +1079,22 @@ def phase_activations():
             if name in ACT_TIMED_K2:
                 out["dense_act_sketch"][f"{name} {tag}"] = device_ms(
                     lambda: K.fused_dense_act_sketch(*args))
+            if name not in FFN_ACTS:
+                continue
+            # Kernel 2' (its route at this shape, and its CUDA-core
+            # kernel): y, codes and both sketches.
+            xargs = args + (sigma_x,)
+            want = K.dense_act_sketch_x_plain(*xargs)
+            for way, fn in (("k2'", K.fused_dense_act_sketch_x),
+                            ("k2' simt", K.dense_act_sketch_x_simt)):
+                got = fn(*xargs)
+                for what, a, r in zip(("y", "sketch_y", "sketch_x"),
+                                      got[:1] + got[2:], want[:1] + want[2:]):
+                    compare(f"{way} {name} {tag} {what}", a, r, tol)
+                out["flips"][f"{way} {name} {tag}"] = code_flips(
+                    f"{way} {name} {tag}", got[1], want[1], z0,
+                    _code_borders(spec, borders), spec.bits)
+            del got, want
         del x, w, b, g, z0
         torch.cuda.empty_cache()
     # The path: FewBitFFN with a non-GELU activation, through kernels 2
@@ -1123,17 +1128,18 @@ def phase_activations():
         raise AssertionError(f"FewBitFFN activations: launches {counts}, "
                              f"expected {expected}")
     out["ffn"] = ffn_out
+    out["ffn_launches"] = {k: v for k, v in counts.items() if v}
     log(f"activations, kernel 4 device ms per id at ({N}, {FFN}): "
         f"{json.dumps(out['fused_forward'])}")
     log(f"activations, kernel 6 at {N} x {HIDDEN} -> {FFN}, device ms: "
         f"{json.dumps(out['dense_act'])}")
     log(f"activations, kernel 2 at {N} x {HIDDEN} -> {FFN}, device ms: "
         f"{json.dumps(out['dense_act_sketch'])}")
-    log(f"activations, code flips of kernels 6 and 2 against plain: "
+    log(f"activations, code flips of kernels 6, 2 and 2' against plain: "
         f"{json.dumps(out['flips'])}")
     log(f"activations, FewBitFFN path: {json.dumps(ffn_out)}; launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
-    return out, counts
+        f"{out['ffn_launches']}")
+    return out
 
 
 def _standard_attention(q, k, v, mask, scale):
@@ -1682,7 +1688,7 @@ def main():
         return
     results = phase_kernels()
     train, counts = {}, {}
-    activations, counts["ffn_activations"] = phase_activations()
+    activations = phase_activations()
     crossover = phase_crossover()
     for path, run in (("roberta_fused_ffn", phase_path),
                       ("gpt2_small", phase_path),

@@ -25,19 +25,17 @@
 // group of rows before it computes any, so several rows are in flight.  Its
 // code counts the borders below x from a table padded with +inf to 2^TB
 // entries (TB, the table's bits, a template parameter), four borders to a
-// read: no runtime-length loop per element.  That kernel computes GELU with
-// border codes; the host launches it for that spec.  Any other spec takes
-// act_forward_any_kernel: the same thread layout, table and packing, the
-// code of any kind (stepwise counts on x - s or |x - s| and adds its sign
-// bit, a predicate is one compare pair), and act_forward_any called per
-// element.  Its arguments
-// come rounded to x's type (spec_args in ops/activations.py), so a bf16 x
-// compares with bf16(lambda), as the JAX package's weakly typed scalars do;
-// stepwise's shift stays f32, as its Pallas kernel recentres in f32.  A
-// row or column past the edge
-// is neither read nor written and gives zero bits; where C or an address
-// does not allow 16-byte accesses, each element is read alone.  The
-// backward's thread owns one column.  The TPU kernels aliased y onto x and
+// read: no runtime-length loop per element.  It is built twice, chosen at
+// launch by the spec (uniform over the launch): for GELU with border codes,
+// gelu_exact inline; and for any other spec, the code of any kind
+// (stepwise counts on x - s or |x - s| and adds its sign bit, a predicate
+// is one compare pair) and act_forward_any called per element.  Its
+// arguments come rounded to x's type (spec_args in ops/activations.py), so
+// a bf16 x compares with bf16(lambda), as the JAX package's weakly typed
+// scalars do; stepwise's shift stays f32, as its Pallas kernel recentres in
+// f32.  A row or column past the edge is neither read nor written and
+// gives zero bits; where C or an address does not allow 16-byte accesses,
+// each element is read alone.  The backward's thread owns one column.  The TPU kernels aliased y onto x and
 // dx onto g; these write fresh outputs.
 #include "common.cuh"
 
@@ -90,16 +88,18 @@ template <> struct ActVec<__nv_bfloat16> {
   }
 };
 
-// Kernel 4 for GELU with border codes.  TB: the bits of the padded table
-// (at least `bits`, and 2^TB - 1 >= n_borders); VEC: 16-byte accesses (C a
-// multiple of V, x, y and packed 16-byte aligned), else one element at a
-// time.
-template <typename T, int TB, bool VEC>
+// Kernel 4.  TB: the bits of the padded table (at least `bits`, and
+// 2^TB - 1 >= n_borders); VEC: 16-byte accesses (C a multiple of V, x, y
+// and packed 16-byte aligned), else one element at a time.  ANY false: GELU
+// with border codes, four borders to a read for all V columns, gelu_exact
+// inline; ANY: any activation and code kind (act), act_forward_any per
+// element.
+template <typename T, int TB, bool VEC, bool ANY>
 __global__ void __launch_bounds__(ACT_NT)
     act_forward_kernel(const T* __restrict__ x,
                        const float* __restrict__ borders, int n_borders,
-                       int r, int c, int bits, T* __restrict__ y,
-                       uint32_t* __restrict__ packed) {
+                       ActArgs act, int r, int c, int bits,
+                       T* __restrict__ y, uint32_t* __restrict__ packed) {
   using A = ActVec<T>;
   constexpr int V = A::V, ROWS = A::ROWS;
   constexpr int NQ = ((1 << TB) + 3) / 4;  // float4s of the table
@@ -142,123 +142,49 @@ __global__ void __launch_bounds__(ACT_NT)
         const int row = row0 + i0 + u;
         if (row >= r) break;
         unsigned code[V];
-#pragma unroll
-        for (int j = 0; j < V; ++j) code[j] = 0u;
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) {
-          const float4 bd = table[q];
-#pragma unroll
-          for (int j = 0; j < V; ++j)
-            code[j] += (v[u][j] > bd.x ? 1u : 0u) + (v[u][j] > bd.y ? 1u : 0u) +
-                       (v[u][j] > bd.z ? 1u : 0u) + (v[u][j] > bd.w ? 1u : 0u);
-        }
         float out[V];
+        if constexpr (ANY) {
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
-          out[j] = gelu_exact(v[u][j]);
+          for (int j = 0; j < V; ++j) {
+            // Stepwise recentres (and folds) x; the other kinds have
+            // shift 0 and parity -1, and a predicate no borders.
+            const float zs = v[u][j] - act.shift;
+            const float b = act.parity >= 0 ? fabsf(zs) : zs;
+            code[j] = 0u;
 #pragma unroll
-          for (int b = 0; b < TB; ++b)
-            word[b][j] |= ((code[j] >> b) & 1u) << (i0 + u);
-        }
-        const size_t at = (size_t)row * c + col0;
-        if constexpr (VEC) {
-          A::store(y + at, out);
+            for (int q = 0; q < NQ; ++q) {
+              const float4 bd = table[q];
+              code[j] += (b > bd.x ? 1u : 0u) + (b > bd.y ? 1u : 0u) +
+                         (b > bd.z ? 1u : 0u) + (b > bd.w ? 1u : 0u);
+            }
+            if (act.parity == 1 && zs < 0.f) code[j] += 1u << (bits - 1);
+            if (act.kind == CODE_PREDICATE)
+              code[j] = predicate_code(act, v[u][j]);
+            out[j] = act_forward_any(act.act, act.a0, act.a1, v[u][j]);
+#pragma unroll
+            for (int b = 0; b < TB; ++b)
+              word[b][j] |= ((code[j] >> b) & 1u) << (i0 + u);
+          }
         } else {
 #pragma unroll
-          for (int j = 0; j < V; ++j)
-            if (col0 + j < c) y[at + j] = from_f<T>(out[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (b >= bits) break;
-      uint32_t* dst = packed + ((size_t)b * words + w) * c + col0;
-      if constexpr (VEC) {
-#pragma unroll
-        for (int j = 0; j < V; j += 4)
-          *reinterpret_cast<uint4*>(dst + j) = make_uint4(
-              word[b][j], word[b][j + 1], word[b][j + 2], word[b][j + 3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < V; ++j)
-          if (col0 + j < c) dst[j] = word[b][j];
-      }
-    }
-  }
-}
-
-// Kernel 4 for any activation and code kind (the host's choice for every
-// spec but GELU with border codes): act_forward_kernel's layout and table,
-// the codes of act (ActArgs).
-template <typename T, int TB, bool VEC>
-__global__ void __launch_bounds__(ACT_NT)
-    act_forward_any_kernel(const T* __restrict__ x,
-                           const float* __restrict__ borders, int n_borders,
-                           ActArgs act, int r, int c, int bits,
-                           T* __restrict__ y, uint32_t* __restrict__ packed) {
-  using A = ActVec<T>;
-  constexpr int V = A::V, ROWS = A::ROWS;
-  constexpr int NQ = ((1 << TB) + 3) / 4;  // float4s of the table
-  __shared__ float4 table[NQ];
-  for (int i = threadIdx.x; i < 4 * NQ; i += ACT_NT)
-    reinterpret_cast<float*>(table)[i] =
-        i < n_borders ? borders[i] : __int_as_float(0x7f800000);
-  __syncthreads();
-  const int col0 = (blockIdx.x * ACT_NT + threadIdx.x) * V;
-  if (col0 >= c) return;
-  const int words = (r + 31) / 32;
-  const unsigned half = 1u << (bits - 1);
-  for (int w = blockIdx.y; w < words; w += gridDim.y) {
-    const int row0 = w * 32;
-    uint32_t word[TB][V];
-#pragma unroll
-    for (int b = 0; b < TB; ++b)
-#pragma unroll
-      for (int j = 0; j < V; ++j) word[b][j] = 0u;
-#pragma unroll 1
-    for (int i0 = 0; i0 < 32; i0 += ROWS) {
-      float v[ROWS][V];
-#pragma unroll
-      for (int u = 0; u < ROWS; ++u) {
-        const int row = row0 + i0 + u;
-        const size_t at = (size_t)row * c + col0;
-#pragma unroll
-        for (int j = 0; j < V; ++j) v[u][j] = 0.f;
-        if (row < r) {
-          if constexpr (VEC) {
-            A::load(v[u], x + at);
-          } else {
-#pragma unroll
-            for (int j = 0; j < V; ++j)
-              if (col0 + j < c) v[u][j] = to_f(x[at + j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < ROWS; ++u) {
-        const int row = row0 + i0 + u;
-        if (row >= r) break;
-        float out[V];
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          // Stepwise recentres (and folds) x; the other kinds have shift
-          // 0 and parity -1, and a predicate no borders.
-          const float zs = v[u][j] - act.shift;
-          const float b = act.parity >= 0 ? fabsf(zs) : zs;
-          unsigned code = 0u;
+          for (int j = 0; j < V; ++j) code[j] = 0u;
 #pragma unroll
           for (int q = 0; q < NQ; ++q) {
             const float4 bd = table[q];
-            code += (b > bd.x ? 1u : 0u) + (b > bd.y ? 1u : 0u) +
-                    (b > bd.z ? 1u : 0u) + (b > bd.w ? 1u : 0u);
-          }
-          if (act.parity == 1 && zs < 0.f) code += half;
-          if (act.kind == CODE_PREDICATE) code = predicate_code(act, v[u][j]);
-          out[j] = act_forward_any(act.act, act.a0, act.a1, v[u][j]);
 #pragma unroll
-          for (int b = 0; b < TB; ++b)
-            word[b][j] |= ((code >> b) & 1u) << (i0 + u);
+            for (int j = 0; j < V; ++j)
+              code[j] += (v[u][j] > bd.x ? 1u : 0u) +
+                         (v[u][j] > bd.y ? 1u : 0u) +
+                         (v[u][j] > bd.z ? 1u : 0u) +
+                         (v[u][j] > bd.w ? 1u : 0u);
+          }
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            out[j] = gelu_exact(v[u][j]);
+#pragma unroll
+            for (int b = 0; b < TB; ++b)
+              word[b][j] |= ((code[j] >> b) & 1u) << (i0 + u);
+          }
         }
         const size_t at = (size_t)row * c + col0;
         if constexpr (VEC) {
@@ -328,18 +254,15 @@ template <typename T, int TB>
 void launch_forward(bool vec, dim3 grid, cudaStream_t st, const void* x,
                     const float* bd, int n_borders, const ActArgs& act, int r,
                     int c, int bits, void* y, uint32_t* pk) {
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  if (act.act == ACT_GELU && act.kind == CODE_BORDERS) {
-    auto kernel = vec ? act_forward_kernel<T, TB, true>
-                      : act_forward_kernel<T, TB, false>;
-    kernel<<<grid, ACT_NT, 0, st>>>(xt, bd, n_borders, r, c, bits, yt, pk);
-  } else {
-    auto kernel = vec ? act_forward_any_kernel<T, TB, true>
-                      : act_forward_any_kernel<T, TB, false>;
-    kernel<<<grid, ACT_NT, 0, st>>>(xt, bd, n_borders, act, r, c, bits, yt,
-                                    pk);
-  }
+  // The GELU build for GELU with border codes, the ANY build otherwise;
+  // the spec is uniform over the launch.
+  const bool any = act.act != ACT_GELU || act.kind != CODE_BORDERS;
+  auto kernel = any ? (vec ? act_forward_kernel<T, TB, true, true>
+                           : act_forward_kernel<T, TB, false, true>)
+                    : (vec ? act_forward_kernel<T, TB, true, false>
+                           : act_forward_kernel<T, TB, false, false>);
+  kernel<<<grid, ACT_NT, 0, st>>>(static_cast<const T*>(x), bd, n_borders,
+                                  act, r, c, bits, static_cast<T*>(y), pk);
 }
 
 template <typename T>

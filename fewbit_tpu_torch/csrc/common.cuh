@@ -198,22 +198,14 @@ __device__ __forceinline__ unsigned border_code(float z, const float* bord,
   return code;
 }
 
-// The code of z of any kind, element by element (the CUDA-core kernels and
-// kernel 4's stepwise path): borders counted on z, or for stepwise on z - s
-// or |z - s| with the sign bit `half` below s; a predicate's bit.
+// The code of z, element by element (the CUDA-core kernels 6 and 2',
+// which compute no stepwise codes): the borders below z, or a predicate's
+// bit.
 __device__ __forceinline__ unsigned any_code(const ActArgs& a, float z,
                                              const float* bord,
-                                             int n_borders, unsigned half) {
-  if (a.kind == CODE_PREDICATE) return predicate_code(a, z);
-  float b = z;
-  if (a.kind == CODE_STEPWISE) {
-    b = z - a.shift;
-    if (a.parity >= 0) b = fabsf(b);
-  }
-  unsigned code = border_code(b, bord, n_borders);
-  if (a.kind == CODE_STEPWISE && a.parity == 1 && z - a.shift < 0.f)
-    code += half;
-  return code;
+                                             int n_borders) {
+  return a.kind == CODE_PREDICATE ? predicate_code(a, z)
+                                  : border_code(z, bord, n_borders);
 }
 
 struct GemmSmem {

@@ -79,7 +79,7 @@ __global__ void __launch_bounds__(NT)
         const float z = acc[i][j] + bj;
         y[(size_t)row * m + col] =
             from_f<T>(act_forward_any(act.act, act.a0, act.a1, z));
-        code = any_code(act, z, bord, n_borders, 0u);
+        code = any_code(act, z, bord, n_borders);
       }
       codes[tx + 16 * j][ty + 16 * i] = static_cast<unsigned char>(code);
     }

@@ -311,7 +311,7 @@ __global__ void __launch_bounds__(NT)
           const T yt =
               from_f<T>(act_forward_any(act.act, act.a0, act.a1, z));
           y[(size_t)row * m + col] = yt;
-          code = any_code(act, z, bord, n_borders, 0u);
+          code = any_code(act, z, bord, n_borders);
           // The sketch sums y as stored, widened to f32.
           ska[i][j] = fmaf(sg, to_f(yt), ska[i][j]);
         }

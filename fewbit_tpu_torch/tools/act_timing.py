@@ -5,9 +5,9 @@ shapes of the training paths, on the card.
 
 For each activation (3-bit builtin LUT for the continuous ones, the 1-bit
 predicate for the piecewise ones) and each of f32 and bf16, one JSON line
-per kernel with its device milliseconds per call (the profiler's sum of
-the kernels a call launches, over ``--reps`` calls; median of ``--tries``
-such runs):
+per kernel with its device milliseconds per call (``device_ms``: the
+profiler's sum of the kernels a call launches, over ``REPS`` calls, the
+median of three such runs):
 
   fused_forward      kernel 4 on the (8192, 3072) FFN activation
   dense_act_kloop    kernel 6's k loop at 8192 x 768 -> 3072
@@ -29,12 +29,17 @@ import sys
 import torch
 
 N, K, M, K_EFF = 8192, 768, 3072, 2048
+REPS = 20
 
 
-def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
-    """Median over ``tries`` profiled runs of the device milliseconds per
-    call of ``fn``; a run in which the profiler saw no device time is not
-    counted."""
+def device_ms(fn, reps=10, tries=3):
+    """Device milliseconds of ``fn`` per call: the time of the CUDA
+    kernels it launches, summed over a profiled run of ``reps`` calls
+    (torch.profiler), without the host's share of the call; the median of
+    ``tries`` such runs, because a run in which the profiler drops events
+    reads low (once below the kernel's bound).  A run that reports no
+    device time at all is not counted.  ``chip_smoke.py`` times its
+    kernels with this function too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -49,7 +54,7 @@ def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
         if total > 0:
             runs.append(total / reps / 1e3)
     if not runs:
-        raise RuntimeError("the profiler saw no device time")
+        raise AssertionError("the profiler saw no device time")
     return statistics.median(runs)
 
 
@@ -59,8 +64,6 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--acts", nargs="+", default=["gelu"])
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--tries", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("act_timing: needs a CUDA device")
@@ -86,7 +89,7 @@ def main(argv=None):
             for kernel, fn in calls.items():
                 row = {"kernel": kernel, "act": act,
                        "dtype": str(dt).replace("torch.", ""),
-                       "device_ms": device_ms(fn, args.reps, args.tries)}
+                       "device_ms": device_ms(fn, REPS)}
                 rows.append(row)
                 print(json.dumps(row), flush=True)
     return rows

@@ -7,12 +7,14 @@ Compiles each ``fewbit_tpu_torch/csrc/<name>.cu`` (all of them without
 arguments) with the library's own flags plus ``-Xptxas -v``, one ``nvcc``
 per source, all started together, and prints one line per kernel
 instantiation: its demangled name, registers per thread, bytes of spill
-stores and loads, and static shared memory.  A 288-thread block of the
-tensor-core kernels may have 168 registers a thread; so may the 384-thread
-blocks of the flash backward kernels, which ``ptxas`` reports at that figure
-whatever their warpgroups take after ``setmaxnreg`` (40 for the producer,
-232 for the consumers).  Needs ``nvcc``; builds nothing that the library
-loads.
+stores and loads, and static shared memory; then one line per source with
+the wall seconds its ``nvcc`` took (all sources compiling at once, as the
+library's build does, so they share the host's cores).  A 288-thread block
+of the tensor-core kernels may have 168 registers a thread; so may the
+384-thread blocks of the flash backward kernels, which ``ptxas`` reports at
+that figure whatever their warpgroups take after ``setmaxnreg`` (40 for the
+producer, 232 for the consumers).  Needs ``nvcc``; builds nothing that the
+library loads.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from fewbit_tpu_torch.ops._build import CSRC, NVCC_FLAGS, _nvcc
@@ -54,21 +58,26 @@ def _demangle(names):
 
 
 def report(sources):
-    """``[(source, kernel, registers, spill stores, spill loads, static
-    shared bytes), ...]`` for the given ``.cu`` paths."""
+    """``([(source, kernel, registers, spill stores, spill loads, static
+    shared bytes), ...], {source: nvcc wall seconds})`` for the given
+    ``.cu`` paths."""
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [(src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c", "-o",
-             str(Path(tmp) / f"{src.stem}.o"), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for src in sources]
-        outs = [(src, proc.communicate()[0], proc.returncode)
-                for src, proc in procs]
-    rows = []
-    for src, text, rc in outs:
+        def compile_one(src):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
+                 "-o", str(Path(tmp) / f"{src.stem}.o"), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return src, proc.stdout, proc.returncode, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(max(1, len(sources))) as pool:
+            outs = list(pool.map(compile_one, sources))
+    rows, seconds = [], {}
+    for src, text, rc, sec in outs:
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}) on {src}:\n{text}")
+        seconds[src.name] = sec
         chunks = _ENTRY.split(text)[1:]  # name, arch, body, name, ...
         names = _demangle(chunks[0::3])
         for name, body in zip(names, chunks[2::3]):
@@ -77,18 +86,20 @@ def report(sources):
             rows.append((src.name, name, int(_USED.search(body).group(1)),
                          int(spill.group(1)), int(spill.group(2)),
                          int(smem.group(1)) if smem else 0))
-    return rows
+    return rows, seconds
 
 
 def main(argv=None):
     names = list(sys.argv[1:] if argv is None else argv)
     sources = ([CSRC / f"{n}.cu" for n in names] if names
                else sorted(CSRC.glob("*.cu")))
-    rows = report(sources)
+    rows, seconds = report(sources)
     for src, name, regs, stores, loads, smem in rows:
         print(f"{src}: {name}: {regs} registers, spill {stores} + {loads} B, "
               f"static smem {smem} B", flush=True)
-    return rows
+    for src, sec in seconds.items():
+        print(f"{src}: nvcc {sec:.1f} s", flush=True)
+    return rows, seconds
 
 
 if __name__ == "__main__":

@@ -454,8 +454,14 @@ SKETCH_X_ROUTES = {
 }
 
 
-def _sketch_x_args(cuda, dtype, n, kdim, m, k_eff, seed):
-    spec, borders, _ = _lut(cuda, 3)
+# Kernel 2''s activations: GELU's own build, and the build for any other
+# spec with a predicate (relu) and a continuous id on border codes (silu).
+SKETCH_X_ACTS = ("gelu", "relu", "silu")
+
+
+def _sketch_x_args(cuda, dtype, n, kdim, m, k_eff, seed, act="gelu"):
+    spec, borders, _ = (_lut(cuda, 3) if act == "gelu"
+                        else resolve_activation(act, device=cuda))
     x, _, w_up, _, bias, sigma = _ffn_inputs(cuda, dtype, n, kdim, m, 1,
                                              seed)
     gen = torch.Generator(device=cuda).manual_seed(seed + 1)
@@ -472,18 +478,20 @@ def _nan_outputs(like):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("act", SKETCH_X_ACTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("passes", [1, 4])
 @pytest.mark.parametrize("kdim,m", list(SKETCH_X_ROUTES))
 def test_dense_act_sketch_x_matches_plain_on_cuda(cuda, kdim, m, passes,
-                                                  dtype):
+                                                  dtype, act):
     """Kernel 2': the sketch of x beside kernel 2's outputs, on the route
     dense_act_sketch_x_route gives (fused at 96 or 64, or the separate
-    pass), into outputs filled first, two launches equal to the bit."""
+    pass), into outputs filled first, two launches equal to the bit; codes
+    flipped only near a border or a predicate's threshold."""
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     n = 2048
     args = _sketch_x_args(cuda, dtype, n, kdim, m, n // passes,
-                          kdim + m + passes)
+                          kdim + m + passes, act)
     fused, bn = K.dense_act_sketch_x_route(kdim, m, dtype)
     assert (fused, bn) == SKETCH_X_ROUTES[kdim, m][dtype]
     want = K.dense_act_sketch_x_plain(*args)
@@ -496,8 +504,8 @@ def test_dense_act_sketch_x_matches_plain_on_cuda(cuda, kdim, m, passes,
                           want):
         if name == "packed":
             assert a.dtype == b.dtype and a.shape == b.shape
-            _flips_ok(a, b, K.dot_f32(x, w_up) + bias.float(), borders,
-                      spec.bits)
+            _flips_ok(a, b, K.dot_f32(x, w_up) + bias.float(),
+                      _edges(spec, borders), spec.bits)
         else:
             _close(name, a, b, tol)
     for a, b in zip(got, again):
@@ -508,21 +516,24 @@ def test_dense_act_sketch_x_matches_plain_on_cuda(cuda, kdim, m, passes,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("act", SKETCH_X_ACTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dense_act_sketch_x_simt_matches_plain_on_cuda(cuda, dtype):
+def test_dense_act_sketch_x_simt_matches_plain_on_cuda(cuda, dtype, act):
     """The first, CUDA-core kernel of 2' (on no path) against the plain
-    version."""
+    version; codes flipped only near a border or a predicate's
+    threshold."""
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    args = _sketch_x_args(cuda, dtype, 2048, 256, 512, 512, 2)
+    args = _sketch_x_args(cuda, dtype, 2048, 256, 512, 512, 2, act)
     K.reset_launch_counts()
     got = K.dense_act_sketch_x_simt(*args)
     want = K.dense_act_sketch_x_plain(*args)
     torch.cuda.synchronize()
+    spec, x, w_up, bias, borders = args[:5]
     for name, a, b in zip(("y", "packed", "sketch_y", "sketch_x"), got,
                           want):
         if name == "packed":
-            flips = unpack_codes(a, 3, 2048) != unpack_codes(b, 3, 2048)
-            assert flips.float().mean().item() <= 1e-4
+            _flips_ok(a, b, K.dot_f32(x, w_up) + bias.float(),
+                      _edges(spec, borders), spec.bits)
         else:
             _close(name, a, b, tol)
     assert K.dense_act_sketch_x_simt.launches == 1
