@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's few-bit training steps, and its megakernel
-experiment, on one GPU.
+"""Drive the PyTorch port's few-bit training steps, its model surgery, and
+its megakernel experiment, on one GPU.
 
     python3 chip_smoke.py
 
@@ -70,11 +70,24 @@ Phases (any failure raises and exits non-zero; no result is printed):
    the exact MLP, 3 f32 steps each launching kernels 4 and 5 exactly 3
    times, exact against few-bit in turns (the few-bit peak lower), one
    bf16 step.
-10. The sketch kinds: ``linear_grp`` at (8192, 768) -> 768 for each kind
+10. Surgery (``phase_surgery``; ``python3 chip_smoke.py --surgery`` runs it
+   alone): path 5's vanilla model converted by ``map_module`` +
+   ``convert_linear`` (countsketch at ratio 0.2 in every projection path 5
+   sketches), its GELU through ``use_fewbit_activation("gelu", 3)``,
+   against path 5's config-built model holding the same weights, from one
+   seed: logits, loss and every gradient equal to the bit, both launching
+   kernels 1, 4 and 5 exactly 96, 12 and 12 times a step; one step each
+   and 4 x 2 timed in turns (step ms, peak above held), every loss equal;
+   ``estimate_memory_usage`` of one FFN (exact and 3-bit GELU) and one
+   projection (``nn.Linear`` and the countsketch patch) equal to the bytes
+   their shapes imply; the 48 attention projections in
+   ``VarianceEstimator`` for one untimed step, each triple within
+   VARIANCE_RTOL of f64 on the CPU.  Its launches are its own summary.
+11. The sketch kinds: ``linear_grp`` at (8192, 768) -> 768 for each kind
    and ``linear_crs``, f32 and bf16: forward and dx against the exact
    ``linear`` (asserted), dW's relative error against the exact dW over
    four draws, the bytes the backward keeps, forward + backward ms.
-11. The megakernel experiment (``fewbit_tpu_torch.tools.exp_megakernel``) at
+12. The megakernel experiment (``fewbit_tpu_torch.tools.exp_megakernel``) at
    its own shape, N = 8192, K = 768, M = 3072, 3-bit GELU: the four
    tensor-core schedules of kernel 6 (k loop with its epilogue ablation,
    direct, emit, pipelined), the shipped ``fused_dense_act``, the first
@@ -1676,10 +1689,296 @@ def phase_exp_megakernel():
     return rows, counts
 
 
+# The projections that `_dense` sketches in path U's config-built model.
+SURGERY_PATT = (r".*/(query|key|value|output|intermediate|ffn_output"
+                r"|head_dense|head_out)$")
+ATTENTION_PATT = r".*/attention/(query|key|value|output)$"
+# Variance triples on the card (f32) against f64 on the CPU, relative.
+VARIANCE_RTOL = 1e-3
+
+
+def _launched(run):
+    """``run()`` with every count set to 0 just before it; returns its
+    result and the counts read just after."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, K.launch_counts()
+
+
+def _expect_u_counts(tag, counts):
+    want = {k: PATHS["roberta_unfused_ffn"].get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"surgery {tag}: launches {counts}, expected "
+                             f"{want}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def _grads_step(model, batch, seed):
+    """One forward and backward (dropout on), no update: logits, loss and
+    every gradient by name; the gradients are then dropped."""
+    from fewbit_tpu_torch.train import classification_loss
+
+    dropout_gen = torch.Generator(device="cuda").manual_seed(seed)
+    sketch_gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    logits = model(batch["input_ids"], batch["attention_mask"],
+                   deterministic=False, dropout_generator=dropout_gen,
+                   sketch_generator=sketch_gen)
+    loss = classification_loss(logits, batch["labels"])
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return logits.detach(), loss.detach(), grads
+
+
+def _surgery_equal(u_out, c_out):
+    """The converted model's logits, loss and gradients equal U's to the
+    bit; returns the number of gradients compared."""
+    (ul, uloss, ug), (cl, closs, cg) = u_out, c_out
+    if not (torch.equal(ul, cl) and torch.equal(uloss, closs)):
+        raise AssertionError(f"surgery: converted logits/loss differ from "
+                             f"U's: loss {closs.item()} vs {uloss.item()}, "
+                             f"logits max diff "
+                             f"{(ul - cl).abs().max().item()}")
+    if list(ug) != list(cg):
+        raise AssertionError("surgery: parameter names differ from U's")
+    differ = [n for n in ug if not torch.equal(ug[n], cg[n])]
+    if differ:
+        raise AssertionError(f"surgery: gradients differ from U's: {differ}")
+    return len(ug)
+
+
+def _accounting():
+    """Residual bytes by ``estimate_memory_usage`` at the path's shapes,
+    each beside the bytes its shapes imply: one RoBERTa-base FFN (exact
+    Dense layers) with exact GELU and with 3-bit GELU through the patch
+    (3/8 byte per element plus the 8-level LUT in place of z), and one
+    attention projection as ``nn.Linear`` and under the countsketch patch
+    (K_EFF sketch rows and the N signs in place of x)."""
+    from torch import nn
+
+    from fewbit_tpu_torch.models.roberta import Dense
+    from fewbit_tpu_torch.patch import (use_fewbit_activation,
+                                        use_fewbit_dense)
+    from fewbit_tpu_torch.util import estimate_memory_usage
+
+    f32 = 4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x = torch.randn(BS, SEQ, HIDDEN, generator=gen, device="cuda")
+    up = Dense(HIDDEN, FFN, torch.float32, device="cuda", generator=gen)
+    down = Dense(FFN, HIDDEN, torch.float32, device="cuda", generator=gen)
+    proj = nn.Linear(HIDDEN, HIDDEN, device="cuda")
+
+    def ffn(t):
+        return down(nn.functional.gelu(up(t), approximate="none"))
+
+    weights = 2 * HIDDEN * FFN * f32
+    # x for dW of the up projection, z for GELU, h for dW of the down one.
+    exact_ffn = weights + N * HIDDEN * f32 + 2 * N * FFN * f32
+    codes = 3 * -(-N // 32) * FFN * 4 + 8 * f32
+    rows = {"ffn exact gelu": (estimate_memory_usage(ffn, x), exact_ffn)}
+    with use_fewbit_activation("gelu", bits=3):
+        rows["ffn 3-bit gelu"] = (estimate_memory_usage(ffn, x),
+                                  exact_ffn - N * FFN * f32 + codes)
+    w = HIDDEN * HIDDEN * f32
+    rows["projection nn.Linear"] = (estimate_memory_usage(proj, x),
+                                    w + N * HIDDEN * f32)
+    with use_fewbit_dense(proj_dim_ratio=0.2, matmul="countsketch",
+                          generator=torch.Generator(
+                              device="cuda").manual_seed(SEED)):
+        rows["projection countsketch 0.2"] = (
+            estimate_memory_usage(proj, x),
+            w + K_EFF * HIDDEN * f32 + N * f32)
+    for name, (got, want) in rows.items():
+        log(f"surgery accounting, {name} at ({BS}, {SEQ}, {HIDDEN}): "
+            f"estimate_memory_usage {got} B, expected from the shapes "
+            f"{want} B")
+        if got != want:
+            raise AssertionError(f"surgery accounting {name}: {got} B, "
+                                 f"expected {want} B")
+    return {name: {"bytes": got, "expected": want}
+            for name, (got, want) in rows.items()}
+
+
+def _variance(model, step, batch, gen):
+    """The 48 attention projections wrapped in ``VarianceEstimator`` by
+    ``map_module``, one training step (untimed: each state syncs the host
+    once), then each layer's triple against the same functions on its
+    captured x and g in f64 on the CPU.  The wrappers are taken off after."""
+    from fewbit_tpu_torch.functional import (estimate_correlation,
+                                             estimate_variance_rmm,
+                                             estimate_variance_sgd)
+    from fewbit_tpu_torch.modules import (VarianceEstimator,
+                                          VarianceEstimatorState)
+    from fewbit_tpu_torch.patch import use_fewbit_activation
+    from fewbit_tpu_torch.util import map_module
+
+    states = {}
+
+    def wrap(mod, path):
+        states[path] = VarianceEstimatorState()
+        return VarianceEstimator(mod, states[path])
+
+    map_module(model, wrap, ATTENTION_PATT)
+    if len(states) != 48:
+        raise AssertionError(f"surgery variance: wrapped {len(states)} "
+                             f"projections, expected 48")
+    with use_fewbit_activation("gelu", bits=3):
+        _, counts = _launched(lambda: step(batch, gen)["loss"].item())
+    launches = _expect_u_counts("variance step", counts)
+    worst, layers = 0.0, {}
+    for path, st in states.items():
+        if st.variance is None:
+            raise AssertionError(f"surgery variance: {path} captured nothing")
+        x = st.input.reshape(-1, HIDDEN).double().cpu()
+        g = st.grad_output.reshape(-1, HIDDEN).double().cpu()
+        want = (estimate_correlation(x, g).item(),
+                estimate_variance_sgd(x, g, st.batch_size).item(),
+                estimate_variance_rmm(x, g, st.proj_dim).item())
+        rel = max(abs(a - b) / abs(b) for a, b in zip(st.variance, want))
+        if not rel <= VARIANCE_RTOL:
+            raise AssertionError(f"surgery variance {path}: {st.variance} "
+                                 f"vs f64 {want}")
+        worst = max(worst, rel)
+        layers[path] = {"variance": st.variance, "f64": want,
+                        "batch_size": st.batch_size, "proj_dim": st.proj_dim}
+        st.input = st.grad_output = None
+    map_module(model, lambda m, p: m.layer, ATTENTION_PATT)
+    table = {}
+    log(f"surgery variance, one step of the converted RoBERTa-base, mean "
+        f"over 12 layers (k = {st.proj_dim} of {st.batch_size} rows):")
+    log(f"{'layer':>8} {'corr':>8} {'var_sgd':>12} {'var_rmm':>12} "
+        f"{'rmm/sgd':>8}")
+    for kind in ("query", "key", "value", "output"):
+        v = np.array([r["variance"] for p, r in layers.items()
+                      if p.endswith("/" + kind)])
+        corr, var_sgd, var_rmm = v.mean(0)
+        ratio = float(np.mean(v[:, 2] / v[:, 1]))
+        table[kind] = {"corr": corr, "var_sgd": var_sgd, "var_rmm": var_rmm,
+                       "rmm_over_sgd": ratio}
+        log(f"{kind:>8} {corr:>8.4f} {var_sgd:>12.4e} {var_rmm:>12.4e} "
+            f"{ratio:>8.3f}")
+    log(f"surgery variance: 48 triples within {worst:.3g} (relative) of "
+        f"f64 on the CPU (limit {VARIANCE_RTOL}); launches {launches}")
+    return {"table": table, "layers": layers, "max_rel_err_vs_f64": worst,
+            "launches": launches}
+
+
+def phase_surgery(turns=4):
+    """The slice's own path: the vanilla RoBERTa-base (path U's shapes,
+    f32) converted by ``map_module`` + ``convert_linear`` (countsketch at
+    ratio 0.2 in every projection U sketches), its GELU through
+    ``use_fewbit_activation``; path U's config-built model holds the same
+    weights.  Both from one seed: logits, loss and every gradient equal to
+    the bit, U's launches per step (kernels 1, 4, 5: 96, 12, 12), then
+    a step each and ``turns`` x 2 timed steps each in turns (U, converted,
+    converted, U, ...), every loss equal; the accounting; the variance.
+
+    The steps run under ``torch.use_deterministic_algorithms``: torch's
+    CUDA embedding backward sums the 8192 rows of the one token type in an
+    order that changes from run to run, which no bit comparison of two
+    models could pass; restored on return."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _surgery(turns)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _surgery(turns):
+    from fewbit_tpu_torch.modules import RandomizedDense
+    from fewbit_tpu_torch.patch import use_fewbit_activation
+    from fewbit_tpu_torch.util import convert_linear, map_module
+
+    path = "roberta_unfused_ffn"
+    model, cstep = _model(path, torch.float32, fewbit=False)
+    converted = []
+
+    def convert(mod, p):
+        converted.append(p)
+        return convert_linear(mod, RandomizedDense, proj_dim_ratio=0.2,
+                              matmul="countsketch")
+
+    if map_module(model, convert, SURGERY_PATT) is not model:
+        raise AssertionError("surgery: map_module replaced the root")
+    if len(converted) != 12 * 6 + 2 or not all(
+            isinstance(m, RandomizedDense) for p, m in model.named_modules()
+            if p.rsplit(".", 1)[-1] in ("query", "key", "value", "output",
+                                        "intermediate", "ffn_output",
+                                        "head_dense", "head_out")):
+        raise AssertionError(f"surgery: converted {converted}")
+    umodel, ustep = _model(path, torch.float32, fewbit=True)
+    umodel.load_state_dict(model.state_dict())
+
+    def converted_run(fn):
+        with use_fewbit_activation("gelu", bits=3):
+            return fn()
+
+    batches = _batches(path, SEED + 17)
+    batch = next(batches)
+    u_out, u_counts = _launched(lambda: _grads_step(umodel, batch, SEED))
+    c_out, c_counts = _launched(lambda: converted_run(
+        lambda: _grads_step(model, batch, SEED)))
+    n_grads = _surgery_equal(u_out, c_out)
+    launches = {"u_step": _expect_u_counts("U step", u_counts),
+                "converted_step": _expect_u_counts("converted step",
+                                                   c_counts)}
+    log(f"surgery: converted {len(converted)} projections; loss "
+        f"{c_out[1].item():.6f}, logits and {n_grads} gradients equal to "
+        f"U's to the bit; launches per step {launches['converted_step']} "
+        f"(U {launches['u_step']})")
+    del u_out, c_out
+    steps = {"u": ustep, "converted": cstep}
+    gens = {k: torch.Generator().manual_seed(SEED) for k in steps}
+    timed = {k: [] for k in steps}
+    peaks = {k: [] for k in steps}
+    losses = {k: [] for k in steps}
+    # One untimed step each (the optimizer's state), then the timed turns.
+    for i, order in enumerate((("u", "converted"),)
+                              + (("u", "converted"),
+                                 ("converted", "u")) * turns):
+        batch = next(batches)
+        for name in order:
+            def run():
+                return _timed_step(steps[name], batch, gens[name])
+            (loss, sec, peak), counts = _launched(
+                (lambda: converted_run(run)) if name == "converted" else run)
+            _expect_u_counts(f"{name} step {i}", counts)
+            losses[name].append(loss)
+            if i:
+                timed[name].append(sec * 1e3)
+                peaks[name].append(peak)
+    if losses["u"] != losses["converted"] or not np.all(
+            np.isfinite(losses["u"])):
+        raise AssertionError(f"surgery: training losses differ: {losses}")
+    log(f"surgery f32 steps in turns, ms: U {timed['u']} (median "
+        f"{statistics.median(timed['u']):.2f}), converted "
+        f"{timed['converted']} (median "
+        f"{statistics.median(timed['converted']):.2f}); peak above held, B: "
+        f"U {peaks['u']}, converted {peaks['converted']}; losses equal to "
+        f"the bit over {len(losses['u'])} steps: {losses['u']}")
+    out = {"converted": len(converted), "gradients_equal": n_grads,
+           "launches": launches, "step_ms": timed, "peak_bytes": peaks,
+           "losses": losses["u"]}
+    del umodel, ustep, steps
+    torch.cuda.empty_cache()
+    out["accounting"] = _accounting()
+    out["variance"] = _variance(model, cstep, next(batches),
+                                gens["converted"])
+    del model, cstep
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     smi = phase_device()
     if sys.argv[1:] == ["--activations"]:
         phase_activations()
+        return
+    if sys.argv[1:] == ["--surgery"]:
+        log(json.dumps({"surgery": phase_surgery(), "card": smi}))
         return
     if sys.argv[1:2] == ["--profile"]:
         if sys.argv[2:] not in [[path] for path in PATHS]:
@@ -1698,6 +1997,8 @@ def main():
                       ("roberta_default", phase_path),
                       ("mlp", phase_path)):
         train[path], counts[path] = run(path)
+    # The slice's own path; its launches stay in its own summary.
+    train["surgery"] = phase_surgery()
     sketch_kinds = phase_sketch_kinds()
     exp_rows, counts["exp_megakernel"] = phase_exp_megakernel()
     from fewbit_tpu_torch.ops import kernels as K

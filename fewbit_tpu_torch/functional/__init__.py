@@ -18,6 +18,11 @@ from fewbit_tpu_torch.functional.linear import (calc_proj_dim, linear,
                                                 linear_crs, linear_grp,
                                                 linear_grp_native,
                                                 linear_randomized)
+from fewbit_tpu_torch.functional.variance import (GradientStorage,
+                                                  catch_gradients,
+                                                  estimate_correlation,
+                                                  estimate_variance_rmm,
+                                                  estimate_variance_sgd)
 
 __all__ = ("hardshrink", "hardsigmoid", "hardtanh", "leaky_relu", "relu",
            "relu6", "softshrink", "stepwise", "threshold", "celu", "elu",
@@ -25,4 +30,6 @@ __all__ = ("hardshrink", "hardsigmoid", "hardtanh", "leaky_relu", "relu",
            "silu", "softplus", "softsign", "tanh", "tanhshrink", "store",
            "resolve_activation", "fewbit_ffn", "fewbit_dense_act",
            "calc_proj_dim", "linear", "linear_crs", "linear_grp",
-           "linear_grp_native", "linear_randomized")
+           "linear_grp_native", "linear_randomized", "GradientStorage",
+           "catch_gradients", "estimate_correlation",
+           "estimate_variance_sgd", "estimate_variance_rmm")

@@ -249,6 +249,13 @@ def _sigmoid(x):
     return 1.0 / (1.0 + torch.exp(-x))
 
 
+# Bound at import: ``use_fewbit_activation`` (:mod:`fewbit_tpu_torch.patch`)
+# points ``torch.nn.functional.gelu`` and ``torch.tanh`` at these few-bit
+# functions within its scope, and their forwards must stay exact.
+_exact_gelu = TF.gelu
+_exact_tanh = torch.tanh
+
+
 def _celu_fwd(x, args):
     (alpha,) = args
     return torch.where(x > 0, x, alpha * torch.expm1(x / alpha))
@@ -261,7 +268,7 @@ def _elu_fwd(x, args):
 
 def _gelu_fwd(x, args):
     # Exact (erf) GELU, x * normcdf(x).
-    return TF.gelu(x, approximate="none")
+    return _exact_gelu(x, approximate="none")
 
 
 def _hardswish_fwd(x, args):
@@ -273,7 +280,7 @@ def _logsigmoid_fwd(x, args):
 
 
 def _mish_fwd(x, args):
-    return x * torch.tanh(_softplus(x))
+    return x * _exact_tanh(_softplus(x))
 
 
 def _selu_fwd(x, args):
@@ -299,11 +306,11 @@ def _softsign_fwd(x, args):
 
 
 def _tanh_fwd(x, args):
-    return torch.tanh(x)
+    return _exact_tanh(x)
 
 
 def _tanhshrink_fwd(x, args):
-    return x - torch.tanh(x)
+    return x - _exact_tanh(x)
 
 
 def _resolve_lut(name: str, bits: Optional[int], borders, values):

@@ -9,7 +9,7 @@ path and with numpy alone, from the JAX package's
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -30,6 +30,17 @@ class StepwiseStore:
     def __init__(self) -> None:
         self._table: Dict[Tuple[str, int], Tuple[np.ndarray, np.ndarray]] = {}
         self._builtin_loaded = False
+
+    def __len__(self) -> int:
+        self._ensure_builtin()
+        return len(self._table)
+
+    def __contains__(self, key: Tuple[str, int]) -> bool:
+        self._ensure_builtin()
+        return key in self._table
+
+    def __repr__(self) -> str:
+        return f"StepwiseStore(entries={len(self)})"
 
     def _ensure_builtin(self) -> None:
         if not self._builtin_loaded:
@@ -54,12 +65,18 @@ class StepwiseStore:
         except KeyError:
             raise KeyError(
                 f"no {bits}-bit derivative quantisation for activation "
-                f"{name!r}; pass explicit borders/values") from None
+                f"{name!r}; run `fewbit-tpu-torch quantize {bits} "
+                f"<module:func>` or pass explicit borders/values") from None
 
     def get_interior(self, name: str,
                      bits: int) -> Tuple[np.ndarray, np.ndarray]:
         borders, levels = self.get(name, bits)
         return borders[1:-1], levels
+
+    def items(self) -> Iterator[Tuple[Tuple[str, int],
+                                      Tuple[np.ndarray, np.ndarray]]]:
+        self._ensure_builtin()
+        yield from self._table.items()
 
     def load(self, path) -> None:
         """Merge ``{name}{bits:02d}-{borders|levels}`` arrays from an npz."""
@@ -69,6 +86,16 @@ class StepwiseStore:
                 name, bits = stem[:-2], int(stem[-2:])
                 self.add(name, bits, npz[f"{stem}-borders"],
                          npz[f"{stem}-levels"])
+
+    def save(self, path) -> None:
+        """Write every entry, the builtin ones included, as
+        ``{name}{bits:02d}-{borders|levels}`` arrays of an npz."""
+        self._ensure_builtin()
+        arrays = {}
+        for (name, bits), (borders, levels) in self._table.items():
+            arrays[f"{name}{bits:02d}-borders"] = borders
+            arrays[f"{name}{bits:02d}-levels"] = levels
+        np.savez(path, **arrays)
 
 
 store = StepwiseStore()

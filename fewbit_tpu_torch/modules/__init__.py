@@ -15,10 +15,13 @@ from fewbit_tpu_torch.modules.fused import FusedDenseActivation
 from fewbit_tpu_torch.modules.linear import (DenseCRS, LinearCRS, LinearGRP,
                                              RandomizedDense,
                                              RandomizedLinear)
+from fewbit_tpu_torch.modules.variance import (VarianceEstimator,
+                                               VarianceEstimatorState)
 
 __all__ = ("Hardshrink", "Hardsigmoid", "Hardtanh", "LeakyReLU", "ReLU",
            "ReLU6", "Softshrink", "Stepwise", "Threshold", "CELU", "ELU",
            "GELU", "Hardswish", "LogSigmoid", "Mish", "SELU", "Sigmoid",
            "SiLU", "Softplus", "Softsign", "Tanh", "Tanhshrink", "FewBitFFN",
            "FusedDenseActivation", "RandomizedDense", "LinearGRP",
-           "RandomizedLinear", "DenseCRS", "LinearCRS")
+           "RandomizedLinear", "DenseCRS", "LinearCRS",
+           "VarianceEstimator", "VarianceEstimatorState")

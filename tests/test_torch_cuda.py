@@ -1165,3 +1165,79 @@ def test_non_gelu_ffn_kernels_2_3_match_plain_on_cuda(cuda, dtype, case):
         _close(name, a, b, t)
     cfg = port_ffn._FFNConfig(spec, k_eff, True, True)
     assert port_ffn._kernel_ok(cfg, n, kdim, m, kdim, dtype)
+
+
+@pytest.mark.cuda
+def test_converted_roberta_equals_u_on_cuda(cuda):
+    """A vanilla RoBERTa converted by map_module + convert_linear
+    (countsketch at 0.2) under the few-bit GELU patch launches path U's
+    kernels as often as the config-built U model and gives the same
+    logits, loss and gradients to the bit."""
+    from fewbit_tpu_torch.models import (RobertaConfig,
+                                         RobertaForSequenceClassification)
+    from fewbit_tpu_torch.modules import RandomizedDense
+    from fewbit_tpu_torch.patch import use_fewbit_activation
+    from fewbit_tpu_torch.train import classification_loss, synthetic_glue
+    from fewbit_tpu_torch.util import convert_linear, map_module
+
+    small = dict(vocab_size=1000, hidden_size=256, num_layers=2,
+                 num_heads=4, intermediate_size=1024,
+                 max_position_embeddings=130, sketch="countsketch",
+                 fused_ffn=False)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    vanilla = RobertaForSequenceClassification(RobertaConfig(**small),
+                                               device=cuda, generator=gen)
+    model = map_module(vanilla, lambda m, p: convert_linear(
+        m, RandomizedDense, proj_dim_ratio=0.2, matmul="countsketch"))
+    u = RobertaForSequenceClassification(
+        RobertaConfig(**small, gelu_bits=3, proj_dim_ratio=0.2), device=cuda)
+    u.load_state_dict(model.state_dict())
+    # N = 2048 rows: kernel 1's envelope at this width.
+    batch = {k: torch.from_numpy(v).to(cuda).long() for k, v in next(
+        synthetic_glue(16, 128, vocab_size=1000)).items()}
+
+    def run(m):
+        K.reset_launch_counts()
+        logits = m(batch["input_ids"], batch["attention_mask"],
+                   deterministic=False,
+                   dropout_generator=torch.Generator(
+                       device=cuda).manual_seed(1),
+                   sketch_generator=torch.Generator(
+                       device=cuda).manual_seed(2))
+        loss = classification_loss(logits, batch["labels"])
+        loss.backward()
+        torch.cuda.synchronize()
+        return (logits, loss, {n: p.grad for n, p in m.named_parameters()},
+                K.launch_counts())
+
+    # torch's CUDA embedding backward sums the rows of a repeated index
+    # (the one token type) in an order that may change from run to run.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want = run(u)
+        with use_fewbit_activation("gelu", bits=3):
+            got = run(model)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert want[3]["matmul_input_sketch"] > 0
+    assert want[3]["fused_forward"] == want[3]["fused_backward"] == 2
+    assert got[3] == want[3]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert list(got[2]) == list(want[2])
+    for name in want[2]:
+        assert torch.equal(got[2][name], want[2][name]), name
+
+
+@pytest.mark.cuda
+def test_peak_memory_bytes_on_cuda(cuda):
+    from fewbit_tpu_torch.util import device_memory_stats, peak_memory_bytes
+
+    torch.cuda.reset_peak_memory_stats(cuda)
+    held = torch.cuda.memory_allocated(cuda)
+    t = torch.empty(1 << 24, device=cuda)
+    assert peak_memory_bytes() >= held + t.numel() * 4
+    assert peak_memory_bytes(cuda) == torch.cuda.max_memory_allocated(cuda)
+    stats = device_memory_stats(cuda)
+    assert stats["allocated_bytes.all.peak"] == peak_memory_bytes(cuda)
+    assert peak_memory_bytes("cpu") is None
+    assert device_memory_stats("cpu") == {}
