@@ -75,13 +75,15 @@ Phases (any failure raises and exits non-zero; no result is printed):
    ``convert_linear`` (countsketch at ratio 0.2 in every projection path 5
    sketches), its GELU through ``use_fewbit_activation("gelu", 3)``,
    against path 5's config-built model holding the same weights, from one
-   seed: logits, loss and every gradient equal to the bit, both launching
-   kernels 1, 4 and 5 exactly 96, 12 and 12 times a step; one step each
-   and 4 x 2 timed in turns (step ms, peak above held), every loss equal;
-   ``estimate_memory_usage`` of one FFN (exact and 3-bit GELU) and one
-   projection (``nn.Linear`` and the countsketch patch) equal to the bytes
-   their shapes imply; the 48 attention projections in
-   ``VarianceEstimator`` for one untimed step, each triple within
+   seed: logits, loss and every gradient equal to the bit (in
+   deterministic mode), both launching kernels 1, 4 and 5 exactly 96, 12
+   and 12 times a step; one step each and 4 x 2 timed in turns in the
+   caller's mode (step ms, peak above held), the losses within
+   SURGERY_LOSS_RTOL; ``estimate_memory_usage`` of one FFN (exact and
+   3-bit GELU) and one projection (``nn.Linear`` and the countsketch
+   patch) equal to the bytes their shapes imply; the 48 attention
+   projections in ``VarianceEstimator`` for one untimed step, each capture
+   equal to what hooks on the projection see, each triple within
    VARIANCE_RTOL of f64 on the CPU.  Its launches are its own summary.
 11. The sketch kinds: ``linear_grp`` at (8192, 768) -> 768 for each kind
    and ``linear_crs``, f32 and bf16: forward and dx against the exact
@@ -143,6 +145,7 @@ profiler and two under it: the way to read an older tree's step and device
 time per step with this script.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -1694,7 +1697,26 @@ SURGERY_PATT = (r".*/(query|key|value|output|intermediate|ffn_output"
                 r"|head_dense|head_out)$")
 ATTENTION_PATT = r".*/attention/(query|key|value|output)$"
 # Variance triples on the card (f32) against f64 on the CPU, relative.
-VARIANCE_RTOL = 1e-3
+VARIANCE_RTOL = 1e-5
+# The timed turns' losses, U's against the converted model's, relative.
+# The two differ only by the order of the embedding backward's sums, but
+# training amplifies that: on an H100 (80GB HBM3, 700 W) the losses were
+# equal to the bit for five steps, then 7.5e-7, 1.1e-5, 1.9e-5 and 4.6e-5
+# apart.  A wrong conversion shows in the first step's bit comparison.
+SURGERY_LOSS_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` within;
+    the caller's setting after."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
 
 
 def _launched(run):
@@ -1759,7 +1781,7 @@ def _accounting():
     (K_EFF sketch rows and the N signs in place of x)."""
     from torch import nn
 
-    from fewbit_tpu_torch.models.roberta import Dense
+    from fewbit_tpu_torch.modules.linear import Dense
     from fewbit_tpu_torch.patch import (use_fewbit_activation,
                                         use_fewbit_dense)
     from fewbit_tpu_torch.util import estimate_memory_usage
@@ -1805,8 +1827,10 @@ def _accounting():
 def _variance(model, step, batch, gen):
     """The 48 attention projections wrapped in ``VarianceEstimator`` by
     ``map_module``, one training step (untimed: each state syncs the host
-    once), then each layer's triple against the same functions on its
-    captured x and g in f64 on the CPU.  The wrappers are taken off after."""
+    once).  Hooks on each projection see its real input and the gradient
+    of its output: the state's captures must equal them.  Then each
+    layer's triple against the same functions on those tensors in f64 on
+    the CPU.  The wrappers and hooks are taken off after."""
     from fewbit_tpu_torch.functional import (estimate_correlation,
                                              estimate_variance_rmm,
                                              estimate_variance_sgd)
@@ -1815,10 +1839,23 @@ def _variance(model, step, batch, gen):
     from fewbit_tpu_torch.patch import use_fewbit_activation
     from fewbit_tpu_torch.util import map_module
 
-    states = {}
+    states, seen, hooks = {}, {}, []
+
+    def see_input(path):
+        def hook(mod, args):
+            seen[path]["x"] = args[0].detach()
+        return hook
+
+    def see_grad(path):
+        def hook(mod, args, out):
+            out.register_hook(
+                lambda g: seen[path].__setitem__("g", g.detach()))
+        return hook
 
     def wrap(mod, path):
-        states[path] = VarianceEstimatorState()
+        states[path], seen[path] = VarianceEstimatorState(), {}
+        hooks.append(mod.register_forward_pre_hook(see_input(path)))
+        hooks.append(mod.register_forward_hook(see_grad(path)))
         return VarianceEstimator(mod, states[path])
 
     map_module(model, wrap, ATTENTION_PATT)
@@ -1828,10 +1865,17 @@ def _variance(model, step, batch, gen):
     with use_fewbit_activation("gelu", bits=3):
         _, counts = _launched(lambda: step(batch, gen)["loss"].item())
     launches = _expect_u_counts("variance step", counts)
+    for h in hooks:
+        h.remove()
     worst, layers = 0.0, {}
     for path, st in states.items():
         if st.variance is None:
             raise AssertionError(f"surgery variance: {path} captured nothing")
+        if not (torch.equal(st.input, seen[path]["x"])
+                and torch.equal(st.grad_output, seen[path]["g"])):
+            raise AssertionError(f"surgery variance {path}: the state did "
+                                 f"not capture the layer's input and output "
+                                 f"gradient")
         x = st.input.reshape(-1, HIDDEN).double().cpu()
         g = st.grad_output.reshape(-1, HIDDEN).double().cpu()
         want = (estimate_correlation(x, g).item(),
@@ -1845,6 +1889,7 @@ def _variance(model, step, batch, gen):
         layers[path] = {"variance": st.variance, "f64": want,
                         "batch_size": st.batch_size, "proj_dim": st.proj_dim}
         st.input = st.grad_output = None
+    seen.clear()
     map_module(model, lambda m, p: m.layer, ATTENTION_PATT)
     table = {}
     log(f"surgery variance, one step of the converted RoBERTa-base, mean "
@@ -1860,8 +1905,9 @@ def _variance(model, step, batch, gen):
                        "rmm_over_sgd": ratio}
         log(f"{kind:>8} {corr:>8.4f} {var_sgd:>12.4e} {var_rmm:>12.4e} "
             f"{ratio:>8.3f}")
-    log(f"surgery variance: 48 triples within {worst:.3g} (relative) of "
-        f"f64 on the CPU (limit {VARIANCE_RTOL}); launches {launches}")
+    log(f"surgery variance: 48 captures equal to the hooks' input and "
+        f"output gradient; triples within {worst:.3g} (relative) of f64 on "
+        f"the CPU (limit {VARIANCE_RTOL}); launches {launches}")
     return {"table": table, "layers": layers, "max_rel_err_vs_f64": worst,
             "launches": launches}
 
@@ -1874,20 +1920,14 @@ def phase_surgery(turns=4):
     weights.  Both from one seed: logits, loss and every gradient equal to
     the bit, U's launches per step (kernels 1, 4, 5: 96, 12, 12), then
     a step each and ``turns`` x 2 timed steps each in turns (U, converted,
-    converted, U, ...), every loss equal; the accounting; the variance.
+    converted, U, ...), the same launches, the losses within
+    SURGERY_LOSS_RTOL; the accounting; the variance.
 
-    The steps run under ``torch.use_deterministic_algorithms``: torch's
-    CUDA embedding backward sums the 8192 rows of the one token type in an
-    order that changes from run to run, which no bit comparison of two
-    models could pass; restored on return."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        return _surgery(turns)
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
-def _surgery(turns):
+    Only the bit comparison runs under ``torch.use_deterministic_algorithms``:
+    torch's CUDA embedding backward sums the 8192 rows of the one token type
+    in an order that changes from run to run, which no bit comparison of
+    two models could pass.  The timed steps run in the caller's mode, the
+    one users train in."""
     from fewbit_tpu_torch.modules import RandomizedDense
     from fewbit_tpu_torch.patch import use_fewbit_activation
     from fewbit_tpu_torch.util import convert_linear, map_module
@@ -1918,9 +1958,10 @@ def _surgery(turns):
 
     batches = _batches(path, SEED + 17)
     batch = next(batches)
-    u_out, u_counts = _launched(lambda: _grads_step(umodel, batch, SEED))
-    c_out, c_counts = _launched(lambda: converted_run(
-        lambda: _grads_step(model, batch, SEED)))
+    with _deterministic():
+        u_out, u_counts = _launched(lambda: _grads_step(umodel, batch, SEED))
+        c_out, c_counts = _launched(lambda: converted_run(
+            lambda: _grads_step(model, batch, SEED)))
     n_grads = _surgery_equal(u_out, c_out)
     launches = {"u_step": _expect_u_counts("U step", u_counts),
                 "converted_step": _expect_u_counts("converted step",
@@ -1950,18 +1991,21 @@ def _surgery(turns):
             if i:
                 timed[name].append(sec * 1e3)
                 peaks[name].append(peak)
-    if losses["u"] != losses["converted"] or not np.all(
-            np.isfinite(losses["u"])):
+    u_loss, c_loss = np.array(losses["u"]), np.array(losses["converted"])
+    loss_rel = float(np.max(np.abs(c_loss - u_loss) / np.abs(u_loss)))
+    if not (np.all(np.isfinite(c_loss)) and loss_rel <= SURGERY_LOSS_RTOL):
         raise AssertionError(f"surgery: training losses differ: {losses}")
     log(f"surgery f32 steps in turns, ms: U {timed['u']} (median "
         f"{statistics.median(timed['u']):.2f}), converted "
         f"{timed['converted']} (median "
         f"{statistics.median(timed['converted']):.2f}); peak above held, B: "
-        f"U {peaks['u']}, converted {peaks['converted']}; losses equal to "
-        f"the bit over {len(losses['u'])} steps: {losses['u']}")
+        f"U {peaks['u']}, converted {peaks['converted']}; losses over "
+        f"{len(u_loss)} steps within {loss_rel:.3g} (relative, limit "
+        f"{SURGERY_LOSS_RTOL}): U {losses['u']}, converted "
+        f"{losses['converted']}")
     out = {"converted": len(converted), "gradients_equal": n_grads,
            "launches": launches, "step_ms": timed, "peak_bytes": peaks,
-           "losses": losses["u"]}
+           "losses": losses, "loss_max_rel_diff": loss_rel}
     del umodel, ustep, steps
     torch.cuda.empty_cache()
     out["accounting"] = _accounting()

@@ -28,8 +28,6 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda",
                         help="device to run on (default: the card)")
-    parser.add_argument("--matmul", default="gaussian",
-                        help="sketch kind of the layer")
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -44,8 +42,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     rows = []
     for ratio in RATIOS:
         state = VarianceEstimatorState()
-        layer = RandomizedDense(256, 64, proj_dim_ratio=ratio,
-                                matmul=args.matmul, device=device,
+        layer = RandomizedDense(256, 64, proj_dim_ratio=ratio, device=device,
                                 generator=torch.Generator(
                                     device=device).manual_seed(0))
         wrapped = VarianceEstimator(layer, state)

@@ -17,8 +17,8 @@ import torch.nn.functional as TF
 from torch import nn
 
 from fewbit_tpu_torch.functional.activations import gelu as fewbit_gelu
-from fewbit_tpu_torch.models.roberta import Dense, _dense_pairs, model_device
-from fewbit_tpu_torch.modules.linear import RandomizedDense
+from fewbit_tpu_torch.models.roberta import _dense_pairs, model_device
+from fewbit_tpu_torch.modules.linear import Dense, RandomizedDense
 
 __all__ = ("MLP",)
 

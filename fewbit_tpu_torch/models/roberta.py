@@ -44,10 +44,9 @@ from torch import nn
 
 from fewbit_tpu_torch.functional.activations import gelu as fewbit_gelu
 from fewbit_tpu_torch.models.flash import use_flash, validate_flash_config
-from fewbit_tpu_torch.modules._rng import lecun_normal_
 from fewbit_tpu_torch.modules.ffn import FewBitFFN
 from fewbit_tpu_torch.modules.fused import FusedDenseActivation
-from fewbit_tpu_torch.modules.linear import RandomizedDense
+from fewbit_tpu_torch.modules.linear import Dense, RandomizedDense
 from fewbit_tpu_torch.ops.flash_attention import SegmentIds, flash_attention
 
 __all__ = ("RobertaConfig", "RobertaModel",
@@ -129,25 +128,6 @@ def dropout(x: torch.Tensor, p: float, deterministic: bool,
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return x * keep * (1.0 / (1.0 - p))
-
-
-class Dense(nn.Module):
-    """Exact ``x @ weight^T + bias`` in the compute dtype."""
-
-    def __init__(self, in_features: int, out_features: int, dtype,
-                 bias: bool = True, device=None, generator=None):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(out_features, in_features,
-                                               device=device))
-        lecun_normal_(self.weight, in_features, generator)
-        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
-                     if bias else None)
-
-    def forward(self, x, generator=None):
-        dt = self.dtype
-        b = self.bias.to(dt) if self.bias is not None else None
-        return TF.linear(x.to(dt), self.weight.to(dt), b)
 
 
 class LayerNorm(nn.Module):

@@ -1,5 +1,6 @@
 """Linear layers with sketched weight gradients, as
-``fewbit_tpu/modules/linear.py``: ``RandomizedDense`` (aliases
+``fewbit_tpu/modules/linear.py``, and the exact ``Dense`` the models build
+where the JAX models build flax's ``nn.Dense``: ``RandomizedDense`` (aliases
 ``LinearGRP``, ``RandomizedLinear``), a drop-in for ``nn.Linear`` whose
 backward keeps a random projection of the input instead of the input, and
 ``DenseCRS`` (alias ``LinearCRS``), whose backward keeps sampled input
@@ -15,13 +16,33 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as TF
 from torch import nn
 
 from fewbit_tpu_torch.functional.linear import linear_crs, linear_grp_native
 from fewbit_tpu_torch.modules._rng import lecun_normal_, sketch_generator
 
-__all__ = ("RandomizedDense", "LinearGRP", "RandomizedLinear", "DenseCRS",
-           "LinearCRS")
+__all__ = ("Dense", "RandomizedDense", "LinearGRP", "RandomizedLinear",
+           "DenseCRS", "LinearCRS")
+
+
+class Dense(nn.Module):
+    """Exact ``x @ weight^T + bias`` in the compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int, dtype,
+                 bias: bool = True, device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features,
+                                               device=device))
+        lecun_normal_(self.weight, in_features, generator)
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if bias else None)
+
+    def forward(self, x, generator=None):
+        dt = self.dtype
+        b = self.bias.to(dt) if self.bias is not None else None
+        return TF.linear(x.to(dt), self.weight.to(dt), b)
 
 
 class _SketchedBase(nn.Module):

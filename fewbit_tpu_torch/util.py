@@ -27,7 +27,7 @@ from typing import Callable, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
-from fewbit_tpu_torch.models.roberta import Dense
+from fewbit_tpu_torch.modules.linear import Dense
 
 __all__ = ("map_module", "convert_linear", "residual_shapes",
            "estimate_memory_usage", "memory_delta_bytes",

@@ -29,7 +29,7 @@ from fewbit_tpu.patch import use_fewbit_dense as jax_use_dense
 import fewbit_tpu_torch.functional as PF
 from fewbit_tpu_torch.models import (RobertaConfig,
                                      RobertaForSequenceClassification)
-from fewbit_tpu_torch.models.roberta import Dense
+from fewbit_tpu_torch.modules.linear import Dense
 from fewbit_tpu_torch.modules import GELU, RandomizedDense
 from fewbit_tpu_torch.patch import use_fewbit_activation, use_fewbit_dense
 from fewbit_tpu_torch.train import classification_loss, synthetic_glue

@@ -204,6 +204,61 @@ def test_variance_estimator_passthrough_and_tuple_output():
     assert torch.equal(out, layer(x, torch.Generator().manual_seed(0)))
 
 
+def test_variance_estimator_captures_the_layers_input_and_output_gradient():
+    """As ``chip_smoke.py``'s surgery phase, at a tiny size: the attention
+    projections of a RoBERTa (countsketch at 0.2) wrapped in
+    ``VarianceEstimator`` by ``map_module``.  Each state's captures equal
+    what hooks on the projection see (its input, the gradient of its
+    output), and each triple equals the same functions on them in f64."""
+    from fewbit_tpu_torch.models import (RobertaConfig,
+                                         RobertaForSequenceClassification)
+    from fewbit_tpu_torch.train import classification_loss
+    from fewbit_tpu_torch.util import map_module
+
+    model = RobertaForSequenceClassification(
+        RobertaConfig(vocab_size=100, hidden_size=32, num_layers=2,
+                      num_heads=2, intermediate_size=64,
+                      max_position_embeddings=18, proj_dim_ratio=0.2,
+                      sketch="countsketch"),
+        device="cpu", generator=torch.Generator().manual_seed(0))
+    states, seen = {}, {}
+
+    def wrap(mod, path):
+        states[path], seen[path] = VarianceEstimatorState(), {}
+
+        def see_input(m, args):
+            seen[path]["x"] = args[0].detach()
+
+        def see_grad(m, args, out):
+            out.register_hook(
+                lambda g: seen[path].__setitem__("g", g.detach()))
+
+        mod.register_forward_pre_hook(see_input)
+        mod.register_forward_hook(see_grad)
+        return VarianceEstimator(mod, states[path])
+
+    map_module(model, wrap, r".*/attention/(query|key|value|output)$")
+    assert len(states) == 8
+    rng = np.random.RandomState(5)
+    ids = torch.from_numpy(rng.randint(0, 100, (4, 16))).long()
+    logits = model(ids, torch.ones(4, 16, dtype=torch.long),
+                   deterministic=False,
+                   dropout_generator=torch.Generator().manual_seed(1),
+                   sketch_generator=torch.Generator().manual_seed(2))
+    classification_loss(logits, torch.tensor([0, 1, 1, 0])).backward()
+    for path, st in states.items():
+        assert torch.equal(st.input, seen[path]["x"]), path
+        assert torch.equal(st.grad_output, seen[path]["g"]), path
+        x = st.input.reshape(-1, 32).double()
+        g = st.grad_output.reshape(-1, 32).double()
+        assert (st.batch_size, st.proj_dim) == (64, 12)
+        want = [t.item() for t in (
+            estimate_correlation(x, g),
+            estimate_variance_sgd(x, g, st.batch_size),
+            estimate_variance_rmm(x, g, st.proj_dim))]
+        np.testing.assert_allclose(st.variance, want, rtol=RTOL)
+
+
 def test_variance_example_on_cpu(capsys):
     from fewbit_tpu_torch.examples import variance_estimation
 
