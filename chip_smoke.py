@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's few-bit training steps, its model surgery, and
-its megakernel experiment, on one GPU.
+"""Drive the PyTorch port's few-bit training steps, its model surgery, its
+data and tensor parallelism, and its megakernel experiment, on one GPU.
 
     python3 chip_smoke.py
 
@@ -85,11 +85,31 @@ Phases (any failure raises and exits non-zero; no result is printed):
    projections in ``VarianceEstimator`` for one untimed step, each capture
    equal to what hooks on the projection see, each triple within
    VARIANCE_RTOL of f64 on the CPU.  Its launches are its own summary.
-11. The sketch kinds: ``linear_grp`` at (8192, 768) -> 768 for each kind
+11. Parallelism (``phase_parallel``; ``python3 chip_smoke.py --parallel``
+   runs it alone): NCCL at world size 1, dp=1 x tp=1, path R: one
+   ``data_parallel_step`` step equal to the plain step on the rank's
+   folded generator to the bit (deterministic mode).  Then two rank
+   processes (``chip_smoke.py --rank R DIR``, each with RANK_TIMEOUT) on
+   the one card, gloo with CUDA tensors, since NCCL cannot put two ranks
+   on one device: paths R and G at tp=2 without dropout, each rank's slice
+   cut from the single-device model by ``shard_tp_params``; each rank
+   launches the path's kernels 96, 12, 12 times a step; its logits, loss
+   and launches equal the single device's (TOL), every layer's codes
+   differ from the single device's only within FLIP_BAND of a border, the
+   gathered gradients are within the bound ``_grads_close`` sets, three
+   f32 steps' losses within PARALLEL_LOSS_RTOL, one bf16 step finite;
+   per-rank step ms and peak above held are printed (gloo stages every
+   all-reduce through the host: not NCCL's speed).  dp=2: R's gradient
+   after ``DistributedDataParallel`` equals the mean of the two half-batch
+   gradients on the ranks' folded generators; GPT-2 small's loss with
+   unequal valid tokens per rank equals the full batch's.  Rank 0's
+   residual bytes of its layer-0 FFN, query and output equal what their
+   local shapes imply.  The tp paths' launches go into the kernels line.
+12. The sketch kinds: ``linear_grp`` at (8192, 768) -> 768 for each kind
    and ``linear_crs``, f32 and bf16: forward and dx against the exact
    ``linear`` (asserted), dW's relative error against the exact dW over
    four draws, the bytes the backward keeps, forward + backward ms.
-12. The megakernel experiment (``fewbit_tpu_torch.tools.exp_megakernel``) at
+13. The megakernel experiment (``fewbit_tpu_torch.tools.exp_megakernel``) at
    its own shape, N = 8192, K = 768, M = 3072, 3-bit GELU: the four
    tensor-core schedules of kernel 6 (k loop with its epilogue ablation,
    direct, emit, pipelined), the shipped ``fused_dense_act``, the first
@@ -101,7 +121,12 @@ The kernel phase holds each of the four schedules against the one plain
 version at that shape in every type pair its envelope admits, the k loop's
 ablation too, and the two whose f32 weight panel does not fit at K = 768
 also in f32 at K = 128; and it checks that the shipped kernel 6 is not
-slower than the CUDA-core kernel it replaced.
+slower than the CUDA-core kernel it replaced.  It also holds the kernels
+of the tp=2 paths at one rank's widths (kernel 1 at 768 -> 384 and 384 ->
+768, both modes; kernels 2 and 3 at 768 <-> 1536; kernel 6 at 768 ->
+1536; kernel 5 at (8192, 1536)) into outputs filled with NaN, with their
+device time and share of the bound; kernel 1's other cases write into
+NaN-filled outputs too.
 
 The activation phase (after the kernel phase; ``python3 chip_smoke.py
 --activations`` runs it alone) holds every activation id of ``ACT_IDS``
@@ -346,13 +371,14 @@ def _gemm_case(results, name, mode, tag, wrapper, plain, args, errs, route,
 
 
 def _k1_case(results, mode, tag, names, args, tol):
-    """Kernel 1 on one input against its plain version."""
+    """Kernel 1 on one input against its plain version, into outputs
+    filled with NaN."""
     from fewbit_tpu_torch.ops import kernels as K
 
     x, w = args[:2]
     (n, kdim), m = x.shape, w.shape[1]
-    got = K.fused_matmul_input_sketch(*args)
     want = K.matmul_input_sketch_plain(*args)
+    got = K.fused_matmul_input_sketch(*args, out=_nan_like(*want))
     errs = {name: compare(f"k1 {mode} {tag} {name}", a, b,
                           TOL_SUM if name == "colsum" else tol)
             for name, a, b in zip(names, got, want)}
@@ -869,6 +895,8 @@ def phase_kernels():
             case["bound_share"] = case["bound_ms"] / case["device_ms"]
             results["fused_backward"].append(case)
 
+        _tp_width_cases(results, spec, borders, levels, sigma, x, g, rand,
+                        tag, tol)
         # F1-F3 at both paths' shapes, on (b, s, h, d) projections seen
         # through transpose(1, 2), as the models pass them.
         for shape, b, s, causal, ids in (
@@ -913,6 +941,97 @@ def phase_kernels():
                 f"{c['errors']}, kernel {c['ms']:.3f} ms, plain "
                 f"{c['plain_ms']:.3f} ms (calls){extra}")
     return results
+
+
+# Tensor parallelism at tp=2: each rank's slice of RoBERTa-base and GPT-2
+# small (the parallel phase).
+TP = 2
+TP_WIDTH, TP_INNER = HIDDEN // TP, FFN // TP   # 384, 1536
+
+
+def _tp_width_cases(results, spec, borders, levels, sigma, x, g, rand, tag,
+                    tol):
+    """The kernels of the tp=2 paths at one rank's widths, each into
+    outputs filled with NaN against its plain version, with its device
+    time and share of the bound: kernel 1 at 768 -> 384 (query, key,
+    value; with bias) and 384 -> 768 (output; no bias, added after the
+    all-reduce), forward and backward with the column sum; kernels 2 and
+    3 at 768 <-> 1536; kernel 6 at 768 -> 1536 and kernel 5 on its codes
+    at (8192, 1536)."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    dt = x.dtype
+    w_col = rand(TP_WIDTH, HIDDEN, scale=HIDDEN ** -0.5, dt=dt)
+    b_col = rand(TP_WIDTH, scale=0.1, dt=dt)
+    ctx, g_col = rand(N, TP_WIDTH, dt=dt), rand(N, TP_WIDTH, dt=dt)
+    w_row = rand(HIDDEN, TP_WIDTH, scale=TP_WIDTH ** -0.5, dt=dt)
+    for mode, args in (
+            ("tp=2 forward 768->384", (x, w_col.t(), b_col, sigma, K_EFF)),
+            ("tp=2 forward 384->768", (ctx, w_row.t(), None, sigma, K_EFF)),
+            ("tp=2 backward+colsum 384->768",
+             (g_col, w_col, None, sigma, K_EFF, True)),
+            ("tp=2 backward+colsum 768->384",
+             (g, w_row, None, sigma, K_EFF, True))):
+        names = ("dx", "sketch", "colsum") if len(args) == 6 else ("y",
+                                                                 "sketch")
+        _k1_case(results, mode, tag, names, args, tol)
+
+    up_w = rand(TP_INNER, HIDDEN, scale=HIDDEN ** -0.5, dt=dt)
+    up_b = rand(TP_INNER, scale=0.1, dt=dt)
+    z0 = K.dot_f32(x, up_w.t()) + up_b.float()
+    args = (spec, x, up_w.t(), up_b, borders, sigma, K_EFF)
+    want = K.dense_act_sketch_plain(*args)
+    y, packed, sk = K.fused_dense_act_sketch(*args, out=_nan_like(*want))
+    errs = {"y": compare(f"k2 tp=2 {tag} y", y, want[0], tol),
+            "sketch": compare(f"k2 tp=2 {tag} sketch", sk, want[2], tol),
+            "code_flips": code_flips(f"k2 tp=2 {tag}", packed, want[1], z0,
+                                     borders, spec.bits)}
+    _ffn_case(results, "dense_act_sketch", "tp=2 forward 768->1536", tag,
+              K.fused_dense_act_sketch, K.dense_act_sketch_plain, args, errs,
+              x, up_w.t())
+    down_w = rand(HIDDEN, TP_INNER, scale=TP_INNER ** -0.5, dt=dt)
+    args = (spec, packed, levels, g, down_w, sigma, K_EFF)
+    want = K.matmul_lut_backward_plain(*args)
+    got = K.fused_matmul_lut_backward(*args, out=_nan_like(*want))
+    errs = {name: compare(f"k3 tp=2 {tag} {name}", a, b,
+                          TOL_SUM if name == "db" else tol)
+            for name, a, b in zip(("dz", "sketch", "db"), got, want)}
+    _ffn_case(results, "matmul_lut_backward", "tp=2 backward 768->1536", tag,
+              K.fused_matmul_lut_backward, K.matmul_lut_backward_plain, args,
+              errs, g, down_w)
+
+    args = (spec, x, up_w.t(), up_b, borders)
+    want = K.dense_act_plain(*args)
+    y, packed6 = K.fused_dense_act(*args, out=_nan_like(*want))
+    errs = {"y": compare(f"k6 tp=2 {tag} y", y, want[0], tol),
+            "code_flips": code_flips(f"k6 tp=2 {tag}", packed6, want[1], z0,
+                                     borders, spec.bits)}
+    case = {"mode": f"tp=2 forward 768->1536, the "
+                    f"{K.dense_act_schedule(N, TP_INNER, dt)} schedule",
+            "dtype": tag, "errors": errs,
+            "ms": cuda_ms(lambda: K.fused_dense_act(*args)),
+            "device_ms": device_ms(lambda: K.fused_dense_act(*args)),
+            "plain_ms": cuda_ms(lambda: K.dense_act_plain(*args)),
+            **bound(2 * N * HIDDEN * TP_INNER, gemm_rate(dt),
+                    tensor_bytes(args, y, packed6)),
+            "library_ms": None}
+    case["bound_share"] = case["bound_ms"] / case["device_ms"]
+    results["dense_act"].append(case)
+
+    g_ffn = rand(N, TP_INNER, dt=dt)
+    args = (spec, packed6, levels, g_ffn)
+    want = K.act_backward_plain(*args)
+    dx = K.fused_backward(*args, out=_nan_like(want))
+    case = {"mode": "tp=2 backward (8192, 1536) on codes of kernel 6",
+            "dtype": tag,
+            "errors": {"dx": compare(f"k5 tp=2 {tag}", dx, want, tol)},
+            "ms": cuda_ms(lambda: K.fused_backward(*args)),
+            "device_ms": device_ms(lambda: K.fused_backward(*args)),
+            "plain_ms": cuda_ms(lambda: K.act_backward_plain(*args)),
+            **bound(g_ffn.numel(), "simt", tensor_bytes(args, dx)),
+            "library_ms": None}
+    case["bound_share"] = case["bound_ms"] / case["device_ms"]
+    results["fused_backward"].append(case)
 
 
 # The activation phase: every id of ACT_IDS but stepwise with its default
@@ -1308,11 +1427,12 @@ def _batches(path, seed):
                for k, v in b.items()}
 
 
-def _model(path, dt, fewbit, flash=None):
+def _model(path, dt, fewbit, flash=None, tp_group=None, **overrides):
     """A path's model in ``dt`` (vanilla or few-bit, random weights from
     SEED) and its training step.  On a flash path attention dropout is 0
     and the few-bit model takes flash attention (unless ``flash`` says
-    otherwise); vanilla takes the standard attention."""
+    otherwise); vanilla takes the standard attention.  ``overrides`` are
+    config fields; with ``tp_group`` the model is a tp slice on it."""
     from fewbit_tpu_torch.models import (MLP, GPTConfig, GPTForCausalLM,
                                          RobertaConfig,
                                          RobertaForSequenceClassification)
@@ -1330,6 +1450,7 @@ def _model(path, dt, fewbit, flash=None):
                                          if flash is None else flash))
     if flash_path:
         switches["attention_dropout"] = 0.0
+    switches.update(overrides)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if path == "mlp":
         model = MLP(MLP_FEATURES, **switches, device="cuda", generator=gen,
@@ -1347,7 +1468,7 @@ def _model(path, dt, fewbit, flash=None):
                             fused_ffn=path != "roberta_unfused_ffn")
     model_cls = (GPTForCausalLM if path.startswith("gpt2_small")
                  else RobertaForSequenceClassification)
-    model = model_cls(cfg, device="cuda", generator=gen)
+    model = model_cls(cfg, device="cuda", generator=gen, tp_group=tp_group)
     step = make_train_step(model, TrainConfig(total_steps=100,
                                               learning_rate=1e-5),
                            loss_fn=loss_fn)
@@ -1420,7 +1541,8 @@ def phase_forward_check(path, model):
 
 
 def _checked_step(path, tag, step, batch, gen):
-    """One few-bit step that launches exactly the path's kernels."""
+    """One few-bit step that launches exactly the path's kernels: (loss,
+    seconds, peak bytes above those held before)."""
     from fewbit_tpu_torch.ops import kernels as K
 
     expected = {name: PATHS[path].get(name, 0) for name in K.KERNELS}
@@ -1436,18 +1558,20 @@ def _checked_step(path, tag, step, batch, gen):
     log(f"{path} {tag}: loss {loss:.6f}, {sec * 1e3:.1f} ms, peak "
         f"{peak / 2**30:.3f} GiB above held, launches "
         f"{ {k: v for k, v in delta.items() if v} }")
-    return loss
+    return loss, sec, peak
 
 
-def _checked_steps(path, step, batches, gen, n):
+def _checked_steps(path, step, batches, gen, n, tag="few-bit f32"):
     """The path's main run: every count starts at 0 just before it and is
-    read just after.  Returns (losses, counts)."""
+    read just after.  Returns ({losses, step_ms, peak_bytes}, counts)."""
     from fewbit_tpu_torch.ops import kernels as K
 
     K.reset_launch_counts()
-    losses = [_checked_step(path, f"few-bit f32 step {i}", step,
-                            next(batches), gen) for i in range(n)]
-    return losses, K.launch_counts()
+    runs = [_checked_step(path, f"{tag} step {i}", step, next(batches), gen)
+            for i in range(n)]
+    return ({"losses": [r[0] for r in runs],
+             "step_ms": [r[1] * 1e3 for r in runs],
+             "peak_bytes": [r[2] for r in runs]}, K.launch_counts())
 
 
 def _vanilla_vs_fewbit(path, steps, batches, gen, turns):
@@ -1553,11 +1677,11 @@ def phase_path(path):
     gen = torch.Generator().manual_seed(SEED)
     model, step = _model(path, torch.float32, fewbit=True)
     vmodel, vstep = phase_forward_check(path, model)
-    losses, counts = _checked_steps(path, step, batches, gen, 3)
+    runs, counts = _checked_steps(path, step, batches, gen, 3)
     # Each model has taken a step, so its optimizer state is in what is
     # held before the timed steps.
     vstep(next(_batches(path, SEED)), gen)
-    out = {"f32_losses": losses,
+    out = {"f32_losses": runs["losses"],
            **_vanilla_vs_fewbit(path, {"vanilla": vstep, "fewbit": step},
                                 batches, gen, turns=2)}
     if path in ("roberta_fused_ffn", "gpt2_small_flash", "roberta_default"):
@@ -1571,7 +1695,7 @@ def phase_path(path):
                                                             gen)
     bmodel, bstep = _model(path, torch.bfloat16, fewbit=True)
     out["bf16_loss"] = _checked_step(path, "few-bit bf16 step", bstep,
-                                     next(_batches(path, SEED)), gen)
+                                     next(_batches(path, SEED)), gen)[0]
     del bmodel, bstep
     torch.cuda.empty_cache()
     if path == "roberta_default":
@@ -1653,11 +1777,11 @@ def _fewbit_standard(path, batches, gen):
 def phase_steps(path):
     """A path's 2 checked f32 few-bit steps."""
     model, step = _model(path, torch.float32, fewbit=True)
-    losses, counts = _checked_steps(path, step, _batches(path, SEED),
-                                    torch.Generator().manual_seed(SEED), 2)
+    runs, counts = _checked_steps(path, step, _batches(path, SEED),
+                                  torch.Generator().manual_seed(SEED), 2)
     del model, step
     torch.cuda.empty_cache()
-    return {"f32_losses": losses}, counts
+    return {"f32_losses": runs["losses"]}, counts
 
 
 def phase_exp_megakernel():
@@ -2015,14 +2139,553 @@ def phase_surgery(turns=4):
     torch.cuda.empty_cache()
     return out
 
+# ---------------------------------------------------------------------------
+# The parallel phase (``python3 chip_smoke.py --parallel`` runs it alone).
+# ---------------------------------------------------------------------------
+
+# The two tp paths: path R and path G, without dropout.
+TP_PATHS = ("roberta_fused_ffn", "gpt2_small")
+NO_DROPOUT = dict(hidden_dropout=0.0, attention_dropout=0.0)
+# Each rank process's time limit, seconds.
+RANK_TIMEOUT = 900
+# Losses of the tp ranks' three steps against the single process's,
+# relative: the two differ by the order of f32 sums.
+PARALLEL_LOSS_RTOL = 1e-4
+# Gradients of a parallel run against the single process's, relative, in
+# the 2-norm (as tests/test_torch_models.py's _close_by_norm).  The tp
+# ranks sum their partial products in another order than one GEMM, so the
+# activations differ by rounding and codes within rounding of a border
+# flip; each flip moves the gradient of its row in every layer below, and
+# independent flips add in quadrature.  So the bound is FLIP_NOISE times
+# what a rounding-size change does to the single-device run against itself
+# (_flip_noise), scaled by the square root of the ratio of the two runs'
+# flipped codes, and never below GRAD_RTOL.  A gradient that is zero up to
+# rounding is held to GRAD_FLOOR.
+GRAD_RTOL, GRAD_FLOOR, FLIP_NOISE = 1e-4, 1e-6, 4.0
+
+
+def _loss_fn(path):
+    from fewbit_tpu_torch.train import causal_lm_loss, classification_loss
+
+    return causal_lm_loss if path.startswith("gpt") else classification_loss
+
+
+def _ffn_modules(path, model):
+    """Each layer's module that makes the few-bit codes: R's fused FFN,
+    G's ``intermediate``."""
+    if path.startswith("gpt"):
+        return [layer.intermediate for layer in model.transformer.layers]
+    return [layer.ffn for layer in model.roberta.layers]
+
+
+def _grads_of(path, model, batch, keep_inputs=False):
+    """One forward and backward without dropout under a fixed sketch
+    generator: logits (of a GPT sequence every 64th position), loss and
+    every gradient by name, on the CPU; the launches it made; the packed
+    codes each layer kept (the int32 residuals, in layer order) and, with
+    ``keep_inputs``, each layer's FFN input."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    inputs, codes = [], []
+
+    def keep(mod, args):
+        inputs.append(args[0].detach().reshape(-1, HIDDEN).cpu())
+
+    def pack(t):
+        if t.dtype == torch.int32:
+            codes.append(t.detach().cpu())
+        return t
+
+    hooks = ([m.register_forward_pre_hook(keep)
+              for m in _ffn_modules(path, model)] if keep_inputs else [])
+    K.reset_launch_counts()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        logits = model(batch["input_ids"], batch["attention_mask"],
+                       sketch_generator=torch.Generator(
+                           device="cuda").manual_seed(SEED + 1))
+    loss = _loss_fn(path)(logits, batch["labels"])
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    for hook in hooks:
+        hook.remove()
+    if logits.ndim == 3:
+        logits = logits[:, ::64]
+    out = {"logits": logits.detach().cpu(), "loss": loss.item(),
+           "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+           "counts": counts, "codes": codes, "inputs": inputs}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def _tp_residuals(model):
+    """Residual bytes of one tp=2 rank's layer-0 projections of R at bs 64
+    x seq 128 (``estimate_memory_usage``), each beside the bytes its
+    local shapes imply: the fused FFN keeps 3-bit codes and the y sketch
+    of its 1536 features, both weights (halves), x's sketch and the two
+    sign vectors (whole), and the 8 LUT levels; query (768 -> 384) keeps
+    x's sketch (whole) and its weight (half); output (384 -> 768) keeps
+    the sketch of its 384-wide input and its weight (halves)."""
+    from fewbit_tpu_torch.util import estimate_memory_usage
+
+    f32 = 4
+    layer = model.roberta.layers[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x = torch.randn(BS, SEQ, HIDDEN, generator=gen, device="cuda")
+    ctx = torch.randn(BS, SEQ, TP_WIDTH, generator=gen, device="cuda")
+    signs = N * f32
+    rows = {
+        "ffn": (estimate_memory_usage(lambda t: layer.ffn(t, gen), x),
+                3 * (N // 32) * TP_INNER * 4 + K_EFF * HIDDEN * f32
+                + K_EFF * TP_INNER * f32 + 2 * HIDDEN * TP_INNER * f32
+                + 2 * signs + 8 * f32),
+        "query": (estimate_memory_usage(
+            lambda t: layer.attention.query(t, gen), x),
+            K_EFF * HIDDEN * f32 + TP_WIDTH * HIDDEN * f32 + signs),
+        "output": (estimate_memory_usage(
+            lambda t: layer.attention.output(t, gen), ctx),
+            K_EFF * TP_WIDTH * f32 + HIDDEN * TP_WIDTH * f32 + signs)}
+    for name, (got, want) in rows.items():
+        log(f"parallel: residual bytes of one tp=2 rank's layer-0 {name} "
+            f"at ({BS}, {SEQ}): estimate_memory_usage {got} B, from the "
+            f"local shapes {want} B")
+        if got != want:
+            raise AssertionError(f"parallel residuals {name}: {got} B, "
+                                 f"expected {want} B")
+    return {name: {"bytes": got, "expected": want}
+            for name, (got, want) in rows.items()}
+
+
+def _tp_rank(path, mesh):
+    """One rank of path R or G at tp=2: its slice of the single-device
+    model (from SEED, sharded by ``shard_tp_params``), one forward and
+    backward, three f32 steps and one bf16 step."""
+    from fewbit_tpu_torch.parallel import shard_tp_params
+
+    tag = f"parallel {path} tp=2 rank {mesh.tp_rank}"
+    single, _ = _model(path, torch.float32, True, **NO_DROPOUT)
+    state = shard_tp_params(single.state_dict(), mesh.tp_rank, TP)
+    del single
+    tp = dict(NO_DROPOUT, tp_size=TP, tp_axis="tp")
+    model, step = _model(path, torch.float32, True, tp_group=mesh.tp_group,
+                         **tp)
+    model.load_state_dict(state)
+    out = _grads_of(path, model, next(_batches(path, SEED)))
+    del out["inputs"]
+    log(f"{tag}: one forward and backward, loss {out['loss']:.6f}, "
+        f"launches { {k: v for k, v in out['counts'].items() if v} }")
+    if path == "roberta_fused_ffn" and mesh.tp_rank == 0:
+        out["residuals"] = _tp_residuals(model)
+    out["steps"], out["step_counts"] = _checked_steps(
+        path, step, _batches(path, SEED + 3),
+        torch.Generator().manual_seed(SEED), 3,
+        f"parallel tp=2 rank {mesh.tp_rank} f32")
+    del model, step
+    torch.cuda.empty_cache()
+    model, step = _model(path, torch.bfloat16, True, tp_group=mesh.tp_group,
+                         **tp)
+    model.load_state_dict(state)
+    out["bf16"], _ = _checked_steps(path, step, _batches(path, SEED + 3),
+                                    torch.Generator().manual_seed(SEED), 1,
+                                    f"parallel tp=2 rank {mesh.tp_rank} bf16")
+    del model, step, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_unequal_batch():
+    """A GPT batch whose second half (dp rank 1's) keeps 64 valid labels
+    a row: the ranks hold unequal valid tokens."""
+    batch = next(_batches("gpt2_small", SEED + 5))
+    batch["labels"][GPT_BS // 2:, 64:] = -100
+    return batch
+
+
+def _dp_rank(mesh):
+    """One rank of dp=2: R at global bs 64 (dropout on), the gradient after
+    ``DistributedDataParallel``'s average; GPT without dropout on a batch
+    whose ranks hold unequal valid tokens, the reported loss."""
+    from fewbit_tpu_torch.ops import kernels as K
+    from fewbit_tpu_torch.parallel import data_parallel_step, shard_batch
+    from fewbit_tpu_torch.train import TrainConfig, make_train_step
+
+    out = {}
+    for path, batch, overrides in (
+            ("roberta_fused_ffn", next(_batches("roberta_fused_ffn", SEED)),
+             {}),
+            ("gpt2_small", _lm_unequal_batch(), NO_DROPOUT)):
+        model, _ = _model(path, torch.float32, True, **overrides)
+        step = make_train_step(data_parallel_step(model, mesh),
+                               TrainConfig(total_steps=100,
+                                           learning_rate=1e-5),
+                               loss_fn=_loss_fn(path), dp_group=mesh.dp_group)
+        K.reset_launch_counts()
+        loss = step.loss_and_grads(shard_batch(batch, mesh),
+                                   torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        out[path] = {"loss": loss.item(), "counts": counts}
+        if path == "roberta_fused_ffn":
+            out[path]["grads"] = {n: p.grad.cpu()
+                                  for n, p in model.named_parameters()}
+        log(f"parallel dp=2 rank {mesh.dp_rank} {path}: loss "
+            f"{out[path]['loss']:.6f}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        del model, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_main(rank, workdir):
+    """A rank process of the parallel phase: gloo with CUDA tensors on the
+    one card, the tp=2 runs of R and G, then the dp=2 runs; what it saw
+    goes to ``workdir/rank<rank>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from fewbit_tpu_torch.parallel import (init_distributed,
+                                           make_dp_tp_mesh, make_mesh)
+
+    init_distributed(num_processes=TP, process_id=rank, backend="gloo",
+                     init_method=f"file://{workdir}/store")
+    tp_mesh, dp_mesh = make_dp_tp_mesh(1, TP), make_mesh(TP)
+    out = {path: _tp_rank(path, tp_mesh) for path in TP_PATHS}
+    out["dp"] = _dp_rank(dp_mesh)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _nccl_world_of_one():
+    """NCCL at world size 1, dp=1 x tp=1, path R: one step through
+    ``data_parallel_step`` equals the plain step on the rank's folded
+    generator to the bit (loss and every gradient, in deterministic
+    mode), both launching R's kernels."""
+    import torch.distributed as dist
+
+    from fewbit_tpu_torch.parallel import (data_parallel_step,
+                                           fold_shard_generator,
+                                           init_distributed, make_mesh)
+    from fewbit_tpu_torch.train import TrainConfig, make_train_step
+
+    path = "roberta_fused_ffn"
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(num_processes=1, process_id=0, backend="nccl",
+                         init_method=f"file://{tmp}/store")
+        try:
+            mesh = make_mesh(1)
+            model, _ = _model(path, torch.float32, True)
+            plain, plain_step = _model(path, torch.float32, True)
+            step = make_train_step(data_parallel_step(model, mesh),
+                                   TrainConfig(total_steps=100,
+                                               learning_rate=1e-5),
+                                   dp_group=mesh.dp_group)
+            batch = next(_batches(path, SEED))
+            with _deterministic():
+                dp_loss, dp_counts = _launched(lambda: step.loss_and_grads(
+                    batch, torch.Generator().manual_seed(SEED)))
+                loss, counts = _launched(lambda: plain_step.loss_and_grads(
+                    batch, fold_shard_generator(
+                        torch.Generator().manual_seed(SEED), 0)))
+        finally:
+            dist.destroy_process_group()
+    want = {k: PATHS[path].get(k, 0) for k in counts}
+    differ = [n for (n, p), q in zip(model.named_parameters(),
+                                     plain.parameters())
+              if not torch.equal(p.grad, q.grad)]
+    if (not torch.equal(dp_loss, loss) or differ or counts != want
+            or dp_counts != want):
+        raise AssertionError(f"parallel NCCL world 1: loss {dp_loss.item()} "
+                             f"vs {loss.item()}, gradients differ: {differ}, "
+                             f"launches {dp_counts} / {counts}")
+    n = len(list(model.parameters()))
+    log(f"parallel: NCCL, world size 1, dp=1 x tp=1, {path}: the "
+        f"data_parallel_step step equals the plain step to the bit (loss "
+        f"{loss.item():.6f}, {n} gradients), launches "
+        f"{ {k: v for k, v in counts.items() if v} } each")
+    del model, plain, plain_step, step
+    torch.cuda.empty_cache()
+    return {"loss": loss.item(), "gradients_equal": n}
+
+
+def _spawn_ranks(workdir):
+    """The two rank processes on the one card, each with its own time
+    limit; either failing or hanging fails the phase.  Their output is
+    printed after they end."""
+    procs, logs = [], []
+    try:
+        for rank in range(TP):
+            logs.append(open(os.path.join(workdir, f"rank{rank}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank",
+                 str(rank), workdir], stdout=logs[-1],
+                stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        t0 = time.perf_counter()
+        codes = []
+        for proc in procs:
+            left = RANK_TIMEOUT - (time.perf_counter() - t0)
+            try:
+                codes.append(proc.wait(timeout=max(left, 1)))
+            except subprocess.TimeoutExpired:
+                codes.append("timeout")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        for rank, f in enumerate(logs):
+            f.seek(0)
+            for line in f.read().splitlines():
+                log(f"[rank {rank}] {line}")
+            f.close()
+    if codes != [0] * TP:
+        raise AssertionError(f"parallel: rank exit codes {codes}")
+    return time.perf_counter() - t0
+
+
+def _grads_close(tag, got, want, noise=0.0):
+    """Each gradient of ``got`` against ``want`` (by name), in the 2-norm:
+    within ``max(GRAD_RTOL, FLIP_NOISE * noise)`` of ``want``'s norm, where
+    ``noise`` is the largest relative error that a rounding-size change of
+    the single-device run's own input makes (the codes it flips near a
+    border move the rows behind them); a gradient that is zero up to
+    rounding (norm below GRAD_FLOOR: the key biases under the softmax)
+    within GRAD_FLOOR.  Logs the largest errors; returns them."""
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: names {set(got) ^ set(want)}")
+    bound = max(GRAD_RTOL, FLIP_NOISE * noise)
+    rows, bad = [], []
+    for name in want:
+        a, b = got[name].cuda().float(), want[name].cuda().float()
+        diff, ref = (a - b).norm().item(), b.norm().item()
+        rows.append((diff / max(ref, 1e-30), name))
+        if not (diff <= GRAD_FLOOR if ref < GRAD_FLOOR else
+                diff <= bound * ref):
+            bad.append(name)
+    rows.sort(reverse=True)
+    real = [r for r in rows if want[r[1]].norm().item() >= GRAD_FLOOR]
+    out = {"max_rel_err": real[0][0], "median_rel_err":
+           statistics.median(r[0] for r in real), "bound": bound,
+           "worst": real[0][1]}
+    log(f"{tag}: {len(rows)} gradients, relative 2-norm error largest "
+        f"{out['max_rel_err']:.3g} ({out['worst']}), median "
+        f"{out['median_rel_err']:.3g}, bound {bound:.3g}")
+    if bad:
+        raise AssertionError(f"{tag}: gradients outside the bound: {bad}")
+    return out
+
+
+def _code_flips(a, b):
+    """Codes that differ between two lists of packed code tensors."""
+    from fewbit_tpu_torch.ops.bitpack import unpack_codes
+
+    return sum(int((unpack_codes(x.cuda(), 3, N) != unpack_codes(
+        y.cuda(), 3, N)).sum()) for x, y in zip(a, b))
+
+
+def _flip_noise(path, model, want):
+    """The single device against itself when its first LayerNorm's scale
+    moves by 2^-22 of itself, feature by feature with random signs (a
+    rounding-size change of every row): the codes it flips, and the
+    largest relative gradient error over the gradients above GRAD_FLOOR."""
+    from fewbit_tpu_torch.models.roberta import LayerNorm
+
+    norm = next(m for m in model.modules() if isinstance(m, LayerNorm))
+    kept = norm.weight.detach().clone()
+    sign = torch.randint(0, 2, kept.shape, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             SEED)) * 2 - 1
+    with torch.no_grad():
+        norm.weight.mul_(1 + sign * 2.0 ** -22)
+    moved = _grads_of(path, model, next(_batches(path, SEED)))
+    with torch.no_grad():
+        norm.weight.copy_(kept)
+    errs = [((moved["grads"][n] - g).norm() / g.norm()).item()
+            for n, g in want["grads"].items() if g.norm() >= GRAD_FLOOR]
+    flips = _code_flips(moved["codes"], want["codes"])
+    log(f"parallel {path}: the single device against itself with its first "
+        f"LayerNorm's scale moved by 2^-22: {flips} codes flip, gradients' "
+        f"relative 2-norm error largest {max(errs):.3g}, median "
+        f"{statistics.median(errs):.3g}")
+    return max(errs), flips
+
+
+@torch.no_grad()
+def _flips_at_tp(path, model, ranks, want):
+    """Each layer's codes at tp=2 (the two ranks' halves side by side)
+    against the single device's: a code may differ only where the single
+    device's pre-activation lies within FLIP_BAND of a border, on at most
+    FLIP_FRACTION of the elements.  Returns the flips per layer."""
+    from fewbit_tpu_torch.functional.activations import resolve_activation
+    from fewbit_tpu_torch.ops import kernels as K
+
+    spec, borders, _ = resolve_activation("gelu", bits=3, device="cuda")
+    mods = _ffn_modules(path, model)
+    if not len(want["codes"]) == len(mods) == len(ranks[0]["codes"]):
+        raise AssertionError(f"parallel {path}: codes of "
+                             f"{len(want['codes'])} / "
+                             f"{len(ranks[0]['codes'])} layers kept")
+    flips = []
+    for i, mod in enumerate(mods):
+        w, b = ((mod.weight, mod.bias) if path.startswith("gpt") else
+                (mod.up_weight, mod.up_bias))
+        z0 = K.dot_f32(want["inputs"][i].cuda(), w.t()) + b.float()
+        tp = torch.cat([r["codes"][i] for r in ranks], dim=-1).cuda()
+        flips.append(code_flips(f"parallel {path} tp=2 layer {i} codes", tp,
+                                want["codes"][i].cuda(), z0, borders,
+                                spec.bits))
+    return flips
+
+
+def _tp_reference(path, ranks):
+    """The single-device path (same weights, batches, generators) against
+    the two ranks: logits, loss, gathered gradients, codes, the three
+    steps' losses."""
+    from fewbit_tpu_torch.parallel import gather_tp_params
+
+    tag = f"parallel {path} tp=2"
+    model, step = _model(path, torch.float32, True, **NO_DROPOUT)
+    want = _grads_of(path, model, next(_batches(path, SEED)),
+                     keep_inputs=True)
+    noise, noise_flips = _flip_noise(path, model, want)
+    out = {"loss": want["loss"], "flip_noise": noise,
+           "flip_noise_codes": noise_flips,
+           "rank_losses": [r["loss"] for r in ranks]}
+    for r in ranks:
+        compare(f"{tag} logits", r["logits"], want["logits"],
+                TOL[torch.float32])
+        if abs(r["loss"] - want["loss"]) > TOL[torch.float32] * abs(
+                want["loss"]):
+            raise AssertionError(f"{tag}: loss {r['loss']} vs {want['loss']}")
+        if r["counts"] != want["counts"]:
+            raise AssertionError(f"{tag}: launches {r['counts']} vs "
+                                 f"{want['counts']}")
+    out["code_flips"] = _flips_at_tp(path, model, ranks, want)
+    flips = sum(out["code_flips"])
+    log(f"{tag}: codes flipped against the single device, by layer "
+        f"{out['code_flips']} ({flips} in all), each within FLIP_BAND of a "
+        f"border; the single device against itself: {noise_flips}")
+    out["gradients"] = _grads_close(
+        f"{tag} gathered gradients",
+        gather_tp_params([r["grads"] for r in ranks]), want["grads"],
+        noise * (max(1.0, flips / max(noise_flips, 1))) ** 0.5)
+    steps, _ = _checked_steps(path, step, _batches(path, SEED + 3),
+                              torch.Generator().manual_seed(SEED), 3,
+                              "parallel single-device f32")
+    for r in ranks:
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["steps"]["losses"],
+                                                    steps["losses"])]
+        if not max(rel) <= PARALLEL_LOSS_RTOL:
+            raise AssertionError(f"{tag}: step losses {r['steps']} vs "
+                                 f"{steps['losses']}")
+        if not np.isfinite(r["bf16"]["losses"][0]):
+            raise AssertionError(f"{tag}: bf16 loss {r['bf16']}")
+    out.update(single_steps=steps, rank_steps=[r["steps"] for r in ranks],
+               bf16_losses=[r["bf16"]["losses"][0] for r in ranks])
+    log(f"{tag}: logits, loss ({want['loss']:.6f}) and launches "
+        f"{ {k: v for k, v in want['counts'].items() if v} } equal to the "
+        f"single device's on each rank; gathered gradients "
+        f"{out['gradients']}; codes flipped {out['code_flips']}; "
+        f"three steps' losses {steps['losses']} (ranks "
+        f"{[r['steps']['losses'] for r in ranks]}), step ms single "
+        f"{[round(t, 2) for t in steps['step_ms']]}, ranks "
+        f"{[[round(t, 2) for t in r['steps']['step_ms']] for r in ranks]}; "
+        f"peak above held single {max(steps['peak_bytes'])} B, ranks "
+        f"{[max(r['steps']['peak_bytes']) for r in ranks]} B; bf16 "
+        f"{out['bf16_losses']}")
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_reference(ranks):
+    """dp=2 against one process: R's gradient equals the mean of the two
+    half-batch gradients, each taken with its rank's folded generator;
+    GPT's loss on unequal valid tokens equals the full batch's."""
+    from fewbit_tpu_torch.parallel import fold_shard_generator
+
+    path = "roberta_fused_ffn"
+    model, step = _model(path, torch.float32, True)
+    batch = next(_batches(path, SEED))
+    grads, losses = [], []
+    for r in range(TP):
+        half = {k: v.chunk(TP)[r] for k, v in batch.items()}
+        losses.append(step.loss_and_grads(half, fold_shard_generator(
+            torch.Generator().manual_seed(SEED), r)).item())
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    mean = {n: (grads[0][n] + grads[1][n]) / 2 for n in grads[0]}
+    del grads, model, step
+    got = [r["dp"][path] for r in ranks]
+    for name in mean:
+        if not torch.equal(got[0]["grads"][name], got[1]["grads"][name]):
+            raise AssertionError(f"parallel dp=2: the ranks' {name} differ")
+    err = _grads_close(f"parallel dp=2 {path} gradients", got[0]["grads"],
+                       mean)
+    want_loss = sum(losses) / TP
+    lm_model, lm_step = _model("gpt2_small", torch.float32, True,
+                               **NO_DROPOUT)
+    lm_loss = lm_step.loss_and_grads(_lm_unequal_batch(),
+                                     torch.Generator().manual_seed(SEED))
+    out = {"roberta_gradients": err,
+           "roberta_loss": [g["loss"] for g in got],
+           "roberta_half_losses": losses, "gpt_full_batch_loss": lm_loss.item(),
+           "gpt_rank_losses": [r["dp"]["gpt2_small"]["loss"] for r in ranks]}
+    del lm_model, lm_step
+    torch.cuda.empty_cache()
+    for g in got:
+        if abs(g["loss"] - want_loss) > TOL[torch.float32] * want_loss:
+            raise AssertionError(f"parallel dp=2: loss {out}")
+    for loss in out["gpt_rank_losses"]:
+        if abs(loss - lm_loss.item()) > TOL[torch.float32] * lm_loss.item():
+            raise AssertionError(f"parallel dp=2 gpt: loss {out}")
+    log(f"parallel dp=2: {path} gradients against the mean of the "
+        f"half-batch gradients {err} (the ranks equal to the bit), loss "
+        f"{out['roberta_loss']} vs {want_loss:.6f}; GPT-2 small with "
+        f"{int((_lm_unequal_batch()['labels'] >= 0).sum())} valid tokens, "
+        f"unequal over the ranks: loss {out['gpt_rank_losses']} vs the full "
+        f"batch's {lm_loss.item():.6f}")
+    return out
+
+
+def phase_parallel():
+    """Data and tensor parallelism on the one card: NCCL at world size 1
+    (dp=1 x tp=1, bitwise against the plain step); then two ranks, gloo
+    with CUDA tensors: R and G at tp=2 against the single device, R and
+    GPT at dp=2; the residual bytes of one tp rank.  Returns (summary,
+    each tp path's launches on rank 0 over its three steps)."""
+    out = {"nccl_world_of_one": _nccl_world_of_one()}
+    log("parallel: two ranks on one card over gloo with CUDA tensors (NCCL "
+        "cannot put two ranks on one device); gloo stages each all-reduce "
+        "through the host, so these step times say nothing of NCCL over "
+        "NVLink")
+    with tempfile.TemporaryDirectory() as workdir:
+        out["rank_seconds"] = _spawn_ranks(workdir)
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(TP)]
+    counts = {}
+    for path in TP_PATHS:
+        out[f"tp2_{path}"] = _tp_reference(path, [r[path] for r in ranks])
+        counts[f"tp2_{path}"] = ranks[0][path]["step_counts"]
+    out["residuals_tp2"] = ranks[0]["roberta_fused_ffn"]["residuals"]
+    out["dp2"] = _dp_reference(ranks)
+    return out, counts
+
+
 
 def main():
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(int(sys.argv[2]), sys.argv[3])
+        return
     smi = phase_device()
     if sys.argv[1:] == ["--activations"]:
         phase_activations()
         return
     if sys.argv[1:] == ["--surgery"]:
         log(json.dumps({"surgery": phase_surgery(), "card": smi}))
+        return
+    if sys.argv[1:] == ["--parallel"]:
+        summary, counts = phase_parallel()
+        log(json.dumps({"parallel": summary, "launches": counts,
+                        "card": smi}))
         return
     if sys.argv[1:2] == ["--profile"]:
         if sys.argv[2:] not in [[path] for path in PATHS]:
@@ -2043,6 +2706,8 @@ def main():
         train[path], counts[path] = run(path)
     # The slice's own path; its launches stay in its own summary.
     train["surgery"] = phase_surgery()
+    train["parallel"], tp_counts = phase_parallel()
+    counts.update(tp_counts)
     sketch_kinds = phase_sketch_kinds()
     exp_rows, counts["exp_megakernel"] = phase_exp_megakernel()
     from fewbit_tpu_torch.ops import kernels as K

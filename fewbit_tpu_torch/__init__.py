@@ -12,7 +12,10 @@ memory-efficient training, held against the JAX package ``fewbit_tpu``:
   its CLI (``fewbit-tpu-torch quantize``);
 * **model surgery, residual accounting and class-level patching**
   (:mod:`fewbit_tpu_torch.util`, :mod:`fewbit_tpu_torch.patch`) and
-  gradient-variance estimation (:class:`VarianceEstimator`).
+  gradient-variance estimation (:class:`VarianceEstimator`);
+* **data and tensor parallelism** (:mod:`fewbit_tpu_torch.parallel`):
+  ``DistributedDataParallel`` over a dp group, Megatron's column- and
+  row-parallel layers over a tp group, on ``torch.distributed``.
 
 This package imports torch and numpy, never JAX.  Importing it builds and
 loads nothing: the CUDA kernels build at their first launch
@@ -22,7 +25,7 @@ loads nothing: the CUDA kernels build at their first launch
 
 __version__ = "0.1.0"
 
-from fewbit_tpu_torch import functional  # noqa: E402,F401
+from fewbit_tpu_torch import functional, parallel  # noqa: E402,F401
 from fewbit_tpu_torch.approx import (Stepwise, approximate,  # noqa: E402,F401
                                      dp_quantize)
 from fewbit_tpu_torch.lut import StepwiseStore, store  # noqa: E402,F401

@@ -25,8 +25,12 @@ The model builds on the card unless the caller asks otherwise (``device``
 None is ``"cuda"``; without a card it raises and names ``device="cpu"``).
 
 ``scan_layers`` is accepted and has no effect (the layers are a Python
-loop); ``tp_axis``/``tp_size`` are accepted and raise unless ``None``/1:
-tensor parallelism is not ported (ROADMAP queue 1 item 13).
+loop).  With ``tp_size > 1`` the model is one rank's Megatron slice, built
+with its ``tp_group``, by the rules of the RoBERTa model
+(:mod:`fewbit_tpu_torch.models.roberta`): ``query``, ``key``, ``value``
+and ``intermediate`` column-parallel, ``output`` and ``ffn_output``
+row-parallel with ``output_bias`` and ``ffn_bias`` added after the
+all-reduce; the embeddings, the norms and the tied head are replicated.
 """
 
 from __future__ import annotations
@@ -42,9 +46,11 @@ from fewbit_tpu_torch.models.flash import use_flash, validate_flash_config
 from fewbit_tpu_torch.models.roberta import (LayerNorm, _dense, _dense_pairs,
                                              _flash_context,
                                              _fused_dense_gelu, _index,
-                                             _norm_pairs, dropout,
-                                             model_device,
-                                             validate_tp_config)
+                                             _norm_pairs, _row_bias,
+                                             _row_parallel, check_tp_group,
+                                             dropout, model_device,
+                                             tp_group_of, validate_tp_config)
+from fewbit_tpu_torch.parallel.tp import copy_to_tp
 
 __all__ = ("GPTConfig", "GPTModel", "GPTForCausalLM")
 
@@ -73,7 +79,8 @@ class GPTConfig:
     # The port loops over the layers in Python either way: accepted, no
     # effect (load_flax_params reads stacked and per-layer trees alike).
     scan_layers: bool = True
-    # Tensor parallelism is not ported (ROADMAP queue 1 item 13).
+    # Megatron tensor parallelism: the model is one rank's slice of
+    # ``tp_size`` (``num_heads`` and ``intermediate_size`` stay global).
     tp_axis: Optional[str] = None
     tp_size: int = 1
 
@@ -88,23 +95,31 @@ class GPTConfig:
 
 class GPTSelfAttention(nn.Module):
 
-    def __init__(self, cfg: GPTConfig, device=None, generator=None):
+    def __init__(self, cfg: GPTConfig, device=None, generator=None,
+                 tp_group=None):
         super().__init__()
         self.cfg = cfg
+        self.tp_group = tp_group_of(cfg, tp_group)
         h = cfg.hidden_size
-        self.query = _dense(cfg, h, h, device, generator)
-        self.key = _dense(cfg, h, h, device, generator)
-        self.value = _dense(cfg, h, h, device, generator)
-        self.output = _dense(cfg, h, h, device, generator)
+        width = h // cfg.tp_size  # the local heads' features
+        self.query = _dense(cfg, h, width, device, generator)
+        self.key = _dense(cfg, h, width, device, generator)
+        self.value = _dense(cfg, h, width, device, generator)
+        self.output = _dense(cfg, width, h, device, generator,
+                             bias=cfg.tp_size == 1)
+        self.output_bias = (nn.Parameter(torch.zeros(h, device=device))
+                            if cfg.tp_size > 1 else None)
 
     def forward(self, x, attention_mask, deterministic: bool,
                 dropout_generator=None, sketch_generator=None):
         cfg = self.cfg
         b, s, h = x.shape
+        heads = cfg.num_heads // cfg.tp_size
 
         def split(t):
-            return t.reshape(b, s, cfg.num_heads, cfg.head_dim)
+            return t.reshape(b, s, heads, cfg.head_dim)
 
+        x = copy_to_tp(x, self.tp_group)
         q = split(self.query(x, sketch_generator))
         k = split(self.key(x, sketch_generator))
         v = split(self.value(x, sketch_generator))
@@ -125,8 +140,10 @@ class GPTSelfAttention(nn.Module):
             probs = torch.softmax(logits, dim=-1)
             probs = dropout(probs, cfg.attention_dropout, deterministic,
                             dropout_generator)
-            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h)
-        out = self.output(ctx, sketch_generator)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs,
+                               v).reshape(b, s, heads * cfg.head_dim)
+        out = _row_parallel(self.output(ctx, sketch_generator),
+                            self.tp_group, self.output_bias)
         return dropout(out, cfg.hidden_dropout, deterministic,
                        dropout_generator)
 
@@ -134,17 +151,22 @@ class GPTSelfAttention(nn.Module):
 class GPTBlock(nn.Module):
     """Pre-LN transformer decoder block."""
 
-    def __init__(self, cfg: GPTConfig, device=None, generator=None):
+    def __init__(self, cfg: GPTConfig, device=None, generator=None,
+                 tp_group=None):
         super().__init__()
         self.cfg = cfg
-        h, inner = cfg.hidden_size, cfg.intermediate_size
+        self.tp_group = tp_group_of(cfg, tp_group)
+        h, inner = cfg.hidden_size, cfg.intermediate_size // cfg.tp_size
         self.attention_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
-        self.attention = GPTSelfAttention(cfg, device, generator)
+        self.attention = GPTSelfAttention(cfg, device, generator, tp_group)
         self.ffn_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
         self.intermediate = (
             _fused_dense_gelu(cfg, h, inner, device, generator)
             if cfg.gelu_bits else _dense(cfg, h, inner, device, generator))
-        self.ffn_output = _dense(cfg, inner, h, device, generator)
+        self.ffn_output = _dense(cfg, inner, h, device, generator,
+                                 bias=cfg.tp_size == 1)
+        self.ffn_bias = (nn.Parameter(torch.zeros(h, device=device))
+                         if cfg.tp_size > 1 else None)
 
     def forward(self, x, attention_mask, deterministic: bool,
                 dropout_generator=None, sketch_generator=None):
@@ -152,10 +174,12 @@ class GPTBlock(nn.Module):
         x = x + self.attention(self.attention_norm(x), attention_mask,
                                deterministic, dropout_generator,
                                sketch_generator)
-        inner = self.intermediate(self.ffn_norm(x), sketch_generator)
+        y = copy_to_tp(self.ffn_norm(x), self.tp_group)
+        inner = self.intermediate(y, sketch_generator)
         if not cfg.gelu_bits:
             inner = TF.gelu(inner, approximate="none")
-        out = self.ffn_output(inner, sketch_generator)
+        out = _row_parallel(self.ffn_output(inner, sketch_generator),
+                            self.tp_group, self.ffn_bias)
         return x + dropout(out, cfg.hidden_dropout, deterministic,
                            dropout_generator)
 
@@ -164,12 +188,15 @@ class GPTModel(nn.Module):
     """Decoder backbone; with ``logits=True`` the LM head is applied inside
     (tied: the token embedding matrix, transposed)."""
 
-    def __init__(self, cfg: GPTConfig, device=None, generator=None):
+    def __init__(self, cfg: GPTConfig, device=None, generator=None,
+                 tp_group=None):
         """``device`` None: the card (:func:`~fewbit_tpu_torch.models.
-        roberta.model_device`)."""
+        roberta.model_device`); ``tp_group``: the group a tp slice
+        all-reduces over."""
         super().__init__()
         device = model_device(device)
         self.cfg = cfg
+        self.tp_group = tp_group_of(cfg, tp_group)
         h = cfg.hidden_size
         self.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=device)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
@@ -177,7 +204,8 @@ class GPTModel(nn.Module):
         for emb in (self.word_embeddings, self.position_embeddings):
             with torch.no_grad():
                 emb.weight.normal_(0.0, h ** -0.5, generator=generator)
-        self.layers = nn.ModuleList(GPTBlock(cfg, device, generator)
+        self.layers = nn.ModuleList(GPTBlock(cfg, device, generator,
+                                             tp_group)
                                     for _ in range(cfg.num_layers))
         self.final_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
         self.lm_head = (None if cfg.tie_lm_head else
@@ -188,6 +216,7 @@ class GPTModel(nn.Module):
                 deterministic: bool = True, dropout_generator=None,
                 sketch_generator=None, logits: bool = False):
         cfg = self.cfg
+        check_tp_group(cfg, self.tp_group)
         s = input_ids.shape[-1]
         if s > cfg.max_position_embeddings:
             # An embedding lookup past the table would fail on the CPU and
@@ -214,11 +243,13 @@ class GPTModel(nn.Module):
 class GPTForCausalLM(nn.Module):
 
     def __init__(self, cfg: GPTConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
-        """``device`` None: the card (:class:`GPTModel`)."""
+                 generator: Optional[torch.Generator] = None,
+                 tp_group=None):
+        """``device`` None: the card; ``tp_group``: the group a tp slice
+        all-reduces over (:class:`GPTModel`)."""
         super().__init__()
         self.cfg = cfg
-        self.transformer = GPTModel(cfg, device, generator)
+        self.transformer = GPTModel(cfg, device, generator, tp_group)
 
     def forward(self, input_ids, attention_mask=None,
                 deterministic: bool = True, dropout_generator=None,
@@ -227,10 +258,11 @@ class GPTForCausalLM(nn.Module):
                                 dropout_generator, sketch_generator,
                                 logits=True)
 
-    def flax_param_pairs(self, p):
+    def flax_param_pairs(self, p, tp=(0, 1)):
         """``(parameter, array)`` pairs from the JAX model's tree
         ``transformer/{word_embeddings, position_embeddings, layers |
-        layer_i, final_norm, lm_head?}`` (see
+        layer_i, final_norm, lm_head?}``, cut to tp rank ``tp[0]`` of
+        ``tp[1]`` (see
         :func:`fewbit_tpu_torch.models.roberta.flax_param_pairs`)."""
         t = p["transformer"]
         m = self.transformer
@@ -238,13 +270,21 @@ class GPTForCausalLM(nn.Module):
             yield getattr(m, name).weight, t[name]["embedding"]
         for i, layer in enumerate(m.layers):
             lp = _index(t["layers"], i) if "layers" in t else t[f"layer_{i}"]
+            a = lp["attention"]
             for name in ("query", "key", "value", "output"):
                 yield from _dense_pairs(getattr(layer.attention, name),
-                                        lp["attention"][name])
+                                        a[name], name, tp)
+            if layer.attention.output_bias is not None:
+                yield layer.attention.output_bias, _row_bias(
+                    a, "output", "output_bias")
             yield from _norm_pairs(layer.attention_norm, lp["attention_norm"])
             yield from _norm_pairs(layer.ffn_norm, lp["ffn_norm"])
-            yield from _dense_pairs(layer.intermediate, lp["intermediate"])
-            yield from _dense_pairs(layer.ffn_output, lp["ffn_output"])
+            yield from _dense_pairs(layer.intermediate, lp["intermediate"],
+                                    "intermediate", tp)
+            yield from _dense_pairs(layer.ffn_output, lp["ffn_output"],
+                                    "ffn_output", tp)
+            if layer.ffn_bias is not None:
+                yield layer.ffn_bias, _row_bias(lp, "ffn_output", "ffn_bias")
         yield from _norm_pairs(m.final_norm, t["final_norm"])
         if m.lm_head is not None:
-            yield from _dense_pairs(m.lm_head, t["lm_head"])
+            yield from _dense_pairs(m.lm_head, t["lm_head"], "lm_head")

@@ -62,6 +62,6 @@ class MLP(nn.Module):
                      else TF.gelu(x, approximate="none"))
         return x
 
-    def flax_param_pairs(self, p):
+    def flax_param_pairs(self, p, tp=(0, 1)):
         for i, layer in enumerate(self.dense):
-            yield from _dense_pairs(layer, p[f"dense_{i}"])
+            yield from _dense_pairs(layer, p[f"dense_{i}"], f"dense_{i}", tp)

@@ -1,7 +1,20 @@
 """RoBERTa-base with the few-bit training path, as
 ``fewbit_tpu/models/roberta.py`` (post-LN layers, a Python loop over the
-layers whatever ``scan_layers`` says; ``tp_axis``/``tp_size`` are accepted
-and raise unless ``None``/1: tensor parallelism is not ported).
+layers whatever ``scan_layers`` says).
+
+Tensor parallelism (Megatron, :mod:`fewbit_tpu_torch.parallel.tp`): with
+``tp_size > 1`` (and ``tp_axis`` naming the axis, as in the JAX config)
+the model is one rank's slice, built with the ``tp_group`` it all-reduces
+over.  Each rank holds ``num_heads // tp_size`` heads and
+``intermediate_size // tp_size`` FFN features: ``query``, ``key``,
+``value`` and ``intermediate`` (or the fused FFN's up projection) are
+column-parallel behind :func:`~fewbit_tpu_torch.parallel.tp.copy_to_tp`;
+``output`` and ``ffn_output`` (or the fused FFN's down projection) are
+row-parallel without a bias, followed by
+:func:`~fewbit_tpu_torch.parallel.tp.reduce_from_tp` and the bias added
+once (``output_bias``, ``ffn_bias``, the JAX names).  Unlike the JAX model
+the fused ``FewBitFFN`` is split too, so every tp configuration is a
+sharding of the single-device model (F-8 in ``ROADMAP.md``).
 
 ``flash_attention`` chooses the attention op per call
 (:func:`fewbit_tpu_torch.models.flash.use_flash`): the non-causal flash op
@@ -39,6 +52,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as TF
 from torch import nn
 
@@ -48,6 +62,8 @@ from fewbit_tpu_torch.modules.ffn import FewBitFFN
 from fewbit_tpu_torch.modules.fused import FusedDenseActivation
 from fewbit_tpu_torch.modules.linear import Dense, RandomizedDense
 from fewbit_tpu_torch.ops.flash_attention import SegmentIds, flash_attention
+from fewbit_tpu_torch.parallel.tp import (copy_to_tp, reduce_from_tp,
+                                          tp_param_spec)
 
 __all__ = ("RobertaConfig", "RobertaModel",
            "RobertaForSequenceClassification", "load_flax_params",
@@ -67,12 +83,41 @@ def model_device(device) -> torch.device:
 
 
 def validate_tp_config(cfg) -> None:
-    """The model configs' check of the tensor-parallel fields: accepted as
-    the JAX configs define them, not ported."""
-    if cfg.tp_axis is not None or cfg.tp_size != 1:
-        raise NotImplementedError(
-            f"tensor parallelism (tp_axis={cfg.tp_axis!r}, "
-            f"tp_size={cfg.tp_size}) is not ported: ROADMAP queue 1 item 13")
+    """The model configs' check of the tensor-parallel fields, as the JAX
+    configs' widths imply them: ``tp_axis`` is set exactly when
+    ``tp_size > 1``, and ``num_heads`` and ``intermediate_size`` (the
+    global sizes) divide by ``tp_size``."""
+    if cfg.tp_size < 1:
+        raise ValueError(f"tp_size={cfg.tp_size} must be positive")
+    if (cfg.tp_axis is not None) != (cfg.tp_size > 1):
+        raise ValueError(f"tp_axis={cfg.tp_axis!r} with tp_size="
+                         f"{cfg.tp_size}: a tp axis is named exactly when "
+                         f"tp_size > 1")
+    for name in ("num_heads", "intermediate_size"):
+        if getattr(cfg, name) % cfg.tp_size:
+            raise ValueError(f"{name}={getattr(cfg, name)} does not split "
+                             f"over tp_size={cfg.tp_size}")
+
+
+def tp_group_of(cfg, tp_group):
+    """The group a model of ``cfg`` all-reduces over: None at tp_size 1,
+    else ``tp_group``, which must then hold ``tp_size`` ranks (None
+    builds the slice without one: its forward raises)."""
+    if cfg.tp_size == 1:
+        return None
+    if tp_group is not None and dist.get_world_size(tp_group) != cfg.tp_size:
+        raise ValueError(f"a tp group of {dist.get_world_size(tp_group)} "
+                         f"ranks for tp_size={cfg.tp_size}")
+    return tp_group
+
+
+def check_tp_group(cfg, tp_group) -> None:
+    """A tp slice's forward runs only on its group."""
+    if cfg.tp_size > 1 and tp_group is None:
+        raise RuntimeError(
+            f"a tp_size={cfg.tp_size} model was built without its "
+            f"tp_group; build it with one (fewbit_tpu_torch.parallel: "
+            f"make_dp_tp_mesh, init_dp_tp_state)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +147,8 @@ class RobertaConfig:
     # The port loops over the layers in Python either way: accepted, no
     # effect (load_flax_params reads stacked and per-layer trees alike).
     scan_layers: bool = True
-    # Tensor parallelism is not ported (ROADMAP queue 1 item 13).
+    # Megatron tensor parallelism: the model is one rank's slice of
+    # ``tp_size`` (``num_heads`` and ``intermediate_size`` stay global).
     tp_axis: Optional[str] = None
     tp_size: int = 1
 
@@ -223,23 +269,32 @@ class RobertaEmbeddings(nn.Module):
 
 class RobertaSelfAttention(nn.Module):
 
-    def __init__(self, cfg: RobertaConfig, device=None, generator=None):
+    def __init__(self, cfg: RobertaConfig, device=None, generator=None,
+                 tp_group=None):
         super().__init__()
         self.cfg = cfg
+        self.tp_group = tp_group_of(cfg, tp_group)
         h = cfg.hidden_size
-        self.query = _dense(cfg, h, h, device, generator)
-        self.key = _dense(cfg, h, h, device, generator)
-        self.value = _dense(cfg, h, h, device, generator)
-        self.output = _dense(cfg, h, h, device, generator)
+        width = h // cfg.tp_size  # the local heads' features
+        self.query = _dense(cfg, h, width, device, generator)
+        self.key = _dense(cfg, h, width, device, generator)
+        self.value = _dense(cfg, h, width, device, generator)
+        self.output = _dense(cfg, width, h, device, generator,
+                             bias=cfg.tp_size == 1)
+        # Row-parallel: the bias is added once, after the all-reduce.
+        self.output_bias = (nn.Parameter(torch.zeros(h, device=device))
+                            if cfg.tp_size > 1 else None)
 
     def forward(self, x, attention_mask, deterministic: bool,
                 dropout_generator=None, sketch_generator=None):
         cfg = self.cfg
         b, s, h = x.shape
+        heads = cfg.num_heads // cfg.tp_size
 
         def split(t):
-            return t.reshape(b, s, cfg.num_heads, cfg.head_dim)
+            return t.reshape(b, s, heads, cfg.head_dim)
 
+        x = copy_to_tp(x, self.tp_group)
         q = split(self.query(x, sketch_generator))
         k = split(self.key(x, sketch_generator))
         v = split(self.value(x, sketch_generator))
@@ -259,32 +314,49 @@ class RobertaSelfAttention(nn.Module):
             probs = dropout(probs, cfg.attention_dropout, deterministic,
                             dropout_generator)
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs,
-                               v).reshape(b, s, h)
-        out = self.output(ctx, sketch_generator)
+                               v).reshape(b, s, heads * cfg.head_dim)
+        out = _row_parallel(self.output(ctx, sketch_generator),
+                            self.tp_group, self.output_bias)
         return dropout(out, cfg.hidden_dropout, deterministic,
                        dropout_generator)
 
 
+def _row_parallel(out, tp_group, bias):
+    """A row-parallel projection's partial product summed over the tp
+    group, then its bias; ``out`` itself at tp_size 1."""
+    if bias is None:
+        return out
+    return reduce_from_tp(out, tp_group) + bias.to(out.dtype)
+
+
 class RobertaLayer(nn.Module):
 
-    def __init__(self, cfg: RobertaConfig, device=None, generator=None):
+    def __init__(self, cfg: RobertaConfig, device=None, generator=None,
+                 tp_group=None):
         super().__init__()
         self.cfg = cfg
-        h, inner = cfg.hidden_size, cfg.intermediate_size
-        self.attention = RobertaSelfAttention(cfg, device, generator)
+        self.tp_group = tp_group_of(cfg, tp_group)
+        h, inner = cfg.hidden_size, cfg.intermediate_size // cfg.tp_size
+        single = cfg.tp_size == 1
+        self.attention = RobertaSelfAttention(cfg, device, generator,
+                                              tp_group)
         self.attention_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
         if cfg.fewbit_ffn:
             self.ffn = FewBitFFN(h, inner, h, activation="gelu",
                                  bits=cfg.gelu_bits, dtype=cfg.dtype,
                                  proj_dim_ratio=cfg.proj_dim_ratio,
-                                 device=device, generator=generator)
+                                 use_down_bias=single, device=device,
+                                 generator=generator)
         else:
             self.fused_act = bool(cfg.gelu_bits and cfg.fused_ffn)
             self.intermediate = (
                 _fused_dense_gelu(cfg, h, inner, device, generator)
                 if self.fused_act else
                 _dense(cfg, h, inner, device, generator))
-            self.ffn_output = _dense(cfg, inner, h, device, generator)
+            self.ffn_output = _dense(cfg, inner, h, device, generator,
+                                     bias=single)
+        self.ffn_bias = (None if single else
+                         nn.Parameter(torch.zeros(h, device=device)))
         self.output_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
 
     def forward(self, x, attention_mask, deterministic: bool,
@@ -293,13 +365,15 @@ class RobertaLayer(nn.Module):
         attn = self.attention(x, attention_mask, deterministic,
                               dropout_generator, sketch_generator)
         x = self.attention_norm(x + attn)
+        x_tp = copy_to_tp(x, self.tp_group)
         if cfg.fewbit_ffn:
-            out = self.ffn(x, sketch_generator)
+            out = self.ffn(x_tp, sketch_generator)
         else:
-            inner = self.intermediate(x, sketch_generator)
+            inner = self.intermediate(x_tp, sketch_generator)
             if not self.fused_act:
                 inner = _gelu(cfg, inner)
             out = self.ffn_output(inner, sketch_generator)
+        out = _row_parallel(out, self.tp_group, self.ffn_bias)
         out = dropout(out, cfg.hidden_dropout, deterministic,
                       dropout_generator)
         return self.output_norm(x + out)
@@ -307,18 +381,23 @@ class RobertaLayer(nn.Module):
 
 class RobertaModel(nn.Module):
 
-    def __init__(self, cfg: RobertaConfig, device=None, generator=None):
-        """``device`` None: the card (:func:`model_device`)."""
+    def __init__(self, cfg: RobertaConfig, device=None, generator=None,
+                 tp_group=None):
+        """``device`` None: the card (:func:`model_device`); ``tp_group``:
+        the group a tp slice all-reduces over."""
         super().__init__()
         device = model_device(device)
         self.cfg = cfg
+        self.tp_group = tp_group_of(cfg, tp_group)
         self.embeddings = RobertaEmbeddings(cfg, device, generator)
-        self.layers = nn.ModuleList(RobertaLayer(cfg, device, generator)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(
+            RobertaLayer(cfg, device, generator, tp_group)
+            for _ in range(cfg.num_layers))
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True, dropout_generator=None,
                 sketch_generator=None):
+        check_tp_group(self.cfg, self.tp_group)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = self.embeddings(input_ids, token_type_ids, deterministic,
@@ -332,13 +411,15 @@ class RobertaModel(nn.Module):
 class RobertaForSequenceClassification(nn.Module):
 
     def __init__(self, cfg: RobertaConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
-        """``device`` None: the card (:func:`model_device`)."""
+                 generator: Optional[torch.Generator] = None,
+                 tp_group=None):
+        """``device`` None: the card (:func:`model_device`); ``tp_group``:
+        the group a tp slice all-reduces over (the head is replicated)."""
         super().__init__()
         device = model_device(device)
         self.cfg = cfg
         h = cfg.hidden_size
-        self.roberta = RobertaModel(cfg, device, generator)
+        self.roberta = RobertaModel(cfg, device, generator, tp_group)
         self.head_dense = _dense(cfg, h, h, device, generator)
         self.head_out = _dense(cfg, h, cfg.num_labels, device, generator)
 
@@ -356,8 +437,8 @@ class RobertaForSequenceClassification(nn.Module):
         x = dropout(x, cfg.hidden_dropout, deterministic, dropout_generator)
         return self.head_out(x, sketch_generator)
 
-    def flax_param_pairs(self, p):
-        return _roberta_pairs(self, p)
+    def flax_param_pairs(self, p, tp=(0, 1)):
+        return _roberta_pairs(self, p, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -371,10 +452,29 @@ def _index(tree, i: int):
     return np.asarray(tree)[i]
 
 
-def _dense_pairs(mod: nn.Module, p):
-    yield mod.weight, np.asarray(p["kernel"]).T  # flax kernels are (in, out)
+def _tp_slice(arr, module: str, leaf: str, tp):
+    """A JAX tree's global array, cut to tp rank ``tp[0]``'s slice of
+    ``tp[1]`` by :func:`~fewbit_tpu_torch.parallel.tp.tp_param_spec` of
+    ``module/leaf``."""
+    arr = np.asarray(arr)
+    rank, size = tp
+    spec = tp_param_spec((module, leaf), arr)
+    if size == 1 or "tp" not in spec:
+        return arr
+    return np.split(arr, size, axis=spec.index("tp"))[rank]
+
+
+def _dense_pairs(mod: nn.Module, p, name: str, tp=(0, 1)):
+    # flax kernels are (in, out)
+    yield mod.weight, _tp_slice(p["kernel"], name, "kernel", tp).T
     if mod.bias is not None:
-        yield mod.bias, p["bias"]
+        yield mod.bias, _tp_slice(p["bias"], name, "bias", tp)
+
+
+def _row_bias(tree, name: str, tp_name: str):
+    """A row-parallel projection's bias: under its tp name in a JAX tp
+    tree, the projection's own in a single-device one."""
+    return tree[tp_name] if tp_name in tree else tree[name]["bias"]
 
 
 def _norm_pairs(mod: LayerNorm, p):
@@ -382,17 +482,27 @@ def _norm_pairs(mod: LayerNorm, p):
     yield mod.bias, p["bias"]
 
 
-def flax_param_pairs(model: nn.Module, tree):
+def flax_param_pairs(model: nn.Module, tree, tp_rank: int = 0,
+                     tp_size: Optional[int] = None):
     """``(parameter, array)`` for every parameter of ``model`` (RoBERTa or
     GPT), the array taken from a tree shaped like the JAX model's
     parameters (nested dicts, with or without the outer ``'params'``) and
     put in the port's orientation.  Layers scanned by the JAX model are
     stacked on axis 0 under ``layers``.  Works on any such tree: parameters
-    or gradients."""
-    return model.flax_param_pairs(tree.get("params", tree))
+    or gradients.
+
+    For a tp slice (``tp_size`` None: the model's), the tree holds global
+    arrays (a single-device tree, or a JAX tp state's, whose row-parallel
+    biases are ``output_bias`` and ``ffn_bias``): each leaf that
+    :func:`~fewbit_tpu_torch.parallel.tp.tp_param_spec` splits is cut to
+    rank ``tp_rank``'s slice."""
+    if tp_size is None:
+        tp_size = getattr(getattr(model, "cfg", None), "tp_size", 1)
+    return model.flax_param_pairs(tree.get("params", tree),
+                                  (tp_rank, tp_size))
 
 
-def _roberta_pairs(model: RobertaForSequenceClassification, p):
+def _roberta_pairs(model: RobertaForSequenceClassification, p, tp):
     r = p["roberta"]
     emb = r["embeddings"]
     e = model.roberta.embeddings
@@ -402,31 +512,49 @@ def _roberta_pairs(model: RobertaForSequenceClassification, p):
     yield from _norm_pairs(e.layer_norm, emb["layer_norm"])
     for i, layer in enumerate(model.roberta.layers):
         lp = _index(r["layers"], i) if "layers" in r else r[f"layer_{i}"]
+        a = lp["attention"]
         for name in ("query", "key", "value", "output"):
-            yield from _dense_pairs(getattr(layer.attention, name),
-                                    lp["attention"][name])
+            yield from _dense_pairs(getattr(layer.attention, name), a[name],
+                                    name, tp)
+        if layer.attention.output_bias is not None:
+            yield layer.attention.output_bias, _row_bias(a, "output",
+                                                         "output_bias")
         yield from _norm_pairs(layer.attention_norm, lp["attention_norm"])
         yield from _norm_pairs(layer.output_norm, lp["output_norm"])
         if model.cfg.fewbit_ffn:
             f = lp["ffn"]
-            yield layer.ffn.up_weight, np.asarray(f["up_kernel"]).T
-            yield layer.ffn.down_weight, np.asarray(f["down_kernel"]).T
-            if layer.ffn.up_bias is not None:
-                yield layer.ffn.up_bias, f["up_bias"]
-            if layer.ffn.down_bias is not None:
-                yield layer.ffn.down_bias, f["down_bias"]
+            ffn = layer.ffn
+            yield ffn.up_weight, _tp_slice(f["up_kernel"], "ffn",
+                                           "up_kernel", tp).T
+            yield ffn.down_weight, _tp_slice(f["down_kernel"], "ffn",
+                                             "down_kernel", tp).T
+            if ffn.up_bias is not None:
+                yield ffn.up_bias, _tp_slice(f["up_bias"], "ffn", "up_bias",
+                                             tp)
+            if ffn.down_bias is not None:
+                yield ffn.down_bias, f["down_bias"]
+            if layer.ffn_bias is not None:
+                yield layer.ffn_bias, (lp["ffn_bias"] if "ffn_bias" in lp
+                                       else f["down_bias"])
         else:
-            yield from _dense_pairs(layer.intermediate, lp["intermediate"])
-            yield from _dense_pairs(layer.ffn_output, lp["ffn_output"])
-    yield from _dense_pairs(model.head_dense, p["head_dense"])
-    yield from _dense_pairs(model.head_out, p["head_out"])
+            yield from _dense_pairs(layer.intermediate, lp["intermediate"],
+                                    "intermediate", tp)
+            yield from _dense_pairs(layer.ffn_output, lp["ffn_output"],
+                                    "ffn_output", tp)
+            if layer.ffn_bias is not None:
+                yield layer.ffn_bias, _row_bias(lp, "ffn_output",
+                                                "ffn_bias")
+    yield from _dense_pairs(model.head_dense, p["head_dense"], "head_dense")
+    yield from _dense_pairs(model.head_out, p["head_out"], "head_out")
 
 
-def load_flax_params(model: nn.Module, params) -> None:
+def load_flax_params(model: nn.Module, params, tp_rank: int = 0,
+                     tp_size: Optional[int] = None) -> None:
     """Fill every parameter of ``model`` from the JAX package's parameter
-    tree, given as nested dicts of numpy arrays."""
+    tree, given as nested dicts of numpy arrays (a tp slice: its rank's
+    slice of the tree's global arrays, :func:`flax_param_pairs`)."""
     filled = set()
-    for param, arr in flax_param_pairs(model, params):
+    for param, arr in flax_param_pairs(model, params, tp_rank, tp_size):
         arr = np.array(arr, dtype=np.float32)  # a writable copy
         if tuple(arr.shape) != tuple(param.shape):
             raise ValueError(f"shape {arr.shape} does not fit "

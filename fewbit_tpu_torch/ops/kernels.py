@@ -593,10 +593,11 @@ def _ffn_rows_ok(n: int, m: int, k_eff: int) -> None:
 def fused_matmul_input_sketch(x: torch.Tensor, w: torch.Tensor,
                               bias: Optional[torch.Tensor],
                               sigma: torch.Tensor, k_eff: int,
-                              want_colsum: bool = False):
+                              want_colsum: bool = False, *, out=None):
     """``x @ w (+ b)`` plus the stride-partition countsketch of ``x``
     (``(k_eff, K)``, stored in :func:`sketch_dtype`) and, with
-    ``want_colsum``, the f32 column sum of ``x``.
+    ``want_colsum``, the f32 column sum of ``x``; written into ``out``
+    (the same tuple) where given.
 
     ``x``: (N, K); ``w``: the logical (K, M) weight, row-major or the
     ``.t()`` of a row-major (M, K) tensor; ``sigma``: (N,) f32 signs.
@@ -606,8 +607,8 @@ def fused_matmul_input_sketch(x: torch.Tensor, w: torch.Tensor,
     bf16 row-major ``w``: its transpose), written by a prologue kernel.
     """
     if x.device.type == "cpu":
-        return matmul_input_sketch_plain(x, w, bias, sigma, k_eff,
-                                         want_colsum)
+        return _into(out, matmul_input_sketch_plain(x, w, bias, sigma, k_eff,
+                                                    want_colsum))
     _require(x.is_cuda, f"x on {x.device}: neither CPU nor CUDA")
     _require(x.ndim == 2 and w.ndim == 2, "x and w must be 2-D")
     n, kdim = x.shape
@@ -624,22 +625,24 @@ def fused_matmul_input_sketch(x: torch.Tensor, w: torch.Tensor,
              f"envelope of matmul_sketch_keff")
     _tma_ok(x, "x", w, "w", trans)
     fused, bn = matmul_sketch_route(kdim, m, dt)
-    y = torch.empty(n, m, dtype=dt, device=dev)
-    sk = cs_partial = cs = None
-    if fused:
-        sk = torch.empty(k_eff, kdim, dtype=sketch_dtype(dt), device=dev)
+    specs = [("y", (n, m), dt), ("sketch", (k_eff, kdim), sketch_dtype(dt))]
+    if want_colsum:
+        specs.append(("colsum", (kdim,), torch.float32))
+    got = _outputs(out, specs, dev)
+    y, sk, cs = got + [None] * (3 - len(got))
+    cs_partial = None
     w_prep = _weight_scratch(trans, m, kdim, dt, dev)
     if fused and want_colsum:
         cs_partial = torch.empty(k_eff // K1_BM, kdim, dtype=torch.float32,
                                  device=dev)
-        cs = torch.empty(kdim, dtype=torch.float32, device=dev)
     _launch("fewbit_matmul_input_sketch", dev, x.data_ptr(), w.data_ptr(),
-            trans, _ptr(bias), sigma.data_ptr(), y.data_ptr(), _ptr(sk),
-            _ptr(w_prep), _ptr(cs_partial), _ptr(cs), n, kdim, m, k_eff, bn,
-            int(fused), int(dt == torch.bfloat16))
+            trans, _ptr(bias), sigma.data_ptr(), y.data_ptr(),
+            _ptr(sk if fused else None), _ptr(w_prep), _ptr(cs_partial),
+            _ptr(cs if fused else None), n, kdim, m, k_eff, bn, int(fused),
+            int(dt == torch.bfloat16))
     if not fused:
-        got = input_sketch(x, sigma, k_eff, want_colsum)
-        sk, cs = got if want_colsum else (got, None)
+        input_sketch(x, sigma, k_eff, want_colsum,
+                     out=(sk, cs) if want_colsum else (sk,))
     fused_matmul_input_sketch.launches += 1
     return (y, sk, cs) if want_colsum else (y, sk)
 
@@ -822,19 +825,19 @@ def dense_act_sketch_x_simt(spec, x, w, bias, borders, sigma, k_eff: int,
 def fused_matmul_lut_backward(spec, packed: torch.Tensor,
                               levels: torch.Tensor, g: torch.Tensor,
                               wt: torch.Tensor, sigma: torch.Tensor,
-                              k_eff: int):
+                              k_eff: int, *, out=None):
     """``dz = levels[codes] * (g @ wt)`` with the countsketch of ``dz``
     (``(k_eff, M)``) and ``db = sum_n dz`` in f32.  ``g``: (N, H); ``wt``:
     the logical (H, M) operand (the down projection's weight transposed),
     row-major or the ``.t()`` of a row-major (M, H) tensor.  Returns
-    ``(dz, sketch, db)``.
+    ``(dz, sketch, db)``, written into ``out`` where given.
 
     On the card the product runs on the tensor cores as kernel 2's does;
     the model's ``wt`` is the row-major (H, M) parameter, which the
     prologue transposes (and for f32 splits) into the K-major scratch."""
     if g.device.type == "cpu":
-        return matmul_lut_backward_plain(spec, packed, levels, g, wt, sigma,
-                                         k_eff)
+        return _into(out, matmul_lut_backward_plain(spec, packed, levels, g,
+                                                    wt, sigma, k_eff))
     _require(g.is_cuda, f"g on {g.device}: neither CPU nor CUDA")
     _require(1 <= spec.bits <= 6, f"bits={spec.bits} outside 1..6")
     _require(g.ndim == 2 and wt.ndim == 2, "g and wt must be 2-D")
@@ -852,11 +855,11 @@ def fused_matmul_lut_backward(spec, packed: torch.Tensor,
     _tma_ok(g, "g", wt, "wt", trans)
     bn = ffn_gemm_route(m, dt)
     w_prep = _weight_scratch(trans, m, h, dt, dev)
-    dz = torch.empty(n, m, dtype=dt, device=dev)
-    sk = torch.empty(k_eff, m, dtype=sketch_dtype(dt), device=dev)
+    dz, sk, db = _outputs(out, [("dz", (n, m), dt),
+                                ("sketch", (k_eff, m), sketch_dtype(dt)),
+                                ("db", (m,), torch.float32)], dev)
     db_partial = torch.empty(k_eff // FG_BM, m, dtype=torch.float32,
                              device=dev)
-    db = torch.empty(m, dtype=torch.float32, device=dev)
     _launch("fewbit_matmul_lut_backward", dev, g.data_ptr(), wt.data_ptr(),
             trans, packed.data_ptr(), levels.data_ptr(), spec.bits,
             sigma.data_ptr(), dz.data_ptr(), sk.data_ptr(),
@@ -913,19 +916,21 @@ def fused_forward(spec, x: torch.Tensor, borders: torch.Tensor):
 
 
 def fused_backward(spec, packed: torch.Tensor, levels: torch.Tensor,
-                   g: torch.Tensor) -> torch.Tensor:
+                   g: torch.Tensor, *, out=None) -> torch.Tensor:
     """``dx = levels[codes] * g`` (f32 product, stored in g's dtype), the
     codes decoded from ``packed`` (``(bits, R / 32, C)`` int32, from kernel
-    4, kernel 6 or the plain pack).  ``g``: (R, C)."""
+    4, kernel 6 or the plain pack).  ``g``: (R, C).  Written into ``out``
+    (a 1-tuple) where given."""
     if g.device.type == "cpu":
-        return act_backward_plain(spec, packed, levels, g)
+        got = act_backward_plain(spec, packed, levels, g)
+        return got if out is None else _into(out, (got,))[0]
     _act_kernel_checks(spec, g, "g")
     r, c = g.shape
     dev = g.device
     _check("g", g, dev, (r, c), g.dtype)
     _check("packed", packed, dev, packed_shape(r, c, spec.bits), torch.int32)
     _check("levels", levels, dev, (1 << spec.bits,), torch.float32)
-    dx = torch.empty_like(g)
+    dx, = _outputs(out, [("dx", (r, c), g.dtype)], dev)
     _launch("fewbit_act_backward", dev, packed.data_ptr(), levels.data_ptr(),
             spec.bits, g.data_ptr(), dx.data_ptr(), r, c,
             int(g.dtype == torch.bfloat16))
@@ -960,7 +965,7 @@ def _dense_act_args(spec, x, w, bias, borders):
 
 def _dense_act_tensor_core(schedule: str, spec, x, w, bias, borders,
                            out_dtype=None, epilogue: bool = True,
-                           bn: Optional[int] = None):
+                           bn: Optional[int] = None, out=None):
     """Launch one tensor-core schedule of kernel 6 on CUDA tensors; raises
     outside its envelope.  Counts nothing: the public wrappers do."""
     n, kdim, m, dev, dt, trans = _dense_act_args(spec, x, w, bias, borders)
@@ -987,9 +992,9 @@ def _dense_act_tensor_core(schedule: str, spec, x, w, bias, borders,
                  f"envelope at M={m} (its route gives {route})")
     _tma_ok(x, "x", w, "w", trans)
     bits = spec.bits if epilogue else 1
-    y = torch.empty(n, m, dtype=out_dtype, device=dev)
-    packed = torch.empty(packed_shape(n, m, bits), dtype=torch.int32,
-                         device=dev)
+    y, packed = _outputs(out, [("y", (n, m), out_dtype),
+                               ("packed", packed_shape(n, m, bits),
+                                torch.int32)], dev)
     w_prep = _weight_scratch(trans, m, kdim, dt, dev)
     args = [x.data_ptr(), w.data_ptr(), trans, _ptr(bias),
             borders.data_ptr(), spec.n_borders,
@@ -1079,25 +1084,26 @@ def dense_act_simt(spec, x, w, bias, borders):
 
 
 def fused_dense_act(spec, x: torch.Tensor, w: torch.Tensor,
-                    bias: Optional[torch.Tensor], borders: torch.Tensor):
+                    bias: Optional[torch.Tensor], borders: torch.Tensor, *,
+                    out=None):
     """``y = act(x @ w + b)`` with the packed codes of the pre-activation
     (``(bits, N / 32, M)`` int32).  ``x``: (N, K); ``w``: the logical
     (K, M) weight, row-major or the ``.t()`` of a row-major (M, K) tensor.
-    Returns ``(y, packed)``.
+    Returns ``(y, packed)``, written into ``out`` where given.
 
     On the card the product runs on the tensor cores by the schedule
     :func:`dense_act_schedule` names; the kernel reads B K-major from
     scratch (f32: its TF32 halves, 2 M K elements; bf16 row-major ``w``:
     its transpose), written by a prologue kernel."""
     if x.device.type == "cpu":
-        return dense_act_plain(spec, x, w, bias, borders)
+        return _into(out, dense_act_plain(spec, x, w, bias, borders))
     _require(x.is_cuda and x.ndim == 2 and w.ndim == 2,
              "x and w must be 2-D CUDA tensors")
-    out = _dense_act_tensor_core(
+    got = _dense_act_tensor_core(
         dense_act_schedule(x.shape[0], w.shape[1], x.dtype), spec, x, w, bias,
-        borders)
+        borders, out=out)
     fused_dense_act.launches += 1
-    return out
+    return got
 
 
 # ---------------------------------------------------------------------------

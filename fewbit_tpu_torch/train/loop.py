@@ -1,5 +1,6 @@
-"""Training and eval steps on one device, optimizer, schedule, loss and
-checkpoints, as in ``fewbit_tpu/train/loop.py``.
+"""Training and eval steps, optimizer, schedule, loss and checkpoints, as
+in ``fewbit_tpu/train/loop.py``; the training step also under data
+parallelism (``dp_group``).
 
 AdamW with betas (0.9, 0.98), eps 1e-6 and weight decay 0.1 on all
 parameters, and a linear warmup (6% of the steps, from 0) followed by a
@@ -14,7 +15,10 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as TF
+
+from fewbit_tpu_torch.parallel.mesh import fold_shard_generator
 
 __all__ = ("TrainConfig", "make_schedule", "make_optimizer",
            "classification_loss", "causal_lm_loss", "clip_by_global_norm_",
@@ -67,17 +71,29 @@ def classification_loss(logits: torch.Tensor,
     return TF.cross_entropy(logits.float(), labels.long())
 
 
+def _causal_lm_sum_count(logits: torch.Tensor, labels: torch.Tensor):
+    """(loss sum over the valid tokens, their count): what the dp step
+    combines to weight the shards by their valid tokens."""
+    valid = labels >= 0
+    per_tok = TF.cross_entropy(logits.float().flatten(0, -2),
+                               labels.clamp_min(0).long().flatten(),
+                               reduction="none")
+    return (per_tok * valid.flatten()).sum(), valid.sum()
+
+
 def causal_lm_loss(logits: torch.Tensor,
                    labels: torch.Tensor) -> torch.Tensor:
     """Next-token cross entropy, token-weighted: ``labels`` are pre-shifted
     (the label at position t is token t + 1) and negative labels are
     masked out."""
-    valid = labels >= 0
-    per_tok = TF.cross_entropy(logits.float().flatten(0, -2),
-                               labels.clamp_min(0).long().flatten(),
-                               reduction="none")
-    total = (per_tok * valid.flatten()).sum()
-    return total / valid.sum().clamp_min(1)
+    total, count = _causal_lm_sum_count(logits, labels)
+    return total / count.clamp_min(1)
+
+
+# Marks the loss as token-weighted: under dp the step divides each shard's
+# loss sum by the valid tokens of all shards, not a mean of shard means,
+# which is biased when the shards hold unequal valid counts.
+causal_lm_loss.sum_count = _causal_lm_sum_count
 
 
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
@@ -94,20 +110,44 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
-                    loss_fn: Callable = classification_loss) -> Callable:
+                    loss_fn: Callable = classification_loss,
+                    dp_group=None) -> Callable:
     """Build ``step(batch, generator) -> {"loss": tensor}``.
 
     ``batch`` holds ``input_ids``, ``attention_mask`` and ``labels`` on the
     model's device.  ``generator`` (a CPU ``torch.Generator``) seeds two
     fresh device generators per step, one for dropout and one for the
     sketch signs, as the JAX step splits its key.
+
+    With ``dp_group`` (``model`` in ``DistributedDataParallel`` over it,
+    :func:`fewbit_tpu_torch.parallel.data_parallel_step`) each dp rank
+    seeds from ``fold_shard_generator(generator, dp rank)``, as the JAX
+    step folds the dp index into its key, and the reported loss is the
+    mean over dp.  A token-weighted loss (one with ``sum_count``, as
+    :func:`causal_lm_loss`) divides each rank's loss sum by the valid
+    tokens of all ranks, times the dp size, so that the gradient average
+    is ``sum_i s_i / n_total``.
+
+    ``step.loss_and_grads(batch, generator)`` is the step without the
+    update: it leaves the gradients on the parameters and returns the
+    loss.
     """
     params = [p for p in model.parameters() if p.requires_grad]
     opt, sched = make_optimizer(cfg, params)
     device = params[0].device
+    inner = getattr(model, "module", model)  # under DDP
+    if cfg.max_grad_norm and getattr(getattr(inner, "cfg", None),
+                                     "tp_size", 1) > 1:
+        # The global norm of a tp slice's gradients needs the sum over its
+        # split parameters' ranks; not ported.
+        raise NotImplementedError("max_grad_norm with tp_size > 1")
+    sum_count = getattr(loss_fn, "sum_count", None)
 
-    def step(batch: Dict[str, torch.Tensor],
-             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    def loss_and_grads(batch: Dict[str, torch.Tensor],
+                       generator: torch.Generator) -> torch.Tensor:
+        if dp_group is not None:
+            generator = fold_shard_generator(generator,
+                                             dist.get_rank(dp_group))
         seeds = torch.randint(0, 2 ** 62, (2,), generator=generator)
         dropout_gen = torch.Generator(device=device)
         dropout_gen.manual_seed(int(seeds[0]))
@@ -116,17 +156,35 @@ def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
         logits = model(batch["input_ids"], batch.get("attention_mask"),
                        deterministic=False, dropout_generator=dropout_gen,
                        sketch_generator=sketch_gen)
-        loss = loss_fn(logits, batch["labels"])
+        if dp_group is None:
+            loss = loss_fn(logits, batch["labels"])
+            loss.backward()
+            return loss.detach()
+        d = dist.get_world_size(dp_group)
+        if sum_count is not None:
+            total, count = sum_count(logits, batch["labels"])
+            dist.all_reduce(count, group=dp_group)
+            loss = total * d / count.clamp_min(1)
+        else:
+            loss = loss_fn(logits, batch["labels"])
         loss.backward()
+        reported = loss.detach().clone()
+        dist.all_reduce(reported, group=dp_group)
+        return reported / d
+
+    def step(batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        loss = loss_and_grads(batch, generator)
         if cfg.max_grad_norm:
             clip_by_global_norm_(params, cfg.max_grad_norm)
         opt.step()
         sched.step()
         # Gradients live only inside the step, as in the JAX step.
         opt.zero_grad(set_to_none=True)
-        return {"loss": loss.detach()}
+        return {"loss": loss}
 
     step.optimizer, step.scheduler = opt, sched
+    step.loss_and_grads = loss_and_grads
     return step
 
 

@@ -1243,3 +1243,53 @@ def test_peak_memory_bytes_on_cuda(cuda):
     assert stats["allocated_bytes.all.peak"] == peak_memory_bytes(cuda)
     assert peak_memory_bytes("cpu") is None
     assert device_memory_stats("cpu") == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tp_width_kernels_write_every_output_on_cuda(cuda, dtype):
+    """Kernels 1, 3, 5 and 6 at one tp=2 rank's widths of RoBERTa-base and
+    GPT-2 small (768 <-> 384 projections, 768 <-> 1536 FFN) write every
+    element of outputs filled with NaN, and hold their plain versions."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, k_eff = 1024, 512
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=cuda)
+                * scale).to(dtype)
+
+    def held(got, want):
+        for a, b in zip(got, want):
+            if a.dtype == torch.int32:
+                continue
+            t = tol if a.dtype == dtype else 1e-3
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= t * max(1.0, b.float().abs().max().item()), err
+
+    sigma = torch.randint(0, 2, (n,), generator=gen,
+                          device=cuda).float() * 2 - 1
+    spec, borders, levels = resolve_activation("gelu", bits=3, device=cuda)
+    x, g = rand(n, 768), rand(n, 768)
+    w_col, w_row = rand(384, 768, scale=0.036), rand(768, 384, scale=0.05)
+    for args in ((x, w_col.t(), rand(384, scale=0.1), sigma, k_eff),
+                 (rand(n, 384), w_row.t(), None, sigma, k_eff),
+                 (rand(n, 384), w_col, None, sigma, k_eff, True),
+                 (g, w_row, None, sigma, k_eff, True)):
+        want = K.matmul_input_sketch_plain(*args)
+        held(K.fused_matmul_input_sketch(*args, out=_nan_outputs(want)),
+             want)
+    up_w, up_b = rand(1536, 768, scale=0.036), rand(1536, scale=0.1)
+    args = (spec, x, up_w.t(), up_b, borders)
+    want = K.dense_act_plain(*args)
+    y, packed = K.fused_dense_act(*args, out=_nan_outputs(want))
+    held((y,), want)
+    flips = unpack_codes(packed, 3, n) != unpack_codes(want[1], 3, n)
+    assert flips.float().mean().item() <= 1e-4
+    args = (spec, packed, levels, g, rand(768, 1536, scale=0.025), sigma,
+            k_eff)
+    want = K.matmul_lut_backward_plain(*args)
+    held(K.fused_matmul_lut_backward(*args, out=_nan_outputs(want)), want)
+    args = (spec, packed, levels, rand(n, 1536))
+    want = K.act_backward_plain(*args)
+    held((K.fused_backward(*args, out=_nan_outputs((want,))),), (want,))

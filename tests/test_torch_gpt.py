@@ -280,6 +280,8 @@ def test_config_takes_tp_fields_and_refuses_tensor_parallelism():
     cfg = GPTConfig(tp_axis=None, tp_size=1)
     assert cfg.tp_axis is fields["tp_axis"].default is None
     assert cfg.tp_size == fields["tp_size"].default == 1
-    for kw in (dict(tp_size=2), dict(tp_axis="model")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    assert GPTConfig(tp_axis="model", tp_size=2).tp_size == 2
+    for kw in (dict(tp_size=2), dict(tp_axis="model"),
+               dict(tp_axis="model", tp_size=5)):
+        with pytest.raises(ValueError):
             GPTConfig(**kw)

@@ -248,15 +248,18 @@ def test_config_takes_scan_layers(scan):
 
 
 def test_config_takes_tp_fields_and_refuses_tensor_parallelism():
-    """``tp_axis``/``tp_size`` exist with the reference's defaults; any
-    other value raises, naming the ROADMAP item that ports it."""
+    """``tp_axis``/``tp_size`` exist with the reference's defaults; a tp
+    config builds where the JAX config's widths allow it (``tp_axis`` set
+    exactly when ``tp_size > 1``, heads and FFN width divisible) and
+    raises otherwise."""
     fields = JaxConfig.__dataclass_fields__
     cfg = RobertaConfig(tp_axis=None, tp_size=1)
     assert cfg.tp_axis is fields["tp_axis"].default is None
     assert cfg.tp_size == fields["tp_size"].default == 1
+    assert RobertaConfig(tp_axis="model", tp_size=4).tp_size == 4
     for kw in (dict(tp_size=2), dict(tp_axis="model"),
-               dict(tp_axis="model", tp_size=4)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+               dict(tp_axis="model", tp_size=5)):
+        with pytest.raises(ValueError):
             RobertaConfig(**kw)
 
 
