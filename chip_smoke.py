@@ -92,14 +92,16 @@ Phases (any failure raises and exits non-zero; no result is printed):
    processes (``chip_smoke.py --rank R DIR``, each with RANK_TIMEOUT) on
    the one card, gloo with CUDA tensors, since NCCL cannot put two ranks
    on one device: paths R and G at tp=2 without dropout, each rank's slice
-   cut from the single-device model by ``shard_tp_params``; each rank
-   launches the path's kernels 96, 12, 12 times a step; its logits, loss
-   and launches equal the single device's (TOL), every layer's codes
-   differ from the single device's only within FLIP_BAND of a border, the
-   gathered gradients are within the bound ``_grads_close`` sets, three
-   f32 steps' losses within PARALLEL_LOSS_RTOL, one bf16 step finite;
-   per-rank step ms and peak above held are printed (gloo stages every
-   all-reduce through the host: not NCCL's speed).  dp=2: R's gradient
+   cut from the single-device model (its biases drawn at random) by
+   ``shard_tp_params``; each rank launches the path's kernels 96, 12, 12
+   times a step; its logits, loss and launches equal the single device's
+   (TOL), every layer's codes differ from the single device's only within
+   FLIP_BAND of a border, the gathered gradients within TP_GRAD_RTOL, three
+   f32 steps without warmup (their losses within PARALLEL_LOSS_RTOL, the
+   gathered updates within TP_UPDATE_RTOL), one bf16 step finite; each
+   fault of TP_FAULTS, planted in a run of its own, must fail one of these
+   checks; per-rank step ms and peak above held are printed (gloo stages
+   every all-reduce through the host: not NCCL's speed).  dp=2: R's gradient
    after ``DistributedDataParallel`` equals the mean of the two half-batch
    gradients on the ranks' folded generators; GPT-2 small's loss with
    unequal valid tokens per rank equals the full batch's.  Rank 0's
@@ -1427,10 +1429,12 @@ def _batches(path, seed):
                for k, v in b.items()}
 
 
-def _model(path, dt, fewbit, flash=None, tp_group=None, **overrides):
+def _model(path, dt, fewbit, flash=None, tp_group=None, train=None,
+           **overrides):
     """A path's model in ``dt`` (vanilla or few-bit, random weights from
-    SEED) and its training step.  On a flash path attention dropout is 0
-    and the few-bit model takes flash attention (unless ``flash`` says
+    SEED) and its training step (``TrainConfig(**train)``, by default
+    100 steps at 1e-5).  On a flash path attention dropout is 0 and the
+    few-bit model takes flash attention (unless ``flash`` says
     otherwise); vanilla takes the standard attention.  ``overrides`` are
     config fields; with ``tp_group`` the model is a tp slice on it."""
     from fewbit_tpu_torch.models import (MLP, GPTConfig, GPTForCausalLM,
@@ -1469,9 +1473,8 @@ def _model(path, dt, fewbit, flash=None, tp_group=None, **overrides):
     model_cls = (GPTForCausalLM if path.startswith("gpt2_small")
                  else RobertaForSequenceClassification)
     model = model_cls(cfg, device="cuda", generator=gen, tp_group=tp_group)
-    step = make_train_step(model, TrainConfig(total_steps=100,
-                                              learning_rate=1e-5),
-                           loss_fn=loss_fn)
+    step = make_train_step(model, TrainConfig(**(train or dict(
+        total_steps=100, learning_rate=1e-5))), loss_fn=loss_fn)
     return model, step
 
 
@@ -2148,20 +2151,30 @@ TP_PATHS = ("roberta_fused_ffn", "gpt2_small")
 NO_DROPOUT = dict(hidden_dropout=0.0, attention_dropout=0.0)
 # Each rank process's time limit, seconds.
 RANK_TIMEOUT = 900
+# The tp runs' training: no warmup, so that steps 1 and 2 move the
+# weights (every schedule's step 0 has learning rate 0).
+TP_TRAIN = dict(total_steps=100, learning_rate=1e-5, warmup_ratio=0.0)
 # Losses of the tp ranks' three steps against the single process's,
 # relative: the two differ by the order of f32 sums.
 PARALLEL_LOSS_RTOL = 1e-4
 # Gradients of a parallel run against the single process's, relative, in
-# the 2-norm (as tests/test_torch_models.py's _close_by_norm).  The tp
-# ranks sum their partial products in another order than one GEMM, so the
-# activations differ by rounding and codes within rounding of a border
-# flip; each flip moves the gradient of its row in every layer below, and
-# independent flips add in quadrature.  So the bound is FLIP_NOISE times
-# what a rounding-size change does to the single-device run against itself
-# (_flip_noise), scaled by the square root of the ratio of the two runs'
-# flipped codes, and never below GRAD_RTOL.  A gradient that is zero up to
-# rounding is held to GRAD_FLOOR.
-GRAD_RTOL, GRAD_FLOOR, FLIP_NOISE = 1e-4, 1e-6, 4.0
+# the 2-norm (as tests/test_torch_models.py's _close_by_norm): GRAD_RTOL
+# for dp.  A gradient that is zero up to rounding is held to GRAD_FLOOR.
+# At tp the ranks sum their partial products in another order than one
+# GEMM, so codes within rounding of a border flip (see _flip_noise), and
+# each flip moves the gradients of its row in every layer below.  So the
+# gathered tp gradients are held to TP_GRAD_RTOL, and the updates of the
+# three steps (gathered, after minus before) to TP_UPDATE_RTOL of the
+# single device's: constants set between what the sound runs read and
+# what the planted faults of TP_FAULTS read on the card (PERF.md, PR 14).
+GRAD_RTOL, GRAD_FLOOR = 1e-4, 1e-6
+TP_GRAD_RTOL, TP_UPDATE_RTOL = 2e-2, 5e-2
+# Faults planted in one rank run each; the phase fails unless its checks
+# see every one: their readings go into the summary.
+TP_FAULTS = ("copy_to_tp without its all-reduce",
+             "sketch generator folded by the tp rank",
+             "row-parallel bias added before the all-reduce",
+             "row-parallel biases left out of the optimizer")
 
 
 def _loss_fn(path):
@@ -2178,12 +2191,13 @@ def _ffn_modules(path, model):
     return [layer.ffn for layer in model.roberta.layers]
 
 
-def _grads_of(path, model, batch, keep_inputs=False):
+def _grads_of(path, model, batch, keep_inputs=False, sketch=None):
     """One forward and backward without dropout under a fixed sketch
-    generator: logits (of a GPT sequence every 64th position), loss and
-    every gradient by name, on the CPU; the launches it made; the packed
-    codes each layer kept (the int32 residuals, in layer order) and, with
-    ``keep_inputs``, each layer's FFN input."""
+    generator (``sketch``, by default one seeded SEED + 1): logits (of a
+    GPT sequence every 64th position), loss and every gradient by name,
+    on the CPU; the launches it made; the packed codes each layer kept
+    (the int32 residuals, in layer order) and, with ``keep_inputs``, each
+    layer's FFN input."""
     from fewbit_tpu_torch.ops import kernels as K
 
     inputs, codes = [], []
@@ -2201,7 +2215,7 @@ def _grads_of(path, model, batch, keep_inputs=False):
     K.reset_launch_counts()
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
         logits = model(batch["input_ids"], batch["attention_mask"],
-                       sketch_generator=torch.Generator(
+                       sketch_generator=sketch or torch.Generator(
                            device="cuda").manual_seed(SEED + 1))
     loss = _loss_fn(path)(logits, batch["labels"])
     loss.backward()
@@ -2256,19 +2270,123 @@ def _tp_residuals(model):
             for name, (got, want) in rows.items()}
 
 
+def _random_biases(model):
+    """Every bias of ``model`` (the LayerNorms' too) drawn as 0.1 z from
+    SEED + 17, so that a bias placed or summed wrongly under tp shows in
+    the logits; returns ``model``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen,
+                                          device="cuda"))
+    return model
+
+
+def _params(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def _updates(model, before, keep=None):
+    """Each parameter's change since ``before``, on the CPU (the names
+    ``keep`` accepts, by default all)."""
+    return {n: (p.detach() - before[n]).cpu()
+            for n, p in model.named_parameters() if keep is None or keep(n)}
+
+
+def _end_layers(names):
+    """Whether a parameter name (of a model whose names are ``names``) is
+    of its first or its last layer: the leaves a planted fault's run
+    brings back."""
+    last = max(int(n.split(".layers.")[1].split(".")[0]) for n in names
+               if ".layers." in n)
+    return lambda n: ".layers.0." in n or f".layers.{last}." in n
+
+
+@contextlib.contextmanager
+def _planted(fault, model, step):
+    """``fault`` of TP_FAULTS planted in the port (or in ``step``'s
+    optimizer) while the block runs."""
+    from fewbit_tpu_torch.models import gpt, roberta
+    from fewbit_tpu_torch.parallel import tp
+
+    undo = []
+
+    def patch(owner, name, value):
+        undo.append((owner, name, vars(owner)[name]))
+        setattr(owner, name, value)
+
+    if fault == "copy_to_tp without its all-reduce":
+        patch(tp._CopyToTP, "backward", staticmethod(lambda ctx, g: (g,
+                                                                    None)))
+    elif fault == "row-parallel bias added before the all-reduce":
+        def early(out, tp_group, bias):
+            return tp.reduce_from_tp(out + bias.to(out.dtype), tp_group)
+
+        patch(roberta, "_row_parallel", early)
+        patch(gpt, "_row_parallel", early)
+    elif fault == "row-parallel biases left out of the optimizer":
+        late = {id(p) for n, p in model.named_parameters()
+                if n.endswith(("output_bias", "ffn_bias"))}
+        group = step.optimizer.param_groups[0]
+        group["params"] = [p for p in group["params"] if id(p) not in late]
+    try:
+        yield
+    finally:
+        for owner, name, value in reversed(undo):
+            setattr(owner, name, value)
+
+
+def _tp_faults(path, mesh, state, tp):
+    """Each fault of TP_FAULTS planted in a fresh f32 slice of ``state``:
+    its logits, loss and the first and last layers' gradients (one
+    forward and backward, the sketch generator folded by the tp rank
+    for that fault), or for the optimizer's fault those layers' updates
+    over the three steps."""
+    from fewbit_tpu_torch.parallel import fold_shard_generator
+
+    keep = _end_layers(state)
+    out = {}
+    for fault in TP_FAULTS:
+        model, step = _model(path, torch.float32, True,
+                             tp_group=mesh.tp_group, train=TP_TRAIN, **tp)
+        model.load_state_dict(state)
+        with _planted(fault, model, step):
+            if fault.endswith("optimizer"):
+                before = _params(model)
+                _checked_steps(path, step, _batches(path, SEED + 3),
+                               torch.Generator().manual_seed(SEED), 3,
+                               f"parallel tp=2 rank {mesh.tp_rank} {fault}")
+                out[fault] = {"updates": _updates(model, before, keep)}
+            else:
+                sketch = torch.Generator(device="cuda").manual_seed(SEED + 1)
+                if fault.startswith("sketch"):
+                    sketch = fold_shard_generator(sketch, mesh.tp_rank)
+                run = _grads_of(path, model, next(_batches(path, SEED)),
+                                sketch=sketch)
+                out[fault] = {"logits": run["logits"], "loss": run["loss"],
+                              "grads": {n: g for n, g in run["grads"].items()
+                                        if keep(n)}}
+        del model, step
+        torch.cuda.empty_cache()
+    return out
+
+
 def _tp_rank(path, mesh):
     """One rank of path R or G at tp=2: its slice of the single-device
-    model (from SEED, sharded by ``shard_tp_params``), one forward and
-    backward, three f32 steps and one bf16 step."""
+    model (from SEED, its biases random, sharded by ``shard_tp_params``),
+    one forward and backward, three f32 steps (the parameters' updates
+    kept), one bf16 step, and the planted faults' runs."""
     from fewbit_tpu_torch.parallel import shard_tp_params
 
     tag = f"parallel {path} tp=2 rank {mesh.tp_rank}"
     single, _ = _model(path, torch.float32, True, **NO_DROPOUT)
-    state = shard_tp_params(single.state_dict(), mesh.tp_rank, TP)
+    state = shard_tp_params(_random_biases(single).state_dict(),
+                            mesh.tp_rank, TP)
     del single
     tp = dict(NO_DROPOUT, tp_size=TP, tp_axis="tp")
     model, step = _model(path, torch.float32, True, tp_group=mesh.tp_group,
-                         **tp)
+                         train=TP_TRAIN, **tp)
     model.load_state_dict(state)
     out = _grads_of(path, model, next(_batches(path, SEED)))
     del out["inputs"]
@@ -2276,20 +2394,23 @@ def _tp_rank(path, mesh):
         f"launches { {k: v for k, v in out['counts'].items() if v} }")
     if path == "roberta_fused_ffn" and mesh.tp_rank == 0:
         out["residuals"] = _tp_residuals(model)
+    before = _params(model)
     out["steps"], out["step_counts"] = _checked_steps(
         path, step, _batches(path, SEED + 3),
         torch.Generator().manual_seed(SEED), 3,
         f"parallel tp=2 rank {mesh.tp_rank} f32")
-    del model, step
+    out["updates"] = _updates(model, before)
+    del model, step, before
     torch.cuda.empty_cache()
     model, step = _model(path, torch.bfloat16, True, tp_group=mesh.tp_group,
-                         **tp)
+                         train=TP_TRAIN, **tp)
     model.load_state_dict(state)
     out["bf16"], _ = _checked_steps(path, step, _batches(path, SEED + 3),
                                     torch.Generator().manual_seed(SEED), 1,
                                     f"parallel tp=2 rank {mesh.tp_rank} bf16")
-    del model, step, state
+    del model, step
     torch.cuda.empty_cache()
+    out["faults"] = _tp_faults(path, mesh, state, tp)
     return out
 
 
@@ -2441,35 +2562,37 @@ def _spawn_ranks(workdir):
     return time.perf_counter() - t0
 
 
-def _grads_close(tag, got, want, noise=0.0):
-    """Each gradient of ``got`` against ``want`` (by name), in the 2-norm:
-    within ``max(GRAD_RTOL, FLIP_NOISE * noise)`` of ``want``'s norm, where
-    ``noise`` is the largest relative error that a rounding-size change of
-    the single-device run's own input makes (the codes it flips near a
-    border move the rows behind them); a gradient that is zero up to
-    rounding (norm below GRAD_FLOOR: the key biases under the softmax)
-    within GRAD_FLOOR.  Logs the largest errors; returns them."""
+def _rel_errors(got, want):
+    """(relative 2-norm error, name) of each leaf of ``want`` whose norm
+    reaches GRAD_FLOOR, largest first."""
+    rows = []
+    for name, b in want.items():
+        a, b = got[name].cuda().float(), b.cuda().float()
+        ref = b.norm().item()
+        if ref >= GRAD_FLOOR:
+            rows.append(((a - b).norm().item() / ref, name))
+    return sorted(rows, reverse=True)
+
+
+def _grads_close(tag, got, want, bound=GRAD_RTOL):
+    """Each gradient (or update) of ``got`` against ``want`` (by name),
+    in the 2-norm: within ``bound`` of ``want``'s norm; one whose norm is
+    below GRAD_FLOOR (zero up to rounding: the key biases under the
+    softmax) within GRAD_FLOOR.  Logs the largest errors; returns them."""
     if set(got) != set(want):
         raise AssertionError(f"{tag}: names {set(got) ^ set(want)}")
-    bound = max(GRAD_RTOL, FLIP_NOISE * noise)
-    rows, bad = [], []
-    for name in want:
-        a, b = got[name].cuda().float(), want[name].cuda().float()
-        diff, ref = (a - b).norm().item(), b.norm().item()
-        rows.append((diff / max(ref, 1e-30), name))
-        if not (diff <= GRAD_FLOOR if ref < GRAD_FLOOR else
-                diff <= bound * ref):
-            bad.append(name)
-    rows.sort(reverse=True)
-    real = [r for r in rows if want[r[1]].norm().item() >= GRAD_FLOOR]
-    out = {"max_rel_err": real[0][0], "median_rel_err":
-           statistics.median(r[0] for r in real), "bound": bound,
-           "worst": real[0][1]}
-    log(f"{tag}: {len(rows)} gradients, relative 2-norm error largest "
+    bad = [n for n, b in want.items() if b.norm().item() < GRAD_FLOOR
+           and (got[n].cuda() - b.cuda()).norm().item() > GRAD_FLOOR]
+    rows = _rel_errors(got, want)
+    bad += [n for err, n in rows if not err <= bound]
+    out = {"max_rel_err": rows[0][0], "median_rel_err":
+           statistics.median(r[0] for r in rows), "bound": bound,
+           "worst": rows[0][1]}
+    log(f"{tag}: {len(want)} leaves, relative 2-norm error largest "
         f"{out['max_rel_err']:.3g} ({out['worst']}), median "
         f"{out['median_rel_err']:.3g}, bound {bound:.3g}")
     if bad:
-        raise AssertionError(f"{tag}: gradients outside the bound: {bad}")
+        raise AssertionError(f"{tag}: outside the bound: {bad}")
     return out
 
 
@@ -2485,7 +2608,8 @@ def _flip_noise(path, model, want):
     """The single device against itself when its first LayerNorm's scale
     moves by 2^-22 of itself, feature by feature with random signs (a
     rounding-size change of every row): the codes it flips, and the
-    largest relative gradient error over the gradients above GRAD_FLOOR."""
+    largest relative gradient error over the gradients above GRAD_FLOOR.
+    Read beside the tp run's flips and errors: what rounding alone does."""
     from fewbit_tpu_torch.models.roberta import LayerNorm
 
     norm = next(m for m in model.modules() if isinstance(m, LayerNorm))
@@ -2498,8 +2622,7 @@ def _flip_noise(path, model, want):
     moved = _grads_of(path, model, next(_batches(path, SEED)))
     with torch.no_grad():
         norm.weight.copy_(kept)
-    errs = [((moved["grads"][n] - g).norm() / g.norm()).item()
-            for n, g in want["grads"].items() if g.norm() >= GRAD_FLOOR]
+    errs = [err for err, _ in _rel_errors(moved["grads"], want["grads"])]
     flips = _code_flips(moved["codes"], want["codes"])
     log(f"parallel {path}: the single device against itself with its first "
         f"LayerNorm's scale moved by 2^-22: {flips} codes flip, gradients' "
@@ -2535,14 +2658,51 @@ def _flips_at_tp(path, model, ranks, want):
     return flips
 
 
+def _fault_readings(path, ranks, want, updates):
+    """What the phase's checks read on each planted fault's run: the
+    logits' and the loss's error (relative to the single device's largest
+    logit and loss), the largest relative 2-norm error of the first and
+    last layers' gathered gradients, or of their updates; and whether a
+    check sees it (a reading past TOL, TP_GRAD_RTOL or TP_UPDATE_RTOL)."""
+    from fewbit_tpu_torch.parallel import gather_tp_params
+
+    out = {}
+    for fault in TP_FAULTS:
+        runs = [r["faults"][fault] for r in ranks]
+        if "updates" in runs[0]:
+            got = gather_tp_params([r["updates"] for r in runs])
+            err = _rel_errors(got, {n: updates[n] for n in got})[0]
+            reading = {"updates_max_rel_err": err[0], "worst": err[1],
+                       "seen": err[0] > TP_UPDATE_RTOL}
+        else:
+            scale = max(1.0, want["logits"].abs().max().item())
+            logits = max((r["logits"] - want["logits"]).abs().max().item()
+                         / scale for r in runs)
+            loss = max(abs(r["loss"] - want["loss"]) / abs(want["loss"])
+                       for r in runs)
+            got = gather_tp_params([r["grads"] for r in runs])
+            err = _rel_errors(got, {n: want["grads"][n] for n in got})[0]
+            reading = {"logits_rel_err": logits, "loss_rel_err": loss,
+                       "grads_max_rel_err": err[0], "worst": err[1],
+                       "seen": (logits > TOL[torch.float32]
+                                or loss > TOL[torch.float32]
+                                or err[0] > TP_GRAD_RTOL)}
+        log(f"parallel {path} tp=2, planted fault '{fault}': {reading}")
+        out[fault] = reading
+    return out
+
+
 def _tp_reference(path, ranks):
-    """The single-device path (same weights, batches, generators) against
-    the two ranks: logits, loss, gathered gradients, codes, the three
-    steps' losses."""
+    """The single-device path (same weights, biases random, batches,
+    generators) against the two ranks: logits, loss, gathered gradients,
+    codes, the three steps' losses and updates, and what the checks read
+    on the planted faults."""
     from fewbit_tpu_torch.parallel import gather_tp_params
 
     tag = f"parallel {path} tp=2"
-    model, step = _model(path, torch.float32, True, **NO_DROPOUT)
+    model, step = _model(path, torch.float32, True, train=TP_TRAIN,
+                         **NO_DROPOUT)
+    _random_biases(model)
     want = _grads_of(path, model, next(_batches(path, SEED)),
                      keep_inputs=True)
     noise, noise_flips = _flip_noise(path, model, want)
@@ -2559,17 +2719,25 @@ def _tp_reference(path, ranks):
             raise AssertionError(f"{tag}: launches {r['counts']} vs "
                                  f"{want['counts']}")
     out["code_flips"] = _flips_at_tp(path, model, ranks, want)
-    flips = sum(out["code_flips"])
     log(f"{tag}: codes flipped against the single device, by layer "
-        f"{out['code_flips']} ({flips} in all), each within FLIP_BAND of a "
-        f"border; the single device against itself: {noise_flips}")
-    out["gradients"] = _grads_close(
-        f"{tag} gathered gradients",
-        gather_tp_params([r["grads"] for r in ranks]), want["grads"],
-        noise * (max(1.0, flips / max(noise_flips, 1))) ** 0.5)
+        f"{out['code_flips']} ({sum(out['code_flips'])} in all), each "
+        f"within FLIP_BAND of a border; the single device against itself: "
+        f"{noise_flips}")
+    before = _params(model)
     steps, _ = _checked_steps(path, step, _batches(path, SEED + 3),
                               torch.Generator().manual_seed(SEED), 3,
                               "parallel single-device f32")
+    updates = _updates(model, before)
+    del before
+    out["faults"] = _fault_readings(path, ranks, want, updates)
+    out["gradients"] = _grads_close(
+        f"{tag} gathered gradients",
+        gather_tp_params([r["grads"] for r in ranks]), want["grads"],
+        TP_GRAD_RTOL)
+    out["updates"] = _grads_close(
+        f"{tag} gathered updates of the three steps",
+        gather_tp_params([r["updates"] for r in ranks]), updates,
+        TP_UPDATE_RTOL)
     for r in ranks:
         rel = [abs(a - b) / abs(b) for a, b in zip(r["steps"]["losses"],
                                                     steps["losses"])]
@@ -2578,19 +2746,24 @@ def _tp_reference(path, ranks):
                                  f"{steps['losses']}")
         if not np.isfinite(r["bf16"]["losses"][0]):
             raise AssertionError(f"{tag}: bf16 loss {r['bf16']}")
+    unseen = [f for f, reading in out["faults"].items()
+              if not reading["seen"]]
+    if unseen:
+        raise AssertionError(f"{tag}: the checks pass the planted faults "
+                             f"{unseen}")
     out.update(single_steps=steps, rank_steps=[r["steps"] for r in ranks],
                bf16_losses=[r["bf16"]["losses"][0] for r in ranks])
     log(f"{tag}: logits, loss ({want['loss']:.6f}) and launches "
         f"{ {k: v for k, v in want['counts'].items() if v} } equal to the "
         f"single device's on each rank; gathered gradients "
-        f"{out['gradients']}; codes flipped {out['code_flips']}; "
-        f"three steps' losses {steps['losses']} (ranks "
-        f"{[r['steps']['losses'] for r in ranks]}), step ms single "
+        f"{out['gradients']}; updates {out['updates']}; codes flipped "
+        f"{out['code_flips']}; three steps' losses {steps['losses']} "
+        f"(ranks {[r['steps']['losses'] for r in ranks]}), step ms single "
         f"{[round(t, 2) for t in steps['step_ms']]}, ranks "
         f"{[[round(t, 2) for t in r['steps']['step_ms']] for r in ranks]}; "
         f"peak above held single {max(steps['peak_bytes'])} B, ranks "
         f"{[max(r['steps']['peak_bytes']) for r in ranks]} B; bf16 "
-        f"{out['bf16_losses']}")
+        f"{out['bf16_losses']}; every planted fault seen")
     del model, step
     torch.cuda.empty_cache()
     return out

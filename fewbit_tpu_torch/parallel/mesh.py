@@ -150,14 +150,15 @@ def fold_shard_generator(generator: torch.Generator,
     step), and a generator on its device seeded with ``(s + (rank + 1) *
     0x9E3779B97F4A7C15) mod 2**64``.  The counterpart of
     ``jax.random.fold_in(key, rank)``."""
-    s = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    s = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                          device=generator.device))
     folded = torch.Generator(device=generator.device)
     folded.manual_seed((s + (rank + 1) * _FOLD) % 2 ** 64)
     return folded
 
 
-def data_parallel_step(model: torch.nn.Module, mesh: Mesh,
-                       **ddp_kwargs) -> torch.nn.Module:
+def data_parallel_step(model: torch.nn.Module,
+                       mesh: Mesh) -> torch.nn.Module:
     """``model`` in ``DistributedDataParallel`` over this rank's dp group:
     its parameters broadcast from dp rank 0 at construction, its
     gradients averaged over dp in the backward (the JAX step's ``pmean``).
@@ -168,5 +169,4 @@ def data_parallel_step(model: torch.nn.Module, mesh: Mesh,
     if mesh.dp_group is None:
         raise ValueError("data_parallel_step needs a mesh with a dp group "
                          "(torch.distributed, init_distributed)")
-    return DistributedDataParallel(model, process_group=mesh.dp_group,
-                                   **ddp_kwargs)
+    return DistributedDataParallel(model, process_group=mesh.dp_group)

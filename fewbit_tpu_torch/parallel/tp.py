@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from fewbit_tpu_torch.modules._rng import lecun_normal_
 from fewbit_tpu_torch.parallel.mesh import (Mesh, data_parallel_step,
                                             fold_shard_generator,
                                             mesh_from_grid)
@@ -104,10 +105,18 @@ def tp_param_spec(path, leaf) -> tuple:
     return tuple(spec)
 
 
-def _tp_name(name: str) -> str:
+def _renamed(name: str, names, to_tp: bool) -> str:
+    """``name`` under the other model's name by ``_BIAS_RENAMES``: the tp
+    model's (``to_tp``) or the single-device model's.  A tp name with two
+    single-device ones (``ffn_bias``) takes the one whose module is among
+    ``names``, the other parameter names of ``name``'s model."""
     for single, tp in _BIAS_RENAMES:
-        if name.endswith(single):
-            return name[:-len(single)] + tp
+        old, new = (single, tp) if to_tp else (tp, single)
+        if name == old or name.endswith("." + old):
+            renamed = name[:-len(old)] + new
+            module = renamed.rsplit(".", 1)[0] + "."
+            if to_tp or any(n.startswith(module) for n in names):
+                return renamed
     return name
 
 
@@ -121,7 +130,7 @@ def shard_tp_params(state: dict, tp_rank: int, tp_size: int) -> dict:
         axis = _tp_axis(name, value.ndim)
         if axis is not None:
             value = value.chunk(tp_size, dim=axis)[tp_rank]
-        out[_tp_name(name)] = value
+        out[_renamed(name, state, to_tp=True)] = value
     return out
 
 
@@ -136,13 +145,7 @@ def gather_tp_params(states: Sequence[dict]) -> dict:
         axis = _tp_axis(name, value.ndim)
         if axis is not None:
             value = torch.cat([s[name] for s in states], dim=axis)
-        if name.endswith("attention.output_bias"):
-            name = name[:-len("output_bias")] + "output.bias"
-        elif name.endswith("ffn_bias"):
-            prefix = name[:-len("ffn_bias")]
-            name = prefix + ("ffn.down_bias" if f"{prefix}ffn.up_weight"
-                             in first else "ffn_output.bias")
-        out[name] = value
+        out[_renamed(name, first, to_tp=False)] = value
     return out
 
 
@@ -190,10 +193,11 @@ def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
 def init_dp_tp_state(model_cls: Callable, cfg, mesh: Mesh, seed: int = 0,
                      device=None) -> torch.nn.Module:
     """This rank's tp model ``model_cls(cfg, device, generator,
-    tp_group)``: the split parameters drawn from a generator folded by the
-    tp rank (independent slices of one random global weight), the
-    replicated ones from the generator every rank shares, so the tp ranks
-    agree on them bit for bit.  ``device`` None is the card."""
+    tp_group)``, built from the generator every rank shares (so the tp
+    ranks agree on the replicated parameters bit for bit), its split
+    weights then drawn again from that generator folded by the tp rank
+    (independent slices of one random global weight).  ``device`` None is
+    the card."""
     from fewbit_tpu_torch.models.roberta import model_device
 
     dev = model_device(device)
@@ -202,14 +206,13 @@ def init_dp_tp_state(model_cls: Callable, cfg, mesh: Mesh, seed: int = 0,
                          f"tp={mesh.tp_size}")
     model = model_cls(cfg, dev, torch.Generator(device=dev).manual_seed(
         seed), tp_group=mesh.tp_group)
-    folded = model_cls(cfg, dev, fold_shard_generator(
-        torch.Generator(device=dev).manual_seed(seed), mesh.tp_rank),
-        tp_group=mesh.tp_group)
-    drawn = dict(folded.named_parameters())
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if _tp_axis(name, p.ndim) is not None:
-                p.copy_(drawn[name])
+    folded = fold_shard_generator(
+        torch.Generator(device=dev).manual_seed(seed), mesh.tp_rank)
+    for name, p in model.named_parameters():
+        # The modules' own init: a split weight (out, in) lecun-normal
+        # over its input features; a split bias stays zero.
+        if _tp_axis(name, p.ndim) is not None and p.ndim > 1:
+            lecun_normal_(p, p.shape[-1], folded)
     return model
 
 

@@ -7,15 +7,17 @@ gloo on the CPU), reads the cases the test wrote to ``WORKDIR/inputs.pt``
 (JAX parameter trees as numpy arrays, batches, configs), runs each on its
 mesh and writes what it saw to ``WORKDIR/rank<RANK>.pt``:
 
-* ``tp_cfg``, ``tp_r``, ``tp_gpt`` -- dp=1 x tp=2 on ranks 0 and 1: a tp
-  model loaded with its slice of a JAX tree, one forward and backward
-  (logits, loss, local gradients);
+* ``tp_cfg``, ``tp_r``, ``tp_gpt``, ``tp_dropout`` -- dp=1 x tp=2 on
+  ranks 0 and 1: a tp model loaded with its slice of a JAX tree, one
+  forward and backward (logits, loss, local gradients); ``tp_dropout``
+  with attention dropout on;
 * ``dp_r``, ``dp_gpt`` -- dp=2 on ranks 0 and 1: rank 1's weights moved
   and ``replicate``d from rank 0, the model in
   ``DistributedDataParallel``, ``make_train_step(dp_group=...)``'s
   ``loss_and_grads`` on the rank's half of the batch;
-* ``dp_tp`` -- dp=2 x tp=2 on all four: ``init_dp_tp_state`` and one
-  ``dp_tp_train_step`` step (loss, parameters after it);
+* ``dp_tp`` -- dp=2 x tp=2 on all four: ``init_dp_tp_state`` (its
+  parameters) and one ``dp_tp_train_step`` step (loss, parameters after
+  it);
 * ``signs`` -- the same mesh, a countsketched model: the sketch signs each
   rank drew in ``loss_and_grads``.
 
@@ -56,7 +58,11 @@ def _tp_case(case, mesh):
     model = model_cls(cfg, device="cpu", tp_group=mesh.tp_group)
     load_flax_params(model, case["params"], tp_rank=mesh.tp_rank)
     b = _batch(case["batch"])
+    seed = case.get("dropout_seed")
     logits = model(b["input_ids"], b["attention_mask"],
+                   deterministic=seed is None,
+                   dropout_generator=(None if seed is None else
+                                      torch.Generator().manual_seed(seed)),
                    sketch_generator=torch.Generator().manual_seed(
                        case["sketch_seed"]))
     loss = loss_fn(logits, b["labels"])
@@ -98,12 +104,13 @@ def _dp_tp_case(case, mesh):
     cfg = RobertaConfig(**case["cfg"], tp_size=2, tp_axis="tp")
     model = init_dp_tp_state(RobertaForSequenceClassification, cfg, mesh,
                              seed=0, device="cpu")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
     step = dp_tp_train_step(model, TrainConfig(total_steps=4,
                                                learning_rate=1e-4), mesh)
     loss = step(shard_batch(_batch(case["batch"]), mesh),
                 torch.Generator().manual_seed(0))["loss"]
-    return {"loss": loss, "state": {k: v.clone() for k, v in
-                                    model.state_dict().items()}}
+    return {"loss": loss, "init": init,
+            "state": {k: v.clone() for k, v in model.state_dict().items()}}
 
 
 def _signs_case(case, mesh):
@@ -151,7 +158,7 @@ def main(rank: int, world: int, store: str, workdir: str) -> None:
     grid = make_dp_tp_mesh(2, 2)
     out = {"dp_rank": grid.dp_rank, "tp_rank": grid.tp_rank}
     if tp_mesh.member:
-        for name in ("tp_cfg", "tp_r", "tp_gpt"):
+        for name in ("tp_cfg", "tp_r", "tp_gpt", "tp_dropout"):
             out[name] = _tp_case(cases[name], tp_mesh)
     if dp_mesh.member:
         for name in ("dp_r", "dp_gpt"):

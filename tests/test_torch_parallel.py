@@ -100,6 +100,9 @@ DP_GPT_CFG = dict(vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
 SIGNS_CFG = dict(TP_CFG, proj_dim_ratio=0.5, sketch="countsketch",
                  fused_ffn=False)
 SKETCH_SEED = 7
+# tp_config with attention dropout on (the hidden dropout stays 0).
+DROPOUT_CFG = dict(TP_CFG, attention_dropout=0.5)
+DROPOUT_SEED = 11
 
 
 FAMILIES = {
@@ -367,6 +370,8 @@ def runs(tmp_path_factory):
                  ("tp_cfg", "roberta", TP_CFG), ("tp_r", "roberta", R_CFG),
                  ("tp_gpt", "gpt", GPT_CFG), ("dp_r", "roberta", DP_CFG),
                  ("dp_gpt", "gpt", DP_GPT_CFG))}
+    cases["tp_dropout"] = dict(cases["tp_cfg"], cfg=DROPOUT_CFG,
+                               dropout_seed=DROPOUT_SEED)
     cases["dp_tp"] = dict(cfg=TP_CFG, batch=_glue(4))
     cases["signs"] = dict(cfg=SIGNS_CFG, batch=_glue(4))
     torch.save(cases, work / "inputs.pt")
@@ -399,6 +404,8 @@ def runs(tmp_path_factory):
                             "logits": logits, "loss": loss, "grads": grads,
                             "sketched": _sketched(port)}
         ref["single"] = single
+        ref["dropout"] = dict(tree=inits["tp_cfg"][1],
+                              batch=batches["tp_cfg"])
         ref["dp_r"] = _dp_reference(inits["dp_r"][0], trees["dp_r"],
                                     batches["dp_r"])
         ref["dp_gpt"] = _lm_reference(inits["dp_gpt"][0], trees["dp_gpt"],
@@ -762,6 +769,81 @@ def test_dp_tp_step_runs(runs):
     for tp in range(2):
         for name, t in grid[0, tp].items():
             assert torch.equal(t, grid[1, tp][name]), name
+
+
+def test_init_dp_tp_state_draws(runs):
+    """``init_dp_tp_state`` on dp=2 x tp=2: the tp ranks hold the same
+    replicated parameters and different slices of each split weight (the
+    split biases zero); the dp replicas hold the same parameters; the
+    gathered state has the single-device model's names and shapes."""
+    _, ranks = runs
+    grid = {(r["dp_rank"], r["tp_rank"]): r["dp_tp"]["init"] for r in ranks}
+    split = 0
+    for name, t in grid[0, 0].items():
+        other = grid[0, 1][name]
+        if "tp" in tpar.tp_param_spec(name, t):
+            if t.ndim > 1:
+                split += 1
+                assert not torch.equal(t, other), name
+            else:
+                assert not t.any() and not other.any(), name
+        else:
+            assert torch.equal(t, other), name
+        for tp in range(2):
+            assert torch.equal(grid[0, tp][name], grid[1, tp][name]), name
+    assert split == 6 * TP_CFG["num_layers"]
+    single = RobertaForSequenceClassification(RobertaConfig(**TP_CFG),
+                                              device="cpu")
+    gathered = tpar.gather_tp_params([grid[0, 0], grid[0, 1]])
+    assert {n: tuple(t.shape) for n, t in gathered.items()} == {
+        n: tuple(t.shape) for n, t in single.state_dict().items()}
+
+
+def test_tp_attention_dropout_shares_masks(runs, monkeypatch):
+    """tp=2 with attention dropout on: each rank draws its local heads'
+    mask from the generator the tp ranks share, as the JAX package's tp
+    does, so head h and head h + H/2 drop alike.  The tp forward and its
+    gathered gradients equal the single-device model's whose mask for
+    the second half of the heads repeats the first half's (rtol / atol
+    1e-5); with the single device's own mask the logits differ."""
+    from fewbit_tpu_torch.models import roberta
+
+    ref, ranks = runs
+    plain = roberta.dropout
+
+    def shared_over_tp(x, p, deterministic, generator=None):
+        if deterministic or p == 0.0 or x.ndim != 4:
+            return plain(x, p, deterministic, generator)
+        b, h, q, k = x.shape
+        keep = torch.rand((b, h // 2, q, k), generator=generator) >= p
+        return x * keep.repeat(1, 2, 1, 1) * (1.0 / (1.0 - p))
+
+    def single_run():
+        model = _port_single("roberta", DROPOUT_CFG, ref["dropout"]["tree"])
+        b = {k: torch.from_numpy(np.asarray(v)).long()
+             for k, v in ref["dropout"]["batch"].items()}
+        logits = model(b["input_ids"], b["attention_mask"],
+                       deterministic=False,
+                       dropout_generator=torch.Generator().manual_seed(
+                           DROPOUT_SEED),
+                       sketch_generator=torch.Generator().manual_seed(
+                           SKETCH_SEED))
+        classification_loss(logits, b["labels"]).backward()
+        return logits.detach().numpy(), {
+            n: p.grad.numpy() for n, p in model.named_parameters()}
+
+    own, _ = single_run()
+    monkeypatch.setattr(roberta, "dropout", shared_over_tp)
+    want, grads = single_run()
+    for r in ranks[:2]:
+        got = r["tp_dropout"]["logits"].numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        assert np.abs(got - own).max() > 1e-3
+    gathered = _gathered(ranks, "tp_dropout")
+    assert set(gathered) == set(grads)
+    for name, g in grads.items():
+        np.testing.assert_allclose(gathered[name], g, rtol=0, atol=1e-5,
+                                   err_msg=name)
 
 
 def test_sketch_signs_fold_by_dp_not_tp(runs):
