@@ -166,6 +166,28 @@ before the last is a JSON object with each kernel's launches, error, times
 and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
+The examples phase (after the parallel phase; ``python3 chip_smoke.py
+--examples`` runs it alone) prints the corpus directory's files and bytes,
+holds kernels 1-6 against their plain versions at the examples' shapes
+(``EX_SHAPES``: K = 128 <-> 512 at 2048 and 4096 rows, f32 and for the LM
+bf16, and RoBERTa-base's 768 <-> 3072 at 2048 rows) into outputs filled
+with NaN, with their device times beside their bounds; then drives the
+twins of ``examples/*.py`` (``fewbit_tpu_torch/examples``): every row of
+convergence_parity, lm_parity_real_text (f32 and bf16) and
+classification_parity_real_text (doc with a 2-step pretrain, pair) for one
+probed step and one evaluation forward, each launching exactly its
+``EX_LAUNCHES``, then each ``main`` at EX_STEPS steps, its launches those of
+its steps and evaluations; finetune_glue at RoBERTa-base width (bs 16 x seq
+128, f32, 3 bits, ratio 0.2, gaussian: kernels 6 and 5; countsketch: 1, 2
+and 3) with ``--glue`` on a fixture it writes, ``--log-dir`` then
+``summarize_runs``, and ``--checkpoint-dir``, whose restored next step
+equals the uninterrupted one to the bit (deterministic mode), and vanilla
+against few-bit in turns (step ms, peak above held; the few-bit peak
+lower); memory_profile
+``--time`` at 2^24 elements, its bytes those its shapes imply.  The
+examples' launches go into the kernels line.  Without the corpus the
+real-text examples are left out.
+
 ``python3 chip_smoke.py --profile PATH`` runs only the device phase and the
 few-bit steps of one path (a name in ``PATHS``), four timed without the
 profiler and two under it: the way to read an older tree's step and device
@@ -908,6 +930,12 @@ def phase_kernels():
                            for _ in range(4))
             _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol)
         torch.cuda.empty_cache()
+    _log_cases(results)
+    return results
+
+
+def _log_cases(results):
+    """One line per kernel case: its errors, times and bound."""
     for name, cases in results.items():
         for c in cases:
             extra = (f"; bound {c['bound_ms']:.4f} ms by {c['bound_by']} "
@@ -942,7 +970,6 @@ def phase_kernels():
             log(f"kernel {name} [{c['mode']}, {c['dtype']}]: errors "
                 f"{c['errors']}, kernel {c['ms']:.3f} ms, plain "
                 f"{c['plain_ms']:.3f} ms (calls){extra}")
-    return results
 
 
 # Tensor parallelism at tp=2: each rank's slice of RoBERTa-base and GPT-2
@@ -980,56 +1007,91 @@ def _tp_width_cases(results, spec, borders, levels, sigma, x, g, rand, tag,
 
     up_w = rand(TP_INNER, HIDDEN, scale=HIDDEN ** -0.5, dt=dt)
     up_b = rand(TP_INNER, scale=0.1, dt=dt)
+    down_w = rand(HIDDEN, TP_INNER, scale=TP_INNER ** -0.5, dt=dt)
+    _k23_cases(results, spec, borders, levels, sigma, K_EFF, x, g, up_w,
+               up_b, down_w, tag, tol, "tp=2")
+    packed6 = _k6_case(results, spec, borders, x, up_w, up_b, tag, tol,
+                       "tp=2")
+    _k5_case(results, spec, levels, packed6, rand(N, TP_INNER, dt=dt), tag,
+             tol, "tp=2", "codes of kernel 6")
+
+
+def _k23_cases(results, spec, borders, levels, sigma, k_eff, x, g, up_w,
+               up_b, down_w, tag, tol, label):
+    """Kernel 2 at ``x @ up_w.t() + up_b`` and kernel 3 on its codes with
+    the output gradient ``g`` through ``down_w``, each into outputs filled
+    with NaN against its plain version, with its device time and share of
+    the bound; ``label`` starts the cases' modes."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    (n, kdim), m = x.shape, up_w.shape[0]
     z0 = K.dot_f32(x, up_w.t()) + up_b.float()
-    args = (spec, x, up_w.t(), up_b, borders, sigma, K_EFF)
+    args = (spec, x, up_w.t(), up_b, borders, sigma, k_eff)
     want = K.dense_act_sketch_plain(*args)
     y, packed, sk = K.fused_dense_act_sketch(*args, out=_nan_like(*want))
-    errs = {"y": compare(f"k2 tp=2 {tag} y", y, want[0], tol),
-            "sketch": compare(f"k2 tp=2 {tag} sketch", sk, want[2], tol),
-            "code_flips": code_flips(f"k2 tp=2 {tag}", packed, want[1], z0,
-                                     borders, spec.bits)}
-    _ffn_case(results, "dense_act_sketch", "tp=2 forward 768->1536", tag,
-              K.fused_dense_act_sketch, K.dense_act_sketch_plain, args, errs,
-              x, up_w.t())
-    down_w = rand(HIDDEN, TP_INNER, scale=TP_INNER ** -0.5, dt=dt)
-    args = (spec, packed, levels, g, down_w, sigma, K_EFF)
+    errs = {"y": compare(f"k2 {label} {tag} y", y, want[0], tol),
+            "sketch": compare(f"k2 {label} {tag} sketch", sk, want[2], tol),
+            "code_flips": code_flips(f"k2 {label} {tag}", packed, want[1],
+                                     z0, borders, spec.bits)}
+    _ffn_case(results, "dense_act_sketch", f"{label} forward {kdim}->{m}",
+              tag, K.fused_dense_act_sketch, K.dense_act_sketch_plain, args,
+              errs, x, up_w.t())
+    args = (spec, packed, levels, g, down_w, sigma, k_eff)
     want = K.matmul_lut_backward_plain(*args)
     got = K.fused_matmul_lut_backward(*args, out=_nan_like(*want))
-    errs = {name: compare(f"k3 tp=2 {tag} {name}", a, b,
+    errs = {name: compare(f"k3 {label} {tag} {name}", a, b,
                           TOL_SUM if name == "db" else tol)
             for name, a, b in zip(("dz", "sketch", "db"), got, want)}
-    _ffn_case(results, "matmul_lut_backward", "tp=2 backward 768->1536", tag,
+    _ffn_case(results, "matmul_lut_backward",
+              f"{label} backward {kdim}->{m}", tag,
               K.fused_matmul_lut_backward, K.matmul_lut_backward_plain, args,
               errs, g, down_w)
 
+
+def _k6_case(results, spec, borders, x, up_w, up_b, tag, tol, label):
+    """Kernel 6 at ``x @ up_w.t() + up_b`` into outputs filled with NaN
+    against its plain version, with its device time and share of the
+    bound.  Returns its codes."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    (n, kdim), m = x.shape, up_w.shape[0]
+    z0 = K.dot_f32(x, up_w.t()) + up_b.float()
     args = (spec, x, up_w.t(), up_b, borders)
     want = K.dense_act_plain(*args)
     y, packed6 = K.fused_dense_act(*args, out=_nan_like(*want))
-    errs = {"y": compare(f"k6 tp=2 {tag} y", y, want[0], tol),
-            "code_flips": code_flips(f"k6 tp=2 {tag}", packed6, want[1], z0,
-                                     borders, spec.bits)}
-    case = {"mode": f"tp=2 forward 768->1536, the "
-                    f"{K.dense_act_schedule(N, TP_INNER, dt)} schedule",
+    errs = {"y": compare(f"k6 {label} {tag} y", y, want[0], tol),
+            "code_flips": code_flips(f"k6 {label} {tag}", packed6, want[1],
+                                     z0, borders, spec.bits)}
+    case = {"mode": f"{label} forward {kdim}->{m}, the "
+                    f"{K.dense_act_schedule(n, m, x.dtype)} schedule",
             "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_dense_act(*args)),
             "device_ms": device_ms(lambda: K.fused_dense_act(*args)),
             "plain_ms": cuda_ms(lambda: K.dense_act_plain(*args)),
-            **bound(2 * N * HIDDEN * TP_INNER, gemm_rate(dt),
+            **bound(2 * n * kdim * m, gemm_rate(x.dtype),
                     tensor_bytes(args, y, packed6)),
             "library_ms": None}
     case["bound_share"] = case["bound_ms"] / case["device_ms"]
     results["dense_act"].append(case)
+    return packed6
 
-    g_ffn = rand(N, TP_INNER, dt=dt)
-    args = (spec, packed6, levels, g_ffn)
+
+def _k5_case(results, spec, levels, packed, g_ffn, tag, tol, label, source):
+    """Kernel 5 on ``packed`` (the codes of ``source``) with the output
+    gradient ``g_ffn``, into an output filled with NaN against its plain
+    version, with its device time and share of the bound."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    args = (spec, packed, levels, g_ffn)
     want = K.act_backward_plain(*args)
     dx = K.fused_backward(*args, out=_nan_like(want))
-    case = {"mode": "tp=2 backward (8192, 1536) on codes of kernel 6",
+    case = {"mode": f"{label} backward {tuple(g_ffn.shape)} on {source}",
             "dtype": tag,
-            "errors": {"dx": compare(f"k5 tp=2 {tag}", dx, want, tol)},
+            "errors": {"dx": compare(f"k5 {label} {tag}", dx, want, tol)},
             "ms": cuda_ms(lambda: K.fused_backward(*args)),
             "device_ms": device_ms(lambda: K.fused_backward(*args)),
             "plain_ms": cuda_ms(lambda: K.act_backward_plain(*args)),
+            # Per element: one multiply, on CUDA cores.
             **bound(g_ffn.numel(), "simt", tensor_bytes(args, dx)),
             "library_ms": None}
     case["bound_share"] = case["bound_ms"] / case["device_ms"]
@@ -2844,6 +2906,454 @@ def phase_parallel():
 
 
 
+# ---------------------------------------------------------------------------
+# The examples (phase_examples): the twins of examples/*.py at their own
+# widths, and their kernels at those widths.
+# ---------------------------------------------------------------------------
+
+CORPUS = "/usr/share/common-licenses"
+EX_STEPS = 3
+# The kernels at the examples' shapes: (rows N, hidden, FFN width, dtypes,
+# cases).  N = 2048, 128 <-> 512: convergence (RoBERTa 4L/128H, bs 32 x seq
+# 64; kernel 1 on every projection of the randomized row, 2 and 3 on row 5,
+# 6 and 5 on the gelu rows).  N = 4096, 128 <-> 512: lm (GPT 4L/128H, bs 32
+# x seq 128, f32 and --dtype bfloat16: kernel 1, 6 and 5) and
+# classification (RoBERTa, unfused FFN: kernel 1, 4 and 5); kernels 2 and 3
+# there too, which no example runs at 4096 rows.  N = 2048, 768 <-> 3072:
+# finetune at RoBERTa-base width (bs 16 x seq 128: kernel 1 at 768 -> 768,
+# 2 and 3, 6 and 5).
+EX_SHAPES = (
+    (2048, 128, 512, (torch.float32,), ("k1", "k23", "k6")),
+    (4096, 128, 512, (torch.float32, torch.bfloat16), ("k1", "k6")),
+    (4096, 128, 512, (torch.float32,), ("k4", "k23")),
+    (2048, 768, 3072, (torch.float32,), ("k1", "k23", "k6")),
+)
+# Launches of one training step and of one evaluation forward, per row of
+# each example; every other kernel 0.  Kernel 1 takes a countsketch
+# projection (forward, and backward with the column sum) whose widths are
+# at most 1024 and whose rows divide into its buckets: every projection of
+# the 4-layer models (q, k, v, output, and the FFN's two where they are
+# projections of their own), never the heads' 32 or 16 rows.  The fused
+# FFN of a gelu row with a countsketch is kernels 2 and 3; without a
+# sketch (or with gaussian) it is kernel 6 and 5; the unfused one is
+# kernels 4 and 5.  An evaluation forward launches the forward kernels.
+L4 = 4
+EX_LAUNCHES = {
+    "convergence": {
+        "exact": ({}, {}),
+        "gelu 3-bit": ({"dense_act": L4, "fused_backward": L4},
+                       {"dense_act": L4}),
+        "gelu 1-bit": ({"dense_act": L4, "fused_backward": L4},
+                       {"dense_act": L4}),
+        "randomized 20%": ({"matmul_input_sketch": 12 * L4},
+                           {"matmul_input_sketch": 6 * L4}),
+        "gelu 3-bit + rand 20%": (
+            {"matmul_input_sketch": 8 * L4, "dense_act_sketch": L4,
+             "matmul_lut_backward": L4},
+            {"matmul_input_sketch": 4 * L4, "dense_act_sketch": L4}),
+    },
+    "lm": {
+        "exact": ({}, {}),
+        "gelu 3-bit": ({"dense_act": L4, "fused_backward": L4},
+                       {"dense_act": L4}),
+        "randomized 20% (countsketch)": ({"matmul_input_sketch": 12 * L4},
+                                         {"matmul_input_sketch": 6 * L4}),
+        # The structured sketch has no kernel.
+        "randomized 20% (srht)": ({}, {}),
+        "gelu 3-bit + rand 20%": (
+            {"matmul_input_sketch": 10 * L4, "dense_act": L4,
+             "fused_backward": L4},
+            {"matmul_input_sketch": 5 * L4, "dense_act": L4}),
+    },
+    "classification": {
+        "exact": ({}, {}),
+        "gelu 3-bit": ({"fused_forward": L4, "fused_backward": L4},
+                       {"fused_forward": L4}),
+        "randomized 20% (countsketch)": ({"matmul_input_sketch": 12 * L4},
+                                         {"matmul_input_sketch": 6 * L4}),
+        "gelu 3-bit + rand 20%": (
+            {"matmul_input_sketch": 12 * L4, "fused_forward": L4,
+             "fused_backward": L4},
+            {"matmul_input_sketch": 6 * L4, "fused_forward": L4}),
+    },
+    # RoBERTa-base, 3 bits, ratio 0.2: the gaussian sketch never takes
+    # kernel 1; the countsketch's ffn_output is inside the fused FFN.
+    "finetune": {
+        "gaussian": ({"dense_act": 12, "fused_backward": 12},
+                     {"dense_act": 12}),
+        "countsketch": ({"matmul_input_sketch": 96, "dense_act_sketch": 12,
+                         "matmul_lut_backward": 12},
+                        {"matmul_input_sketch": 48, "dense_act_sketch": 12}),
+    },
+}
+# memory_profile --time at 2^24 elements: kernel 4 once for each few-bit
+# function of the bytes table (relu, hardtanh, gelu/silu/tanh at bits 1-4),
+# and once for each call the timer makes (2 to warm up, 3 x 20).
+MP_LAUNCHES = {"fused_forward": 2 + 3 * 4 + 2 + 3 * 20}
+
+
+def _k4_case(results, spec, borders, h, tag, tol, label):
+    """Kernel 4 on ``h`` into outputs filled with NaN against its plain
+    version (codes equal), with its device time and share of the bound.
+    Returns its codes."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    args = (spec, h, borders)
+    want = K.act_forward_plain(*args)
+    y, packed4 = K.fused_forward(*args, out=_nan_like(*want))
+    if not torch.equal(packed4, want[1]):
+        raise AssertionError(f"k4 {label} {tag}: packed codes differ")
+    case = {"mode": f"{label} forward {tuple(h.shape)}", "dtype": tag,
+            "errors": {"y": compare(f"k4 {label} {tag} y", y, want[0], tol),
+                       "code_flips": 0},
+            "ms": cuda_ms(lambda: K.fused_forward(*args)),
+            "device_ms": device_ms(lambda: K.fused_forward(*args)),
+            "plain_ms": cuda_ms(lambda: K.act_forward_plain(*args)),
+            # Per element: one compare per border and the GELU.
+            **bound(h.numel() * (spec.n_borders + 1), "simt",
+                    tensor_bytes(args, y, packed4)),
+            "library_ms": None}
+    case["bound_share"] = case["bound_ms"] / case["device_ms"]
+    results["fused_forward"].append(case)
+    return packed4
+
+
+def _examples_kernel_cases():
+    """Each kernel of the examples' paths at their shapes (``EX_SHAPES``)
+    against its plain version, into outputs filled with NaN, with its
+    device time beside its bound."""
+    from fewbit_tpu_torch.functional.activations import resolve_activation
+    from fewbit_tpu_torch.functional.linear import calc_proj_dim
+    from fewbit_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    spec, borders, levels = resolve_activation("gelu", bits=3, device=dev)
+    results = {name: [] for name in K.KERNELS}
+
+    def rand(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    for n, hidden, inner, dtypes, kinds in EX_SHAPES:
+        label = f"examples N={n}"
+        k = calc_proj_dim(n, 0.2)
+        sigma = torch.randint(0, 2, (n,), generator=gen,
+                              device=dev).float() * 2 - 1
+        for dt in dtypes:
+            tag = "f32" if dt == torch.float32 else "bf16"
+            tol = TOL[dt]
+            x, g = rand(n, hidden, dt=dt), rand(n, hidden, dt=dt)
+            if "k1" in kinds:
+                widths = ([(hidden, hidden)] if hidden == HIDDEN else
+                          [(hidden, hidden), (hidden, inner),
+                           (inner, hidden)])
+                for kdim, m in widths:
+                    k_eff = K.matmul_sketch_keff(n, kdim, m, k, dt)
+                    if k_eff is None or k_eff != K.matmul_sketch_keff(
+                            n, m, kdim, k, dt):
+                        raise AssertionError(f"k1 {label} {kdim}->{m}: "
+                                             f"outside the envelope")
+                    w = rand(m, kdim, scale=kdim ** -0.5, dt=dt)
+                    _k1_case(results, f"{label} forward {kdim}->{m}", tag,
+                             ("y", "sketch"),
+                             (rand(n, kdim, dt=dt), w.t(),
+                              rand(m, scale=0.1, dt=dt), sigma, k_eff), tol)
+                    _k1_case(results, f"{label} backward+colsum {m}->{kdim}",
+                             tag, ("dx", "sketch", "colsum"),
+                             (rand(n, m, dt=dt), w, None, sigma, k_eff,
+                              True), tol)
+            up_w = rand(inner, hidden, scale=hidden ** -0.5, dt=dt)
+            up_b = rand(inner, scale=0.1, dt=dt)
+            if "k23" in kinds:
+                _k23_cases(results, spec, borders, levels, sigma,
+                           K.countsketch_aligned_keff(n, k), x, g, up_w,
+                           up_b, rand(hidden, inner, scale=inner ** -0.5,
+                                      dt=dt), tag, tol, label)
+            if "k6" in kinds:
+                packed = _k6_case(results, spec, borders, x, up_w, up_b, tag,
+                                  tol, label)
+                _k5_case(results, spec, levels, packed,
+                         rand(n, inner, dt=dt), tag, tol, label,
+                         "codes of kernel 6")
+            if "k4" in kinds:
+                packed = _k4_case(results, spec, borders,
+                                  rand(n, inner, scale=1.5, dt=dt), tag, tol,
+                                  label)
+                _k5_case(results, spec, levels, packed,
+                         rand(n, inner, dt=dt), tag, tol, label,
+                         "codes of kernel 4")
+    for cases in results.values():
+        for c in cases:
+            c["path_shape"] = False
+    _log_cases(results)
+    torch.cuda.empty_cache()
+    return results
+
+
+def _expect(tag, counts, want):
+    """``counts`` (every kernel's) must be ``want``'s, 0 elsewhere."""
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        raise AssertionError(f"{tag}: launches "
+                             f"{ {k: v for k, v in counts.items() if v} }, "
+                             f"expected {want}")
+
+
+def _scaled(per, times, into):
+    for name, v in per.items():
+        into[name] = into.get(name, 0) + v * times
+    return into
+
+
+def _ex_probe(twin, row, step, batch, evaluate):
+    """One training step of an example's row and one evaluation forward,
+    each with every count set to 0 just before it: their launches must be
+    ``EX_LAUNCHES``'.  Returns the step's loss."""
+    from fewbit_tpu_torch.examples._common import step_generator
+
+    per_step, per_eval = EX_LAUNCHES[twin][row]
+    loss, counts = _launched(lambda: step(batch, step_generator(0, 0))[
+        "loss"].item())
+    _expect(f"{twin} {row} step", counts, per_step)
+    if not np.isfinite(loss):
+        raise AssertionError(f"{twin} {row}: loss {loss}")
+    _, counts = _launched(evaluate)
+    _expect(f"{twin} {row} evaluation", counts, per_eval)
+    log(f"examples {twin} {row}: a step launches {per_step or 'nothing'}, "
+        f"an evaluation forward {per_eval or 'nothing'}; loss {loss:.6f}")
+    return loss
+
+
+def _ex_main(twin, main, argv, evals):
+    """An example's ``main(argv)`` with every count set to 0 just before
+    it: every row's losses finite, and the launches ``EX_STEPS`` steps and
+    ``evals[row]`` evaluation forwards of each row make.  Returns (rows,
+    counts)."""
+    rows, counts = _launched(lambda: main(argv))
+    want = {}
+    for r in rows:
+        per_step, per_eval = EX_LAUNCHES[twin][r["config"]]
+        seeds = r.get("seeds", 1)
+        _scaled(per_step, EX_STEPS * seeds, want)
+        _scaled(per_eval, evals * seeds, want)
+        if not np.isfinite(r["final_loss"]):
+            raise AssertionError(f"{twin} {argv}: {r}")
+    _expect(f"{twin} main {argv}", counts, want)
+    log(f"examples {twin} {' '.join(argv)}: {json.dumps(rows)}")
+    return rows, counts
+
+
+def _corpus():
+    """The corpus directory's regular files and bytes, printed; None when
+    it is not there."""
+    if not os.path.isdir(CORPUS):
+        log(f"examples: {CORPUS} is missing: the real-text examples are "
+            f"left out")
+        return None
+    files = [os.path.join(CORPUS, f) for f in sorted(os.listdir(CORPUS))]
+    files = [p for p in files if os.path.isfile(p) and not os.path.islink(p)]
+    out = {"files": len(files),
+           "bytes": sum(os.path.getsize(p) for p in files)}
+    log(f"examples: corpus {CORPUS}: {out['files']} files, {out['bytes']} "
+        f"bytes")
+    return out
+
+
+def _ex_parity():
+    """convergence, lm (f32 and bf16) and classification (doc with a 2-step
+    pretrain, and pair): every row probed, then each ``main`` at EX_STEPS.
+    Returns (summary, counts by path)."""
+    from fewbit_tpu_torch.examples import classification_parity_real_text as CL
+    from fewbit_tpu_torch.examples import convergence_parity as CP
+    from fewbit_tpu_torch.examples import lm_parity_real_text as LM
+    from fewbit_tpu_torch.examples._common import mean_accuracy, on_device
+
+    dev = torch.device("cuda")
+    out, counts = {}, {}
+    for name, gb, pr in CP.CONFIGS:
+        cfg = CP.model_config(gb, pr)
+        data, _, held = CP.make_data(cfg)
+        model, step = CP.build(cfg, EX_STEPS, dev)
+        _ex_probe("convergence", name, step, on_device(next(data), dev),
+                  lambda: mean_accuracy(model, held[:1], dev))
+    out["convergence"], counts["examples_convergence"] = _ex_main(
+        "convergence", CP.main, ["--steps", str(EX_STEPS)], 8)
+    if _corpus() is None:
+        return out, counts
+    _, _, held = LM.make_data()
+    for dtype in ("float32", "bfloat16"):
+        for name, gb, pr, sk in LM.CONFIGS:
+            cfg = LM.model_config(gb, pr, sk, dtype=dtype)
+            data, _, _ = LM.make_data()
+            model, step = LM.build(cfg, EX_STEPS, dev)
+            _ex_probe("lm", name, step, on_device(next(data), dev),
+                      lambda: LM.bits_per_byte(model, held[:1], dev))
+        tag = "" if dtype == "float32" else "_bf16"
+        out["lm" + tag], counts["examples_lm" + tag] = _ex_main(
+            "lm", LM.main, ["--steps", str(EX_STEPS), "--dtype", dtype],
+            len(held))
+    for task, extra in (("doc", ["--pretrain", "2"]), ("pair", [])):
+        train, val, n_cls = CL.task_data(task)
+        held = CL.val_batches(val, 32)
+        for name, bits, ratio, sketch in CL.CONFIGS:
+            cfg = CL.model_config(n_cls, bits, ratio, sketch or "countsketch")
+            stream, _ = CL.train_stream(train, 32)
+            model, step = CL.build(cfg, EX_STEPS, dev)
+            _ex_probe("classification", name, step,
+                      on_device(next(stream), dev),
+                      lambda: mean_accuracy(model, held[:1], dev))
+        key = f"classification_{task}"
+        out[key], counts["examples_" + key] = _ex_main(
+            "classification", CL.main,
+            ["--task", task, "--steps", str(EX_STEPS), *extra], len(held))
+    del model, step
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+FT_ROWS = {"gaussian": ["--num-bits", "3", "--proj-dim-ratio", "0.2"],
+           "countsketch": ["--num-bits", "3", "--proj-dim-ratio", "0.2",
+                           "--matmul", "countsketch"],
+           "vanilla": []}
+
+
+def _glue_fixture(path, seq=128, vocab=50265):
+    """A tokenized MRPC-shaped npz in ``load_tokenized_npz``'s schema: 64
+    train and 56 validation rows of RoBERTa's vocabulary, padded."""
+    rng = np.random.RandomState(SEED + 16)
+    arrays = {}
+    for split, n in (("train", 64), ("validation", 56)):
+        ids = rng.randint(3, vocab, size=(n, seq)).astype(np.int32)
+        mask = np.ones((n, seq), np.int32)
+        for i, m in enumerate(rng.randint(seq // 4, seq + 1, size=n)):
+            ids[i, m:], mask[i, m:] = 1, 0
+        ids[:, 0] = 0
+        arrays[f"{split}_input_ids"] = ids
+        arrays[f"{split}_attention_mask"] = mask
+        arrays[f"{split}_labels"] = rng.randint(0, 2, n).astype(np.int32)
+    np.savez(path, **arrays)
+    return path
+
+
+def _ex_finetune(tmp, turns=4):
+    """finetune_glue at RoBERTa-base width, bs 16 x seq 128, f32, gaussian
+    and countsketch at 3 bits / 0.2: a probed step and evaluation forward;
+    ``finetune`` with ``--glue`` on a fixture, ``--log-dir`` (then
+    ``summarize_runs``) and ``--checkpoint-dir``, its launches counted;
+    the checkpoint restored into a fresh model, whose next step must equal
+    the uninterrupted run's to the bit (deterministic mode); then vanilla
+    against each few-bit configuration in turns.  Returns (summary, counts
+    by path)."""
+    from fewbit_tpu_torch.examples import finetune_glue as FG
+    from fewbit_tpu_torch.examples._common import on_device, step_generator
+    from fewbit_tpu_torch.tools import summarize_runs as SR
+    from fewbit_tpu_torch.train import restore_checkpoint
+
+    dev = torch.device("cuda")
+    npz = _glue_fixture(os.path.join(tmp, "mrpc.npz"))
+    out, counts = {}, {}
+    for name in ("gaussian", "countsketch"):
+        logs, ckpt = (os.path.join(tmp, d, name) for d in ("logs", "ckpt"))
+        argv = [*FT_ROWS[name], "--steps", str(EX_STEPS), "--eval-every",
+                "1", "--glue", npz, "--log-dir", logs, "--checkpoint-dir",
+                ckpt]
+        args = FG.parse_args(argv)
+        cfg = FG.model_config(args)
+        data, batch0, held = FG.make_data(args, cfg)
+        model, step = FG.build(args, cfg)
+        _ex_probe("finetune", name, step, on_device(next(data), dev),
+                  lambda: FG.accuracy(model, args, batch0, held[:1]))
+        del model, step
+        run, launched = _launched(lambda: FG.finetune(args))
+        # An evaluation after every step and a final one, each over the
+        # fixture's 3 validation batches of 16 (the last 8 rows dropped).
+        per_step, per_eval = EX_LAUNCHES["finetune"][name]
+        _expect(f"finetune {name}", launched, _scaled(
+            per_eval, 3 * (EX_STEPS + 1), _scaled(per_step, EX_STEPS, {})))
+        counts[f"examples_finetune_{name}"] = launched
+        summary = SR.main([logs])
+        if [r["param"] for r in summary] != ["gelu3-rand20%"]:
+            raise AssertionError(f"summarize_runs {name}: {summary}")
+        batch = on_device(next(run["data"]), dev)
+        with _deterministic():
+            want = run["step"](batch, step_generator(0, EX_STEPS))[
+                "loss"].item()
+            del run
+            torch.cuda.empty_cache()
+            model, step = FG.build(args, cfg)
+            restored = restore_checkpoint(os.path.join(ckpt, "final"), model,
+                                          step)
+            got = step(batch, step_generator(0, EX_STEPS))["loss"].item()
+        log(f"examples finetune {name}: checkpoint after step {restored}, "
+            f"next step {got} against the uninterrupted {want}")
+        if restored != EX_STEPS or got != want:
+            raise AssertionError(f"finetune {name} checkpoint: {got} != "
+                                 f"{want} (step {restored})")
+        del model, step
+        torch.cuda.empty_cache()
+        out[name] = {"rows": summary, "next_step_loss": got}
+    for name in ("gaussian", "countsketch"):
+        pair = {}
+        for which in ("vanilla", name):
+            args = FG.parse_args(FT_ROWS[which])
+            pair[which] = FG.build(args, FG.model_config(args))[1]
+        # The fine-tune's synthetic MRPC-shaped stream, the same for both.
+        batches = (on_device(b, dev)
+                   for b in FG.make_data(args, FG.model_config(args))[0])
+        gen = torch.Generator().manual_seed(SEED)
+        for which in pair:  # the optimizer state is held before the turns
+            pair[which](next(batches), gen)
+        out[f"{name}_turns"] = _vanilla_vs_fewbit(
+            f"finetune {name}", {"vanilla": pair["vanilla"],
+                                 "fewbit": pair[name]},
+            batches, gen, turns)
+        del pair
+        torch.cuda.empty_cache()
+    return out, counts
+
+
+def _ex_memory_profile():
+    """memory_profile --time at 2^24 elements: the bytes table against the
+    bytes its shapes imply (codes (bits, 16384 / 32, 1024) int32 and the
+    2^bits f32 levels; exact: one f32 tensor), the two GELU times per call
+    and, beside them, on the device (the profiler)."""
+    import fewbit_tpu_torch.functional as F
+    from fewbit_tpu_torch.examples import memory_profile as MP
+
+    rows, counts = _launched(lambda: MP.main(["--time"]))
+    _expect("memory_profile", counts, MP_LAUNCHES)
+    n = 1 << 24
+    for r in rows[:-1]:
+        want = r["bits"] * (n // 32) * 4 + 4 * 2 ** r["bits"]
+        if r["residual"] * n != want or r["exact"] != 4.0:
+            raise AssertionError(f"memory_profile {r}: expected {want} B")
+    x = torch.randn(n // 1024, 1024, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        rows[-1]["vanilla_device_ms"] = device_ms(
+            lambda: MP.EXACT["gelu"](x))
+        rows[-1]["fewbit_device_ms"] = device_ms(lambda: F.gelu(x, bits=3))
+    log(f"examples memory_profile: {json.dumps(rows)}")
+    return rows, counts
+
+
+def phase_examples():
+    """The examples (``fewbit_tpu_torch/examples``, ``python3 chip_smoke.py
+    --examples``): the corpus; each kernel at the examples' shapes against
+    its plain version; every row of convergence, lm and classification
+    probed and each ``main`` run at EX_STEPS; finetune_glue at full width;
+    memory_profile --time.  Returns (summary, counts by path, cases)."""
+    results = _examples_kernel_cases()
+    summary, counts = _ex_parity()
+    with tempfile.TemporaryDirectory() as tmp:
+        summary["finetune"], ft_counts = _ex_finetune(tmp)
+    counts.update(ft_counts)
+    summary["memory_profile"], counts["examples_memory_profile"] = (
+        _ex_memory_profile())
+    return summary, counts, results
+
+
 def main():
     if sys.argv[1:2] == ["--rank"]:
         rank_main(int(sys.argv[2]), sys.argv[3])
@@ -2858,6 +3368,11 @@ def main():
     if sys.argv[1:] == ["--parallel"]:
         summary, counts = phase_parallel()
         log(json.dumps({"parallel": summary, "launches": counts,
+                        "card": smi}))
+        return
+    if sys.argv[1:] == ["--examples"]:
+        summary, counts, _ = phase_examples()
+        log(json.dumps({"examples": summary, "launches": counts,
                         "card": smi}))
         return
     if sys.argv[1:2] == ["--profile"]:
@@ -2881,6 +3396,10 @@ def main():
     train["surgery"] = phase_surgery()
     train["parallel"], tp_counts = phase_parallel()
     counts.update(tp_counts)
+    train["examples"], ex_counts, ex_results = phase_examples()
+    counts.update(ex_counts)
+    for name, cases in ex_results.items():
+        results[name].extend(cases)
     sketch_kinds = phase_sketch_kinds()
     exp_rows, counts["exp_megakernel"] = phase_exp_megakernel()
     from fewbit_tpu_torch.ops import kernels as K

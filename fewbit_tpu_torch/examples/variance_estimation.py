@@ -18,6 +18,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from fewbit_tpu_torch.examples._common import add_device_flag, resolve_device
+
 RATIOS = (0.02, 0.05, 0.1, 0.2, 0.5)
 
 
@@ -26,12 +28,9 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                                           VarianceEstimatorState)
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cuda",
-                        help="device to run on (default: the card)")
+    add_device_flag(parser)
     args = parser.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        parser.error("no CUDA device; pass --device cpu")
+    device = resolve_device(parser, args)
 
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(2048, 256).astype(np.float32)).to(device)

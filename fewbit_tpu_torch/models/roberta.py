@@ -67,7 +67,7 @@ from fewbit_tpu_torch.parallel.tp import (copy_to_tp, reduce_from_tp,
 
 __all__ = ("RobertaConfig", "RobertaModel",
            "RobertaForSequenceClassification", "load_flax_params",
-           "flax_param_pairs", "dropout")
+           "flax_param_pairs", "encoder_pairs", "dropout")
 
 
 def model_device(device) -> torch.device:
@@ -503,14 +503,23 @@ def flax_param_pairs(model: nn.Module, tree, tp_rank: int = 0,
 
 
 def _roberta_pairs(model: RobertaForSequenceClassification, p, tp):
-    r = p["roberta"]
+    yield from encoder_pairs(model.roberta, p["roberta"], tp)
+    yield from _dense_pairs(model.head_dense, p["head_dense"], "head_dense")
+    yield from _dense_pairs(model.head_out, p["head_out"], "head_out")
+
+
+def encoder_pairs(encoder: RobertaModel, r, tp=(0, 1)):
+    """``(parameter, array)`` for every parameter of a
+    :class:`RobertaModel` from the JAX ``RobertaModel``'s subtree ``r``
+    (the ``roberta`` of a model holding one), cut to tp rank ``tp[0]`` of
+    ``tp[1]``."""
     emb = r["embeddings"]
-    e = model.roberta.embeddings
+    e = encoder.embeddings
     for name in ("word_embeddings", "position_embeddings",
                  "token_type_embeddings"):
         yield getattr(e, name).weight, emb[name]["embedding"]
     yield from _norm_pairs(e.layer_norm, emb["layer_norm"])
-    for i, layer in enumerate(model.roberta.layers):
+    for i, layer in enumerate(encoder.layers):
         lp = _index(r["layers"], i) if "layers" in r else r[f"layer_{i}"]
         a = lp["attention"]
         for name in ("query", "key", "value", "output"):
@@ -521,7 +530,7 @@ def _roberta_pairs(model: RobertaForSequenceClassification, p, tp):
                                                          "output_bias")
         yield from _norm_pairs(layer.attention_norm, lp["attention_norm"])
         yield from _norm_pairs(layer.output_norm, lp["output_norm"])
-        if model.cfg.fewbit_ffn:
+        if encoder.cfg.fewbit_ffn:
             f = lp["ffn"]
             ffn = layer.ffn
             yield ffn.up_weight, _tp_slice(f["up_kernel"], "ffn",
@@ -544,8 +553,6 @@ def _roberta_pairs(model: RobertaForSequenceClassification, p, tp):
             if layer.ffn_bias is not None:
                 yield layer.ffn_bias, _row_bias(lp, "ffn_output",
                                                 "ffn_bias")
-    yield from _dense_pairs(model.head_dense, p["head_dense"], "head_dense")
-    yield from _dense_pairs(model.head_out, p["head_out"], "head_out")
 
 
 def load_flax_params(model: nn.Module, params, tp_rank: int = 0,

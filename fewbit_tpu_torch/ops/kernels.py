@@ -886,21 +886,23 @@ def _act_kernel_checks(spec, t: torch.Tensor, what: str,
                                         else "act_kernel_ok"))
 
 
-def fused_forward(spec, x: torch.Tensor, borders: torch.Tensor):
+def fused_forward(spec, x: torch.Tensor, borders: torch.Tensor, *,
+                  out=None):
     """``y = act(x)`` and the packed codes of ``x``
     (``(bits, R / 32, C)`` int32).  ``x``: (R, C), any R and C: the kernel
     moves 16 bytes of a row at a time where C and the addresses allow it,
-    one element otherwise.  Returns ``(y, packed)``."""
+    one element otherwise.  Returns ``(y, packed)``, written into ``out``
+    where given."""
     if x.device.type == "cpu":
-        return act_forward_plain(spec, x, borders)
+        return _into(out, act_forward_plain(spec, x, borders))
     _act_kernel_checks(spec, x, "x", any_width=True)
     r, c = x.shape
     dev = x.device
     _check("x", x, dev, (r, c), x.dtype)
     _check("borders", borders, dev, (spec.n_borders,), torch.float32)
-    y = torch.empty_like(x)
-    packed = torch.empty(packed_shape(r, c, spec.bits), dtype=torch.int32,
-                         device=dev)
+    y, packed = _outputs(out, [("y", (r, c), x.dtype),
+                               ("packed", packed_shape(r, c, spec.bits),
+                                torch.int32)], dev)
     _launch("fewbit_act_forward", dev, x.data_ptr(), borders.data_ptr(),
             spec.n_borders, ctypes.byref(_act_args(spec, x.dtype)),
             y.data_ptr(),

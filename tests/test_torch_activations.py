@@ -151,3 +151,16 @@ def test_act_envelope_matches_jax_eligible():
                     want = pk._eligible(jspec, (16, c), jnp.dtype(jdt))
                     assert K.act_kernel_ok(spec, c, dt) == want, name
                     assert K.dense_act_ok(spec, 128, c, dt) == want, name
+
+
+def test_fused_forward_writes_into_out_on_the_cpu():
+    """Kernel 4's wrapper takes ``out=`` as kernel 5's does: on the CPU the
+    plain version's (y, codes) are copied into the caller's tensors."""
+    spec, borders, _ = resolve_activation("gelu", bits=3)
+    x = torch.randn(64, 128, generator=torch.Generator().manual_seed(0))
+    want = K.act_forward_plain(spec, x, borders)
+    out = (torch.full_like(want[0], float("nan")),
+           torch.full_like(want[1], -1))
+    got = K.fused_forward(spec, x, borders, out=out)
+    assert got[0] is out[0] and got[1] is out[1]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -1293,3 +1293,64 @@ def test_tp_width_kernels_write_every_output_on_cuda(cuda, dtype):
     args = (spec, packed, levels, rand(n, 1536))
     want = K.act_backward_plain(*args)
     held((K.fused_backward(*args, out=_nan_outputs((want,))),), (want,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_example_width_kernels_write_every_output_on_cuda(cuda, dtype):
+    """Kernels 1-6 at the examples' width (hidden 128, FFN 512, 4096 rows:
+    one 128-wide k-block against the multi-stage ring) write every element
+    of outputs filled with NaN, and hold their plain versions; kernel 4's
+    codes are equal."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    n, k_eff = 4096, 1024
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=cuda)
+                * scale).to(dtype)
+
+    def held(got, want):
+        for a, b in zip(got, want):
+            if a.dtype == torch.int32:
+                continue
+            t = tol if a.dtype == dtype else 1e-3
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= t * max(1.0, b.float().abs().max().item()), err
+
+    sigma = torch.randint(0, 2, (n,), generator=gen,
+                          device=cuda).float() * 2 - 1
+    spec, borders, levels = resolve_activation("gelu", bits=3, device=cuda)
+    x, g = rand(n, 128), rand(n, 128)
+    for kdim, m in ((128, 128), (128, 512), (512, 128)):
+        w = rand(m, kdim, scale=kdim ** -0.5)
+        for args in ((rand(n, kdim), w.t(), rand(m, scale=0.1), sigma,
+                      k_eff),
+                     (rand(n, m), w, None, sigma, k_eff, True)):
+            want = K.matmul_input_sketch_plain(*args)
+            held(K.fused_matmul_input_sketch(*args, out=_nan_outputs(want)),
+                 want)
+    up_w, up_b = rand(512, 128, scale=128 ** -0.5), rand(512, scale=0.1)
+    args = (spec, x, up_w.t(), up_b, borders, sigma, k_eff)
+    want = K.dense_act_sketch_plain(*args)
+    y, packed, sk = K.fused_dense_act_sketch(*args,
+                                             out=_nan_outputs(want))
+    held((y, sk), (want[0], want[2]))
+    args = (spec, packed, levels, g, rand(128, 512, scale=512 ** -0.5),
+            sigma, k_eff)
+    want = K.matmul_lut_backward_plain(*args)
+    held(K.fused_matmul_lut_backward(*args, out=_nan_outputs(want)), want)
+    args = (spec, x, up_w.t(), up_b, borders)
+    want = K.dense_act_plain(*args)
+    y, packed = K.fused_dense_act(*args, out=_nan_outputs(want))
+    held((y,), want)
+    for codes in (packed, None):
+        if codes is None:
+            args = (spec, rand(n, 512, scale=1.5), borders)
+            want = K.act_forward_plain(*args)
+            y, codes = K.fused_forward(*args, out=_nan_outputs(want))
+            held((y,), want)
+            assert torch.equal(codes, want[1])
+        args = (spec, codes, levels, rand(n, 512))
+        want = K.act_backward_plain(*args)
+        held((K.fused_backward(*args, out=_nan_outputs((want,))),), (want,))
