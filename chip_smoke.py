@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's few-bit training steps, its model surgery, its
-data and tensor parallelism, and its megakernel experiment, on one GPU.
+data and tensor parallelism, its examples, its long-sequence rows and its
+megakernel experiment, on one GPU.
 
     python3 chip_smoke.py
 
@@ -106,7 +107,13 @@ Phases (any failure raises and exits non-zero; no result is printed):
    gradients on the ranks' folded generators; GPT-2 small's loss with
    unequal valid tokens per rank equals the full batch's.  Rank 0's
    residual bytes of its layer-0 FFN, query and output equal what their
-   local shapes imply.  The tp paths' launches go into the kernels line.
+   local shapes imply.  The same checks, without the planted faults, on
+   the flash paths at tp=2 (F1-F3 on each rank's 6 local heads); and R at
+   tp=2 under ``max_grad_norm = TP_CLIP_NORM`` (every step clips): each
+   rank's norm the single device's, the gathered clipped gradients within
+   TP_GRAD_RTOL, three steps' losses and gathered updates as above, and
+   TP_CLIP_FAULT planted in a run of its own, which those checks must
+   see.  The tp paths' launches go into the kernels line.
 12. The sketch kinds: ``linear_grp`` at (8192, 768) -> 768 for each kind
    and ``linear_crs``, f32 and bf16: forward and dx against the exact
    ``linear`` (asserted), dW's relative error against the exact dW over
@@ -126,9 +133,13 @@ also in f32 at K = 128; and it checks that the shipped kernel 6 is not
 slower than the CUDA-core kernel it replaced.  It also holds the kernels
 of the tp=2 paths at one rank's widths (kernel 1 at 768 -> 384 and 384 ->
 768, both modes; kernels 2 and 3 at 768 <-> 1536; kernel 6 at 768 ->
-1536; kernel 5 at (8192, 1536)) into outputs filled with NaN, with their
-device time and share of the bound; kernel 1's other cases write into
-NaN-filled outputs too.
+1536; kernel 5 at (8192, 1536); F1-F3 on the 6 local heads a rank,
+(b, s, 6, 64) views of its (b, s, 384) projection at GPT-2 small's and
+RoBERTa's batches) into outputs filled with NaN, with their device time
+and share of the bound; kernel 1's other cases write into NaN-filled
+outputs too.  Every device time names how it was read
+(``device_ms_source``): the profiler, or CUDA events where every profiled
+run read below the call's bound, which is logged.
 
 The activation phase (after the kernel phase; ``python3 chip_smoke.py
 --activations`` runs it alone) holds every activation id of ``ACT_IDS``
@@ -187,6 +198,20 @@ lower); memory_profile
 ``--time`` at 2^24 elements, its bytes those its shapes imply.  The
 examples' launches go into the kernels line.  Without the corpus the
 real-text examples are left out.
+
+The long-sequence phase (after the examples phase; ``python3
+chip_smoke.py --longseq`` runs it alone) holds kernels 1, 6 and 5 at 4096
+rows (768 <-> 3072, f32; RoBERTa's 8192 rows are the kernel phase's), and
+F1-F3 at (2, 12, 2048, 64) and (1, 12, 4096, 64) causal and (4, 12, 2048,
+64) with a padding mask, against their plain versions (F1-F3 also against
+f64, beside ``scaled_dot_product_attention``); then drives the twin of
+``tools/bench_longseq.py`` (``fewbit_tpu_torch.tools.bench_longseq``) on
+GPT-2 small at 2 x 2048 and 1 x 4096 and RoBERTa-base at 4 x 2048, f32:
+vanilla, few-bit, vanilla + flash and few-bit + flash, each with its
+launches per step (none; the path's kernels; F1-F3 12 each with flash),
+peak above held and step ms; every configuration must fit (an OOM row
+fails the phase), and the few-bit peak must be below vanilla's, with and
+without flash.  Its launches go into the kernels line.
 
 ``python3 chip_smoke.py --profile PATH`` runs only the device phase and the
 few-bit steps of one path (a name in ``PATHS``), four timed without the
@@ -361,12 +386,25 @@ def phase_device():
     return smi
 
 
-def device_ms(fn, reps=10):
-    """Device milliseconds of ``fn`` per call, by the profiler
-    (``fewbit_tpu_torch.tools.act_timing.device_ms``)."""
-    from fewbit_tpu_torch.tools.act_timing import device_ms as profiled
+def device_time(fn, bound_ms=None, reps=10, key="device_ms"):
+    """``{key: ms, key + "_source": source}``: device milliseconds of
+    ``fn`` per call and how they were read
+    (``fewbit_tpu_torch.tools.act_timing.device_time``): ``"profiler"``,
+    or ``"events"`` where every profiled run read below ``bound_ms`` (the
+    call's bound) and the call was timed again by CUDA events, which is
+    logged."""
+    from fewbit_tpu_torch.tools.act_timing import device_time as timed
 
-    return profiled(fn, reps)
+    ms, source = timed(fn, reps, bound_ms=bound_ms)
+    if source != "profiler":
+        log(f"{key}: every profiled run read below the bound {bound_ms} ms;"
+            f" {ms} ms per call by CUDA events")
+    return {key: ms, f"{key}_source": source}
+
+
+def device_ms(fn, bound_ms=None, reps=10):
+    """The milliseconds of :func:`device_time` alone."""
+    return device_time(fn, bound_ms, reps)["device_ms"]
 
 
 def _gemm_case(results, name, mode, tag, wrapper, plain, args, errs, route,
@@ -378,14 +416,15 @@ def _gemm_case(results, name, mode, tag, wrapper, plain, args, errs, route,
     of the bound on device time, and, as context only, the device time of
     the bare ``torch.matmul`` of the same product ``a @ w`` (not the same
     function: no epilogue, no codes, no sketch)."""
+    least = bound(flop, gemm_rate(a.dtype), tensor_bytes(args, wrapper(*args)))
     case = {"mode": mode, "dtype": tag, "errors": errs, "route": route,
             "tile": tile,
             "ms": cuda_ms(lambda: wrapper(*args)),
             "plain_ms": cuda_ms(lambda: plain(*args)),
-            "device_ms": device_ms(lambda: wrapper(*args)),
-            "plain_device_ms": device_ms(lambda: plain(*args)),
-            **bound(flop, gemm_rate(a.dtype),
-                    tensor_bytes(args, wrapper(*args))),
+            **device_time(lambda: wrapper(*args), least["bound_ms"]),
+            **device_time(lambda: plain(*args), least["bound_ms"],
+                          key="plain_device_ms"),
+            **least,
             "library_ms": None,
             "matmul_only_device_ms": device_ms(lambda: torch.matmul(a, w))}
     case["tflops"] = flop / case["device_ms"] / 1e9
@@ -470,8 +509,8 @@ def _sketch_x_case(results, spec, borders, args, sigma_x, z0, tag, tol):
     case.update({
         "fused": fused, "bn": bn, "simt_errors": simt_errs,
         "simt_ms": cuda_ms(lambda: K.dense_act_sketch_x_simt(*xargs)),
-        "simt_device_ms": device_ms(lambda: K.dense_act_sketch_x_simt(
-            *xargs))})
+        **device_time(lambda: K.dense_act_sketch_x_simt(*xargs),
+                      case["bound_ms"], key="simt_device_ms")})
     log(f"kernel 2' [{tag}]: route {route}, BN {bn} "
         f"(dense_act_sketch_x_route({HIDDEN}, {FFN}))")
     log(f"kernel 2' [{tag}]: the CUDA-core kernel it replaced "
@@ -480,11 +519,13 @@ def _sketch_x_case(results, spec, borders, args, sigma_x, z0, tag, tol):
         f"kernel 2' per call {case['ms']:.4f} ms, device "
         f"{case['device_ms']:.4f} ms")
     # The separate pass alone: one multiply-add per element of x.
+    least = bound(x.numel(), "simt", tensor_bytes(x, sigma_x, sep))
     case["input_sketch"] = {
         "error": sep_err,
         "ms": cuda_ms(lambda: K.input_sketch(x, sigma_x, K_EFF)),
-        "device_ms": device_ms(lambda: K.input_sketch(x, sigma_x, K_EFF)),
-        **bound(x.numel(), "simt", tensor_bytes(x, sigma_x, sep))}
+        **device_time(lambda: K.input_sketch(x, sigma_x, K_EFF),
+                      least["bound_ms"]),
+        **least}
     c = case["input_sketch"]
     log(f"input_sketch [{tag}] ({N} x {HIDDEN}, k_eff {K_EFF}): error "
         f"{sep_err}, per call {c['ms']:.4f} ms, device {c['device_ms']:.4f} "
@@ -498,7 +539,8 @@ def _sketch_x_case(results, spec, borders, args, sigma_x, z0, tag, tol):
     for order in ("abc", "cba"):
         for key in order:
             timed[key]["ms"].append(cuda_ms(ways[key]))
-            timed[key]["device_ms"].append(device_ms(ways[key]))
+            timed[key]["device_ms"].append(device_ms(ways[key],
+                                                     case["bound_ms"]))
     case["ways"] = timed
     fastest = min(timed, key=lambda k: statistics.mean(timed[k]["ms"]))
     log(f"kernel 2' [{tag}] ways to (y, codes, sk_y, sk_x), two rounds in "
@@ -647,19 +689,20 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         flash_forward_plain)
 
     scale = HEAD_DIM ** -0.5
+    heads = q.shape[1]
     mode = f"{shape} {tuple(q.shape)}, {'causal' if causal else 'full'}"
     # The (q, k) pairs this input leaves unmasked, times heads: each costs
     # 2 d operations per product; F1 has two products, F2 four, F3 three.
     keep = ids[:, :, None] == ids[:, None, :]
     if causal:
         keep = keep.tril()
-    pair_ops = 2 * HEAD_DIM * HEADS * int(keep.sum())
+    pair_ops = 2 * HEAD_DIM * heads * int(keep.sum())
     lib = _sdpa_ms(q, k, v, do, keep, ids, causal, scale)
     del keep
     rate = gemm_rate(q.dtype)
     # The f64 evaluations, on as many batch rows as keep their (s, s)
     # tensors near 2^25 elements per head.
-    nb = max(1, min(q.shape[0], 2 ** 25 // (HEADS * q.shape[2] ** 2)))
+    nb = max(1, min(q.shape[0], 2 ** 25 // (heads * q.shape[2] ** 2)))
     fargs = (q, k, v, ids, ids, causal, scale)
     lse_like = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     o, lse = K.flash_forward(*fargs, out=_nan_like(q, lse_like))
@@ -671,6 +714,7 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         raise AssertionError(f"F1 {tag}: o strides {o.stride()}")
     o0, lse0 = flash_forward_plain(*fargs)
     os_, lses = K.flash_forward_simt(*fargs)
+    least = bound(2 * pair_ops, rate, tensor_bytes(q, k, v, ids, ids, o, lse))
     o64, lse64 = _flash_forward_f64(q[:nb], k[:nb], v[:nb], ids[:nb],
                                     causal, scale)
     results["flash_forward"].append({
@@ -682,11 +726,11 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
                                    (o64, lse64), tol),
         "f64_batch_rows": nb,
         "ms": cuda_ms(lambda: K.flash_forward(*fargs)),
-        "device_ms": device_ms(lambda: K.flash_forward(*fargs)),
+        **device_time(lambda: K.flash_forward(*fargs), least["bound_ms"]),
         "plain_ms": cuda_ms(lambda: flash_forward_plain(*fargs)),
         # The CUDA-core kernel it replaced, same inputs, same call.
         "simt_ms": cuda_ms(lambda: K.flash_forward_simt(*fargs)),
-        **bound(2 * pair_ops, rate, tensor_bytes(q, k, v, ids, ids, o, lse)),
+        **least,
         "library_ms": lib["fwd_ms"], "library_device_ms": lib["fwd_device_ms"],
         "library": "scaled_dot_product_attention, forward"})
     del o0, lse0, os_, lses, o64, lse64
@@ -704,6 +748,8 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     del dk2, dv2
     dk0, dv0 = flash_backward_dkv_plain(*bargs)
     dks, dvs = K.flash_backward_dkv_simt(*bargs)
+    least = bound(4 * pair_ops, rate,
+                  tensor_bytes(q, k, v, ids, ids, lse, do, di, dk, dv))
     case = {
         "mode": mode, "dtype": tag,
         "errors": {"dk": compare(f"F2 {tag} {shape} dk", dk, dk0, tol),
@@ -713,12 +759,12 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
                                    (dk64, dv64), tol),
         "f64_batch_rows": nb,
         "ms": cuda_ms(lambda: K.flash_backward_dkv(*bargs)),
-        "device_ms": device_ms(lambda: K.flash_backward_dkv(*bargs)),
+        **device_time(lambda: K.flash_backward_dkv(*bargs),
+                      least["bound_ms"]),
         "plain_ms": cuda_ms(lambda: flash_backward_dkv_plain(*bargs)),
         # The CUDA-core kernel it replaced, same inputs, same call.
         "simt_ms": cuda_ms(lambda: K.flash_backward_dkv_simt(*bargs)),
-        **bound(4 * pair_ops, rate,
-                tensor_bytes(q, k, v, ids, ids, lse, do, di, dk, dv)),
+        **least,
         "library_ms": lib["bwd_ms"], "library_device_ms": lib["bwd_device_ms"],
         "library": library}
     results["flash_backward_dkv"].append(case)
@@ -728,6 +774,8 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         raise AssertionError(f"F3 {tag} {shape}: two launches differ")
     dq0 = flash_backward_dq_plain(*bargs)
     dqs = K.flash_backward_dq_simt(*bargs)
+    least = bound(3 * pair_ops, rate,
+                  tensor_bytes(q, k, v, ids, ids, lse, do, di, dq))
     results["flash_backward_dq"].append({
         "mode": mode, "dtype": tag,
         "errors": {"dq": compare(f"F3 {tag} {shape} dq", dq, dq0, tol)},
@@ -735,11 +783,11 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
                                    (dqs,), (dq0,), (dq64,), tol),
         "f64_batch_rows": nb,
         "ms": cuda_ms(lambda: K.flash_backward_dq(*bargs)),
-        "device_ms": device_ms(lambda: K.flash_backward_dq(*bargs)),
+        **device_time(lambda: K.flash_backward_dq(*bargs),
+                      least["bound_ms"]),
         "plain_ms": cuda_ms(lambda: flash_backward_dq_plain(*bargs)),
         "simt_ms": cuda_ms(lambda: K.flash_backward_dq_simt(*bargs)),
-        **bound(3 * pair_ops, rate,
-                tensor_bytes(q, k, v, ids, ids, lse, do, di, dq)),
+        **least,
         "library_ms": lib["bwd_ms"], "library_device_ms": lib["bwd_device_ms"],
         "library": library})
     if shape == "gpt2_small":
@@ -887,13 +935,14 @@ def phase_kernels():
             raise AssertionError(f"k4 {tag}: packed codes differ")
         errs = {"y": compare(f"k4 {tag} y", y, y0, tol), "code_flips": 0}
         # Per element: one compare per border and the GELU, on CUDA cores.
+        least = bound(h.numel() * (spec.n_borders + 1), "simt",
+                      tensor_bytes(args, y, packed4))
         case = {
             "mode": "forward", "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_forward(*args)),
-            "device_ms": device_ms(lambda: K.fused_forward(*args)),
+            **device_time(lambda: K.fused_forward(*args), least["bound_ms"]),
             "plain_ms": cuda_ms(lambda: K.act_forward_plain(*args)),
-            **bound(h.numel() * (spec.n_borders + 1), "simt",
-                    tensor_bytes(args, y, packed4)),
+            **least,
             "library_ms": None}
         case["bound_share"] = case["bound_ms"] / case["device_ms"]
         results["fused_forward"].append(case)
@@ -906,15 +955,17 @@ def phase_kernels():
             args = (spec, packed, levels, g_ffn)
             dx = K.fused_backward(*args)
             dx0 = K.act_backward_plain(*args)
+            # Per element: one multiply, on CUDA cores.
+            least = bound(g_ffn.numel(), "simt", tensor_bytes(args, dx))
             case = {
                 "mode": f"backward on {source}", "dtype": tag,
                 "errors": {"dx": compare(f"k5 {tag} {source}", dx, dx0,
                                          tol)},
                 "ms": cuda_ms(lambda: K.fused_backward(*args)),
-                "device_ms": device_ms(lambda: K.fused_backward(*args)),
+                **device_time(lambda: K.fused_backward(*args),
+                              least["bound_ms"]),
                 "plain_ms": cuda_ms(lambda: K.act_backward_plain(*args)),
-                # Per element: one multiply, on CUDA cores.
-                **bound(g_ffn.numel(), "simt", tensor_bytes(args, dx)),
+                **least,
                 "library_ms": None}
             case["bound_share"] = case["bound_ms"] / case["device_ms"]
             results["fused_backward"].append(case)
@@ -922,11 +973,17 @@ def phase_kernels():
         _tp_width_cases(results, spec, borders, levels, sigma, x, g, rand,
                         tag, tol)
         # F1-F3 at both paths' shapes, on (b, s, h, d) projections seen
-        # through transpose(1, 2), as the models pass them.
-        for shape, b, s, causal, ids in (
-                ("gpt2_small", GPT_BS, GPT_SEQ, True, gpt_ids),
-                ("roberta", BS, SEQ, False, mrpc_ids)):
-            q, k, v, do = (rand(b, s, HEADS, HEAD_DIM, dt=dt).transpose(1, 2)
+        # through transpose(1, 2), as the models pass them; and at one
+        # tp=2 rank's 6 local heads, (b, s, 6, d) views of its (b, s, 384)
+        # projection.
+        for shape, b, s, causal, ids, heads in (
+                ("gpt2_small", GPT_BS, GPT_SEQ, True, gpt_ids, HEADS),
+                ("roberta", BS, SEQ, False, mrpc_ids, HEADS),
+                ("gpt2_small tp=2 local heads", GPT_BS, GPT_SEQ, True,
+                 gpt_ids, HEADS // TP),
+                ("roberta tp=2 local heads", BS, SEQ, False, mrpc_ids,
+                 HEADS // TP)):
+            q, k, v, do = (rand(b, s, heads, HEAD_DIM, dt=dt).transpose(1, 2)
                            for _ in range(4))
             _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol)
         torch.cuda.empty_cache()
@@ -967,6 +1024,11 @@ def _log_cases(results):
                           f"({c['plain_tflops']:.1f} TFLOP/s); context, not "
                           f"the same function: torch.matmul of the product "
                           f"alone {c['matmul_only_device_ms']:.4f} ms device")
+            events = [k[:-len("_source")] for k, v in c.items()
+                      if k.endswith("_source") and v == "events"]
+            if events:
+                extra += (f"; {', '.join(events)} by CUDA events (every "
+                          f"profiled run below the bound)")
             log(f"kernel {name} [{c['mode']}, {c['dtype']}]: errors "
                 f"{c['errors']}, kernel {c['ms']:.3f} ms, plain "
                 f"{c['plain_ms']:.3f} ms (calls){extra}")
@@ -1062,14 +1124,16 @@ def _k6_case(results, spec, borders, x, up_w, up_b, tag, tol, label):
     errs = {"y": compare(f"k6 {label} {tag} y", y, want[0], tol),
             "code_flips": code_flips(f"k6 {label} {tag}", packed6, want[1],
                                      z0, borders, spec.bits)}
+    least = bound(2 * n * kdim * m, gemm_rate(x.dtype),
+                  tensor_bytes(args, y, packed6))
     case = {"mode": f"{label} forward {kdim}->{m}, the "
                     f"{K.dense_act_schedule(n, m, x.dtype)} schedule",
             "dtype": tag, "errors": errs,
             "ms": cuda_ms(lambda: K.fused_dense_act(*args)),
-            "device_ms": device_ms(lambda: K.fused_dense_act(*args)),
+            **device_time(lambda: K.fused_dense_act(*args),
+                          least["bound_ms"]),
             "plain_ms": cuda_ms(lambda: K.dense_act_plain(*args)),
-            **bound(2 * n * kdim * m, gemm_rate(x.dtype),
-                    tensor_bytes(args, y, packed6)),
+            **least,
             "library_ms": None}
     case["bound_share"] = case["bound_ms"] / case["device_ms"]
     results["dense_act"].append(case)
@@ -1085,14 +1149,16 @@ def _k5_case(results, spec, levels, packed, g_ffn, tag, tol, label, source):
     args = (spec, packed, levels, g_ffn)
     want = K.act_backward_plain(*args)
     dx = K.fused_backward(*args, out=_nan_like(want))
+    # Per element: one multiply, on CUDA cores.
+    least = bound(g_ffn.numel(), "simt", tensor_bytes(args, dx))
     case = {"mode": f"{label} backward {tuple(g_ffn.shape)} on {source}",
             "dtype": tag,
             "errors": {"dx": compare(f"k5 {label} {tag}", dx, want, tol)},
             "ms": cuda_ms(lambda: K.fused_backward(*args)),
-            "device_ms": device_ms(lambda: K.fused_backward(*args)),
+            **device_time(lambda: K.fused_backward(*args),
+                          least["bound_ms"]),
             "plain_ms": cuda_ms(lambda: K.act_backward_plain(*args)),
-            # Per element: one multiply, on CUDA cores.
-            **bound(g_ffn.numel(), "simt", tensor_bytes(args, dx)),
+            **least,
             "library_ms": None}
     case["bound_share"] = case["bound_ms"] / case["device_ms"]
     results["fused_backward"].append(case)
@@ -1228,7 +1294,9 @@ def phase_activations():
                                                         levels, g)):
                 raise AssertionError(f"k5 {name} {tag}: dx differs")
             out["fused_forward"][f"{name} {tag}"] = device_ms(
-                lambda: K.fused_forward(spec, h, borders))
+                lambda: K.fused_forward(spec, h, borders), bound(
+                    h.numel() * (spec.n_borders + 1), "simt",
+                    tensor_bytes(h, borders, y, packed))["bound_ms"])
         del h, g, y, y0, dx
         x = torch.randn(N, HIDDEN, generator=gen, device=dev).to(dt)
         w = (torch.randn(FFN, HIDDEN, generator=gen, device=dev)
@@ -1251,11 +1319,13 @@ def phase_activations():
                                                         levels, g)):
                 raise AssertionError(f"k5 on k6 {name} {tag}: dz differs")
             if name in ACT_TIMED_K6:
+                least = bound(2 * N * HIDDEN * FFN, gemm_rate(dt),
+                              tensor_bytes(args, y, packed))["bound_ms"]
                 out["dense_act"][f"{name} {tag}"] = {
-                    "loop_device_ms": device_ms(
-                        lambda: K.dense_act_kloop(*args)),
+                    **device_time(lambda: K.dense_act_kloop(*args), least,
+                                  key="loop_device_ms"),
                     "schedule": K.dense_act_schedule(N, FFN, dt),
-                    "device_ms": device_ms(lambda: K.fused_dense_act(*args))}
+                    **device_time(lambda: K.fused_dense_act(*args), least)}
             if name not in FFN_ACTS + ACT_TIMED_K2:
                 continue
             args = (spec, x, w.t(), b, borders, sigma, K_EFF)
@@ -1277,7 +1347,9 @@ def phase_activations():
                 compare(f"k3 {name} {tag} {what}", a, r, t)
             if name in ACT_TIMED_K2:
                 out["dense_act_sketch"][f"{name} {tag}"] = device_ms(
-                    lambda: K.fused_dense_act_sketch(*args))
+                    lambda: K.fused_dense_act_sketch(*args), bound(
+                        2 * N * HIDDEN * FFN, gemm_rate(dt),
+                        tensor_bytes(args, y, packed, sk))["bound_ms"])
             if name not in FFN_ACTS:
                 continue
             # Kernel 2' (its route at this shape, and its CUDA-core
@@ -2208,8 +2280,11 @@ def phase_surgery(turns=4):
 # The parallel phase (``python3 chip_smoke.py --parallel`` runs it alone).
 # ---------------------------------------------------------------------------
 
-# The two tp paths: path R and path G, without dropout.
+# The two tp paths: path R and path G, without dropout; and the two on
+# the flash op (F1-F3 on each rank's 6 local heads), held to the same
+# bounds without the planted faults.
 TP_PATHS = ("roberta_fused_ffn", "gpt2_small")
+TP_FLASH_PATHS = ("roberta_flash", "gpt2_small_flash")
 NO_DROPOUT = dict(hidden_dropout=0.0, attention_dropout=0.0)
 # Each rank process's time limit, seconds.
 RANK_TIMEOUT = 900
@@ -2237,6 +2312,12 @@ TP_FAULTS = ("copy_to_tp without its all-reduce",
              "sketch generator folded by the tp rank",
              "row-parallel bias added before the all-reduce",
              "row-parallel biases left out of the optimizer")
+# R at tp=2 with max_grad_norm far below the gradients' norm, so that
+# every step clips: its clipped gradients (TP_GRAD_RTOL) and three steps'
+# updates (TP_UPDATE_RTOL) against the single device's; and the fault
+# planted in that row, which one of those two checks must see.
+TP_CLIP_NORM = 1e-2
+TP_CLIP_FAULT = "each rank clips by its own local norm"
 
 
 def _loss_fn(path):
@@ -2258,8 +2339,9 @@ def _grads_of(path, model, batch, keep_inputs=False, sketch=None):
     generator (``sketch``, by default one seeded SEED + 1): logits (of a
     GPT sequence every 64th position), loss and every gradient by name,
     on the CPU; the launches it made; the packed codes each layer kept
-    (the int32 residuals, in layer order) and, with ``keep_inputs``, each
-    layer's FFN input."""
+    (the int32 residuals of shape (bits, words, M), in layer order; the
+    flash op's int32 segment ids are not codes) and, with ``keep_inputs``,
+    each layer's FFN input."""
     from fewbit_tpu_torch.ops import kernels as K
 
     inputs, codes = [], []
@@ -2268,7 +2350,7 @@ def _grads_of(path, model, batch, keep_inputs=False, sketch=None):
         inputs.append(args[0].detach().reshape(-1, HIDDEN).cpu())
 
     def pack(t):
-        if t.dtype == torch.int32:
+        if t.dtype == torch.int32 and t.dim() == 3:
             codes.append(t.detach().cpu())
         return t
 
@@ -2387,6 +2469,13 @@ def _planted(fault, model, step):
 
         patch(roberta, "_row_parallel", early)
         patch(gpt, "_row_parallel", early)
+    elif fault == TP_CLIP_FAULT:
+        from fewbit_tpu_torch.train import loop
+
+        local = loop.clip_by_global_norm_
+        patch(loop, "clip_by_global_norm_",
+              lambda params, max_norm, tp_group=None, split=None: local(
+                  params, max_norm))
     elif fault == "row-parallel biases left out of the optimizer":
         late = {id(p) for n, p in model.named_parameters()
                 if n.endswith(("output_bias", "ffn_bias"))}
@@ -2434,18 +2523,13 @@ def _tp_faults(path, mesh, state, tp):
     return out
 
 
-def _tp_rank(path, mesh):
-    """One rank of path R or G at tp=2: its slice of the single-device
-    model (from SEED, its biases random, sharded by ``shard_tp_params``),
-    one forward and backward, three f32 steps (the parameters' updates
-    kept), one bf16 step, and the planted faults' runs."""
-    from fewbit_tpu_torch.parallel import shard_tp_params
-
+def _tp_rank(path, mesh, faults=True):
+    """One rank of a tp=2 path: its slice of the single-device model (from
+    SEED, its biases random, sharded by ``shard_tp_params``), one forward
+    and backward, three f32 steps (the parameters' updates kept), one bf16
+    step, and (with ``faults``) the planted faults' runs."""
     tag = f"parallel {path} tp=2 rank {mesh.tp_rank}"
-    single, _ = _model(path, torch.float32, True, **NO_DROPOUT)
-    state = shard_tp_params(_random_biases(single).state_dict(),
-                            mesh.tp_rank, TP)
-    del single
+    state = _tp_state(path, mesh)
     tp = dict(NO_DROPOUT, tp_size=TP, tp_axis="tp")
     model, step = _model(path, torch.float32, True, tp_group=mesh.tp_group,
                          train=TP_TRAIN, **tp)
@@ -2472,7 +2556,71 @@ def _tp_rank(path, mesh):
                                     f"parallel tp=2 rank {mesh.tp_rank} bf16")
     del model, step
     torch.cuda.empty_cache()
-    out["faults"] = _tp_faults(path, mesh, state, tp)
+    if faults:
+        out["faults"] = _tp_faults(path, mesh, state, tp)
+    return out
+
+
+def _tp_state(path, mesh):
+    """This rank's slice of the single-device f32 model of ``path``
+    without dropout, its biases random."""
+    from fewbit_tpu_torch.parallel import shard_tp_params
+
+    single, _ = _model(path, torch.float32, True, **NO_DROPOUT)
+    state = shard_tp_params(_random_biases(single).state_dict(),
+                            mesh.tp_rank, TP)
+    del single
+    torch.cuda.empty_cache()
+    return state
+
+
+def _clip_run(path, model, step, tag, keep=None):
+    """A run under ``max_grad_norm``: one forward and backward on the
+    path's first batch and the step's clip (the norm, and the clipped
+    gradients ``keep`` accepts); then three checked f32 steps (the norm
+    each one's clip saw, the updates ``keep`` accepts)."""
+    step.loss_and_grads(next(_batches(path, SEED)),
+                        torch.Generator().manual_seed(SEED + 23))
+    out = {"norm": step.clip_grads().item(),
+           "grads": {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if keep is None or keep(n)}}
+    model.zero_grad(set_to_none=True)
+    before, norms = _params(model), []
+
+    def recorded(batch, gen):
+        res = step(batch, gen)
+        norms.append(res["grad_norm"])
+        return res
+
+    out["steps"], out["step_counts"] = _checked_steps(
+        path, recorded, _batches(path, SEED + 3),
+        torch.Generator().manual_seed(SEED), 3, tag)
+    out["norms"] = [n.item() for n in norms]
+    out["updates"] = _updates(model, before, keep)
+    return out
+
+
+def _tp_clip_rank(mesh):
+    """One rank of R at tp=2 under ``max_grad_norm = TP_CLIP_NORM``: the
+    sound run and, on a fresh slice, the run with TP_CLIP_FAULT planted
+    (its first and last layers only)."""
+    path = "roberta_fused_ffn"
+    state = _tp_state(path, mesh)
+    out = {}
+    for fault in (None, TP_CLIP_FAULT):
+        model, step = _model(path, torch.float32, True,
+                             tp_group=mesh.tp_group,
+                             train=dict(TP_TRAIN, max_grad_norm=TP_CLIP_NORM),
+                             **NO_DROPOUT, tp_size=TP, tp_axis="tp")
+        model.load_state_dict(state)
+        tag = (f"parallel tp=2 rank {mesh.tp_rank} clip f32"
+               + (f", {fault}" if fault else ""))
+        with _planted(fault, model, step):
+            out[fault or "sound"] = _clip_run(
+                path, model, step, tag,
+                _end_layers(state) if fault else None)
+        del model, step
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2532,6 +2680,9 @@ def rank_main(rank, workdir):
                      init_method=f"file://{workdir}/store")
     tp_mesh, dp_mesh = make_dp_tp_mesh(1, TP), make_mesh(TP)
     out = {path: _tp_rank(path, tp_mesh) for path in TP_PATHS}
+    for path in TP_FLASH_PATHS:
+        out[path] = _tp_rank(path, tp_mesh, faults=False)
+    out["clip"] = _tp_clip_rank(tp_mesh)
     out["dp"] = _dp_rank(dp_mesh)
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
@@ -2791,7 +2942,9 @@ def _tp_reference(path, ranks):
                               "parallel single-device f32")
     updates = _updates(model, before)
     del before
-    out["faults"] = _fault_readings(path, ranks, want, updates)
+    faults = "faults" in ranks[0]
+    out["faults"] = (_fault_readings(path, ranks, want, updates) if faults
+                     else {})
     out["gradients"] = _grads_close(
         f"{tag} gathered gradients",
         gather_tp_params([r["grads"] for r in ranks]), want["grads"],
@@ -2825,9 +2978,73 @@ def _tp_reference(path, ranks):
         f"{[[round(t, 2) for t in r['steps']['step_ms']] for r in ranks]}; "
         f"peak above held single {max(steps['peak_bytes'])} B, ranks "
         f"{[max(r['steps']['peak_bytes']) for r in ranks]} B; bf16 "
-        f"{out['bf16_losses']}; every planted fault seen")
+        f"{out['bf16_losses']}"
+        + ("; every planted fault seen" if faults else ""))
     del model, step
     torch.cuda.empty_cache()
+    return out
+
+
+def _tp_clip_reference(ranks):
+    """R at tp=2 under ``max_grad_norm`` against the single device (same
+    weights, biases random, batches, generators): clipping active on every
+    step on both; each rank's norm the single device's (TOL, relative);
+    the gathered clipped gradients within TP_GRAD_RTOL, the three steps'
+    losses within PARALLEL_LOSS_RTOL and their gathered updates within
+    TP_UPDATE_RTOL; TP_CLIP_FAULT's run outside one of those bounds."""
+    from fewbit_tpu_torch.parallel import gather_tp_params
+
+    path, tag = "roberta_fused_ffn", "parallel roberta_fused_ffn tp=2 clip"
+    model, step = _model(path, torch.float32, True,
+                         train=dict(TP_TRAIN, max_grad_norm=TP_CLIP_NORM),
+                         **NO_DROPOUT)
+    _random_biases(model)
+    want = _clip_run(path, model, step, "parallel single-device clip f32")
+    del model, step
+    torch.cuda.empty_cache()
+    sound = [r["sound"] for r in ranks]
+    norms = [want["norm"], *want["norms"]]
+    for r in sound:
+        got = [r["norm"], *r["norms"]]
+        if not (len(got) == len(norms) == 4
+                and min(got + norms) > TP_CLIP_NORM
+                and all(abs(a - b) <= TOL[torch.float32] * b
+                        for a, b in zip(got, norms))):
+            raise AssertionError(f"{tag}: norms {got} against the single "
+                                 f"device's {norms}, max {TP_CLIP_NORM}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["steps"]["losses"],
+                                                    want["steps"]["losses"])]
+        if not max(rel) <= PARALLEL_LOSS_RTOL:
+            raise AssertionError(f"{tag}: step losses {r['steps']} vs "
+                                 f"{want['steps']['losses']}")
+    out = {"max_grad_norm": TP_CLIP_NORM, "norms": norms,
+           "rank_norms": [[r["norm"], *r["norms"]] for r in sound],
+           "gradients": _grads_close(
+               f"{tag} gathered clipped gradients",
+               gather_tp_params([r["grads"] for r in sound]), want["grads"],
+               TP_GRAD_RTOL),
+           "updates": _grads_close(
+               f"{tag} gathered updates of the three steps",
+               gather_tp_params([r["updates"] for r in sound]),
+               want["updates"], TP_UPDATE_RTOL)}
+    runs = [r[TP_CLIP_FAULT] for r in ranks]
+    grads = gather_tp_params([r["grads"] for r in runs])
+    updates = gather_tp_params([r["updates"] for r in runs])
+    g_err = _rel_errors(grads, {n: want["grads"][n] for n in grads})[0]
+    u_err = _rel_errors(updates, {n: want["updates"][n] for n in updates})[0]
+    reading = {"rank_norms": [[r["norm"], *r["norms"]] for r in runs],
+               "grads_max_rel_err": g_err[0], "grads_worst": g_err[1],
+               "updates_max_rel_err": u_err[0], "updates_worst": u_err[1],
+               "seen": g_err[0] > TP_GRAD_RTOL or u_err[0] > TP_UPDATE_RTOL}
+    log(f"{tag}, planted fault '{TP_CLIP_FAULT}': {reading}")
+    if not reading["seen"]:
+        raise AssertionError(f"{tag}: the checks pass the planted fault "
+                             f"'{TP_CLIP_FAULT}'")
+    out["faults"] = {TP_CLIP_FAULT: reading}
+    log(f"{tag}: max_grad_norm {TP_CLIP_NORM}, norms single {norms}, ranks "
+        f"{out['rank_norms']}; clipped gradients {out['gradients']}; "
+        f"updates {out['updates']}; losses single {want['steps']['losses']}"
+        f"; the planted fault seen")
     return out
 
 
@@ -2897,9 +3114,11 @@ def phase_parallel():
         ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                             weights_only=False) for r in range(TP)]
     counts = {}
-    for path in TP_PATHS:
+    for path in TP_PATHS + TP_FLASH_PATHS:
         out[f"tp2_{path}"] = _tp_reference(path, [r[path] for r in ranks])
         counts[f"tp2_{path}"] = ranks[0][path]["step_counts"]
+    out["tp2_roberta_clip"] = _tp_clip_reference([r["clip"] for r in ranks])
+    counts["tp2_roberta_clip"] = ranks[0]["clip"]["sound"]["step_counts"]
     out["residuals_tp2"] = ranks[0]["roberta_fused_ffn"]["residuals"]
     out["dp2"] = _dp_reference(ranks)
     return out, counts
@@ -3003,31 +3222,33 @@ def _k4_case(results, spec, borders, h, tag, tol, label):
     y, packed4 = K.fused_forward(*args, out=_nan_like(*want))
     if not torch.equal(packed4, want[1]):
         raise AssertionError(f"k4 {label} {tag}: packed codes differ")
+    # Per element: one compare per border and the GELU.
+    least = bound(h.numel() * (spec.n_borders + 1), "simt",
+                  tensor_bytes(args, y, packed4))
     case = {"mode": f"{label} forward {tuple(h.shape)}", "dtype": tag,
             "errors": {"y": compare(f"k4 {label} {tag} y", y, want[0], tol),
                        "code_flips": 0},
             "ms": cuda_ms(lambda: K.fused_forward(*args)),
-            "device_ms": device_ms(lambda: K.fused_forward(*args)),
+            **device_time(lambda: K.fused_forward(*args), least["bound_ms"]),
             "plain_ms": cuda_ms(lambda: K.act_forward_plain(*args)),
-            # Per element: one compare per border and the GELU.
-            **bound(h.numel() * (spec.n_borders + 1), "simt",
-                    tensor_bytes(args, y, packed4)),
+            **least,
             "library_ms": None}
     case["bound_share"] = case["bound_ms"] / case["device_ms"]
     results["fused_forward"].append(case)
     return packed4
 
 
-def _examples_kernel_cases():
-    """Each kernel of the examples' paths at their shapes (``EX_SHAPES``)
-    against its plain version, into outputs filled with NaN, with its
-    device time beside its bound."""
+def _shape_kernel_cases(shapes, name, seed):
+    """Each kernel of a phase's paths at their shapes (``shapes``, as
+    ``EX_SHAPES``) against its plain version, into outputs filled with NaN,
+    with its device time beside its bound; ``name`` starts the cases'
+    labels."""
     from fewbit_tpu_torch.functional.activations import resolve_activation
     from fewbit_tpu_torch.functional.linear import calc_proj_dim
     from fewbit_tpu_torch.ops import kernels as K
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     spec, borders, levels = resolve_activation("gelu", bits=3, device=dev)
     results = {name: [] for name in K.KERNELS}
 
@@ -3035,8 +3256,8 @@ def _examples_kernel_cases():
         return (torch.randn(*shape, generator=gen, device=dev)
                 * scale).to(dt)
 
-    for n, hidden, inner, dtypes, kinds in EX_SHAPES:
-        label = f"examples N={n}"
+    for n, hidden, inner, dtypes, kinds in shapes:
+        label = f"{name} N={n}"
         k = calc_proj_dim(n, 0.2)
         sigma = torch.randint(0, 2, (n,), generator=gen,
                               device=dev).float() * 2 - 1
@@ -3330,10 +3551,15 @@ def _ex_memory_profile():
             raise AssertionError(f"memory_profile {r}: expected {want} B")
     x = torch.randn(n // 1024, 1024, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(0))
+    # Bytes bounds: x read and y written, and the few-bit codes.
+    exact = bound(0, "simt", 2 * x.numel() * 4)["bound_ms"]
+    fewbit = bound(0, "simt", 2 * x.numel() * 4
+                   + 3 * (x.shape[0] // 32) * x.shape[1] * 4)["bound_ms"]
     with torch.no_grad():
         rows[-1]["vanilla_device_ms"] = device_ms(
-            lambda: MP.EXACT["gelu"](x))
-        rows[-1]["fewbit_device_ms"] = device_ms(lambda: F.gelu(x, bits=3))
+            lambda: MP.EXACT["gelu"](x), exact)
+        rows[-1]["fewbit_device_ms"] = device_ms(lambda: F.gelu(x, bits=3),
+                                                 fewbit)
     log(f"examples memory_profile: {json.dumps(rows)}")
     return rows, counts
 
@@ -3344,13 +3570,124 @@ def phase_examples():
     its plain version; every row of convergence, lm and classification
     probed and each ``main`` run at EX_STEPS; finetune_glue at full width;
     memory_profile --time.  Returns (summary, counts by path, cases)."""
-    results = _examples_kernel_cases()
+    results = _shape_kernel_cases(EX_SHAPES, "examples", SEED + 15)
     summary, counts = _ex_parity()
     with tempfile.TemporaryDirectory() as tmp:
         summary["finetune"], ft_counts = _ex_finetune(tmp)
     counts.update(ft_counts)
     summary["memory_profile"], counts["examples_memory_profile"] = (
         _ex_memory_profile())
+    return summary, counts, results
+
+
+# ---------------------------------------------------------------------------
+# The long-sequence rows (phase_longseq): the twin of tools/bench_longseq.py
+# at seq 2048 and 4096, and the kernels at their shapes.
+# ---------------------------------------------------------------------------
+
+# (family, batch, seq), f32: GPT-2 small at 2 x 2048 and 1 x 4096 (4096
+# rows each), RoBERTa-base at 4 x 2048 (8192 rows).
+LONGSEQ_ROWS = (("gpt", 2, 2048), ("gpt", 1, 4096), ("roberta", 4, 2048))
+# Kernels 1, 6 and 5 at GPT's 4096 rows.  RoBERTa's 8192 rows are the
+# kernel phase's N: kernels 1, 2 and 3 are held there at 768 <-> 3072.
+LONGSEQ_SHAPES = ((4096, HIDDEN, FFN, (torch.float32,), ("k1", "k6")),)
+# F1-F3 at the rows' attention: (label, batch, seq, causal); RoBERTa with
+# its padding mask as segment ids.
+LONGSEQ_FLASH = (("gpt2_small seq 2048", 2, 2048, True),
+                 ("gpt2_small seq 4096", 1, 4096, True),
+                 ("roberta seq 2048", 4, 2048, False))
+
+
+def _longseq_launches(family, config):
+    """A long-sequence configuration's launches per step: none for
+    vanilla; the few-bit path's kernels (GPT-2 small's 1, 6, 5; RoBERTa's
+    1, 2, 3); F1-F3 12 each with flash (``"auto"`` takes it at seq >=
+    1024 with attention dropout 0)."""
+    from fewbit_tpu_torch.tools.bench_longseq import CONFIGS
+
+    c = CONFIGS[config]
+    out = dict(PATHS["gpt2_small" if family == "gpt" else
+                     "roberta_fused_ffn"]) if c["bits"] else {}
+    if c["flash"]:
+        out.update(FLASH)
+    return out
+
+
+def _longseq_kernel_cases():
+    """Kernels 1, 6, 5 at GPT's 4096 rows, and F1-F3 at the rows'
+    attention shapes, each against its plain version (F1-F3 also against
+    f64 and beside ``scaled_dot_product_attention``)."""
+    from fewbit_tpu_torch.train import synthetic_glue
+
+    results = _shape_kernel_cases(LONGSEQ_SHAPES, "longseq", SEED + 19)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    dt = torch.float32
+    for label, b, s, causal in LONGSEQ_FLASH:
+        if causal:
+            ids = torch.ones(b, s, dtype=torch.int32, device=dev)
+        else:
+            ids = torch.from_numpy(next(synthetic_glue(b, s, seed=SEED))[
+                "attention_mask"]).to(device=dev, dtype=torch.int32)
+        q, k, v, do = (torch.randn(b, s, HEADS, HEAD_DIM, generator=gen,
+                                   device=dev).transpose(1, 2)
+                       for _ in range(4))
+        _flash_case(results, "f32", label, q, k, v, do, ids, causal, TOL[dt])
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    for name in FLASH:
+        for c in results[name]:
+            c["path_shape"] = False
+    _log_cases({name: results[name] for name in FLASH})
+    return results
+
+
+def _longseq_row(family, batch, seq):
+    """One row through the twin's ``main``, every count set to 0 just
+    before it: every configuration fits (each was measured to fit on the
+    80 GB card, so an OOM row is a failure here); its launches per step
+    as ``_longseq_launches`` says, the total those of its steps, every
+    loss finite; the few-bit peak below vanilla's, with and without
+    flash.  Returns (its JSON object, counts)."""
+    from fewbit_tpu_torch.tools import bench_longseq as BL
+
+    tag = f"longseq {family} {batch} x {seq}"
+    argv = ["--family", family, "--batch", str(batch), "--seq", str(seq)]
+    out, counts = _launched(lambda: BL.main(argv))
+    want, peaks = {}, {}
+    if [row["config"] for row in out["rows"]] != list(BL.CONFIGS):
+        raise AssertionError(f"{tag}: rows {out['rows']}")
+    for row in out["rows"]:
+        if "error" in row:
+            raise AssertionError(f"{tag} {row['config']}: {row['error']}")
+        per_step = _longseq_launches(family, row["config"])
+        _expect(f"{tag} {row['config']} step",
+                {k: row["launches"].get(k, 0) for k in counts}, per_step)
+        _scaled(per_step, row["steps"], want)
+        if not np.isfinite(row["loss"]):
+            raise AssertionError(f"{tag} {row['config']}: {row}")
+        peaks[row["config"]] = row["peak_bytes"]
+    _expect(f"{tag} main", counts, want)
+    for fewbit, vanilla in (("fewbit", "vanilla"),
+                            ("fewbit_flash", "vanilla_flash")):
+        if not peaks[fewbit] < peaks[vanilla]:
+            raise AssertionError(f"{tag}: {fewbit} peak {peaks[fewbit]} >= "
+                                 f"{vanilla} {peaks[vanilla]}")
+    log(f"{tag}: {json.dumps(out)}")
+    return out, counts
+
+
+def phase_longseq():
+    """The long-sequence rows (``python3 chip_smoke.py --longseq``): the
+    kernels at their shapes, then each row of LONGSEQ_ROWS through the
+    twin of ``tools/bench_longseq.py``.  Returns (summary, counts by row,
+    cases)."""
+    results = _longseq_kernel_cases()
+    summary, counts = {}, {}
+    for family, batch, seq in LONGSEQ_ROWS:
+        key = f"longseq_{family}_{batch}x{seq}"
+        summary[key], counts[key] = _longseq_row(family, batch, seq)
+        torch.cuda.empty_cache()
     return summary, counts, results
 
 
@@ -3375,6 +3712,11 @@ def main():
         log(json.dumps({"examples": summary, "launches": counts,
                         "card": smi}))
         return
+    if sys.argv[1:] == ["--longseq"]:
+        summary, counts, _ = phase_longseq()
+        log(json.dumps({"longseq": summary, "launches": counts,
+                        "card": smi}))
+        return
     if sys.argv[1:2] == ["--profile"]:
         if sys.argv[2:] not in [[path] for path in PATHS]:
             sys.exit(f"chip_smoke: --profile takes one of {list(PATHS)}")
@@ -3397,9 +3739,11 @@ def main():
     train["parallel"], tp_counts = phase_parallel()
     counts.update(tp_counts)
     train["examples"], ex_counts, ex_results = phase_examples()
+    train["longseq"], ls_counts, ls_results = phase_longseq()
     counts.update(ex_counts)
-    for name, cases in ex_results.items():
-        results[name].extend(cases)
+    counts.update(ls_counts)
+    for name in results:
+        results[name].extend(ex_results[name] + ls_results[name])
     sketch_kinds = phase_sketch_kinds()
     exp_rows, counts["exp_megakernel"] = phase_exp_megakernel()
     from fewbit_tpu_torch.ops import kernels as K

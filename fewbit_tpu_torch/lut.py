@@ -1,9 +1,10 @@
 """Registry of stepwise derivative LUTs (borders + levels) per activation.
 
 The PyTorch counterpart of ``fewbit_tpu/lut.py``: the store holds plain
-numpy arrays keyed by ``(name, bits)``.  The builtin LUTs are read, by file
-path and with numpy alone, from the JAX package's
-``fewbit_tpu/data/builtin.npz``, which stays the one copy of the data.
+numpy arrays keyed by ``(name, bits)``.  The builtin LUTs are the port's
+own archive, ``fewbit_tpu_torch/data/builtin.npz``, written by
+``python -m fewbit_tpu_torch.tools.quantize_builtins`` and loaded at first
+use; without it that first use raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -15,8 +16,7 @@ import numpy as np
 
 __all__ = ("StepwiseStore", "store", "BUILTIN_PATH")
 
-BUILTIN_PATH = (Path(__file__).resolve().parent.parent / "fewbit_tpu"
-                / "data" / "builtin.npz")
+BUILTIN_PATH = Path(__file__).resolve().parent / "data" / "builtin.npz"
 
 
 class StepwiseStore:
@@ -44,9 +44,8 @@ class StepwiseStore:
 
     def _ensure_builtin(self) -> None:
         if not self._builtin_loaded:
+            self.load(BUILTIN_PATH)
             self._builtin_loaded = True
-            if BUILTIN_PATH.exists():
-                self.load(BUILTIN_PATH)
 
     def add(self, name: str, bits: int, borders: np.ndarray,
             levels: np.ndarray) -> None:

@@ -32,30 +32,60 @@ N, K, M, K_EFF = 8192, 768, 3072, 2048
 REPS = 20
 
 
-def device_ms(fn, reps=10, tries=3):
-    """Device milliseconds of ``fn`` per call: the time of the CUDA
-    kernels it launches, summed over a profiled run of ``reps`` calls
-    (torch.profiler), without the host's share of the call; the median of
-    ``tries`` such runs, because a run in which the profiler drops events
-    reads low (once below the kernel's bound).  A run that reports no
-    device time at all is not counted.  ``chip_smoke.py`` times its
-    kernels with this function too."""
+def _profiled_ms(fn, reps):
+    """Device milliseconds per call of one profiled run of ``reps`` calls:
+    the sum of the CUDA kernels' times (0.0 when the profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / reps / 1e3
+
+
+def _event_ms(fn, reps):
+    """Milliseconds per call by CUDA events around a loop of ``reps``
+    calls: the device's time, or the host's where it is the slower."""
+    from fewbit_tpu_torch.tools.timing import timed
+
+    return timed(fn, iters=reps, rounds=1, warmup=0)
+
+
+def device_time(fn, reps=10, tries=3, bound_ms=None):
+    """Device milliseconds of ``fn`` per call and how they were read, as
+    ``(ms, source)``.  With ``source == "profiler"`` the time is that of
+    the CUDA kernels it launches, summed over a profiled run of ``reps``
+    calls (torch.profiler), without the host's share of the call; the
+    median of ``tries`` such runs.  A run that reports no device time, or
+    less than ``bound_ms`` (the least time the card could take for the
+    call's work), has dropped events and is not counted.  When no run
+    counts and a bound is given, the call is timed by CUDA events around a
+    loop instead, up to ``tries`` times (``source == "events"``: the time
+    per call, the host's where it is the slower); if every reading is
+    below the bound, it raises.  ``chip_smoke.py`` times its kernels with
+    this function too."""
     fn()
     torch.cuda.synchronize()
-    runs = []
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.key_averages())
-        if total > 0:
-            runs.append(total / reps / 1e3)
-    if not runs:
+    floor = 0.0 if bound_ms is None else bound_ms
+    runs = [ms for ms in (_profiled_ms(fn, reps) for _ in range(tries))
+            if ms > 0 and ms >= floor]
+    if runs:
+        return statistics.median(runs), "profiler"
+    if bound_ms is None:
         raise AssertionError("the profiler saw no device time")
-    return statistics.median(runs)
+    readings = []
+    for _ in range(tries):
+        readings.append(_event_ms(fn, reps))
+        if readings[-1] >= bound_ms:
+            return readings[-1], "events"
+    raise AssertionError(f"every reading is below the bound {bound_ms} ms: "
+                         f"CUDA events {readings}")
+
+
+def device_ms(fn, reps=10, tries=3, bound_ms=None):
+    """The milliseconds of :func:`device_time` alone."""
+    return device_time(fn, reps, tries, bound_ms)[0]
 
 
 def main(argv=None):

@@ -19,6 +19,7 @@ import torch.distributed as dist
 import torch.nn.functional as TF
 
 from fewbit_tpu_torch.parallel.mesh import fold_shard_generator
+from fewbit_tpu_torch.parallel.tp import tp_param_spec
 
 __all__ = ("TrainConfig", "make_schedule", "make_optimizer",
            "classification_loss", "causal_lm_loss", "clip_by_global_norm_",
@@ -96,13 +97,33 @@ def causal_lm_loss(logits: torch.Tensor,
 causal_lm_loss.sum_count = _causal_lm_sum_count
 
 
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float, tp_group=None,
+                         split=None) -> torch.Tensor:
     """Scale the gradients of ``params`` in place by ``max_norm / norm``
     where their global 2-norm is at least ``max_norm``, as
     ``optax.clip_by_global_norm`` does (each gradient ``g / norm *
-    max_norm``; no epsilon).  Returns the norm, without a host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    max_norm``; no epsilon).  Returns the norm, without a host sync.
+
+    With ``tp_group`` the parameters are one rank's slice of a tp model,
+    and ``split`` flags, parameter by parameter, those split over the
+    group: the norm is the unsharded model's, the squares of the split
+    gradients summed over the group's ranks and those of the replicated
+    ones (equal on every rank) counted once, so that every rank scales by
+    the same factor."""
+    params = list(params)
+    split = split or [False] * len(params)
+    pairs = [(p.grad, s) for p, s in zip(params, split)
+             if p.grad is not None]
+    grads = [g for g, _ in pairs]
+    if tp_group is None:
+        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    else:
+        zero = torch.zeros((), device=grads[0].device)
+        sharded, replicated = (sum(((g.float() ** 2).sum()
+                                    for g, s in pairs if s == on), zero)
+                               for on in (True, False))
+        dist.all_reduce(sharded, group=tp_group)
+        norm = torch.sqrt(sharded + replicated)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
@@ -112,7 +133,9 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
                     loss_fn: Callable = classification_loss,
                     dp_group=None) -> Callable:
-    """Build ``step(batch, generator) -> {"loss": tensor}``.
+    """Build ``step(batch, generator) -> {"loss": tensor}``, with the
+    gradients' global norm before the clip under ``"grad_norm"`` where
+    ``cfg.max_grad_norm`` is set.
 
     ``batch`` holds ``input_ids``, ``attention_mask`` and ``labels`` on the
     model's device.  ``generator`` (a CPU ``torch.Generator``) seeds two
@@ -130,17 +153,20 @@ def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
 
     ``step.loss_and_grads(batch, generator)`` is the step without the
     update: it leaves the gradients on the parameters and returns the
-    loss.
+    loss.  ``step.clip_grads()`` is the step's clip by
+    ``cfg.max_grad_norm`` on those gradients (it returns the norm).  On a
+    tp slice (a model with a ``tp_group``) the norm is the unsharded
+    model's (:func:`clip_by_global_norm_`); under dp DDP has already
+    averaged the gradients.
     """
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
     opt, sched = make_optimizer(cfg, params)
     device = params[0].device
-    inner = getattr(model, "module", model)  # under DDP
-    if cfg.max_grad_norm and getattr(getattr(inner, "cfg", None),
-                                     "tp_size", 1) > 1:
-        # The global norm of a tp slice's gradients needs the sum over its
-        # split parameters' ranks; not ported.
-        raise NotImplementedError("max_grad_norm with tp_size > 1")
+    # A tp slice's group, from its modules (None off tp).
+    tp_group = next((m.tp_group for m in model.modules()
+                     if getattr(m, "tp_group", None) is not None), None)
+    split = [tp_param_spec(n, p).count("tp") > 0 for n, p in named]
     sum_count = getattr(loss_fn, "sum_count", None)
 
     def loss_and_grads(batch: Dict[str, torch.Tensor],
@@ -172,19 +198,25 @@ def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
         dist.all_reduce(reported, group=dp_group)
         return reported / d
 
+    def clip_grads() -> torch.Tensor:
+        return clip_by_global_norm_(params, cfg.max_grad_norm, tp_group,
+                                    split)
+
     def step(batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> Dict[str, torch.Tensor]:
         loss = loss_and_grads(batch, generator)
+        out = {"loss": loss}
         if cfg.max_grad_norm:
-            clip_by_global_norm_(params, cfg.max_grad_norm)
+            out["grad_norm"] = clip_grads()
         opt.step()
         sched.step()
         # Gradients live only inside the step, as in the JAX step.
         opt.zero_grad(set_to_none=True)
-        return {"loss": loss}
+        return out
 
     step.optimizer, step.scheduler = opt, sched
     step.loss_and_grads = loss_and_grads
+    step.clip_grads = clip_grads
     return step
 
 

@@ -7,10 +7,15 @@ gloo on the CPU), reads the cases the test wrote to ``WORKDIR/inputs.pt``
 (JAX parameter trees as numpy arrays, batches, configs), runs each on its
 mesh and writes what it saw to ``WORKDIR/rank<RANK>.pt``:
 
-* ``tp_cfg``, ``tp_r``, ``tp_gpt``, ``tp_dropout`` -- dp=1 x tp=2 on
-  ranks 0 and 1: a tp model loaded with its slice of a JAX tree, one
-  forward and backward (logits, loss, local gradients); ``tp_dropout``
-  with attention dropout on;
+* ``tp_cfg``, ``tp_r``, ``tp_gpt``, ``tp_dropout``, ``tp_flash_r``,
+  ``tp_flash_gpt`` -- dp=1 x tp=2 on ranks 0 and 1: a tp model loaded
+  with its slice of a JAX tree, one forward and backward (logits, loss,
+  local gradients); ``tp_dropout`` with attention dropout on, the
+  ``tp_flash`` cases with ``flash_attention=True``;
+* ``tp_clip`` -- the same mesh, R with ``max_grad_norm``: the clipped
+  gradients of one ``loss_and_grads`` + ``clip_grads`` (with the norm, and
+  the norm of the rank's own gradients alone), then three steps (the
+  norms the clip saw, the parameters' updates);
 * ``dp_r``, ``dp_gpt`` -- dp=2 on ranks 0 and 1: rank 1's weights moved
   and ``replicate``d from rank 0, the model in
   ``DistributedDataParallel``, ``make_train_step(dp_group=...)``'s
@@ -69,6 +74,32 @@ def _tp_case(case, mesh):
     loss.backward()
     return {"logits": logits.detach(), "loss": loss.detach(),
             "grads": _grads(model)}
+
+
+def _clip_case(case, mesh):
+    from fewbit_tpu_torch.models import load_flax_params
+    from fewbit_tpu_torch.train import TrainConfig, make_train_step
+
+    cfg_cls, model_cls, loss_fn = _classes(case["family"])
+    cfg = cfg_cls(**case["cfg"], tp_size=2, tp_axis="tp")
+    model = model_cls(cfg, device="cpu", tp_group=mesh.tp_group)
+    load_flax_params(model, case["params"], tp_rank=mesh.tp_rank)
+    step = make_train_step(model, TrainConfig(**case["train"]),
+                           loss_fn=loss_fn)
+    b = _batch(case["batch"])
+    step.loss_and_grads(b, torch.Generator().manual_seed(case["probe_seed"]))
+    local = torch.sqrt(sum((p.grad ** 2).sum() for p in model.parameters()))
+    norm = step.clip_grads()
+    clipped = _grads(model)
+    model.zero_grad(set_to_none=True)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator().manual_seed(0)
+    outs = [step(b, gen) for _ in range(case["steps"])]
+    return {"norm": norm, "local_norm": local, "clipped": clipped,
+            "norms": [o["grad_norm"] for o in outs],
+            "losses": [o["loss"] for o in outs],
+            "updates": {n: p.detach() - before[n]
+                        for n, p in model.named_parameters()}}
 
 
 def _dp_case(case, mesh):
@@ -158,8 +189,10 @@ def main(rank: int, world: int, store: str, workdir: str) -> None:
     grid = make_dp_tp_mesh(2, 2)
     out = {"dp_rank": grid.dp_rank, "tp_rank": grid.tp_rank}
     if tp_mesh.member:
-        for name in ("tp_cfg", "tp_r", "tp_gpt", "tp_dropout"):
+        for name in ("tp_cfg", "tp_r", "tp_gpt", "tp_dropout", "tp_flash_r",
+                     "tp_flash_gpt"):
             out[name] = _tp_case(cases[name], tp_mesh)
+        out["tp_clip"] = _clip_case(cases["tp_clip"], tp_mesh)
     if dp_mesh.member:
         for name in ("dp_r", "dp_gpt"):
             out[name] = _dp_case(cases[name], dp_mesh)

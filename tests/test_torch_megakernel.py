@@ -511,3 +511,44 @@ def test_the_port_imports_no_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, (path, name)
+
+
+def test_the_port_builds_no_path_into_the_jax_package():
+    """No module of the port builds a path into ``fewbit_tpu/`` (the JAX
+    package): no ``/`` join, ``os.path.join``, ``Path`` or ``open`` takes
+    a string naming it, and no string names a file under it but the
+    ``file:line`` records of the TPU kernels a kernel replaces.  The LUT
+    archive the port loads lies inside the port."""
+    import re
+
+    from fewbit_tpu_torch import lut
+
+    record = re.compile(r"^fewbit_tpu/[\w/]+\.py:\d+")
+
+    def names_jax(value):
+        return (isinstance(value, str)
+                and re.search(r"(^|[/\\])fewbit_tpu($|[/\\])", value)
+                is not None)
+
+    root = Path(fewbit_tpu_torch.__file__).parent
+    for path in sorted(root.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        docs = {id(node.body[0].value) for node in ast.walk(tree)
+                if isinstance(node, (ast.Module, ast.FunctionDef,
+                                     ast.ClassDef, ast.AsyncFunctionDef))
+                and node.body and isinstance(node.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+                parts = (node.left, node.right)
+            elif isinstance(node, ast.Call):
+                parts = node.args
+            else:
+                parts = ()
+            for part in parts:
+                assert not (isinstance(part, ast.Constant)
+                            and names_jax(part.value)), (path, part.value)
+            if (isinstance(node, ast.Constant) and id(node) not in docs
+                    and isinstance(node.value, str)
+                    and node.value.startswith("fewbit_tpu/")):
+                assert record.match(node.value), (path, node.value)
+    assert root in lut.BUILTIN_PATH.parents

@@ -27,6 +27,15 @@ meanwhile this process computes the references:
 * dp=2 x tp=2: a step runs, the gathered ``intermediate`` weight is (2,
   32, 64) (the twin of ``tests/test_tp.py``'s), the dp replicas agree;
   dp ranks draw different sketch signs, tp ranks the same.
+* R and GPT at tp=2 with ``flash_attention=True``: the local heads through
+  the flash op, against the port's single-device flash model, JAX's
+  single-device R (F-8 keeps JAX's tp R from being a target) and JAX's
+  tp GPT (which takes the standard attention off the TPU).
+* R at tp=2 with ``max_grad_norm`` set low enough that every step clips:
+  the clipped gradients and three steps' updates against the single
+  device's, the norm the unsharded model's.  JAX's tp step clips by each
+  rank's own norm, so its replicated leaves get different updates on the
+  two ranks (F-10).
 """
 
 import os
@@ -65,7 +74,8 @@ from fewbit_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                      RobertaForSequenceClassification,
                                      flax_param_pairs, load_flax_params)
 from fewbit_tpu_torch.ops import kernels as K
-from fewbit_tpu_torch.train import causal_lm_loss, classification_loss
+from fewbit_tpu_torch.train import (TrainConfig, causal_lm_loss,
+                                    classification_loss, make_train_step)
 
 try:
     from jax import shard_map
@@ -103,6 +113,14 @@ SKETCH_SEED = 7
 # tp_config with attention dropout on (the hidden dropout stays 0).
 DROPOUT_CFG = dict(TP_CFG, attention_dropout=0.5)
 DROPOUT_SEED = 11
+# R and GPT on the flash op (their attention dropout is 0 already).
+R_FLASH_CFG = dict(R_CFG, flash_attention=True)
+GPT_FLASH_CFG = dict(GPT_CFG, flash_attention=True)
+# Clipping active on every step: the gradients' norm is far above
+# max_grad_norm.  No warmup, so that steps 1 and 2 move the weights.
+CLIP_TRAIN = dict(total_steps=4, learning_rate=1e-3, warmup_ratio=0.0,
+                  max_grad_norm=1e-3)
+CLIP_STEPS, CLIP_PROBE_SEED = 3, 13
 
 
 FAMILIES = {
@@ -345,6 +363,56 @@ def _lm_batch():
             "labels": labels}
 
 
+def _port_clip(tree, batch):
+    """The single-device R under ``CLIP_TRAIN``, as the workers' clip
+    case: the clipped gradients of one probe (and the norm), then
+    ``CLIP_STEPS`` steps (the norms the clip saw, the updates)."""
+    model = _port_single("roberta", R_CFG, tree)
+    step = make_train_step(model, TrainConfig(**CLIP_TRAIN))
+    b = {k: torch.from_numpy(np.asarray(v)).long() for k, v in batch.items()}
+    step.loss_and_grads(b, torch.Generator().manual_seed(CLIP_PROBE_SEED))
+    norm = step.clip_grads()
+    clipped = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator().manual_seed(0)
+    outs = [step(b, gen) for _ in range(CLIP_STEPS)]
+    return {"norm": norm, "clipped": clipped,
+            "norms": [o["grad_norm"] for o in outs],
+            "losses": [o["loss"] for o in outs],
+            "updates": {n: p.detach() - before[n]
+                        for n, p in model.named_parameters()}}
+
+
+def _jax_tp_updates(tree, batch, max_grad_norm):
+    """JAX's dp=1 x tp=2 ``tp_config`` model (JAX's tp layout): two steps
+    of its ``make_train_step(dp_axis="dp")`` under ``shard_map`` as
+    ``dp_tp_train_step`` runs them, with ``max_grad_norm``; every leaf's
+    update as each tp rank holds it, stacked on a new first axis."""
+    jcls, jmodel_cls = FAMILIES["roberta"][:2]
+    model = jmodel_cls(jcls(**TP_CFG, tp_axis="tp", tp_size=2))
+    mesh = jpar.make_dp_tp_mesh(1, 2)
+    state = JaxTrainState.create(
+        apply_fn=model.apply, params=_jnp_tree(tree),
+        tx=make_optimizer(JaxTrainConfig(**dict(
+            CLIP_TRAIN, max_grad_norm=max_grad_norm))))
+    specs = jpar.state_specs(state)
+    step = jax_make_train_step(model, dp_axis="dp")
+
+    def per_rank(state, b, key):
+        before = state.params
+        for i in range(2):
+            state, _ = step(state, b, jax.random.fold_in(key, i))
+        return jax.tree_util.tree_map(lambda a, c: (a - c)[None],
+                                      state.params, before)
+
+    updates = jax.jit(shard_map(
+        per_rank, mesh=mesh, in_specs=(specs, P("dp"), P()),
+        out_specs=P("tp"), check_vma=False))(
+        state, jpar.shard_batch(_jnp(batch), mesh), jax.random.key(0))
+    return jax.tree_util.tree_leaves_with_path(_np(updates))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Launch the 4-process job once; compute the references while it
@@ -372,6 +440,10 @@ def runs(tmp_path_factory):
                  ("dp_gpt", "gpt", DP_GPT_CFG))}
     cases["tp_dropout"] = dict(cases["tp_cfg"], cfg=DROPOUT_CFG,
                                dropout_seed=DROPOUT_SEED)
+    cases["tp_flash_r"] = dict(cases["tp_r"], cfg=R_FLASH_CFG)
+    cases["tp_flash_gpt"] = dict(cases["tp_gpt"], cfg=GPT_FLASH_CFG)
+    cases["tp_clip"] = dict(cases["tp_r"], train=CLIP_TRAIN,
+                            steps=CLIP_STEPS, probe_seed=CLIP_PROBE_SEED)
     cases["dp_tp"] = dict(cfg=TP_CFG, batch=_glue(4))
     cases["signs"] = dict(cfg=SIGNS_CFG, batch=_glue(4))
     torch.save(cases, work / "inputs.pt")
@@ -404,6 +476,20 @@ def runs(tmp_path_factory):
                             "logits": logits, "loss": loss, "grads": grads,
                             "sketched": _sketched(port)}
         ref["single"] = single
+        for name, family, cfg, base in (
+                ("tp_flash_r", "roberta", R_FLASH_CFG, "tp_r"),
+                ("tp_flash_gpt", "gpt", GPT_FLASH_CFG, "tp_gpt")):
+            port = _port_single(family, cfg, inits[base][1])
+            logits, loss, grads = _port_loss_grads(port, batches[base],
+                                                   FAMILIES[family][5])
+            ref[name] = {"logits": logits, "loss": loss, "grads": grads}
+        ref["tp_flash_gpt"]["jax_tp"] = _tp_jax("gpt", GPT_FLASH_CFG,
+                                                trees["tp_gpt"],
+                                                batches["tp_gpt"])
+        ref["tp_clip"] = _port_clip(inits["tp_r"][1], batches["tp_r"])
+        ref["jax_clip"] = {
+            clip: _jax_tp_updates(trees["tp_cfg"], batches["tp_cfg"], clip)
+            for clip in (None, CLIP_TRAIN["max_grad_norm"])}
         ref["dropout"] = dict(tree=inits["tp_cfg"][1],
                               batch=batches["tp_cfg"])
         ref["dp_r"] = _dp_reference(inits["dp_r"][0], trees["dp_r"],
@@ -862,3 +948,107 @@ def test_sketch_signs_fold_by_dp_not_tp(runs):
     assert len(layers) == 6 * SIGNS_CFG["num_layers"]
     for a, b in layers:
         assert not torch.equal(a, b)
+
+
+@pytest.mark.parametrize("family", ["roberta", "gpt"])
+def test_tp_flash_matches_single_device(runs, family):
+    """R and GPT at tp=2 with ``flash_attention=True``: each rank's local
+    heads through the flash op.  Logits, loss and every gathered gradient
+    equal the port's single-device flash model's; logits, loss and every
+    unsketched gradient equal JAX's single-device model's (JAX takes the
+    standard attention off the TPU: flash and standard agree but at
+    padded query rows, which no logit reads); GPT's logits equal JAX's tp
+    forward with the same config.  JAX's tp R is no target (F-8)."""
+    ref, ranks = runs
+    name, base = (("tp_flash_r", "tp_r") if family == "roberta" else
+                  ("tp_flash_gpt", "tp_gpt"))
+    want, single = ref[name], ref["single"][base]
+    for rank in ranks[:2]:
+        got = rank[name]
+        for logits in (want["logits"], single["jax_logits"],
+                       rank[base]["logits"].numpy()):
+            np.testing.assert_allclose(got["logits"].numpy(), logits,
+                                       rtol=1e-5, atol=1e-5)
+        for loss in (want["loss"], single["jax_loss"]):
+            np.testing.assert_allclose(got["loss"].item(), loss, rtol=1e-5)
+        if family == "gpt":
+            np.testing.assert_allclose(got["logits"].numpy(),
+                                       want["jax_tp"]["logits"], rtol=1e-5,
+                                       atol=1e-5)
+    grads = _gathered(ranks, name)
+    assert set(grads) == set(want["grads"])
+    for g_name, g in grads.items():
+        np.testing.assert_allclose(g, want["grads"][g_name].numpy(), rtol=0,
+                                   atol=1e-5, err_msg=g_name)
+        if g_name not in single["sketched"]:
+            np.testing.assert_allclose(g, single["jax_grads"][g_name],
+                                       rtol=0, atol=1e-5, err_msg=g_name)
+
+
+def _rel(got, want):
+    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+
+
+def test_tp_clip_matches_single_device(runs):
+    """``max_grad_norm`` at tp=2: clipping is active on every step, both
+    ranks see the unsharded model's norm (the single device's), the
+    gathered clipped gradients and the three steps' updates equal the
+    single device's.  Each rank's own norm is below the global one, so a
+    rank clipping by it alone would scale by another factor."""
+    ref, ranks = runs
+    want, bound = ref["tp_clip"], CLIP_TRAIN["max_grad_norm"]
+    assert len(want["norms"]) == CLIP_STEPS
+    for rank in ranks[:2]:
+        got = rank["tp_clip"]
+        assert len(got["norms"]) == CLIP_STEPS
+        for a, b in zip([got["norm"], *got["norms"]],
+                        [want["norm"], *want["norms"]]):
+            assert b.item() > 10 * bound
+            np.testing.assert_allclose(a.item(), b.item(), rtol=1e-5)
+        assert got["local_norm"].item() < 0.99 * want["norm"].item()
+        np.testing.assert_allclose(torch.stack(got["losses"]).numpy(),
+                                   torch.stack(want["losses"]).numpy(),
+                                   rtol=1e-5)
+    clipped = _gathered(ranks, "tp_clip", "clipped")
+    assert set(clipped) == set(want["clipped"])
+    total = np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
+                        for g in clipped.values()))
+    np.testing.assert_allclose(total, bound, rtol=1e-5)
+    for name, g in clipped.items():
+        np.testing.assert_allclose(g, want["clipped"][name].numpy(), rtol=0,
+                                   atol=1e-5 * bound, err_msg=name)
+    # The replicated leaves move alike on both ranks.
+    for name, u in ranks[0]["tp_clip"]["updates"].items():
+        if "tp" not in tpar.tp_param_spec(name, u):
+            assert torch.equal(u, ranks[1]["tp_clip"]["updates"][name]), name
+    updates = _gathered(ranks, "tp_clip", "updates")
+    moved = 0
+    for name, u in updates.items():
+        w = want["updates"][name].numpy()
+        moved += bool(np.abs(w).max() > 0)
+        np.testing.assert_allclose(u, w, rtol=0, atol=1e-6, err_msg=name)
+    assert moved == len(updates)
+
+
+def test_jax_tp_clip_diverges_replicas(runs):
+    """F-10, the reference's fault: JAX's tp step clips inside
+    ``shard_map``, each rank by the norm of its own gradients, so the
+    ranks scale by different factors.  The head's leaves, above every
+    psum, get the same update on both ranks without clipping and
+    different ones with it.  The replicated leaves below a psum
+    (embeddings, LayerNorms, the row-parallel biases) differ on the two
+    ranks with or without clipping: under ``check_vma=False`` their
+    gradients are each rank's partial sums (F-7's transposed psum, with no
+    all-reduce in front of the column-parallel projections)."""
+    ref, _ = runs
+    head, below = {}, {}
+    for clip, leaves in ref["jax_clip"].items():
+        rows = [("head_" in jax.tree_util.keystr(path), _rel(u[1], u[0]))
+                for path, u in leaves
+                if "tp" not in jpar.tp_param_spec(path, u[0])]
+        head[clip] = max(r for top, r in rows if top)
+        below[clip] = min(r for top, r in rows if not top)
+        assert sum(top for top, _ in rows) == 4 and len(rows) > 10
+    clip = CLIP_TRAIN["max_grad_norm"]
+    assert head[None] == 0.0 and head[clip] > 1e-4, head
+    assert below[None] > 0.5 and below[clip] > 0.5, below

@@ -202,9 +202,10 @@ def test_clip_by_global_norm_matches_optax(where):
 def test_train_step_with_max_grad_norm_matches_jax(where):
     """F-5: two steps of the exact tiny model with ``max_grad_norm`` set,
     once below the gradient's norm (clipped) and once above it, give the
-    JAX step's parameters.  Adam's eps is 1 so that the update follows the
-    clipped gradient's scale (with eps 1e-6 Adam divides it out); the first
-    step's learning rate is 0, so the second step's update is compared."""
+    JAX step's parameters; the step reports the norm its clip saw.  Adam's
+    eps is 1 so that the update follows the clipped gradient's scale (with
+    eps 1e-6 Adam divides it out); the first step's learning rate is 0, so
+    the second step's update is compared."""
     jmodel, params, tmodel, b = _models()
     max_norm = 1e-3 if where == "above" else 1e3
     common = dict(total_steps=4, learning_rate=1e-2, eps=1.0,
@@ -218,8 +219,10 @@ def test_train_step_with_max_grad_norm_matches_jax(where):
     before = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
     for i in range(2):
         state, metrics = jstep(state, jb, jax.random.key(i))
-        loss = step(_torch_batch(b), gen)["loss"]
-        assert abs(loss.item() - float(metrics["loss"])) < 1e-5
+        out = step(_torch_batch(b), gen)
+        assert abs(out["loss"].item() - float(metrics["loss"])) < 1e-5
+        # The norm the step's clip saw, before clipping.
+        assert (out["grad_norm"].item() > max_norm) == (where == "above")
     moved = 0
     for param, want in flax_param_pairs(tmodel, jax.tree_util.tree_map(
             np.asarray, state.params)):
