@@ -213,6 +213,18 @@ peak above held and step ms; every configuration must fit (an OOM row
 fails the phase), and the few-bit peak must be below vanilla's, with and
 without flash.  Its launches go into the kernels line.
 
+The bf16 phase (after the paths; ``python3 chip_smoke.py --bf16`` runs it
+alone) holds kernels 1, 2 and 3 at bs 128's 16384 rows in bf16 (768 -> 768;
+768 <-> 3072) against their plain versions, into outputs filled with NaN,
+with their device times beside their bounds; then takes ``bench.py``'s
+bf16 rows of RoBERTa-base with the fused few-bit FFN (countsketch at ratio
+0.2), bs 64 and bs 128 x seq 128: few-bit steps launching kernels 1, 2
+and 3 exactly 96, 12 and 12 times, vanilla against few-bit in turns (step
+ms, peak above held; the few-bit peak lower), every loss finite, and one
+few-bit step under the profiler (busy against idle, device ms by kernel
+group).  An out-of-memory error fails it.  Its launches go into the kernels
+line as ``bf16_bs64`` and ``bf16_bs128``.
+
 ``python3 chip_smoke.py --profile PATH`` runs only the device phase and the
 few-bit steps of one path (a name in ``PATHS``), four timed without the
 profiler and two under it: the way to read an older tree's step and device
@@ -1544,9 +1556,10 @@ def phase_sketch_kinds(draws=4):
     return out
 
 
-def _batches(path, seed):
-    """Endless batches of a path on the card: MRPC-shaped for RoBERTa,
-    ``synthetic_lm`` for GPT, normal x of (8192, 768) for the MLP."""
+def _batches(path, seed, bs=None):
+    """Endless batches of a path on the card: MRPC-shaped for RoBERTa
+    (``bs`` rows, BS by default), ``synthetic_lm`` for GPT, normal x of
+    (8192, 768) for the MLP."""
     from fewbit_tpu_torch.train import synthetic_glue, synthetic_lm
 
     if path == "mlp":
@@ -1557,7 +1570,7 @@ def _batches(path, seed):
     if path.startswith("gpt2_small"):
         source = synthetic_lm(GPT_BS, GPT_SEQ, seed=seed)
     else:
-        source = synthetic_glue(BS, SEQ, seed=seed)
+        source = synthetic_glue(bs or BS, SEQ, seed=seed)
     for b in source:
         yield {k: torch.from_numpy(v).to("cuda").long()
                for k, v in b.items()}
@@ -1651,11 +1664,10 @@ def _timed_step(step, batch, gen):
     return loss, dt, torch.cuda.max_memory_allocated() - held
 
 
-def phase_forward_check(path, model):
-    """The few-bit forward is exact: its logits equal those of a vanilla
-    model holding the same weights (f32 sums in another order: tolerance
-    1e-3).  Returns that vanilla model and its step."""
-    vanilla, vstep = _model(path, torch.float32, fewbit=False)
+def _vanilla_twin(path, model, dt):
+    """A vanilla model of a path in ``dt`` holding a few-bit model's
+    weights, and its step."""
+    vanilla, vstep = _model(path, dt, fewbit=False)
     rename = {"ffn.up_weight": "intermediate.weight",
               "ffn.up_bias": "intermediate.bias",
               "ffn.down_weight": "ffn_output.weight",
@@ -1666,6 +1678,14 @@ def phase_forward_check(path, model):
             k = k.replace(old, new)
         state[k] = v
     vanilla.load_state_dict(state)
+    return vanilla, vstep
+
+
+def phase_forward_check(path, model):
+    """The few-bit forward is exact: its logits equal those of a vanilla
+    model holding the same weights (f32 sums in another order: tolerance
+    1e-3).  Returns that vanilla model and its step."""
+    vanilla, vstep = _vanilla_twin(path, model, torch.float32)
     batch = next(_batches(path, SEED + 7))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     got = _forward(path, model, batch, gen)
@@ -1711,10 +1731,10 @@ def _checked_steps(path, step, batches, gen, n, tag="few-bit f32"):
              "peak_bytes": [r[2] for r in runs]}, K.launch_counts())
 
 
-def _vanilla_vs_fewbit(path, steps, batches, gen, turns):
+def _vanilla_vs_fewbit(path, steps, batches, gen, turns, tag="f32"):
     """Vanilla and few-bit, same weights and batches, in turns (vanilla,
-    few-bit, few-bit, vanilla, ...): step ms and peak bytes above held.
-    The few-bit peak must be lower."""
+    few-bit, few-bit, vanilla, ...): step ms (with their quartiles) and
+    peak bytes above held.  The few-bit peak must be lower."""
     timed = {"vanilla": [], "fewbit": []}
     peaks = {"vanilla": [], "fewbit": []}
     for order in (("vanilla", "fewbit"), ("fewbit", "vanilla")) * turns:
@@ -1725,11 +1745,12 @@ def _vanilla_vs_fewbit(path, steps, batches, gen, turns):
                 raise AssertionError(f"{path} {name}: loss {loss}")
             timed[name].append(sec * 1e3)
             peaks[name].append(peak)
-    v_ms, fb_ms = (statistics.median(timed[k]) for k in ("vanilla",
-                                                         "fewbit"))
+    quartiles = {k: statistics.quantiles(v, n=4) for k, v in timed.items()}
+    v_ms, fb_ms = (quartiles[k][1] for k in ("vanilla", "fewbit"))
     v_peak, fb_peak = max(peaks["vanilla"]), max(peaks["fewbit"])
-    log(f"{path} f32: step ms vanilla {timed['vanilla']} (median "
-        f"{v_ms:.2f}), few-bit {timed['fewbit']} (median {fb_ms:.2f}); "
+    log(f"{path} {tag}: step ms vanilla {timed['vanilla']} (quartiles "
+        f"{quartiles['vanilla']}), few-bit {timed['fewbit']} (quartiles "
+        f"{quartiles['fewbit']}); "
         f"peak above held: vanilla {v_peak} B ({v_peak / 2**30:.3f} GiB), "
         f"few-bit {fb_peak} B ({fb_peak / 2**30:.3f} GiB), saving "
         f"{100 * (1 - fb_peak / v_peak):.2f}%")
@@ -1738,6 +1759,8 @@ def _vanilla_vs_fewbit(path, steps, batches, gen, turns):
                              f"{v_peak}")
     return {"vanilla_step_ms": timed["vanilla"],
             "fewbit_step_ms": timed["fewbit"],
+            "vanilla_step_ms_quartiles": quartiles["vanilla"],
+            "fewbit_step_ms_quartiles": quartiles["fewbit"],
             "vanilla_peak_bytes": v_peak, "fewbit_peak_bytes": fb_peak}
 
 
@@ -1761,10 +1784,13 @@ KERNEL_GROUPS = {
 }
 
 
-def profiled_steps(path, step, batches, gen, n=2):
-    """``n`` few-bit steps under the profiler (after the steps already
-    taken): device milliseconds per step, busy in all and by kernel group,
-    and the wall time of a profiled step."""
+def profiled_steps(path, step, batches, gen, n=2, tag="f32",
+                   model="few-bit"):
+    """``n`` steps of a model (few-bit unless ``model`` says otherwise)
+    under the profiler (after the steps already taken): device
+    milliseconds per step, busy in all and by kernel group,
+    the wall time of a profiled step, and the eight kernels that took the
+    most device time (``top``: name, ms per step)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1784,8 +1810,11 @@ def profiled_steps(path, step, batches, gen, n=2):
                 out[group] += ms
     if not out["busy_ms"] > 0:
         raise AssertionError("the profiler saw no device time")
+    out["top"] = sorted(((e.key, e.device_time_total / 1e3 / n)
+                         for e in prof.key_averages()),
+                        key=lambda kv: -kv[1])[:8]
     out["idle_share"] = 1 - out["busy_ms"] / wall
-    log(f"{path}: profiled few-bit f32 step, device ms per step: "
+    log(f"{path}: profiled {model} {tag} step, device ms per step: "
         f"{json.dumps(out)}")
     return out
 
@@ -1809,7 +1838,9 @@ def phase_profile(path):
 
 def phase_path(path):
     """A few-bit path's forward check, its checked f32 steps, vanilla
-    against few-bit 4 steps each in turns, and one bf16 step."""
+    against few-bit 4 steps each in turns, and one bf16 step checked for
+    its launches and a finite loss (the bf16 pairs of vanilla against
+    few-bit are ``phase_bf16``'s)."""
     batches = _batches(path, SEED)
     gen = torch.Generator().manual_seed(SEED)
     model, step = _model(path, torch.float32, fewbit=True)
@@ -3691,6 +3722,58 @@ def phase_longseq():
     return summary, counts, results
 
 
+# bench.py's bf16 rows (bench.py:108-129, 239-276): RoBERTa-base with the
+# fused few-bit FFN, countsketch at ratio 0.2, seq 128, at these batches.
+BF16_PATH = "roberta_fused_ffn"
+BF16_BATCHES = (64, 128)
+# Kernels 1, 2 and 3 at bs 128's 16384 rows, in bf16.
+BF16_SHAPES = ((max(BF16_BATCHES) * SEQ, HIDDEN, FFN, (torch.bfloat16,),
+                ("k1", "k23")),)
+
+
+def _bf16_row(bs, turns=16):
+    """One bf16 row: 2 checked few-bit steps (every count set to 0 just
+    before them; 96, 12, 12 launches of kernels 1, 2, 3 each), vanilla
+    holding the same weights against few-bit in turns (enough of them
+    that the quartiles of the host-held step ms part), and three profiled
+    steps of each.  Returns (its JSON object, counts)."""
+    tag = f"bf16 bs {bs}"
+    batches = _batches(BF16_PATH, SEED, bs)
+    gen = torch.Generator().manual_seed(SEED)
+    model, step = _model(BF16_PATH, torch.bfloat16, fewbit=True)
+    vmodel, vstep = _vanilla_twin(BF16_PATH, model, torch.bfloat16)
+    runs, counts = _checked_steps(BF16_PATH, step, batches, gen, 2,
+                                  tag=f"few-bit {tag}")
+    # Each model has taken a step, so its optimizer state is in what is
+    # held before the timed steps.
+    vstep(next(batches), gen)
+    out = {"batch": bs, "seq": SEQ, "fewbit_losses": runs["losses"],
+           **_vanilla_vs_fewbit(BF16_PATH, {"vanilla": vstep,
+                                            "fewbit": step},
+                                batches, gen, turns, tag=tag),
+           "profile": profiled_steps(BF16_PATH, step, batches, gen, n=3,
+                                     tag=tag),
+           "vanilla_profile": profiled_steps(BF16_PATH, vstep, batches, gen,
+                                             n=3, tag=tag,
+                                             model="vanilla")}
+    del model, step, vmodel, vstep
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def phase_bf16():
+    """``bench.py``'s bf16 rows (``python3 chip_smoke.py --bf16``): kernels
+    1, 2 and 3 at 16384 rows in bf16 against their plain versions, then
+    each batch of BF16_BATCHES.  Returns (summary, counts by row,
+    cases)."""
+    results = _shape_kernel_cases(BF16_SHAPES, "bf16", SEED + 23)
+    summary, counts = {}, {}
+    for bs in BF16_BATCHES:
+        key = f"bf16_bs{bs}"
+        summary[key], counts[key] = _bf16_row(bs)
+    return summary, counts, results
+
+
 def main():
     if sys.argv[1:2] == ["--rank"]:
         rank_main(int(sys.argv[2]), sys.argv[3])
@@ -3717,6 +3800,10 @@ def main():
         log(json.dumps({"longseq": summary, "launches": counts,
                         "card": smi}))
         return
+    if sys.argv[1:] == ["--bf16"]:
+        summary, counts, _ = phase_bf16()
+        log(json.dumps({"bf16": summary, "launches": counts, "card": smi}))
+        return
     if sys.argv[1:2] == ["--profile"]:
         if sys.argv[2:] not in [[path] for path in PATHS]:
             sys.exit(f"chip_smoke: --profile takes one of {list(PATHS)}")
@@ -3734,6 +3821,8 @@ def main():
                       ("roberta_default", phase_path),
                       ("mlp", phase_path)):
         train[path], counts[path] = run(path)
+    train["bf16"], bf16_counts, bf16_results = phase_bf16()
+    counts.update(bf16_counts)
     # The slice's own path; its launches stay in its own summary.
     train["surgery"] = phase_surgery()
     train["parallel"], tp_counts = phase_parallel()
@@ -3743,7 +3832,8 @@ def main():
     counts.update(ex_counts)
     counts.update(ls_counts)
     for name in results:
-        results[name].extend(ex_results[name] + ls_results[name])
+        results[name].extend(bf16_results[name] + ex_results[name]
+                             + ls_results[name])
     sketch_kinds = phase_sketch_kinds()
     exp_rows, counts["exp_megakernel"] = phase_exp_megakernel()
     from fewbit_tpu_torch.ops import kernels as K

@@ -23,7 +23,8 @@ from typing import Callable
 import torch
 
 __all__ = ("ActivationSpec", "ACT_IDS", "CODE_KINDS", "compare_codes",
-           "apply_lut", "spec_args", "kernel_args", "fewbit_activation")
+           "quantize_codes", "apply_lut", "spec_args", "kernel_args",
+           "fewbit_activation")
 
 # Forward ids of the kernels, in csrc/common.cuh's order: GELU, the other
 # twelve continuous functions, the eight piecewise ones, and the identity
@@ -70,6 +71,11 @@ def compare_codes(x: torch.Tensor, borders: torch.Tensor,
     for k in range(borders.shape[0]):
         acc += (xf > borders[k]).to(torch.int32)
     return acc
+
+
+def quantize_codes(x: torch.Tensor, borders: torch.Tensor) -> torch.Tensor:
+    """Interval codes of ``x`` with respect to the interior ``borders``."""
+    return compare_codes(x, borders, ())
 
 
 def apply_lut(codes: torch.Tensor, levels: torch.Tensor,

@@ -15,13 +15,25 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ("GROUP", "packed_shape", "pack_codes", "unpack_codes")
+__all__ = ("GROUP", "packed_shape", "packed_num_words", "packed_nbytes",
+           "pack_codes", "unpack_codes")
 
 GROUP = 32  # rows whose codes share one word per bit plane
 
 
 def packed_shape(n: int, m: int, bits: int):
-    return (bits, -(-n // GROUP), m)
+    return (bits, packed_num_words(n, bits), m)
+
+
+def packed_num_words(n: int, bits: int) -> int:
+    """Words per plane for ``n`` codes: one column of the layout (the JAX
+    package's count of a flat code vector)."""
+    return -(-n // GROUP)
+
+
+def packed_nbytes(n: int, bits: int) -> int:
+    """Bytes of the packed codes of ``n`` elements in one column."""
+    return packed_num_words(n, bits) * bits * 4
 
 
 def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:

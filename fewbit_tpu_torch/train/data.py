@@ -2,23 +2,25 @@
 ``synthetic_lm``; a pre-tokenized npz and epochs over it; real English text
 from the image (``/usr/share/common-licenses``) as a byte-level LM corpus,
 a sentence-pair task and a document-classification task; and a token
-archive through the host stream codec.
+archive through the host stream codec; and a tokenized GLUE split
+(``load_glue``, through HF ``datasets`` and a tokenizer, both from their
+local caches).
 
 numpy only, with the same draws in the same order, so that one seed gives
-the JAX package and the port the same batches.  ``load_glue`` is not
-ported: it needs HF ``datasets`` and a tokenizer cache.
+the JAX package and the port the same batches.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
 __all__ = ("synthetic_glue", "synthetic_lm", "load_tokenized_npz",
            "batches_from_arrays", "real_text_corpus", "real_text_documents",
            "byte_lm_arrays", "byte_lm_batches", "real_pair_arrays",
-           "real_doc_arrays", "save_token_archive", "load_token_archive")
+           "real_doc_arrays", "save_token_archive", "load_token_archive",
+           "load_glue")
 
 
 def synthetic_glue(batch_size: int,
@@ -405,3 +407,26 @@ def load_token_archive(path) -> Dict[str, Dict[str, np.ndarray]]:
                    + int(npz[f"{key}.offset"])).astype(np.int32)
             out.setdefault(split, {})[field] = arr.reshape(shape)
     return out
+
+
+def load_glue(task: str = "mrpc", split: str = "train",
+              tokenizer_name: str = "roberta-base",
+              max_length: int = 128,
+              cache_dir: Optional[str] = None):
+    """A tokenized GLUE split through HF ``datasets`` and ``transformers``,
+    imported here: both need their local caches (nothing is downloaded
+    where there is no network).  Sentence pairs padded to
+    ``max_length``."""
+    import datasets
+    from transformers import AutoTokenizer
+
+    ds = datasets.load_dataset("glue", task, split=split,
+                               cache_dir=cache_dir)
+    tok = AutoTokenizer.from_pretrained(tokenizer_name)
+    keys = {"mrpc": ("sentence1", "sentence2")}[task]
+
+    def encode(ex):
+        return tok(ex[keys[0]], ex[keys[1]], truncation=True,
+                   padding="max_length", max_length=max_length)
+
+    return ds.map(encode, batched=True)

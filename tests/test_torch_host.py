@@ -80,7 +80,138 @@ def test_top_level_exports_match_jax():
         assert name in PF.__all__ and hasattr(PF, name)
     assert set(util.__all__) == set(jutil.__all__) - {
         "compiled_memory_stats", "tpu_compile_options"}
-    assert set(jdata.__all__) - {"load_glue"} <= set(data.__all__)
+    assert set(jdata.__all__) <= set(data.__all__)
+
+
+# The JAX package's public names that the port leaves out, each with why
+# (and the port's counterpart where it has one under another name).
+NOT_PORTED = {
+    "tpu_compile_options": "XLA's TPU compiler flags; the CUDA kernels "
+                           "build with nvcc's (ops/_build.py)",
+    "compiled_memory_stats": "reads XLA's compiled memory analysis; the "
+                             "port measures: util.peak_memory_bytes, "
+                             "util.device_memory_stats",
+    "collective_groups": "parses XLA's HLO; the port's collectives are "
+                         "explicit torch.distributed calls (parallel/tp.py)",
+    "assert_pod_collective_layout": "parses XLA's HLO for a TPU pod",
+    "assert_collective_compute_overlap": "parses XLA's HLO schedule; on "
+                                         "the card overlap shows in a "
+                                         "torch.profiler trace",
+    "tpu_aot_mesh": "compiles ahead of time for a TPU topology",
+    "fold_shard_key": "folds a jax.random key; the port folds a "
+                      "torch.Generator: parallel.fold_shard_generator",
+    "state_specs": "PartitionSpecs of a flax TrainState; the port shards "
+                   "per parameter: parallel.tp_param_spec, shard_tp_params",
+    "TrainState": "flax's train state; the port keeps the module and its "
+                  "optimizer (train.make_train_step, make_optimizer)",
+    "create_train_state": "builds a TrainState; the port's "
+                          "train.make_train_step builds the optimizer "
+                          "(train.make_optimizer)",
+}
+SUBPACKAGES = ("", ".ops", ".functional", ".modules", ".models", ".train",
+               ".parallel", ".util")
+
+
+def _exports(mod):
+    """A module's public names: ``__all__``, or its public attributes
+    that are not submodules."""
+    names = getattr(mod, "__all__", None)
+    if names is None:
+        names = [n for n in dir(mod) if not n.startswith("_") and
+                 not isinstance(getattr(mod, n), types.ModuleType)]
+    return set(names)
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES,
+                         ids=[s.strip(".") or "top" for s in SUBPACKAGES])
+def test_every_export_is_ported_or_named(sub):
+    """Every name a subpackage of the JAX package exports exists in the
+    port's counterpart, or stands in ``NOT_PORTED`` with its reason; a
+    name there is one the port really lacks.  Exported constants (numbers
+    and strings, such as ``ops.GROUP``) have JAX's values."""
+    import importlib
+
+    jmod = importlib.import_module("fewbit_tpu" + sub)
+    theirs = _exports(jmod)
+    ours = importlib.import_module("fewbit_tpu_torch" + sub)
+    missing = {n for n in theirs if not hasattr(ours, n)}
+    assert missing <= set(NOT_PORTED), missing - set(NOT_PORTED)
+    assert not {n for n in theirs & set(NOT_PORTED) if hasattr(ours, n)}
+    for n in theirs - missing:
+        if isinstance(getattr(jmod, n), (int, float, str)):
+            assert getattr(ours, n) == getattr(jmod, n), n
+
+
+def test_not_ported_names_are_the_jax_packages():
+    import importlib
+
+    exported = set().union(*(_exports(importlib.import_module(
+        "fewbit_tpu" + sub)) for sub in SUBPACKAGES))
+    assert set(NOT_PORTED) <= exported
+    assert all(reason for reason in NOT_PORTED.values())
+
+
+def _glue_stand_ins(monkeypatch):
+    """``datasets`` and ``transformers`` modules that record the calls
+    made to them; the dataset's ``map`` applies the function to a
+    two-example batch."""
+    calls = []
+
+    class Tokenizer:
+        def __call__(self, a, b, **kw):
+            calls.append(("tokenize", list(a), list(b), kw))
+            return {"input_ids": [[len(x), len(y)] for x, y in zip(a, b)],
+                    "attention_mask": [[1, 1] for _ in a]}
+
+    class AutoTokenizer:
+        @staticmethod
+        def from_pretrained(name, **kw):
+            calls.append(("tokenizer", name, kw))
+            return Tokenizer()
+
+    class Dataset:
+        batch = {"sentence1": ["a cat", "dogs bark"],
+                 "sentence2": ["a feline", "hounds"], "label": [1, 0]}
+
+        def map(self, fn, **kw):
+            calls.append(("map", kw))
+            return {**self.batch, **fn(self.batch)}
+
+    def load_dataset(*args, **kw):
+        calls.append(("load_dataset", args, kw))
+        return Dataset()
+
+    monkeypatch.setitem(sys.modules, "datasets", types.SimpleNamespace(
+        load_dataset=load_dataset))
+    monkeypatch.setitem(sys.modules, "transformers", types.SimpleNamespace(
+        AutoTokenizer=AutoTokenizer))
+    return calls
+
+
+@pytest.mark.parametrize("kw", [{}, dict(split="validation",
+                                         tokenizer_name="roberta-large",
+                                         max_length=64, cache_dir="cache")],
+                         ids=["defaults", "given"])
+def test_load_glue_makes_jax_calls(monkeypatch, kw):
+    """``load_glue`` with stand-in ``datasets`` and ``transformers``: the
+    same calls with the same arguments as JAX's, and the same mapped
+    result (nothing is downloaded)."""
+    import inspect
+
+    results = []
+    for fn in (jdata.load_glue, data.load_glue):
+        calls = _glue_stand_ins(monkeypatch)
+        results.append((fn(**kw), calls))
+    (want, want_calls), (got, got_calls) = results
+    assert got_calls == want_calls
+    assert got == want
+    assert [c[0] for c in got_calls] == ["load_dataset", "tokenizer", "map",
+                                         "tokenize"]
+    assert got_calls[-1][-1]["padding"] == "max_length"
+    assert (inspect.signature(data.load_glue)
+            == inspect.signature(jdata.load_glue))
+    with pytest.raises(KeyError):
+        data.load_glue(task="sst2")
 
 
 # ---------------------------------------------------------------------------

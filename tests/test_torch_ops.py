@@ -134,6 +134,50 @@ def test_decoded_codes_match_jax_flat_codec():
     np.testing.assert_array_equal(ours.reshape(-1), jdecoded)
 
 
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 6, 8])
+def test_packed_sizes_match_jax(bits):
+    """``packed_num_words`` and ``packed_nbytes`` count a flat code vector
+    as JAX's do, and that is one column of the port's layout: the bytes of
+    ``(N, M)`` codes are ``M`` times the count of ``N``."""
+    from fewbit_tpu_torch.ops.bitpack import (packed_nbytes,
+                                              packed_num_words, packed_shape)
+
+    for n in list(range(0, 130)) + [1000, 8191, 8192, 8193, 1 << 20]:
+        assert packed_num_words(n, bits) == jax_bitpack.packed_num_words(
+            n, bits)
+        assert packed_nbytes(n, bits) == jax_bitpack.packed_nbytes(n, bits)
+        shape = packed_shape(n, 7, bits)
+        assert shape[1] == packed_num_words(n, bits)
+        assert 4 * int(np.prod(shape)) == 7 * packed_nbytes(n, bits)
+    packed = pack_codes(torch.zeros(1000, 3, dtype=torch.int32), bits)
+    assert packed.numel() * 4 == 3 * packed_nbytes(1000, bits)
+
+
+@pytest.mark.parametrize("bits", [1, 3, 4])
+def test_quantize_codes_matches_jax(bits):
+    """``quantize_codes`` gives JAX's codes, values lying exactly on a
+    border included (strictly above a border counts it)."""
+    from fewbit_tpu_torch.ops.activations import quantize_codes
+
+    borders = np.asarray(store.get("gelu", bits)[0], np.float32)
+    rng = np.random.RandomState(bits)
+    x = np.concatenate([rng.standard_normal(4096).astype(np.float32) * 3,
+                        borders, np.nextafter(borders, np.float32(np.inf)),
+                        np.nextafter(borders, np.float32(-np.inf)),
+                        [-np.inf, np.inf, 0.0]]).astype(np.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        xt = _t(x).to(dt)
+        want = np.asarray(jax_act.quantize_codes(
+            jnp.asarray(xt.float().numpy()).astype(
+                jnp.float32 if dt == torch.float32 else jnp.bfloat16),
+            jnp.asarray(borders)))
+        got = quantize_codes(xt, _t(borders))
+        assert got.shape == xt.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+    on = quantize_codes(_t(borders), _t(borders)).numpy()
+    np.testing.assert_array_equal(on, np.arange(len(borders)))
+
+
 # ---------------------------------------------------------------------------
 # Plain kernel versions against the Pallas wrappers (interpret mode).
 # ---------------------------------------------------------------------------
