@@ -225,6 +225,28 @@ few-bit step under the profiler (busy against idle, device ms by kernel
 group).  An out-of-memory error fails it.  Its launches go into the kernels
 line as ``bf16_bs64`` and ``bf16_bs128``.
 
+The head-dimension phase (after the long-sequence phase; ``python3
+chip_smoke.py --headdim`` runs it alone) holds kernel 6, and kernel 5 on
+its codes, at the path's FFN (``CEREBRAS_SHAPES``: 4096 rows, 1536 ->
+6144, f32 and bf16) against their plain versions into NaN-filled outputs
+beside their bounds, and F1-F3 at head dimensions 128 and 32
+(``HEADDIM_FLASH``: (2, 12, 2048, 128) causal, the path's attention, and
+(16, 8, 512, 128) with a padding mask; (16, 4, 1024, 32) causal and (32,
+4, 128, 32) padded, the examples' width), f32 and bf16,
+as the kernel phase holds them at 64 (plain, f64, NaN-filled outputs, two
+launches equal to the bit, ``scaled_dot_product_attention`` and the
+bound beside; the CUDA-core kernels take 64 only); then drives GPT at
+Cerebras-GPT-590M's widths (``CEREBRAS_590M``: hidden 1536, 12 heads of
+128, 18 layers, FFN 6144, vocab 50257, 2048 positions; random weights),
+bs 2 x seq 2048, vanilla + flash and few-bit + flash (3 bits, ratio 0.2,
+countsketch), f32 and bf16, through ``make_train_step``: in f32 the
+few-bit forward against the vanilla model's on the same weights; 2 checked
+few-bit steps launching F1-F3, kernels 6 and 5 18 times each and kernel 1
+never (1536 and 6144 exceed its width cap); a vanilla step launching F1-F3
+18 times each and nothing else; vanilla against few-bit in 16 turns
+(step ms, peak above held; the few-bit peak lower).  Its launches go into the
+kernels line as ``cerebras_590m_flash_f32`` and ``_bf16``.
+
 ``python3 chip_smoke.py --profile PATH`` runs only the device phase and the
 few-bit steps of one path (a name in ``PATHS``), four timed without the
 profiler and two under it: the way to read an older tree's step and device
@@ -267,7 +289,41 @@ PATHS = {
     # The reference's default config: a gaussian sketch never takes kernel 1.
     "roberta_default": {"dense_act": 12, "fused_backward": 12},
     "mlp": {"fused_forward": 3, "fused_backward": 3},
+    # Cerebras-GPT-590M's widths with flash (head dimension 128): kernel 1
+    # never, since 1536 and 6144 exceed its width cap (matmul_sketch_keff,
+    # the JAX package's rule); kernels 6 and 5 and F1-F3 once a layer.
+    "cerebras_590m_flash": {"dense_act": 18, "fused_backward": 18,
+                            "flash_forward": 18, "flash_backward_dkv": 18,
+                            "flash_backward_dq": 18},
 }
+# Cerebras-GPT-590M (Dey et al., "Cerebras-GPT", arXiv 2304.03208, Table 1;
+# the config.json of cerebras/Cerebras-GPT-590M): GPT-2's architecture
+# (learned positions, pre-LayerNorm, GELU FFN, tied head) at hidden 1536
+# over 12 heads of 128, 18 layers; random weights from SEED.  Both of its
+# models take flash attention (attention dropout 0).
+CEREBRAS_PATH = "cerebras_590m_flash"
+CEREBRAS_590M = dict(hidden_size=1536, num_heads=12, num_layers=18,
+                     intermediate_size=6144, vocab_size=50257,
+                     max_position_embeddings=2048)
+CEREBRAS_BS, CEREBRAS_SEQ = 2, 2048
+CEREBRAS_LAUNCHES_VANILLA = {"flash_forward": 18, "flash_backward_dkv": 18,
+                             "flash_backward_dq": 18}
+# F1-F3 at the head dimensions other than 64: (label, batch, heads, seq,
+# head dimension, causal); the padded ones with a padding mask as segment
+# ids.  The path's attention; a padded batch at 128; the examples' width
+# (hidden 128 over 4 heads) causal and at RoBERTa's seq 128.
+HEADDIM_FLASH = (("cerebras_590m", CEREBRAS_BS, 12, CEREBRAS_SEQ, 128, True),
+                 ("d128 padded", 16, 8, 512, 128, False),
+                 ("d32 causal", 16, 4, 1024, 32, True),
+                 ("examples roberta d32", 32, 4, 128, 32, False))
+# Kernel 6 (and kernel 5 on its codes) at the path's FFN: 4096 rows, 1536
+# -> 6144, in both of the path's types.
+CEREBRAS_SHAPES = ((CEREBRAS_BS * CEREBRAS_SEQ, CEREBRAS_590M["hidden_size"],
+                    CEREBRAS_590M["intermediate_size"],
+                    (torch.float32, torch.bfloat16), ("k6",)),)
+# Vanilla against few-bit in turns, enough of them that the quartiles of
+# the host-held step ms part (as the bf16 rows').
+CEREBRAS_TURNS = 16
 MLP_FEATURES = (FFN, FFN, FFN, HIDDEN)   # benchmark/bench_linear.py:30-31
 # The megakernel experiment: calls per row (one to size the outputs, two to
 # warm up, 3 timed blocks of EXP_ITERS), and the rows per kernel at its
@@ -668,23 +724,28 @@ def _nan_like(*like):
 
 
 def _held_to_f64(tag, names, got, simt, plain, want, tol):
-    """Errors of a tensor-core kernel, the CUDA-core kernel it replaced and
-    the plain version against the f64 evaluation ``want``, on its batch
-    slice.  The tensor-core kernel sums in another order than f64 and on
-    other units: an error of exactly 0 would mean the check cannot fail."""
+    """Errors of a tensor-core kernel, the CUDA-core kernel it replaced
+    (``simt``, None at a head dimension other than 64, which that kernel
+    does not take) and the plain version against the f64 evaluation
+    ``want``, on its batch slice.  The tensor-core kernel sums in another
+    order than f64 and on other units: an error of exactly 0 would mean the
+    check cannot fail."""
     out = {}
     nb = want[0].shape[0]
-    for name, g, s0, p0, w in zip(names, got, simt, plain, want):
+    for i, (name, g, p0, w) in enumerate(zip(names, got, plain, want)):
         err = compare(f"{tag} {name} against f64", g[:nb], w, tol)
         if not err > 0:
             raise AssertionError(f"{tag} {name}: error against f64 is {err}")
         out[name] = {
             "kernel": err,
-            "simt": compare(f"{tag} {name} CUDA-core kernel against f64",
-                            s0[:nb], w, tol),
             "plain": compare(f"{tag} {name} plain against f64", p0[:nb], w,
-                             tol),
-            "simt_equals_plain": bool(torch.equal(s0, p0))}
+                             tol)}
+        if simt is not None:
+            s0 = simt[i]
+            out[name].update(
+                simt=compare(f"{tag} {name} CUDA-core kernel against f64",
+                             s0[:nb], w, tol),
+                simt_equals_plain=bool(torch.equal(s0, p0)))
     return out
 
 
@@ -694,23 +755,20 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     against an f64 evaluation of the plain formulas on a batch slice (with
     the plain versions' and the replaced CUDA-core kernels' errors beside),
     into outputs filled with NaN first, two launches held to equal bits, and
-    beside the time of the CUDA-core kernel each replaced."""
+    beside the time of the CUDA-core kernel each replaced (at head
+    dimension 64, the one it takes)."""
     from fewbit_tpu_torch.ops import kernels as K
     from fewbit_tpu_torch.ops.flash_attention import (
         flash_backward_dkv_plain, flash_backward_dq_plain,
         flash_forward_plain)
+    from fewbit_tpu_torch.tools.flash_timing import flash_work, unmasked
 
-    scale = HEAD_DIM ** -0.5
+    d = q.shape[-1]
+    scale = d ** -0.5
+    simt = d == K.FLASH_SIMT_HEAD_DIM
     heads = q.shape[1]
     mode = f"{shape} {tuple(q.shape)}, {'causal' if causal else 'full'}"
-    # The (q, k) pairs this input leaves unmasked, times heads: each costs
-    # 2 d operations per product; F1 has two products, F2 four, F3 three.
-    keep = ids[:, :, None] == ids[:, None, :]
-    if causal:
-        keep = keep.tril()
-    pair_ops = 2 * HEAD_DIM * heads * int(keep.sum())
-    lib = _sdpa_ms(q, k, v, do, keep, ids, causal, scale)
-    del keep
+    lib = _sdpa_ms(q, k, v, do, unmasked(ids, causal), ids, causal, scale)
     rate = gemm_rate(q.dtype)
     # The f64 evaluations, on as many batch rows as keep their (s, s)
     # tensors near 2^25 elements per head.
@@ -725,8 +783,13 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     if o.stride() != q.stride():
         raise AssertionError(f"F1 {tag}: o strides {o.stride()}")
     o0, lse0 = flash_forward_plain(*fargs)
-    os_, lses = K.flash_forward_simt(*fargs)
-    least = bound(2 * pair_ops, rate, tensor_bytes(q, k, v, ids, ids, o, lse))
+    fsimt = K.flash_forward_simt(*fargs) if simt else None
+    di = (o.float() * do.float()).sum(-1)
+    # Each kernel's call, operations and bytes, as tools/flash_timing.py
+    # times them.
+    work = flash_work(q, k, v, do, ids, causal, o, lse, di)
+    call, ops, nbytes = work["flash_forward"]
+    least = bound(ops, rate, nbytes)
     o64, lse64 = _flash_forward_f64(q[:nb], k[:nb], v[:nb], ids[:nb],
                                     causal, scale)
     results["flash_forward"].append({
@@ -734,19 +797,19 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         "errors": {"o": compare(f"F1 {tag} {shape} o", o, o0, tol),
                    "lse": compare(f"F1 {tag} {shape} lse", lse, lse0, tol)},
         "f64_errors": _held_to_f64(f"F1 {tag} {shape}", ("o", "lse"),
-                                   (o, lse), (os_, lses), (o0, lse0),
+                                   (o, lse), fsimt, (o0, lse0),
                                    (o64, lse64), tol),
         "f64_batch_rows": nb,
-        "ms": cuda_ms(lambda: K.flash_forward(*fargs)),
-        **device_time(lambda: K.flash_forward(*fargs), least["bound_ms"]),
+        "ms": cuda_ms(call),
+        **device_time(call, least["bound_ms"]),
         "plain_ms": cuda_ms(lambda: flash_forward_plain(*fargs)),
         # The CUDA-core kernel it replaced, same inputs, same call.
-        "simt_ms": cuda_ms(lambda: K.flash_forward_simt(*fargs)),
+        **({"simt_ms": cuda_ms(lambda: K.flash_forward_simt(*fargs))}
+           if simt else {}),
         **least,
         "library_ms": lib["fwd_ms"], "library_device_ms": lib["fwd_device_ms"],
         "library": "scaled_dot_product_attention, forward"})
-    del o0, lse0, os_, lses, o64, lse64
-    di = (o.float() * do.float()).sum(-1)
+    del o0, lse0, fsimt, o64, lse64
     bargs = (q, k, v, ids, ids, lse, do, di, causal, scale)
     dk64, dv64, dq64 = _flash_backward_f64(
         q[:nb], k[:nb], v[:nb], ids[:nb], lse[:nb], do[:nb], di[:nb], causal,
@@ -759,46 +822,46 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         raise AssertionError(f"F2 {tag} {shape}: two launches differ")
     del dk2, dv2
     dk0, dv0 = flash_backward_dkv_plain(*bargs)
-    dks, dvs = K.flash_backward_dkv_simt(*bargs)
-    least = bound(4 * pair_ops, rate,
-                  tensor_bytes(q, k, v, ids, ids, lse, do, di, dk, dv))
+    dkvs = K.flash_backward_dkv_simt(*bargs) if simt else None
+    call, ops, nbytes = work["flash_backward_dkv"]
+    least = bound(ops, rate, nbytes)
     case = {
         "mode": mode, "dtype": tag,
         "errors": {"dk": compare(f"F2 {tag} {shape} dk", dk, dk0, tol),
                    "dv": compare(f"F2 {tag} {shape} dv", dv, dv0, tol)},
         "f64_errors": _held_to_f64(f"F2 {tag} {shape}", ("dk", "dv"),
-                                   (dk, dv), (dks, dvs), (dk0, dv0),
+                                   (dk, dv), dkvs, (dk0, dv0),
                                    (dk64, dv64), tol),
         "f64_batch_rows": nb,
-        "ms": cuda_ms(lambda: K.flash_backward_dkv(*bargs)),
-        **device_time(lambda: K.flash_backward_dkv(*bargs),
-                      least["bound_ms"]),
+        "ms": cuda_ms(call),
+        **device_time(call, least["bound_ms"]),
         "plain_ms": cuda_ms(lambda: flash_backward_dkv_plain(*bargs)),
         # The CUDA-core kernel it replaced, same inputs, same call.
-        "simt_ms": cuda_ms(lambda: K.flash_backward_dkv_simt(*bargs)),
+        **({"simt_ms": cuda_ms(lambda: K.flash_backward_dkv_simt(*bargs))}
+           if simt else {}),
         **least,
         "library_ms": lib["bwd_ms"], "library_device_ms": lib["bwd_device_ms"],
         "library": library}
     results["flash_backward_dkv"].append(case)
-    del dk0, dv0, dks, dvs, dk64, dv64
+    del dk0, dv0, dkvs, dk64, dv64
     dq = K.flash_backward_dq(*bargs, out=_nan_like(q))
     if not torch.equal(dq, K.flash_backward_dq(*bargs, out=_nan_like(q))):
         raise AssertionError(f"F3 {tag} {shape}: two launches differ")
     dq0 = flash_backward_dq_plain(*bargs)
-    dqs = K.flash_backward_dq_simt(*bargs)
-    least = bound(3 * pair_ops, rate,
-                  tensor_bytes(q, k, v, ids, ids, lse, do, di, dq))
+    dqs = (K.flash_backward_dq_simt(*bargs),) if simt else None
+    call, ops, nbytes = work["flash_backward_dq"]
+    least = bound(ops, rate, nbytes)
     results["flash_backward_dq"].append({
         "mode": mode, "dtype": tag,
         "errors": {"dq": compare(f"F3 {tag} {shape} dq", dq, dq0, tol)},
         "f64_errors": _held_to_f64(f"F3 {tag} {shape}", ("dq",), (dq,),
-                                   (dqs,), (dq0,), (dq64,), tol),
+                                   dqs, (dq0,), (dq64,), tol),
         "f64_batch_rows": nb,
-        "ms": cuda_ms(lambda: K.flash_backward_dq(*bargs)),
-        **device_time(lambda: K.flash_backward_dq(*bargs),
-                      least["bound_ms"]),
+        "ms": cuda_ms(call),
+        **device_time(call, least["bound_ms"]),
         "plain_ms": cuda_ms(lambda: flash_backward_dq_plain(*bargs)),
-        "simt_ms": cuda_ms(lambda: K.flash_backward_dq_simt(*bargs)),
+        **({"simt_ms": cuda_ms(lambda: K.flash_backward_dq_simt(*bargs))}
+           if simt else {}),
         **least,
         "library_ms": lib["bwd_ms"], "library_device_ms": lib["bwd_device_ms"],
         "library": library})
@@ -1569,6 +1632,8 @@ def _batches(path, seed, bs=None):
                                     device="cuda")}
     if path.startswith("gpt2_small"):
         source = synthetic_lm(GPT_BS, GPT_SEQ, seed=seed)
+    elif path == CEREBRAS_PATH:
+        source = synthetic_lm(CEREBRAS_BS, CEREBRAS_SEQ, seed=seed)
     else:
         source = synthetic_glue(bs or BS, SEQ, seed=seed)
     for b in source:
@@ -1582,8 +1647,9 @@ def _model(path, dt, fewbit, flash=None, tp_group=None, train=None,
     SEED) and its training step (``TrainConfig(**train)``, by default
     100 steps at 1e-5).  On a flash path attention dropout is 0 and the
     few-bit model takes flash attention (unless ``flash`` says
-    otherwise); vanilla takes the standard attention.  ``overrides`` are
-    config fields; with ``tp_group`` the model is a tp slice on it."""
+    otherwise); vanilla takes the standard attention, but on
+    CEREBRAS_PATH, where both take flash.  ``overrides`` are config fields;
+    with ``tp_group`` the model is a tp slice on it."""
     from fewbit_tpu_torch.models import (MLP, GPTConfig, GPTForCausalLM,
                                          RobertaConfig,
                                          RobertaForSequenceClassification)
@@ -1596,8 +1662,9 @@ def _model(path, dt, fewbit, flash=None, tp_group=None, train=None,
     if path not in ("roberta_default", "mlp"):
         # The reference's default sketch is gaussian: the paths of kernels
         # 1-3 ask for the countsketch.
+        both = path == CEREBRAS_PATH
         switches.update(sketch="countsketch",
-                        flash_attention=(flash_path and fewbit
+                        flash_attention=(flash_path and (fewbit or both)
                                          if flash is None else flash))
     if flash_path:
         switches["attention_dropout"] = 0.0
@@ -1614,10 +1681,14 @@ def _model(path, dt, fewbit, flash=None, tp_group=None, train=None,
     elif path.startswith("gpt2_small"):
         cfg = GPTConfig(**switches)
         loss_fn = causal_lm_loss
+    elif path == CEREBRAS_PATH:
+        cfg = GPTConfig(**CEREBRAS_590M, **switches)
+        loss_fn = causal_lm_loss
     else:
         cfg = RobertaConfig(**switches,
                             fused_ffn=path != "roberta_unfused_ffn")
-    model_cls = (GPTForCausalLM if path.startswith("gpt2_small")
+    model_cls = (GPTForCausalLM
+                 if path.startswith("gpt2_small") or path == CEREBRAS_PATH
                  else RobertaForSequenceClassification)
     model = model_cls(cfg, device="cuda", generator=gen, tp_group=tp_group)
     step = make_train_step(model, TrainConfig(**(train or dict(
@@ -3774,6 +3845,87 @@ def phase_bf16():
     return summary, counts, results
 
 
+def _headdim_kernel_cases():
+    """Kernels 6 and 5 at CEREBRAS_SHAPES (``_shape_kernel_cases``), and
+    F1-F3 at HEADDIM_FLASH's shapes, f32 and bf16, each through
+    ``_flash_case``: against its plain version and f64, into NaN-filled
+    outputs, two launches equal to the bit, beside
+    ``scaled_dot_product_attention`` and its bound."""
+    from fewbit_tpu_torch.train import synthetic_glue
+
+    results = _shape_kernel_cases(CEREBRAS_SHAPES, CEREBRAS_PATH, SEED + 31)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        for label, b, h, s, d, causal in HEADDIM_FLASH:
+            if causal:
+                ids = torch.ones(b, s, dtype=torch.int32, device=dev)
+            else:
+                ids = torch.from_numpy(next(synthetic_glue(b, s, seed=SEED))[
+                    "attention_mask"]).to(device=dev, dtype=torch.int32)
+            q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                           .to(dt).transpose(1, 2) for _ in range(4))
+            _flash_case(results, tag, label, q, k, v, do, ids, causal,
+                        TOL[dt])
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    for name in FLASH:
+        for c in results[name]:
+            c["path_shape"] = False
+    _log_cases({name: results[name] for name in FLASH})
+    return results
+
+
+def _cerebras_row(dt):
+    """CEREBRAS_PATH in ``dt``: (f32) the few-bit forward against the
+    vanilla model's on the same weights; 2 checked few-bit steps (every
+    count set to 0 just before them: F1-F3, kernels 6 and 5 18 each, kernel
+    1 none); one vanilla step launching F1-F3 18 each and nothing else;
+    vanilla against few-bit, CEREBRAS_TURNS turns (step ms, peak above
+    held; the few-bit peak lower).  Returns (its JSON object, counts)."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    path, tag = CEREBRAS_PATH, "f32" if dt == torch.float32 else "bf16"
+    batches = _batches(path, SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    model, step = _model(path, dt, fewbit=True)
+    if dt == torch.float32:
+        vmodel, vstep = phase_forward_check(path, model)
+    else:
+        vmodel, vstep = _vanilla_twin(path, model, dt)
+    runs, counts = _checked_steps(path, step, batches, gen, 2,
+                                  tag=f"few-bit {tag}")
+    before = K.launch_counts()
+    loss = vstep(next(batches), gen)["loss"].item()
+    after = K.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    want = {k: CEREBRAS_LAUNCHES_VANILLA.get(k, 0) for k in after}
+    if delta != want or not np.isfinite(loss):
+        raise AssertionError(f"{path} vanilla {tag}: loss {loss}, launches "
+                             f"{delta}, expected {want}")
+    out = {"batch": CEREBRAS_BS, "seq": CEREBRAS_SEQ,
+           "fewbit_losses": runs["losses"], "vanilla_loss": loss,
+           **_vanilla_vs_fewbit(path, {"vanilla": vstep, "fewbit": step},
+                                batches, gen, CEREBRAS_TURNS, tag=tag)}
+    del model, step, vmodel, vstep
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def phase_headdim():
+    """Flash attention at head dimensions 32 and 128 (``python3
+    chip_smoke.py --headdim``): kernels 6 and 5 at CEREBRAS_SHAPES and
+    F1-F3 at HEADDIM_FLASH's shapes, then CEREBRAS_PATH in f32 and bf16.
+    Returns (summary, counts by row, cases)."""
+    results = _headdim_kernel_cases()
+    summary, counts = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        key = f"{CEREBRAS_PATH}_{'f32' if dt == torch.float32 else 'bf16'}"
+        summary[key], counts[key] = _cerebras_row(dt)
+    return summary, counts, results
+
+
 def main():
     if sys.argv[1:2] == ["--rank"]:
         rank_main(int(sys.argv[2]), sys.argv[3])
@@ -3804,6 +3956,11 @@ def main():
         summary, counts, _ = phase_bf16()
         log(json.dumps({"bf16": summary, "launches": counts, "card": smi}))
         return
+    if sys.argv[1:] == ["--headdim"]:
+        summary, counts, _ = phase_headdim()
+        log(json.dumps({"headdim": summary, "launches": counts,
+                        "card": smi}))
+        return
     if sys.argv[1:2] == ["--profile"]:
         if sys.argv[2:] not in [[path] for path in PATHS]:
             sys.exit(f"chip_smoke: --profile takes one of {list(PATHS)}")
@@ -3829,11 +3986,13 @@ def main():
     counts.update(tp_counts)
     train["examples"], ex_counts, ex_results = phase_examples()
     train["longseq"], ls_counts, ls_results = phase_longseq()
+    train["headdim"], hd_counts, hd_results = phase_headdim()
     counts.update(ex_counts)
     counts.update(ls_counts)
+    counts.update(hd_counts)
     for name in results:
         results[name].extend(bf16_results[name] + ex_results[name]
-                             + ls_results[name])
+                             + ls_results[name] + hd_results[name])
     sketch_kinds = phase_sketch_kinds()
     exp_rows, counts["exp_megakernel"] = phase_exp_megakernel()
     from fewbit_tpu_torch.ops import kernels as K

@@ -459,19 +459,22 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 }  // namespace
 }  // namespace fewbit
 
-// q (b, h, sq, 64), k and v (b, h, sk, 64) of f32 or bf16 (is_bf16), any
-// (b, h, s) strides; seg_q (b, sq) and seg_kv (b, sk) int32 or both null.
-// Writes o (q's shape, its own strides) and lse (b, h, sq) f32 contiguous.
-// Returns the CUDA error of the launch (0 when it was accepted).  The
-// CUDA-core kernel that flash_forward.cu's fewbit_flash_forward replaced.
+// q (b, h, sq, d), k and v (b, h, sk, d) of f32 or bf16 (is_bf16), d 64
+// only, any (b, h, s) strides; seg_q (b, sq) and seg_kv (b, sk) int32 or
+// both null.  Writes o (q's shape, its own strides) and lse (b, h, sq) f32
+// contiguous.  Returns the CUDA error of the launch (0 when it was
+// accepted), -1 for another d (nothing launched).  The CUDA-core kernel
+// that flash_forward.cu's fewbit_flash_forward replaced; the same
+// arguments.
 extern "C" int fewbit_flash_forward_simt(const void* q, const void* k,
                                          const void* v, const void* seg_q,
                                          const void* seg_kv, void* o,
                                          void* lse, const void* strides,
                                          int b, int h, int sq, int sk,
-                                         int causal, float scale,
+                                         int d, int causal, float scale,
                                          int is_bf16, void* stream) {
   using namespace fewbit;
+  if (d != FD) return -1;
   FlashParams p =
       make_params(q, k, v, seg_q, seg_kv,
                   static_cast<const long long*>(strides), h, sq, sk, causal,
@@ -487,15 +490,16 @@ extern "C" int fewbit_flash_forward_simt(const void* q, const void* k,
 }
 
 // As above, with the forward's lse, the output gradient dout (any strides)
-// and di = sum(dout * o) (b, h, sq) f32 contiguous; writes dk and dv.  The
-// CUDA-core kernel that flash_backward.cu's fewbit_flash_backward_dkv
-// replaced.
+// and di = sum(dout * o) (b, h, sq) f32 contiguous; writes dk and dv (-1
+// for another d, as above).  The CUDA-core kernel that flash_backward.cu's
+// fewbit_flash_backward_dkv replaced; the same arguments.
 extern "C" int fewbit_flash_backward_dkv_simt(
     const void* q, const void* k, const void* v, const void* seg_q,
     const void* seg_kv, const void* lse, const void* dout, const void* di,
     void* dk, void* dv, const void* strides, int b, int h, int sq, int sk,
-    int causal, float scale, int is_bf16, void* stream) {
+    int d, int causal, float scale, int is_bf16, void* stream) {
   using namespace fewbit;
+  if (d != FD) return -1;
   FlashParams p = make_backward_params(q, k, v, seg_q, seg_kv, lse, dout, di,
                                        strides, h, sq, sk, causal, scale);
   p.dk = dk;
@@ -512,9 +516,10 @@ extern "C" int fewbit_flash_backward_dkv_simt(
 extern "C" int fewbit_flash_backward_dq_simt(
     const void* q, const void* k, const void* v, const void* seg_q,
     const void* seg_kv, const void* lse, const void* dout, const void* di,
-    void* dq, const void* strides, int b, int h, int sq, int sk, int causal,
-    float scale, int is_bf16, void* stream) {
+    void* dq, const void* strides, int b, int h, int sq, int sk, int d,
+    int causal, float scale, int is_bf16, void* stream) {
   using namespace fewbit;
+  if (d != FD) return -1;
   FlashParams p = make_backward_params(q, k, v, seg_q, seg_kv, lse, dout, di,
                                        strides, h, sq, sk, causal, scale);
   p.dq = dq;

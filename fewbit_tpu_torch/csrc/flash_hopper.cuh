@@ -1,15 +1,18 @@
-// What the tensor-core flash attention kernels share (flash_forward.cu: F1;
-// flash_backward.cu: F2 and F3): the block and tile shapes, the f32
-// producer's pieces (the raw copy of a 64-row tile with cp.async, its TF32
+// What the tensor-core flash attention kernels share (flash_forward.cuh: F1;
+// flash_backward.cuh: F2 and F3): the block and tile shapes per head
+// dimension, the dynamic shared memory of each instantiation, the f32
+// producer's pieces (the raw copy of a looped tile with cp.async, its TF32
 // split in place, the transposed and k-permuted copy of the split planes),
 // the product whose A operand is an accumulator fragment held in registers,
 // the 4-D tensor map of an operand over its own strides, and the dynamic
 // shared memory a kernel is allowed once per device.
 //
-// Layout: a block owns HB_BLOCK rows of its own side and loops over HB_TILE
-// rows of the other side.  An f32 operand tile is kept as TF32 hi and lo
-// planes of 64 rows x 64 floats, each two sub-tiles of 32 floats a row
-// (128 bytes, swizzled as TMA would write them), K-major.
+// Layout: a block owns 64 rows of its own side per consumer warpgroup and
+// loops over TILE rows of the other side.  An operand tile is kept in
+// sub-tiles of RB-byte rows (RB = 128, or 64 for bf16 at head dimension
+// 32), swizzled as TMA writes them, K-major over d.  An f32 looped tile is
+// kept as TF32 hi and lo planes of TILE rows x D floats, D / 32 sub-tiles
+// of 32 floats (128 bytes) a row.
 #pragma once
 
 #include "flash_params.cuh"
@@ -18,60 +21,137 @@
 namespace fewbit {
 namespace {
 
-constexpr int HB_BLOCK = 128;      // rows of a block's own side
-constexpr int HB_TILE = 64;        // rows of a looped tile
-constexpr int HB_CONSUMERS = 256;  // two consumer warpgroups
 constexpr int HB_PRODUCERS = 128;  // one producer warpgroup
-constexpr int HB_THREADS = HB_CONSUMERS + HB_PRODUCERS;
 constexpr int HB_SMEM_LIMIT = 232448;  // dynamic shared memory of a block
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Per element type, at head dimension D: the 128-byte sub-tiles of a row,
-// the parts of a B operand (f32: TF32 hi and lo), wgmma k steps over 64
-// elements, and the bytes of a plane, of the block's own rows, of a
-// sub-tile of either, and of a ring stage of two operands.
-template <typename T, int D>
-struct HbShape {
-  static_assert(D == 64, "other head dimensions need a tile layout of "
-                         "their own");
-  static constexpr int ELT = sizeof(T);
-  static constexpr bool BF16 = ELT == 2;
-  static constexpr int SUB = D * ELT / hopper::ROW_BYTES;
-  static constexpr int PARTS = Operand<T>::PARTS;
-  static constexpr int KSTEPS = HB_TILE * ELT / 32;
-  static constexpr int TILE_BYTES = HB_TILE * D * ELT;  // one plane
-  static constexpr int RES_BYTES = HB_BLOCK * D * ELT;
-  static constexpr int RES_SUB_BYTES = HB_BLOCK * hopper::ROW_BYTES;
-  static constexpr int TILE_SUB_BYTES = HB_TILE * hopper::ROW_BYTES;
-  static constexpr int STAGE_BYTES = 2 * PARTS * TILE_BYTES;
-};
+// The kernels, as hb_tiles and the entry points number them.
+constexpr int FLASH_F1 = 0, FLASH_F2 = 1, FLASH_F3 = 2;
 
-// Byte offset of the 16-byte chunk c16 (four floats) of row `row` in a
-// K-major plane of 64 rows x 64 floats: two sub-tiles of 32 floats a row,
-// swizzled as TMA would.
-__device__ __forceinline__ int plane_chunk(int row, int c16) {
-  return (c16 >> 3) * (HB_TILE * hopper::ROW_BYTES) +
-         row * hopper::ROW_BYTES + (((c16 & 7) ^ (row & 7)) << 4);
+// The shape of a block of kernel `kernel` at head dimension d: its consumer
+// warpgroups (64 own rows each), the rows of a looped tile and the stages
+// of its ring.  At d = 32 and 64: two warpgroups (128 own rows), 64-row
+// tiles, four stages in bf16; in f32 two stages in F1 and one in F2 and F3
+// (their TF32 planes fill the block's shared memory at d = 64).  At
+// d = 128 every plane doubles: f32 takes one warpgroup and 32-row tiles,
+// which bring its shared memory back to the budgets of d = 64, and a
+// consumer thread may have 255 registers for its 64 of each accumulator.
+// bf16 F2 holds dK and dV (128 registers) beside S, dP and their packed
+// fragments: in a 384-thread block (168 registers a thread by its launch
+// bound) ptxas reported 660 bytes of spills, so it too takes one
+// warpgroup and 32-row tiles.
+struct HbTiles {
+  int wgs, tile, stages;
+};
+constexpr HbTiles hb_tiles(int kernel, bool bf16, int d) {
+  if (d == 128 && !bf16) return {1, 32, kernel == FLASH_F1 ? 2 : 1};
+  if (d == 128 && kernel == FLASH_F2) return {1, 32, 4};
+  return {2, 64, bf16 ? 4 : (kernel == FLASH_F1 ? 2 : 1)};
 }
 
-constexpr int HB_PLANE = HB_TILE * 64 * 4;  // bytes of an f32 plane
+// Dynamic shared memory of an F1 block: Q (f32: its hi and lo planes), the
+// ring (K and V tiles; for f32 K's hi and lo planes and V's transposed
+// ones), the f32 staging of V, the per-tile ids, the barriers and the slack
+// that aligns it all to 1024 bytes.  f32 takes 230,984 of the 232,448
+// bytes a block may have at d = 64 and 230,728 at d = 128.
+constexpr int ff_smem(bool bf16, int d) {
+  const HbTiles t = hb_tiles(FLASH_F1, bf16, d);
+  const int elt = bf16 ? 2 : 4, parts = bf16 ? 1 : 2;
+  const int tile = t.tile * d * elt;
+  return parts * 64 * t.wgs * d * elt + t.stages * 2 * parts * tile +
+         (bf16 ? 0 : 2 * tile) + t.stages * (t.tile + 4) * 4 +
+         (2 * t.stages + 1) * 8 + 1024;
+}
 
-// The f32 producer, first half: tile rows l0 .. l0 + 63 of the head at `src`
-// copied raw (cp.async, 16 bytes a chunk, nothing held in registers while
-// they fly) to where the lo plane at `planes` + HB_PLANE will lie.  Rows
-// past n_rows arrive as zeros.
+// Dynamic shared memory of an F2 (dkv) or F3 block: the block's own two
+// operands, the ring of the first products' B tiles, the transposed planes
+// of the second products (f32 only: two operands in F2, one in F3), the
+// per-tile row values, the barriers and the slack that aligns it all to
+// 1024 bytes.  A second f32 stage of F2 at d = 64 (another 64 KB) would not
+// fit.
+constexpr int hb_smem(bool bf16, bool dkv, int d) {
+  const HbTiles t = hb_tiles(dkv ? FLASH_F2 : FLASH_F3, bf16, d);
+  const int elt = bf16 ? 2 : 4, parts = bf16 ? 1 : 2;
+  const int tile = t.tile * d * elt;
+  return 2 * 64 * t.wgs * d * elt + t.stages * 2 * parts * tile +
+         (bf16 ? 0 : (dkv ? 2 : 1) * 2 * tile) +
+         (bf16 ? t.stages : 2) * (3 * t.tile + 4) * 4 + 128 + 1024;
+}
+
+// Per element type, at head dimension D, for kernel KERNEL: the block's
+// warpgroups and rows, the looped tile's rows and the ring's stages
+// (hb_tiles); the bytes of a sub-tile row (the swizzle) and the sub-tiles
+// of a row; the parts of a B operand (f32: TF32 hi and lo); wgmma k steps
+// over d, over the looped rows, and within a sub-tile row; and the bytes of
+// a plane, of the block's own rows, of a sub-tile of either, and of a ring
+// stage of two operands.
+template <typename T, int D, int KERNEL>
+struct HbShape {
+  static_assert(D == 32 || D == 64 || D == 128,
+                "the kernels are instantiated at head dimensions 32, 64 "
+                "and 128");
+  static constexpr int ELT = sizeof(T);
+  static constexpr bool BF16 = ELT == 2;
+  static constexpr HbTiles TILES = hb_tiles(KERNEL, BF16, D);
+  static constexpr int WGS = TILES.wgs;
+  static constexpr int BLOCK = 64 * WGS;  // rows of a block's own side
+  static constexpr int TILE = TILES.tile;  // rows of a looped tile
+  static constexpr int STAGES = TILES.stages;
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int RB = D * ELT < hopper::ROW_BYTES ? D * ELT
+                                                        : hopper::ROW_BYTES;
+  static constexpr int SUB = D * ELT / RB;
+  static constexpr int PARTS = Operand<T>::PARTS;
+  static constexpr int KD = D * ELT / 32;
+  static constexpr int KT = TILE * ELT / 32;
+  static constexpr int KSUB = RB / 32;
+  static constexpr int TILE_BYTES = TILE * D * ELT;  // one plane
+  static constexpr int RES_BYTES = BLOCK * D * ELT;
+  static constexpr int RES_SUB_BYTES = BLOCK * RB;
+  static constexpr int TILE_SUB_BYTES = TILE * RB;
+  static constexpr int STAGE_BYTES = 2 * PARTS * TILE_BYTES;
+  // The leading byte offset of a looped tile read MN-major (bf16): its next
+  // sub-tile of columns, where a row has more than one.
+  static constexpr uint32_t MN_LBO = SUB > 1 ? TILE_SUB_BYTES : 16;
+  static_assert(BF16 || RB == hopper::ROW_BYTES,
+                "f32 rows are split in 128-byte sub-tiles");
+};
+
+// log2 of a power of two: the producer's index arithmetic takes shifts and
+// masks, as signed division by a constant costs it registers it does not
+// have (40 a thread).
+__host__ __device__ constexpr int ilog2(int x) {
+  return x <= 1 ? 0 : 1 + ilog2(x / 2);
+}
+
+// Byte offset of the 16-byte chunk c16 (four floats) of row `row` in a
+// K-major f32 plane of TILE rows: sub-tiles of 32 floats a row, swizzled as
+// TMA would.
+template <int TILE>
+__device__ __forceinline__ int plane_chunk(int row, int c16) {
+  return (c16 >> 3) * (TILE * hopper::ROW_BYTES) + row * hopper::ROW_BYTES +
+         (((c16 & 7) ^ (row & 7)) << 4);
+}
+
+// The f32 producer, first half: tile rows l0 .. l0 + TILE - 1 of the head
+// at `src` copied raw (cp.async, 16 bytes a chunk, nothing held in
+// registers while they fly) to where the lo plane at `planes` + TILE D 4
+// will lie.  Rows past n_rows arrive as zeros.
+template <int TILE, int D>
 __device__ __forceinline__ void fetch_tile(uint8_t* planes, const float* src,
                                            long long stride_s, int l0,
                                            int n_rows, int ptid) {
+  constexpr int PLANE = TILE * D * 4, ROW_CHUNKS = D / 4;
 #pragma unroll
-  for (int it = 0; it < 8; ++it) {
+  for (int it = 0; it < TILE * ROW_CHUNKS / HB_PRODUCERS; ++it) {
     const int chunk = ptid + HB_PRODUCERS * it;
-    const int row = chunk >> 4, c16 = chunk & 15;
+    const int row = chunk >> ilog2(ROW_CHUNKS);
+    const int c16 = chunk & (ROW_CHUNKS - 1);
     const bool in = l0 + row < n_rows;
     const float* from = in ? src + (l0 + row) * stride_s + 4 * c16 : src;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                     hopper::smem_u32(planes + HB_PLANE +
-                                      plane_chunk(row, c16))),
+                     hopper::smem_u32(planes + PLANE +
+                                      plane_chunk<TILE>(row, c16))),
                  "l"(from), "r"(in ? 16 : 0)
                  : "memory");
   }
@@ -80,19 +160,22 @@ __device__ __forceinline__ void fetch_tile(uint8_t* planes, const float* src,
 // Second half, once the thread's own copies have landed: each chunk split
 // in place into the TF32 hi plane at `planes` and the lo plane one plane on,
 // K-major.
+template <int TILE, int D>
 __device__ __forceinline__ void split_fetched(uint8_t* planes, int ptid) {
+  constexpr int PLANE = TILE * D * 4, ROW_CHUNKS = D / 4;
 #pragma unroll 4
-  for (int it = 0; it < 8; ++it) {
+  for (int it = 0; it < TILE * ROW_CHUNKS / HB_PRODUCERS; ++it) {
     const int chunk = ptid + HB_PRODUCERS * it;
-    const int off = plane_chunk(chunk >> 4, chunk & 15);
-    const float4 v = *reinterpret_cast<const float4*>(planes + HB_PLANE + off);
+    const int off = plane_chunk<TILE>(chunk >> ilog2(ROW_CHUNKS),
+                                      chunk & (ROW_CHUNKS - 1));
+    const float4 v = *reinterpret_cast<const float4*>(planes + PLANE + off);
     uint4 hi, lo;
     hopper::split_tf32(v.x, hi.x, lo.x);
     hopper::split_tf32(v.y, hi.y, lo.y);
     hopper::split_tf32(v.z, hi.z, lo.z);
     hopper::split_tf32(v.w, hi.w, lo.w);
     *reinterpret_cast<uint4*>(planes + off) = hi;
-    *reinterpret_cast<uint4*>(planes + HB_PLANE + off) = lo;
+    *reinterpret_cast<uint4*>(planes + PLANE + off) = lo;
   }
 }
 
@@ -106,29 +189,33 @@ __device__ __forceinline__ int permuted_k(int rr) {
 }
 
 // The f32 producer: the hi and lo planes at `src` (as split_fetched wrote
-// them) transposed, out[d][permuted_k(row)], again as hi and lo planes of 64
-// rows (d) x 64 floats, K-major for a product that contracts over the
+// them) transposed, out[d][permuted_k(row)], again as hi and lo planes of D
+// rows (d) x TILE floats, K-major for a product that contracts over the
 // looped rows.  A warp's lanes take 32 different rows, so its 16-byte reads
 // and its stores of one d are free of bank conflicts.
+template <int TILE, int D>
 __device__ __forceinline__ void transpose_planes(uint8_t* planes,
                                                  const uint8_t* src,
                                                  int ptid) {
+  constexpr int PLANE = TILE * D * 4;
+  constexpr int GROUPS = TILE / 32, CHUNKS = D / 16;  // a warp's
   const int w = ptid >> 5, lane = ptid & 31;
 #pragma unroll 2
-  for (int it = 0; it < 8; ++it) {
-    const int rr = lane + 32 * (it & 1), c16 = 4 * w + (it >> 1);
-    const int from = plane_chunk(rr, c16);
+  for (int it = 0; it < GROUPS * CHUNKS; ++it) {
+    const int rr = lane + 32 * (it & (GROUPS - 1));
+    const int c16 = CHUNKS * w + (it >> ilog2(GROUPS));
+    const int from = plane_chunk<TILE>(rr, c16);
     const uint4 hi = *reinterpret_cast<const uint4*>(src + from);
-    const uint4 lo = *reinterpret_cast<const uint4*>(src + HB_PLANE + from);
+    const uint4 lo = *reinterpret_cast<const uint4*>(src + PLANE + from);
     const uint32_t his[4] = {hi.x, hi.y, hi.z, hi.w};
     const uint32_t los[4] = {lo.x, lo.y, lo.z, lo.w};
     const int kcol = permuted_k(rr);
-    uint8_t* sub = planes + (kcol >> 5) * (HB_TILE * hopper::ROW_BYTES);
+    uint8_t* sub = planes + (kcol >> 5) * (D * hopper::ROW_BYTES);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const uint32_t off = hopper::swizzled_offset(4 * c16 + i, kcol & 31, 4);
       *reinterpret_cast<uint32_t*>(sub + off) = his[i];
-      *reinterpret_cast<uint32_t*>(sub + HB_PLANE + off) = los[i];
+      *reinterpret_cast<uint32_t*>(sub + PLANE + off) = los[i];
     }
   }
 }
@@ -138,29 +225,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// f32: acc += v B, v a 64 x 64 accumulator fragment over the looped rows and
-// B the hi and lo planes at `planes` that transpose_planes wrote, as three
-// TF32 products.  Accumulator columns 2 t, 2 t + 1 of step j are the A
+// f32: acc += v B, v a 64 x TILE accumulator fragment over the looped rows
+// and B the hi and lo planes at `planes` that transpose_planes wrote, as
+// three TF32 products.  Accumulator columns 2 t, 2 t + 1 of step j are the A
 // fragment's columns t, t + 4: the order transpose_planes wrote B's k in.
-// Its 64 fragment registers are free again when it returns.
-template <int D>
+// Its fragment registers are free again when it returns.
+template <int D, int TILE>
 __device__ __forceinline__ void tf32_rows_product(float (&acc)[D / 2],
-                                                  const float (&v)[32],
+                                                  const float (&v)[TILE / 2],
                                                   uint32_t planes) {
   using namespace hopper;
-  uint32_t vh[8][4], vl[8][4];
+  constexpr int STEPS = TILE / 8, PLANE = TILE * D * 4;
+  uint32_t vh[STEPS][4], vl[STEPS][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < STEPS; ++j)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       split_tf32(v[4 * j + 2 * (r & 1) + (r >> 1)], vh[j][r], vl[j][r]);
   fence_operands(acc);
   wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint32_t b = planes + (j / 4) * (HB_TILE * ROW_BYTES) + 32 * (j % 4);
+  for (int j = 0; j < STEPS; ++j) {
+    const uint32_t b = planes + (j / 4) * (D * ROW_BYTES) + 32 * (j % 4);
     const uint64_t bh = desc_sw128(b);
-    const uint64_t bl = desc_sw128(b + HB_PLANE);
+    const uint64_t bl = desc_sw128(b + PLANE);
     Wgmma<D>::tf32_rs(acc, vh[j], bh);
     Wgmma<D>::tf32_rs(acc, vh[j], bl);
     Wgmma<D>::tf32_rs(acc, vl[j], bh);
@@ -172,22 +260,35 @@ __device__ __forceinline__ void tf32_rows_product(float (&acc)[D / 2],
   fence_operands(acc);
 }
 
-// The 4-D map of one operand: boxes of box_rows rows of one head.  A
-// dimension of one element takes a stride TMA accepts whatever the tensor
-// says.  False when the base or a stride is not 16-byte aligned, or the
-// encode fails.
+// Whether every row of the warp and every row of a looped tile of TILE rows
+// have one segment id: `one` holds, for each 32 rows of the tile, whether
+// they share an id and which; rid the thread's two rows' ids.
+template <int TILE>
+__device__ __forceinline__ bool one_segment(const int* one,
+                                            const int (&rid)[2]) {
+  static_assert(TILE == 32 || TILE == 64, "one or two halves of 32");
+  const bool tile_one =
+      TILE == 64 ? one[0] && one[2] && one[1] == one[3] : one[0];
+  return __all_sync(0xffffffffu,
+                    tile_one && rid[0] == one[1] && rid[1] == one[1]);
+}
+
+// The 4-D map of one operand of head dimension d: boxes of box_rows rows of
+// one head, rb bytes of d each.  A dimension of one element takes a stride
+// TMA accepts whatever the tensor says.  False when the base or a stride is
+// not 16-byte aligned, or the encode fails.
 template <typename T>
 bool operand_map(CUtensorMap* map, const void* ptr, const Strides& st, int b,
-                 int h, int s, uint32_t box_rows) {
-  const long long elt = sizeof(T), unit = 64 * elt;
+                 int h, int s, int d, uint32_t box_rows, uint32_t rb) {
+  const long long elt = sizeof(T), unit = d * elt;
   const long long sb = b > 1 ? st.b * elt : unit;
   const long long sh = h > 1 ? st.h * elt : unit;
   const long long ss = s > 1 ? st.s * elt : unit;
   if (reinterpret_cast<uintptr_t>(ptr) % 16 || sb <= 0 || sb % 16 ||
       sh <= 0 || sh % 16 || ss <= 0 || ss % 16)
     return false;
-  return hopper::make_tile_map_4d(map, ptr, sizeof(T) == 2, b, h, s, 64, sb,
-                                  sh, ss, box_rows);
+  return hopper::make_tile_map_4d(map, ptr, sizeof(T) == 2, b, h, s, d, sb,
+                                  sh, ss, box_rows, rb);
 }
 
 // Allows `kernel` `smem` bytes of dynamic shared memory on the current
@@ -214,4 +315,19 @@ int allow_smem(Kernel kernel, int smem, unsigned& allowed) {
 }
 
 }  // namespace
+
+// The launchers of each head dimension's instantiations, each in a source
+// of its own so that they compile in parallel (flash_forward*.cu,
+// flash_backward*.cu).  Each returns as its entry point does.
+int flash_forward_d32(const FlashParams& p, int b, bool bf16, cudaStream_t st);
+int flash_forward_d64(const FlashParams& p, int b, bool bf16, cudaStream_t st);
+int flash_forward_d128(const FlashParams& p, int b, bool bf16,
+                       cudaStream_t st);
+int flash_backward_d32(const FlashParams& p, int b, bool bf16, bool dkv,
+                       cudaStream_t st);
+int flash_backward_d64(const FlashParams& p, int b, bool bf16, bool dkv,
+                       cudaStream_t st);
+int flash_backward_d128(const FlashParams& p, int b, bool bf16, bool dkv,
+                        cudaStream_t st);
+
 }  // namespace fewbit

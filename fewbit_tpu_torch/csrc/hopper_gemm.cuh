@@ -2,10 +2,12 @@
 // TMA tensor maps (encoded on the host), the mbarrier ring that a producer
 // warp and consumer warpgroups share, TMA bulk stores of a staged output
 // tile, named barriers between warpgroups, shared-memory matrix descriptors
-// for the 128-byte swizzle, wgmma wrappers (bf16 with both operands in shared
-// memory, or A in registers and B optionally MN-major; tf32 with A in
-// registers or shared memory), the round-to-nearest TF32 split, and the register hand-over
-// between a producer and its consumer warpgroups (setmaxnreg).
+// for the 128-byte swizzle (and the 64-byte one of the flash kernels' bf16
+// rows at head dimension 32), wgmma wrappers (bf16 with both operands in
+// shared memory, or A in registers and B optionally MN-major; tf32 with A
+// in registers or shared memory), the round-to-nearest TF32 split, and the
+// register hand-over between a producer and its consumer warpgroups
+// (setmaxnreg).
 //
 // Layout convention: every operand tile is K-major with rows of exactly 128
 // bytes (32 f32 or 64 bf16 elements of K), loaded by TMA with
@@ -224,25 +226,29 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, bool bf16,
 // the byte strides `stride_s`, `stride_h`, `stride_b` (each a multiple of
 // 16, as `base`; any order, so the transposed view of a (b, s, h, d)
 // projection is read in place).  Dimensions run (d, s, h, b); a box is
-// (box_rows of s, 128 bytes of d) of one head, swizzled for wgmma, and rows
-// past s arrive as zeros.  Returns false when the encode is unavailable or
+// (box_rows of s, row_bytes of d) of one head, swizzled for wgmma (the
+// 128-byte swizzle, or the 64-byte one for rows of 64 bytes), and rows past
+// s arrive as zeros.  Returns false when the encode is unavailable or
 // refuses the arguments.
 inline bool make_tile_map_4d(CUtensorMap* map, const void* base, bool bf16,
                              uint64_t b, uint64_t h, uint64_t s, uint64_t d,
                              uint64_t stride_b, uint64_t stride_h,
-                             uint64_t stride_s, uint32_t box_rows) {
+                             uint64_t stride_s, uint32_t box_rows,
+                             uint32_t row_bytes = ROW_BYTES) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
   const uint32_t elem = bf16 ? 2 : 4;
   const cuuint64_t dims[4] = {d, s, h, b};
   const cuuint64_t strides[3] = {stride_s, stride_h, stride_b};
-  const cuuint32_t box[4] = {ROW_BYTES / elem, box_rows, 1, 1};
+  const cuuint32_t box[4] = {row_bytes / elem, box_rows, 1, 1};
   const cuuint32_t estrides[4] = {1, 1, 1, 1};
   return encode(map,
                 bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                 4, const_cast<void*>(base), dims, strides, box, estrides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -291,6 +297,20 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1) << 16) |            // leading offset: unused
          (static_cast<uint64_t>(1024 >> 4) << 32) |    // 8-row stride
          (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
+}
+
+// Descriptor of a tile whose rows are `row_bytes` (128 or 64) bytes,
+// swizzled as TMA writes them with the swizzle of that width (atoms of
+// eight rows, 1024 or 512 bytes).  K-major, as desc_sw128 for 128.  Read
+// MN-major (the transpose bit) with rows of k: the k-th k16 step starts
+// 16 row_bytes k bytes on, and an N wider than a row takes its next
+// row_bytes of columns from the sub-tile `lbo` bytes on.
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, int row_bytes,
+                                           uint32_t lbo = 16) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>((8 * row_bytes) >> 4) << 32) |
+         (static_cast<uint64_t>(row_bytes == 64 ? 2 : 1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -354,11 +374,11 @@ __device__ __forceinline__ void reg_dealloc() {
 // D (64 x N, f32, the warpgroup's accumulator fragment) += A (64 x k) B
 // (k x N).  tf32_rs: A from registers (the m16n8k8 tf32 fragment of each
 // warp's 16 rows), B a K-major tile in shared memory; k = 8.  tf32_ss
-// (N = 64 only) and bf16_ss: both from K-major tiles in shared memory;
-// k = 8 and 16.  bf16_rs (N = 64 only): A
+// (N = 32, 64) and bf16_ss (N = 32, 64, 96): both from K-major tiles in
+// shared memory; k = 8 and 16.  bf16_rs (N = 32, 64, 128): A
 // from registers (the m16n8k16 bf16 fragment: packed pairs of rows g and
 // g + 8, columns 2 t and 2 t + 8 on), B K-major or, with TRANS_B, MN-major.
-// scale_d = 0 overwrites D instead of adding to it (N = 64 only).  Fragment
+// scale_d = 0 overwrites D instead of adding to it (not N = 96).  Fragment
 // of D: d[4i + 2h + e] is row 16 warp + lane / 4 + 8 h, column
 // 8 i + 2 (lane % 4) + e.
 template <int N> struct Wgmma;
@@ -488,6 +508,132 @@ template <> struct Wgmma<96> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
           "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void tf32_rs(
+      float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+  static __device__ __forceinline__ void tf32_ss(
+      float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void bf16_ss(
+      float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+  template <int TRANS_B>
+  static __device__ __forceinline__ void bf16_rs(
+      float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void tf32_rs(
+      float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+  template <int TRANS_B>
+  static __device__ __forceinline__ void bf16_rs(
+      float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d), "n"(TRANS_B));
   }
 };
 

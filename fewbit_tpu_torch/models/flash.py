@@ -12,9 +12,9 @@ of the backend ``"tpu"``:
   where :func:`auto_blocks` finds a 128-aligned block, where no attention
   dropout would be applied (``attention_dropout == 0`` or a
   ``deterministic`` call), and where the head dimension is one the flash
-  kernels take (``FLASH_HEAD_DIM``): outside their envelope ``"auto"``
-  keeps the standard attention, and only ``True`` reaches a kernel that
-  refuses the call.
+  kernels take (``FLASH_HEAD_DIMS``: 32, 64 and 128): outside their
+  envelope ``"auto"`` keeps the standard attention, and only ``True``
+  reaches a kernel that refuses the call.
 
 The threshold of 1024 and the 128-alignment rule are the JAX package's TPU
 findings, kept as written so that the port takes the reference's paths;
@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from fewbit_tpu_torch.ops.kernels import FLASH_HEAD_DIM
+from fewbit_tpu_torch.ops.kernels import FLASH_HEAD_DIMS
 
 __all__ = ("FLASH_AUTO_MIN_SEQ", "validate_flash_setting",
            "validate_flash_config", "auto_blocks", "use_flash")
@@ -83,6 +83,6 @@ def use_flash(setting, seq_len: int, attention_dropout: float, device,
     if torch.device(device).type != "cuda":
         return False
     return ((deterministic or attention_dropout == 0.0)
-            and head_dim in (None, FLASH_HEAD_DIM)
+            and (head_dim is None or head_dim in FLASH_HEAD_DIMS)
             and seq_len >= FLASH_AUTO_MIN_SEQ
             and auto_blocks(seq_len) is not None)

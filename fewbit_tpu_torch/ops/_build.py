@@ -35,11 +35,12 @@ _DENSE_ACT = (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
               _I, _P)
 # The flash kernels, on the tensor cores and on CUDA cores: forward, dK/dV,
 # dQ.
-_FLASH_FWD = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)
+_FLASH_FWD = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+              _P)
 _FLASH_DKV = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-              _F, _I, _P)
-_FLASH_DQ = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-             _I, _P)
+              _I, _F, _I, _P)
+_FLASH_DQ = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _F, _I, _P)
 # name -> argument types, in the order of each extern "C" signature.
 SIGNATURES = {
     "fewbit_matmul_input_sketch": (
@@ -74,6 +75,7 @@ SIGNATURES = {
     "fewbit_flash_forward_simt": _FLASH_FWD,
     "fewbit_flash_backward_dkv": _FLASH_DKV,
     "fewbit_flash_backward_dq": _FLASH_DQ,
+    "fewbit_flash_smem": (_I, _I, _I),
     "fewbit_flash_backward_dkv_simt": _FLASH_DKV,
     "fewbit_flash_backward_dq_simt": _FLASH_DQ,
 }

@@ -56,7 +56,7 @@ __all__ = ("FFN_BN", "FFN_BM", "ACT_IDS", "sketch_dtype",
            "flash_forward_simt", "flash_backward_dkv_simt",
            "flash_backward_dq_simt",
            "flash_backward_envelope",
-           "FLASH_HEAD_DIM", "matmul_input_sketch_plain",
+           "FLASH_HEAD_DIMS", "matmul_input_sketch_plain",
            "input_sketch_plain", "dense_act_sketch_plain",
            "dense_act_sketch_x_plain",
            "matmul_lut_backward_plain", "act_forward_plain",
@@ -1112,21 +1112,62 @@ def fused_dense_act(spec, x: torch.Tensor, w: torch.Tensor,
 # Flash attention F1-F3: forward, dK/dV, dQ.
 # ---------------------------------------------------------------------------
 
-FLASH_HEAD_DIM = 64  # the one head dimension the kernels take
+# The head dimensions F1-F3 are instantiated at (csrc/flash_forward*.cu,
+# csrc/flash_backward*.cu); the CUDA-core kernels they replaced take 64
+# only.
+FLASH_HEAD_DIMS = (32, 64, 128)
+FLASH_SIMT_HEAD_DIM = 64
+FLASH_SMEM_LIMIT = 232448  # dynamic shared memory of a block (HB_SMEM_LIMIT)
+_FLASH_KERNELS = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
 
 
-def _flash_checks(q, k, v, seg_q, seg_kv):
-    """Envelope of the flash kernels: f32 or bf16 ``(b, h, s, 64)``
-    operands of one device and dtype, unit stride along d, int32 segment
-    ids ``(b, s)`` for both sides or neither."""
+def _flash_tiles(kernel: str, dtype, d: int):
+    """``(warpgroups, tile rows, stages)`` of a block of F1, F2 or F3 at
+    head dimension ``d``, as ``hb_tiles`` in ``csrc/flash_hopper.cuh``: a
+    block owns 64 rows of its own side per consumer warpgroup and loops
+    over tiles of the other side through a ring of stages."""
+    _require(kernel in _FLASH_KERNELS, f"kernel {kernel!r}")
+    _require(d in FLASH_HEAD_DIMS, f"head dimension {d}")
+    bf16 = dtype == torch.bfloat16
+    if d == 128 and not bf16:
+        return 1, 32, 2 if kernel == "flash_forward" else 1
+    if d == 128 and kernel == "flash_backward_dkv":
+        return 1, 32, 4
+    return 2, 64, 4 if bf16 else (2 if kernel == "flash_forward" else 1)
+
+
+def _flash_smem(kernel: str, dtype, d: int) -> int:
+    """Dynamic shared memory of a block of F1, F2 or F3 at head dimension
+    ``d``, as ``ff_smem`` and ``hb_smem`` in the source: the block's own
+    operands (F1 f32: Q's TF32 hi and lo planes), the ring, the f32 planes
+    of the second products (F1: the staging of V), the per-tile row
+    values, the barriers and 1024 bytes of alignment slack."""
+    wgs, tile, stages = _flash_tiles(kernel, dtype, d)
+    bf16 = dtype == torch.bfloat16
+    elt, parts = (2, 1) if bf16 else (4, 2)
+    plane = tile * d * elt
+    if kernel == "flash_forward":
+        return (parts * 64 * wgs * d * elt + stages * 2 * parts * plane
+                + (0 if bf16 else 2 * plane) + stages * (tile + 4) * 4
+                + (2 * stages + 1) * 8 + 1024)
+    dkv = kernel == "flash_backward_dkv"
+    return (2 * 64 * wgs * d * elt + stages * 2 * parts * plane
+            + (0 if bf16 else (2 if dkv else 1) * 2 * plane)
+            + (stages if bf16 else 2) * (3 * tile + 4) * 4 + 128 + 1024)
+
+
+def _flash_checks(q, k, v, seg_q, seg_kv, head_dims=FLASH_HEAD_DIMS):
+    """Envelope of the flash kernels: f32 or bf16 ``(b, h, s, d)``
+    operands of one device and dtype, d in ``head_dims``, unit stride along
+    d, int32 segment ids ``(b, s)`` for both sides or neither."""
     _require(q.is_cuda, f"q on {q.device}: neither CPU nor CUDA")
     _require(q.ndim == 4, f"q must be (b, h, s, d), not {tuple(q.shape)}")
     b, h, sq, d = q.shape
     sk = k.shape[2] if k.ndim == 4 else -1
     dev, dt = q.device, q.dtype
     _require(dt in _DTYPES, f"dtype {dt} not in {_DTYPES}")
-    _require(d == FLASH_HEAD_DIM,
-             f"head dimension {d}: the flash kernels take {FLASH_HEAD_DIM}")
+    _require(d in head_dims,
+             f"head dimension {d}: the flash kernels take {head_dims}")
     for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, h, sk, d)),
                            ("v", v, (b, h, sk, d))):
         _require(t.device == dev, f"{name} on {t.device}, expected {dev}")
@@ -1160,9 +1201,14 @@ def _into(out, got):
     return tuple(out)
 
 
+def _head_dims(tensor_core):
+    return FLASH_HEAD_DIMS if tensor_core else (FLASH_SIMT_HEAD_DIM,)
+
+
 def _flash_forward(fn_name, tensor_core, q, k, v, seg_q, seg_kv, causal,
                    sm_scale, out):
-    b, h, sq, sk, dev, dt = _flash_checks(q, k, v, seg_q, seg_kv)
+    b, h, sq, sk, dev, dt = _flash_checks(q, k, v, seg_q, seg_kv,
+                                          _head_dims(tensor_core))
     if tensor_core:
         _flash_tma_checks(q, k, v)
     if out is None:
@@ -1176,8 +1222,8 @@ def _flash_forward(fn_name, tensor_core, q, k, v, seg_q, seg_kv, causal,
     strides = _strides(q, k, v, o, None, None, None, None)
     _launch(fn_name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(seg_q), _ptr(seg_kv), o.data_ptr(), lse.data_ptr(),
-            ctypes.addressof(strides), b, h, sq, sk, int(causal),
-            float(sm_scale), int(dt == torch.bfloat16))
+            ctypes.addressof(strides), b, h, sq, sk, q.shape[-1],
+            int(causal), float(sm_scale), int(dt == torch.bfloat16))
     return o, lse
 
 
@@ -1187,7 +1233,8 @@ def flash_forward(q, k, v, seg_q=None, seg_kv=None, causal: bool = False,
     written into ``out = (o, lse)``) and the f32 log-sum-exp of each row's
     masked logits ``(b, h, sq)``, contiguous.  On the card both products
     run on the tensor cores (bf16, or f32 as three TF32 products), fed by
-    TMA: bases and strides are multiples of 16 bytes."""
+    TMA: bases and strides are multiples of 16 bytes, and the head
+    dimension one of ``FLASH_HEAD_DIMS``."""
     if q.device.type == "cpu":
         return _into(out, flash_forward_plain(q, k, v, seg_q, seg_kv, causal,
                                               sm_scale))
@@ -1200,7 +1247,8 @@ def flash_forward(q, k, v, seg_q=None, seg_kv=None, causal: bool = False,
 def flash_forward_simt(q, k, v, seg_q=None, seg_kv=None, causal: bool = False,
                        sm_scale: float = 1.0):
     """F1's function by the first, CUDA-core kernel: what the tensor-core
-    kernel is measured against.  No model path runs it."""
+    kernel is measured against at head dimension 64, the one it takes.  No
+    model path runs it."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, seg_q, seg_kv, causal, sm_scale)
     out = _flash_forward("fewbit_flash_forward_simt", False, q, k, v, seg_q,
@@ -1209,8 +1257,9 @@ def flash_forward_simt(q, k, v, seg_q=None, seg_kv=None, causal: bool = False,
     return out
 
 
-def _flash_backward_checks(q, k, v, seg_q, seg_kv, lse, do, di):
-    b, h, sq, sk, dev, dt = _flash_checks(q, k, v, seg_q, seg_kv)
+def _flash_backward_checks(q, k, v, seg_q, seg_kv, lse, do, di,
+                           head_dims=FLASH_HEAD_DIMS):
+    b, h, sq, sk, dev, dt = _flash_checks(q, k, v, seg_q, seg_kv, head_dims)
     _require(do.device == dev and do.dtype == dt
              and tuple(do.shape) == tuple(q.shape) and do.stride(-1) == 1,
              f"dO {tuple(do.shape)} {do.dtype} on {do.device} does not fit "
@@ -1263,8 +1312,8 @@ def _flash_outputs(out, likes, names):
 
 def _flash_backward_dkv(fn_name, tensor_core, q, k, v, seg_q, seg_kv, lse,
                         do, di, causal, sm_scale, out):
-    b, h, sq, sk, dev, dt = _flash_backward_checks(q, k, v, seg_q, seg_kv,
-                                                   lse, do, di)
+    b, h, sq, sk, dev, dt = _flash_backward_checks(
+        q, k, v, seg_q, seg_kv, lse, do, di, _head_dims(tensor_core))
     if tensor_core:
         _flash_tma_checks(q, k, v, do)
     dk, dv = _flash_outputs(out, (k, v), ("dk", "dv"))
@@ -1272,15 +1321,15 @@ def _flash_backward_dkv(fn_name, tensor_core, q, k, v, seg_q, seg_kv, lse,
     _launch(fn_name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(seg_q), _ptr(seg_kv), lse.data_ptr(), do.data_ptr(),
             di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            ctypes.addressof(strides), b, h, sq, sk, int(causal),
-            float(sm_scale), int(dt == torch.bfloat16))
+            ctypes.addressof(strides), b, h, sq, sk, q.shape[-1],
+            int(causal), float(sm_scale), int(dt == torch.bfloat16))
     return dk, dv
 
 
 def _flash_backward_dq(fn_name, tensor_core, q, k, v, seg_q, seg_kv, lse, do,
                        di, causal, sm_scale, out):
-    b, h, sq, sk, dev, dt = _flash_backward_checks(q, k, v, seg_q, seg_kv,
-                                                   lse, do, di)
+    b, h, sq, sk, dev, dt = _flash_backward_checks(
+        q, k, v, seg_q, seg_kv, lse, do, di, _head_dims(tensor_core))
     if tensor_core:
         _flash_tma_checks(q, k, v, do)
     dq, = _flash_outputs(out, (q,), ("dq",))
@@ -1288,7 +1337,8 @@ def _flash_backward_dq(fn_name, tensor_core, q, k, v, seg_q, seg_kv, lse, do,
     _launch(fn_name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(seg_q), _ptr(seg_kv), lse.data_ptr(), do.data_ptr(),
             di.data_ptr(), dq.data_ptr(), ctypes.addressof(strides), b, h,
-            sq, sk, int(causal), float(sm_scale), int(dt == torch.bfloat16))
+            sq, sk, q.shape[-1], int(causal), float(sm_scale),
+            int(dt == torch.bfloat16))
     return dq
 
 

@@ -1,0 +1,138 @@
+"""Device time of the tensor-core flash kernels F1, F2 and F3 at given shapes.
+
+    python3 -m fewbit_tpu_torch.tools.flash_timing [--case B H S D MODE ...]
+        [--dtypes f32 bf16] [--reps 10] [--tries 3]
+
+Each case is (batch, heads, sequence, head dimension, mode): ``causal``
+(segment ids all one, as GPT passes them) or ``padded`` (the non-causal
+padding mask of RoBERTa's batches, half to all of each row).  Operands are
+transposed views of (b, s, h, d) tensors from a seeded generator, as the
+models pass them.  For each case and type it prints one JSON line: the
+device milliseconds per call of F1, F2 and F3 (the profiler's, or CUDA
+events where every profiled run read below the call's bound; see
+``act_timing.device_time``), each call's bound and its share of it.  Without
+``--case`` it times GPT-2 small's (8, 12, 1024, 64) causal and RoBERTa's
+(64, 12, 128, 64) padded.  It calls the wrappers only, so copied into an
+older tree it times that tree's kernels at the head dimensions they take.
+``chip_smoke.py`` bounds and times F1-F3 through :func:`flash_work` and
+``act_timing.device_time`` too, with the same ``REPS``.  Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+__all__ = ("unmasked", "flash_work", "time_case", "main")
+
+DEFAULT_CASES = ((8, 12, 1024, 64, "causal"), (64, 12, 128, 64, "padded"))
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# Profiled calls per run, as chip_smoke.py times every kernel.
+REPS = 10
+
+
+def _inputs(b, h, s, d, mode, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                   .to(dtype).transpose(1, 2) for _ in range(4))
+    if mode == "causal":
+        ids = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    else:
+        lengths = torch.randint(s // 2, s + 1, (b,), generator=gen,
+                                device="cuda")
+        ids = (torch.arange(s, device="cuda")[None]
+               < lengths[:, None]).int()
+    return q, k, v, do, ids
+
+
+def unmasked(ids, causal):
+    """``(b, s, s)`` bool: the (query, key) pairs that segment ids ``ids``
+    (both sides) and ``causal`` leave to compute."""
+    keep = ids[:, :, None] == ids[:, None, :]
+    return keep.tril() if causal else keep
+
+
+def flash_work(q, k, v, do, ids, causal, o, lse, di):
+    """``{kernel: (call, ops, nbytes)}`` of F1, F2 and F3 on one input
+    (``o``, ``lse`` and ``di`` from F1): a call of the wrapper, the
+    operations of its products over the unmasked pairs (2, 4 and 3
+    products of 2 d operations per pair and head) and the bytes it must
+    move (each input read once, each output written once)."""
+    from fewbit_tpu_torch.ops import kernels as K
+
+    d = q.shape[-1]
+    pair_ops = 2 * d * q.shape[1] * int(unmasked(ids, causal).sum())
+    scale = d ** -0.5
+    fargs = (q, k, v, ids, ids, causal, scale)
+    bargs = (q, k, v, ids, ids, lse, do, di, causal, scale)
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    return {
+        "flash_forward": (lambda: K.flash_forward(*fargs), 2 * pair_ops,
+                          nbytes(q, k, v, ids, ids, o, lse)),
+        "flash_backward_dkv": (lambda: K.flash_backward_dkv(*bargs),
+                               4 * pair_ops,
+                               nbytes(q, k, v, ids, ids, lse, do, di, k, v)),
+        "flash_backward_dq": (lambda: K.flash_backward_dq(*bargs),
+                              3 * pair_ops,
+                              nbytes(q, k, v, ids, ids, lse, do, di, q)),
+    }
+
+
+def time_case(b, h, s, d, mode, dtype, reps=REPS, tries=3):
+    """``{kernel: {"device_ms", "source", "bound_ms", "bound_share"}}`` of
+    F1, F2 and F3 on one case (:func:`flash_work`)."""
+    from fewbit_tpu_torch.ops import kernels as K
+    from fewbit_tpu_torch.tools.act_timing import device_time
+    from fewbit_tpu_torch.tools.timing import bound_ms
+
+    causal = mode == "causal"
+    q, k, v, do, ids = _inputs(b, h, s, d, mode, dtype)
+    o, lse = K.flash_forward(q, k, v, ids, ids, causal, d ** -0.5)
+    di = (o.float() * do.float()).sum(-1)
+    rate = "f32" if dtype == torch.float32 else "bf16"
+    out = {}
+    for name, (fn, ops, nbytes) in flash_work(q, k, v, do, ids, causal, o,
+                                              lse, di).items():
+        least, by = bound_ms(ops, rate, nbytes)
+        ms, source = device_time(fn, reps, tries, bound_ms=least)
+        out[name] = {"device_ms": ms, "source": source, "bound_ms": least,
+                     "bound_by": by, "bound_share": least / ms}
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--case", nargs=5, action="append",
+                    metavar=("B", "H", "S", "D", "MODE"))
+    ap.add_argument("--dtypes", nargs="+", default=["f32", "bf16"],
+                    choices=sorted(_DTYPES))
+    ap.add_argument("--reps", type=int, default=REPS)
+    ap.add_argument("--tries", type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        ap.error("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = ([(int(b), int(h), int(s), int(d), mode)
+              for b, h, s, d, mode in args.case] if args.case
+             else DEFAULT_CASES)
+    rows = []
+    for case in cases:
+        if case[4] not in ("causal", "padded"):
+            ap.error(f"mode {case[4]!r}: causal or padded")
+        for tag in args.dtypes:
+            row = {"case": list(case), "dtype": tag,
+                   "device": torch.cuda.get_device_name(0),
+                   **time_case(*case, _DTYPES[tag], args.reps, args.tries)}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

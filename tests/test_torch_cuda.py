@@ -585,9 +585,10 @@ def test_dense_act_sketch_x_budget_is_the_kernels(cuda, dtype):
     assert query(768, 3072, 128, bf16) == -1
 
 
-def _flash_inputs(cuda, dtype, b, h, s, seed, sk=None, contiguous=False):
-    """(b, h, s, 64) q and dO, (b, h, sk, 64) k and v, as the models pass
-    them (transposed views of (b, s, h, 64) tensors) or contiguous, and
+def _flash_inputs(cuda, dtype, b, h, s, seed, sk=None, contiguous=False,
+                  d=64):
+    """(b, h, s, d) q and dO, (b, h, sk, d) k and v, as the models pass
+    them (transposed views of (b, s, h, d) tensors) or contiguous, and
     padded segment ids of both sides (every batch row keeps at least one
     padded position where the two lengths differ)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
@@ -595,9 +596,9 @@ def _flash_inputs(cuda, dtype, b, h, s, seed, sk=None, contiguous=False):
 
     def rand(n):
         if contiguous:
-            return torch.randn(b, h, n, 64, generator=gen,
+            return torch.randn(b, h, n, d, generator=gen,
                                device=cuda).to(dtype)
-        return (torch.randn(b, n, h, 64, generator=gen, device=cuda)
+        return (torch.randn(b, n, h, d, generator=gen, device=cuda)
                 .to(dtype).transpose(1, 2))
 
     def ids(n):
@@ -611,16 +612,19 @@ def _flash_inputs(cuda, dtype, b, h, s, seed, sk=None, contiguous=False):
     return (q, k, v, do), ids_q, (ids_q if sk == s else ids(sk))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,sk,causal,seg,contiguous", [
+_FLASH_SHAPES = [
     (1000, 1000, True, True, False), (1000, 1000, False, False, False),
     (256, 256, True, False, False), (128, 128, False, True, False),
     (64, 64, True, False, False), (65, 65, False, False, True),
     (127, 127, True, True, True), (2048, 2048, True, False, False),
     (2048, 2048, False, True, True), (300, 1000, False, True, False),
     (1000, 300, True, False, False), (65, 127, False, False, True),
-    (127, 64, True, False, True), (1, 1, True, True, True)])
+    (127, 64, True, False, True), (1, 1, True, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,sk,causal,seg,contiguous", _FLASH_SHAPES)
 def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
                                            contiguous):
     """F1-F3 against their plain versions: ragged sequences, sq != sk,
@@ -628,9 +632,27 @@ def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
     the causal mask.  F1-F3 on the tensor cores, into outputs filled with
     NaN so that an element left unwritten cannot pass, twice for equal bits,
     and by the CUDA-core kernels they replaced."""
+    _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,sk,causal,seg,contiguous", _FLASH_SHAPES)
+def test_flash_kernels_match_plain_at_other_head_dims(
+        cuda, dtype, s, sk, causal, seg, contiguous, d):
+    """The same at head dimensions 32 and 128 (bf16 rows of 64 bytes and
+    the 64-byte swizzle at 32; one consumer warpgroup and 32-row tiles in
+    f32 at 128), without the CUDA-core kernels, which take 64 only."""
+    _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d)
+
+
+def _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
+    simt = d == 64
     (q, k, v, do), ids_q, ids_kv = _flash_inputs(cuda, dtype, 2, 3, s,
-                                                 s + causal, sk, contiguous)
+                                                 s + causal, sk, contiguous,
+                                                 d)
     seg_q, seg_kv = (ids_q, ids_kv) if seg else (None, None)
     scale = 0.125
     K.reset_launch_counts()
@@ -644,7 +666,9 @@ def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
     o2, lse2 = K.flash_forward(q, k, v, seg_q, seg_kv, causal, scale)
     assert o2.stride() == q.stride()
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
-    os_, lses = K.flash_forward_simt(q, k, v, seg_q, seg_kv, causal, scale)
+    if simt:
+        os_, lses = K.flash_forward_simt(q, k, v, seg_q, seg_kv, causal,
+                                         scale)
     di = (o.float() * do.float()).sum(-1)
     bargs = (q, k, v, seg_q, seg_kv, lse, do, di, causal, scale)
     nan = [torch.full_like(t, float("nan")) for t in (k, v, q)]
@@ -653,16 +677,18 @@ def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
     assert all(a is b for a, b in zip((dk, dv, dq), nan))
     dq0, dk0, dv0 = flash_backward_plain(q, k, v, seg_q, seg_kv, o0, lse0,
                                          do, causal, scale)
-    dks, dvs = K.flash_backward_dkv_simt(*bargs)
-    dqs = K.flash_backward_dq_simt(*bargs)
+    pairs = [("o", o, o0), ("lse", lse, lse0), ("dq", dq, dq0),
+             ("dk", dk, dk0), ("dv", dv, dv0)]
+    if simt:
+        dks, dvs = K.flash_backward_dkv_simt(*bargs)
+        dqs = K.flash_backward_dq_simt(*bargs)
+        pairs += [("o simt", os_, o0), ("lse simt", lses, lse0),
+                  ("dq simt", dqs, dq0), ("dk simt", dks, dk0),
+                  ("dv simt", dvs, dv0)]
     torch.cuda.synchronize()
     assert (dk.stride(), dv.stride(), dq.stride()) == (
         k.stride(), v.stride(), q.stride())
-    for name, a, b in (("o", o, o0), ("lse", lse, lse0),
-                       ("o simt", os_, o0), ("lse simt", lses, lse0),
-                       ("dq", dq, dq0),
-                       ("dk", dk, dk0), ("dv", dv, dv0), ("dq simt", dqs, dq0),
-                       ("dk simt", dks, dk0), ("dv simt", dvs, dv0)):
+    for name, a, b in pairs:
         err = (a.float() - b.float()).abs().max().item()
         assert err <= tol * max(1.0, b.float().abs().max().item()), \
             (name, err)
@@ -673,9 +699,51 @@ def test_flash_kernels_match_plain_on_cuda(cuda, dtype, s, sk, causal, seg,
     assert [K.launch_counts()[n] for n in ("flash_forward",
                                            "flash_backward_dkv",
                                            "flash_backward_dq")] == [2, 2, 2]
-    assert K.flash_forward_simt.launches == 1
-    assert K.flash_backward_dkv_simt.launches == 1
-    assert K.flash_backward_dq_simt.launches == 1
+    assert K.flash_forward_simt.launches == int(simt)
+    assert K.flash_backward_dkv_simt.launches == int(simt)
+    assert K.flash_backward_dq_simt.launches == int(simt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 80, 96, 256])
+def test_flash_kernels_refuse_other_head_dims(cuda, dtype, d):
+    """Outside FLASH_HEAD_DIMS every tensor-core wrapper raises, with the
+    head dimension in its message: nothing falls back to a plain version;
+    the CUDA-core kernels take 64 only."""
+    (q, k, v, do), _, _ = _flash_inputs(cuda, dtype, 2, 2, 96, 3,
+                                        contiguous=True, d=d)
+    lse = torch.zeros(2, 2, 96, device=cuda)
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match=f"head dimension {d}"):
+        K.flash_forward(q, k, v, None, None, True, 0.125)
+    for wrapper in (K.flash_backward_dkv, K.flash_backward_dq,
+                    K.flash_backward_dkv_simt, K.flash_backward_dq_simt):
+        with pytest.raises(ValueError, match=f"head dimension {d}"):
+            wrapper(q, k, v, None, None, lse, do, lse, True, 0.125)
+    assert K.launch_counts() == before
+    (q, k, v, do), _, _ = _flash_inputs(cuda, dtype, 2, 2, 96, 3, d=32)
+    with pytest.raises(ValueError, match="head dimension 32"):
+        K.flash_forward_simt(q, k, v, None, None, True, 0.125)
+
+
+@pytest.mark.cuda
+def test_flash_smem_matches_the_source(cuda):
+    """_flash_smem, the host's mirror, gives what the source's ff_smem and
+    hb_smem give for every kernel, type and head dimension, each within the
+    232,448 bytes a block may have; -1 for another head dimension."""
+    from fewbit_tpu_torch.ops._build import load_library
+
+    query = load_library().fewbit_flash_smem
+    for i, name in enumerate(("flash_forward", "flash_backward_dkv",
+                              "flash_backward_dq")):
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = int(dtype == torch.bfloat16)
+            for d in K.FLASH_HEAD_DIMS:
+                want = K._flash_smem(name, dtype, d)
+                assert query(i, bf16, d) == want, (name, dtype, d)
+                assert want <= K.FLASH_SMEM_LIMIT
+            assert query(i, bf16, 96) == -1
 
 
 @pytest.mark.cuda
@@ -713,9 +781,9 @@ def test_flash_backward_refuses_what_tma_cannot_read(cuda, dtype):
             err = (got.float() - ref.float()).abs().max().item()
             tol = 1e-4 if dtype == torch.float32 else 2e-2
             assert err <= tol * max(1.0, ref.float().abs().max().item())
-    with pytest.raises(ValueError):  # head dimension 32
-        K.flash_backward_dq(q[..., :32], k[..., :32], v[..., :32], None, None,
-                            lse, do[..., :32], di)
+    with pytest.raises(ValueError):  # head dimension 16
+        K.flash_backward_dq(q[..., :16], k[..., :16], v[..., :16], None, None,
+                            lse, do[..., :16], di)
 
 
 @pytest.mark.cuda
@@ -727,9 +795,24 @@ def test_flash_backward_repeats_its_bits_under_load(cuda, dtype, causal):
     three streams at once and again and again, so that a block's warps are
     held up differently each time: every launch gives the first one's bits,
     and those agree with the plain versions."""
+    _repeats_under_load(cuda, dtype, causal, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_repeats_its_bits_under_load_at_other_head_dims(cuda, dtype,
+                                                              causal, d):
+    """The same at head dimensions 32 and 128 (at 128 in f32: 128 tiles of
+    32 rows a block, through one stage in F2 and F3)."""
+    _repeats_under_load(cuda, dtype, causal, d)
+
+
+def _repeats_under_load(cuda, dtype, causal, d):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     s = 4096
-    (q, k, v, do), _, _ = _flash_inputs(cuda, dtype, 2, 4, s, 21)
+    (q, k, v, do), _, _ = _flash_inputs(cuda, dtype, 2, 4, s, 21, d=d)
     scale = 0.125
     fargs = (q, k, v, None, None, causal, scale)
     o, lse = K.flash_forward(*fargs)
@@ -788,8 +871,8 @@ def test_flash_attention_function_on_cuda(cuda):
     for a, b in zip(*grads):
         err = (a - b).abs().max().item()
         assert err <= 1e-4 * max(1.0, b.abs().max().item()), err
-    with pytest.raises(ValueError):  # head dimension 32
-        K.flash_forward(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError):  # head dimension 16
+        K.flash_forward(q[..., :16], k[..., :16], v[..., :16])
     with pytest.raises(ValueError):  # float64
         K.flash_forward(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):  # segment ids for one side only

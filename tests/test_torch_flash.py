@@ -70,14 +70,14 @@ def _op_inputs(s, seed, d=D):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d", [64, 32], ids=["d64", "d32"])
+@pytest.mark.parametrize("d", [64, 32, 128], ids=["d64", "d32", "d128"])
 @pytest.mark.parametrize("s", [128, 100])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("seg", [False, True], ids=["noseg", "seg"])
 def test_plain_matches_library_reference(s, causal, seg, d):
     """The plain forward and backward against the library's reference and
     its VJP, at every row (padded query rows included), at the head
-    dimension the kernels take and at 32 (the plain versions take any)."""
+    dimensions the kernels take (the plain versions take any)."""
     q, k, v, do, ids = _op_inputs(s, s + 2 * causal + seg, d)
     scale = d ** -0.5
     jseg = fa.SegmentIds(q=jnp.asarray(ids), kv=jnp.asarray(ids)) \
@@ -219,19 +219,31 @@ def test_use_flash_matches_jax_rule():
 def test_auto_keeps_standard_attention_outside_the_kernels_envelope(
         monkeypatch):
     """"auto" takes flash only at a head dimension F1-F3 take
-    (FLASH_HEAD_DIM); True goes on to the kernel, which refuses.  The
-    models hand use_flash their own head dimension."""
+    (FLASH_HEAD_DIMS: 32, 64 and 128), on a CUDA device only; elsewhere
+    True goes on to the kernel, which refuses with the head dimension in
+    its message.  The models hand use_flash their own head dimension."""
     from fewbit_tpu_torch.models import gpt, roberta
-    from fewbit_tpu_torch.ops.kernels import FLASH_HEAD_DIM
+    from fewbit_tpu_torch.ops.kernels import FLASH_HEAD_DIMS
 
-    assert FLASH_HEAD_DIM == 64
+    assert FLASH_HEAD_DIMS == (32, 64, 128)
     s = FLASH_AUTO_MIN_SEQ
-    assert use_flash("auto", s, 0.0, "cuda", head_dim=FLASH_HEAD_DIM)
     assert use_flash("auto", s, 0.0, "cuda", head_dim=None)
-    for d in (32, 128, 96):
+    for d in FLASH_HEAD_DIMS:
+        assert use_flash("auto", s, 0.0, "cuda", head_dim=d)
+        assert use_flash("auto", s, 0.1, "cuda", True, d)
+        assert not use_flash("auto", s, 0.0, "cpu", head_dim=d)
+        assert not use_flash("auto", s, 0.1, "cuda", head_dim=d)
+    for d in (16, 80, 96, 256):
         assert not use_flash("auto", s, 0.0, "cuda", head_dim=d)
         assert not use_flash("auto", s, 0.1, "cuda", True, d)
         assert use_flash(True, s, 0.0, "cuda", head_dim=d)
+        # The kernel's envelope refuses it (checked before any device is
+        # touched, so a CPU tensor posing as CUDA is enough here).
+        q = torch.zeros(1, 1, 8, d)
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+        with pytest.raises(ValueError, match=f"head dimension {d}"):
+            K._flash_checks(q, q, q, None, None)
+        monkeypatch.undo()
     # Both models pass their head dimension: hidden 128 over 4 heads is 32.
     seen = []
 
@@ -289,18 +301,37 @@ def _transplant(jmodel, tmodel, b):
     return params
 
 
-def _jax_loss_grads(jmodel, params, b, loss):
-    def loss_fn(p):
-        logits = jmodel.apply({"params": p}, jnp.asarray(b["input_ids"]),
-                              jnp.asarray(b["attention_mask"]),
-                              deterministic=True,
-                              rngs={"sketch": jax.random.key(2)})
-        return loss(logits, jnp.asarray(b["labels"])), logits
+def _jax_step(jmodel, loss, capture=None):
+    """JAX's ``(params, batch) -> (loss, logits, grads)`` as numpy, jitted
+    once for every batch of one shape; with ``capture``, a module name, also
+    that module's output in each layer (``layer_i``), in layer order."""
+    def loss_fn(p, ids, mask, labels):
+        logits, state = jmodel.apply(
+            {"params": p}, ids, mask, deterministic=True,
+            rngs={"sketch": jax.random.key(2)},
+            capture_intermediates=lambda m, _: m.name == capture,
+            mutable=["intermediates"])
+        return loss(logits, labels), (logits, state["intermediates"])
 
-    (value, logits), grads = jax.jit(jax.value_and_grad(
-        loss_fn, has_aux=True))(params)
-    return (float(value), np.asarray(logits),
-            jax.tree_util.tree_map(np.asarray, grads))
+    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+
+    def run(params, b):
+        (value, (logits, seen)), grads = step(params, *(
+            jnp.asarray(b[k]) for k in ("input_ids", "attention_mask",
+                                        "labels")))
+        out = (float(value), np.asarray(logits),
+               jax.tree_util.tree_map(np.asarray, grads))
+        if capture is None:
+            return out
+        layers = next(iter(seen.values()))
+        return out + ([np.asarray(layers[f"layer_{i}"][capture]["__call__"]
+                                  [0]) for i in range(len(layers))],)
+
+    return run
+
+
+def _jax_loss_grads(jmodel, params, b, loss):
+    return _jax_step(jmodel, loss)(params, b)
 
 
 def _torch_loss_grads(tmodel, b, loss):
@@ -318,31 +349,41 @@ def _torch_loss_grads(tmodel, b, loss):
         logits = tmodel(torch.from_numpy(b["input_ids"]).long(),
                         torch.from_numpy(b["attention_mask"]),
                         sketch_generator=torch.Generator().manual_seed(2))
-    assert not [s for s in shapes if len(s) == 4 and s[-2:] == (SEQ, SEQ)]
+    seq = b["input_ids"].shape[1]
+    assert not [s for s in shapes if len(s) == 4 and s[-2:] == (seq, seq)]
     value = loss(logits, torch.from_numpy(b["labels"]).long())
     value.backward()
     return value.item(), logits.detach().numpy()
 
 
-def _check_grads(tmodel, jgrads, fewbit):
+def _compared(tmodel, jgrads, fewbit):
+    """``(param, JAX's gradient)`` of every parameter whose gradient is
+    held to JAX's: all but few-bit's sketched weights (each package draws
+    its own sketch) and the key bias, whose gradient is rounding noise on
+    both sides (it adds one constant per query row to the logits, which the
+    softmax ignores; checked to be below 1e-6 here)."""
     sketched = {id(p) for name, p in tmodel.named_parameters()
                 if name.endswith("weight") and any(
                     k in name for k in ("query", "key", "value", "output.",
                                         "intermediate", "ffn_output",
                                         "ffn.up", "ffn.down", "head_dense",
                                         "head_out"))} if fewbit else set()
-    # The key bias adds one constant per query row to the logits, which the
-    # softmax ignores: its gradient is rounding noise on both sides.
     key_bias = {id(p) for name, p in tmodel.named_parameters()
                 if name.endswith("key.bias")}
+    out = []
     for param, want in flax_param_pairs(tmodel, jgrads):
         got = param.grad.numpy()
         assert got.shape == want.shape and np.isfinite(got).all()
         if id(param) in key_bias:
             assert np.abs(got).max() < 1e-6 and np.abs(want).max() < 1e-6
-            continue
-        if id(param) in sketched:
-            continue
+        elif id(param) not in sketched:
+            out.append((param, want))
+    return out
+
+
+def _check_grads(tmodel, jgrads, fewbit):
+    for param, want in _compared(tmodel, jgrads, fewbit):
+        got = param.grad.numpy()
         if fewbit:
             assert np.linalg.norm(got - want) <= \
                 1e-4 * np.linalg.norm(want) + 1e-6
@@ -353,37 +394,170 @@ def _check_grads(tmodel, jgrads, fewbit):
                                        atol=1e-3 * np.abs(want).max() + 1e-8)
 
 
+# A few-bit code may differ between the packages where a border lies
+# between their pre-activations: their FFN inputs differ by the rounding of
+# their f32 sums upstream (the attention's among them; up to 4.1e-6 in the
+# pre-activation at these widths), and each package's own f32 product
+# rounds by up to 3.6e-6.  One flip moves the gradients by about 2e-4 of
+# their norm, above the bound, so the port's backward is held to JAX's on
+# JAX's codes: they may differ from the port's only within FLIP_EPS of a
+# border lying between the two f64 pre-activations, on at most
+# FLIP_FRACTION of the elements (as chip_smoke.py holds a kernel's codes).
+FLIP_EPS, FLIP_FRACTION = 1e-5, 1e-4
+
+
+class _PortCodes:
+    """The port's few-bit FFN on the CPU, where kernels 6 and 5 run their
+    plain versions: each forward records every layer's input, weights and
+    codes; the backward of a layer in ``take`` runs on the codes given
+    there instead of the forward's."""
+
+    def __init__(self, monkeypatch):
+        from fewbit_tpu_torch.ops.bitpack import pack_codes, unpack_codes
+
+        self.take = {}
+        self.reset()
+        forward, backward = K.dense_act_plain, K.act_backward_plain
+
+        def dense_act(spec, x, w, bias, borders, *args, **kwargs):
+            y, packed = forward(spec, x, w, bias, borders, *args, **kwargs)
+            self.layer_of[packed.data_ptr()] = len(self.codes)
+            self.codes.append(unpack_codes(packed, spec.bits,
+                                           x.shape[0]).numpy())
+            self.dense.append(tuple(t.detach().numpy() for t in (x, w, bias)))
+            self.borders = borders.double().numpy()
+            return y, packed
+
+        def act_backward(spec, packed, levels, g):
+            layer = self.layer_of[packed.data_ptr()]
+            if layer in self.take:
+                packed = pack_codes(torch.from_numpy(self.take[layer]),
+                                    spec.bits)
+            return backward(spec, packed, levels, g)
+
+        monkeypatch.setattr(K, "dense_act_plain", dense_act)
+        monkeypatch.setattr(K, "act_backward_plain", act_backward)
+
+    def reset(self):
+        self.codes, self.dense, self.layer_of = [], [], {}
+
+    def take_jax_codes(self, jax_inputs):
+        """Sets ``take`` to JAX's codes of every layer: its Pallas kernel
+        (interpret mode) on its FFN input (``jax_inputs``, by layer) and
+        the same weights, as its model runs it.  Asserts where they differ
+        from the port's.  Returns how many differ."""
+        from fewbit_tpu.functional.activations import \
+            resolve_activation as jax_resolve_activation
+        from fewbit_tpu.ops import pallas_kernels as pk
+
+        spec, borders, _ = jax_resolve_activation("gelu", bits=3)
+        self.take, moved = {}, 0
+        for lay, ((x, w, bias), jx) in enumerate(zip(self.dense,
+                                                     jax_inputs)):
+            jx = jx.reshape(x.shape)
+            out = pk.fused_dense_act(spec, jnp.asarray(jx), jnp.asarray(w),
+                                     jnp.asarray(bias), borders)
+            assert out is not None  # JAX's kernel took the block
+            jcodes = np.asarray(pk.unpack_block_layout(
+                out[1], spec.bits, (x.shape[0], w.shape[1])), np.int32)
+            flips = jcodes != self.codes[lay]
+            rows, cols = np.nonzero(flips)
+            zp = np.einsum("nk,kn->n", x[rows].astype(np.float64),
+                           w[:, cols].astype(np.float64)) + bias[cols]
+            zj = np.einsum("nk,kn->n", jx[rows].astype(np.float64),
+                           w[:, cols].astype(np.float64)) + bias[cols]
+            lo = np.minimum(zp, zj)[:, None] - FLIP_EPS
+            hi = np.maximum(zp, zj)[:, None] + FLIP_EPS
+            assert ((self.borders >= lo) & (self.borders <= hi)).any(1).all()
+            assert flips.sum() <= FLIP_FRACTION * flips.size, flips.sum()
+            self.take[lay] = jcodes
+            moved += int(flips.sum())
+        return moved
+
+
+# Widths of the other head dimensions the kernels take: hidden 128 over 4
+# heads (the JAX package's example models), 256 over 2, and a sequence
+# length that no head dimension equals (the saved-tensor check below tells
+# (b, h, s, s) from (b, h, s, d) by it).
+HEAD_DIM_WIDTHS = {32: (dict(hidden_size=128, num_heads=4), SEQ),
+                   128: (dict(hidden_size=256, num_heads=2), 96)}
+# GPT's batch seeds, the same at every head dimension.
+GPT_BATCH_SEEDS = (2, 3, 4, 5)
+
+
 @pytest.mark.parametrize("fewbit", [False, True], ids=["vanilla", "fewbit"])
 def test_gpt_flash_matches_jax(monkeypatch, fewbit):
-    """Causal flash with segment ids from the attention mask.  The batch
-    seed is one where no few-bit code lies within rounding of a border, so
-    that the attention's own rounding flips none (one flip moves the
-    gradients by about 2e-4 of their norm)."""
+    """Causal flash with segment ids from the attention mask, on the
+    batches of GPT_BATCH_SEEDS; the few-bit backward on JAX's codes, which
+    may differ from the port's only within rounding of a border
+    (``_PortCodes.take_jax_codes``)."""
+    _gpt_flash_case(monkeypatch, fewbit, {}, SEQ)
+
+
+@pytest.mark.parametrize("fewbit", [False, True], ids=["vanilla", "fewbit"])
+@pytest.mark.parametrize("d", sorted(HEAD_DIM_WIDTHS), ids=["d32", "d128"])
+def test_gpt_flash_matches_jax_at_head_dims(monkeypatch, fewbit, d):
+    """As test_gpt_flash_matches_jax (head dimension 64) at head dimensions
+    32 and 128, the other two F1-F3 take on the card; two layers, the same
+    tolerances."""
+    _gpt_flash_case(monkeypatch, fewbit, *HEAD_DIM_WIDTHS[d])
+
+
+def _gpt_flash_case(monkeypatch, fewbit, widths, seq):
     monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
     extra = FEWBIT if fewbit else {}
-    cfg = dict(SMALL, max_position_embeddings=SEQ, **extra)
+    cfg = dict(SMALL, max_position_embeddings=seq, **extra, **widths)
     # Unrolled layers, as in tests/test_torch_gpt.py's few-bit test.
     jmodel = JaxGPT(JaxGPTConfig(**cfg, scan_layers=False))
     tmodel = GPTForCausalLM(GPTConfig(**cfg), device="cpu")
-    b = next(synthetic_lm(BS, SEQ, vocab_size=SMALL["vocab_size"], seed=2))
-    params = _transplant(jmodel, tmodel, b)
-    jl, jlogits, jgrads = _jax_loss_grads(jmodel, params, b, jax_lm_loss)
-    tl, tlogits = _torch_loss_grads(tmodel, b, causal_lm_loss)
-    np.testing.assert_allclose(tlogits, jlogits, rtol=1e-4, atol=1e-5)
-    assert abs(tl - jl) < 1e-5
-    _check_grads(tmodel, jgrads, fewbit)
+    codes = _PortCodes(monkeypatch) if fewbit else None
+    jax_step = _jax_step(jmodel, jax_lm_loss, "ffn_norm" if fewbit else None)
+    params = None
+    for seed in GPT_BATCH_SEEDS:
+        b = next(synthetic_lm(BS, seq, vocab_size=SMALL["vocab_size"],
+                              seed=seed))
+        if params is None:
+            params = _transplant(jmodel, tmodel, b)
+        jl, jlogits, jgrads, *jax_inputs = jax_step(params, b)
+
+        def run():
+            if codes is not None:
+                codes.reset()
+            return _torch_loss_grads(tmodel, b, causal_lm_loss)
+
+        tl, tlogits = run()
+        np.testing.assert_allclose(tlogits, jlogits, rtol=1e-4, atol=1e-5)
+        assert abs(tl - jl) < 1e-5
+        if fewbit:
+            moved = codes.take_jax_codes(jax_inputs[0])
+            print(f"batch seed {seed}: {moved} codes differ from JAX's")
+            run()
+            codes.take = {}
+        _check_grads(tmodel, jgrads, fewbit)
 
 
 @pytest.mark.parametrize("fewbit", [False, True], ids=["vanilla", "fewbit"])
 def test_roberta_flash_matches_jax_on_padded_batch(monkeypatch, fewbit):
     """Non-causal flash with segment ids from the padding mask."""
+    _roberta_flash_case(monkeypatch, fewbit, {}, SEQ)
+
+
+@pytest.mark.parametrize("fewbit", [False, True], ids=["vanilla", "fewbit"])
+@pytest.mark.parametrize("d", sorted(HEAD_DIM_WIDTHS), ids=["d32", "d128"])
+def test_roberta_flash_matches_jax_at_head_dims(monkeypatch, fewbit, d):
+    """As test_roberta_flash_matches_jax_on_padded_batch (head dimension
+    64) at head dimensions 32 and 128."""
+    _roberta_flash_case(monkeypatch, fewbit, *HEAD_DIM_WIDTHS[d])
+
+
+def _roberta_flash_case(monkeypatch, fewbit, widths, seq):
     monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
     extra = FEWBIT if fewbit else {}
-    cfg = dict(SMALL, max_position_embeddings=SEQ + 2, **extra)
+    cfg = dict(SMALL, max_position_embeddings=seq + 2, **extra, **widths)
     jmodel = JaxRoberta(JaxRobertaConfig(**cfg))
     tmodel = RobertaForSequenceClassification(RobertaConfig(**cfg),
                                               device="cpu")
-    b = next(synthetic_glue(BS, SEQ, vocab_size=SMALL["vocab_size"], seed=1))
+    b = next(synthetic_glue(BS, seq, vocab_size=SMALL["vocab_size"], seed=1))
     assert (b["attention_mask"] == 0).any()  # padded rows are exercised
     params = _transplant(jmodel, tmodel, b)
     jl, jlogits, jgrads = _jax_loss_grads(jmodel, params, b, jax_cls_loss)
@@ -391,3 +565,24 @@ def test_roberta_flash_matches_jax_on_padded_batch(monkeypatch, fewbit):
     np.testing.assert_allclose(tlogits, jlogits, rtol=1e-4, atol=1e-5)
     assert abs(tl - jl) < 1e-5
     _check_grads(tmodel, jgrads, fewbit)
+
+
+def test_gpt_at_cerebras_590m_widths_matches_jax(monkeypatch):
+    """One layer of Cerebras-GPT-590M's widths (hidden 1536 over 12 heads
+    of 128, FFN 6144; vocabulary cut to 1000, 256 positions): the JAX
+    parameters load through load_flax_params and flax_param_pairs, and the
+    port's flash path (its plain versions here) gives JAX's logits, loss
+    and gradients at the tolerances above."""
+    monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
+    cfg = dict(SMALL, hidden_size=1536, num_heads=12, num_layers=1,
+               intermediate_size=6144, max_position_embeddings=256)
+    jmodel = JaxGPT(JaxGPTConfig(**cfg, scan_layers=False))
+    tmodel = GPTForCausalLM(GPTConfig(**cfg), device="cpu")
+    assert GPTConfig(**cfg).head_dim == 128
+    b = next(synthetic_lm(2, 96, vocab_size=SMALL["vocab_size"], seed=4))
+    params = _transplant(jmodel, tmodel, b)
+    jl, jlogits, jgrads = _jax_loss_grads(jmodel, params, b, jax_lm_loss)
+    tl, tlogits = _torch_loss_grads(tmodel, b, causal_lm_loss)
+    np.testing.assert_allclose(tlogits, jlogits, rtol=1e-4, atol=1e-5)
+    assert abs(tl - jl) < 1e-5
+    _check_grads(tmodel, jgrads, False)

@@ -26,7 +26,7 @@ from fewbit_tpu_torch.ops.flash_attention import (DEFAULT_MASK_VALUE,
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOG2E = 1.4426950408889634
-HEAD_DIM = K.FLASH_HEAD_DIM
+HEAD_DIM = 64
 
 
 def _tf32(a: torch.Tensor) -> torch.Tensor:
@@ -78,10 +78,10 @@ def _f64(q, k, v, do, lse, di, keep, scale):
     return ds.t() @ q, p.t() @ do, ds @ k
 
 
-def _head(seq, mode, dtype, seed):
+def _head(seq, mode, dtype, seed, d=HEAD_DIM):
     """One head's inputs from a seed, with the plain forward's lse and di."""
     rng = np.random.RandomState(seed)
-    q, k, v, do = (torch.from_numpy(rng.randn(1, 1, seq, HEAD_DIM)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 1, seq, d)
                                     .astype(np.float32)).to(dtype)
                    for _ in range(4))
     seg = None
@@ -90,7 +90,7 @@ def _head(seq, mode, dtype, seed):
                               side="right").astype(np.int32)
         seg = torch.from_numpy(ids)[None]
     causal = mode == "causal" or seq == 1024  # segments: with and without
-    scale = HEAD_DIM ** -0.5
+    scale = d ** -0.5
     o, lse = flash_forward_plain(q, k, v, seg, seg, causal, scale)
     di = (o.float() * do.float()).sum(-1)
     return q, k, v, do, seg, lse, di, causal, scale
@@ -101,8 +101,24 @@ def _head(seq, mode, dtype, seed):
 @pytest.mark.parametrize("mode", ["causal", "segments"])
 @pytest.mark.parametrize("seq", [1024, 200])
 def test_emulated_arithmetic_against_f64(seq, mode, dtype):
+    _emulated_against_f64(seq, mode, dtype, HEAD_DIM)
+
+
+@pytest.mark.parametrize("d", [32, 128], ids=["d32", "d128"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["causal", "segments"])
+@pytest.mark.parametrize("seq", [1024, 200])
+def test_emulated_arithmetic_against_f64_at_head_dims(seq, mode, dtype, d):
+    """The same at head dimensions 32 and 128: the products contract over
+    d in the first products and over the looped rows in the second, so the
+    tile rows change the order of the sums only."""
+    _emulated_against_f64(seq, mode, dtype, d)
+
+
+def _emulated_against_f64(seq, mode, dtype, d):
     q, k, v, do, seg, lse, di, causal, scale = _head(seq, mode, dtype,
-                                                     seed=seq)
+                                                     seed=seq, d=d)
     ids = None if seg is None else seg[0]
     keep = _mask(ids, ids, causal, seq, seq)
     args = (q[0, 0], k[0, 0], v[0, 0], do[0, 0], lse[0, 0], di[0, 0], keep,
@@ -225,13 +241,67 @@ def test_swizzled_plane_offsets_are_a_permutation():
     plane (two sub-tiles of 32 floats a row, chunk q of row r at q ^ (r %
     8)) each land on a place of their own, and a quarter warp's eight
     chunks of one row cover all 32 banks."""
-    def plane_chunk(row, c16):
-        return (c16 >> 3) * 64 * 128 + row * 128 + (((c16 & 7) ^ (row & 7))
-                                                    << 4)
+    _plane_offsets(64, 64)
 
-    offsets = {plane_chunk(r, c) for r in range(64) for c in range(16)}
-    assert offsets == set(range(0, 64 * 64 * 4, 16))
-    for row in range(64):
+
+# The f32 planes of each instantiation: (tile rows, head dimension).
+F32_PLANES = [(64, 32), (64, 64), (32, 128)]
+
+
+@pytest.mark.parametrize("tile,d", F32_PLANES,
+                         ids=[f"tile{t}_d{d}" for t, d in F32_PLANES])
+def test_swizzled_plane_offsets_at_every_f32_instantiation(tile, d):
+    """The same for every f32 plane the kernels keep (``K._flash_tiles``),
+    and the producer's thread layouts over it: ``fetch_tile`` and
+    ``split_fetched`` (128 threads, ``tile d / 512`` chunks each, row =
+    chunk >> log2(d / 4)) and ``transpose_planes`` (a warp's lanes on 32
+    different rows, ``tile / 32`` row groups by ``d / 16`` chunk columns a
+    warp) each visit every chunk once; the transposed plane (d rows x tile
+    floats, sub-tiles of 32 k) is a permutation of its bytes too."""
+    assert {(K._flash_tiles(name, torch.float32, dd)[1], dd)
+            for name in ("flash_forward", "flash_backward_dkv",
+                         "flash_backward_dq") for dd in K.FLASH_HEAD_DIMS} \
+        == set(F32_PLANES)
+    _plane_offsets(tile, d)
+    row_chunks = d // 4
+    shift = row_chunks.bit_length() - 1
+    fetched = [((ptid + 128 * it) >> shift,
+                (ptid + 128 * it) & (row_chunks - 1))
+               for ptid in range(128) for it in range(tile * row_chunks // 128)]
+    assert sorted(fetched) == [(r, c) for r in range(tile)
+                               for c in range(row_chunks)]
+    groups, chunks = tile // 32, d // 16
+    seen = []
+    for w in range(4):
+        for it in range(groups * chunks):
+            rows = [lane + 32 * (it & (groups - 1)) for lane in range(32)]
+            assert len(set(rows)) == 32
+            c16 = chunks * w + (it >> (groups.bit_length() - 1))
+            seen += [(r, c16) for r in rows]
+    assert sorted(seen) == [(r, c) for r in range(tile)
+                            for c in range(row_chunks)]
+    # transpose_planes' stores: element (d_i, k) of the transposed plane at
+    # sub-tile k // 32, swizzled row d_i, column k % 32.
+    out = {(k // 32) * d * 128 + _swizzled_offset(di, k % 32, 4)
+           for di in range(d) for k in range(tile)}
+    assert out == set(range(0, d * tile * 4, 4))
+
+
+def _swizzled_offset(row, col, elem_bytes):
+    """``hopper::swizzled_offset``: element (row, col) of a 128-byte-row
+    tile as TMA's 128-byte swizzle writes it."""
+    byte = col * elem_bytes
+    return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15)
+
+
+def _plane_offsets(tile, d):
+    def plane_chunk(row, c16):
+        return (c16 >> 3) * tile * 128 + row * 128 + (
+            ((c16 & 7) ^ (row & 7)) << 4)
+
+    offsets = {plane_chunk(r, c) for r in range(tile) for c in range(d // 4)}
+    assert offsets == set(range(0, tile * d * 4, 16))
+    for row in range(tile):
         banks = {(plane_chunk(row, c) // 4 + w) % 32
                  for c in range(8) for w in range(4)}
         assert len(banks) == 32
@@ -357,3 +427,171 @@ def test_kernels_table_names_the_new_source():
     K.reset_launch_counts()
     assert K.flash_backward_dkv_simt.launches == 0
     assert K.flash_backward_dq_simt.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# Every instantiation: the fragments at its tile rows, the descriptors at
+# its row bytes, its shared memory.
+# ---------------------------------------------------------------------------
+
+
+def _fragments(x):
+    """frag[thread, 4 i + 2 h + e] = x[16 warp + g + 8 h, 8 i + 2 t + e] of
+    a 64 x n accumulator."""
+    n = x.shape[1]
+    frag = np.zeros((128, n // 2), x.dtype)
+    for thread in range(128):
+        warp, g, t = thread // 32, (thread % 32) // 4, thread % 4
+        for i in range(n // 8):
+            for h in range(2):
+                for e in range(2):
+                    frag[thread, 4 * i + 2 * h + e] = x[
+                        16 * warp + g + 8 * h, 8 * i + 2 * t + e]
+    return frag
+
+
+# (dtype, tile rows, head dimension) of every instantiation's second
+# products, by K._flash_tiles.
+SECOND_PRODUCTS = sorted({
+    (dt, K._flash_tiles(name, torch.float32 if dt == "f32"
+                        else torch.bfloat16, d)[1], d)
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
+    for dt in ("f32", "bf16") for d in (32, 64, 128)})
+
+
+@pytest.mark.parametrize("dt,tile,d", SECOND_PRODUCTS,
+                         ids=[f"{a}_tile{b}_d{c}"
+                              for a, b, c in SECOND_PRODUCTS])
+def test_fragments_feed_the_second_product_at_every_shape(dt, tile, d):
+    """The two fragment tests above at each instantiation's tile rows
+    (the accumulator of S is 64 x tile) and head dimension (the second
+    product's N): tf32 steps of eight k with B's k permuted, bf16 steps of
+    sixteen with packed pairs and B MN-major."""
+    rng = np.random.RandomState(tile + d)
+    x = rng.randn(64, tile)
+    b = rng.randn(tile, d)
+    frag = _fragments(x)
+    out = np.zeros((64, d))
+    if dt == "f32":
+        bt = np.zeros((d, tile))
+        for row in range(tile):
+            bt[:, _permuted_k(row)] = b[row]
+        for j in range(tile // 8):
+            a_step = np.zeros((64, 8))
+            for thread in range(128):
+                warp, g, t = thread // 32, (thread % 32) // 4, thread % 4
+                for r in range(4):
+                    a_step[16 * warp + g + 8 * (r & 1), t + 4 * (r >> 1)] = \
+                        frag[thread, 4 * j + 2 * (r & 1) + (r >> 1)]
+            out += a_step @ bt[:, 8 * j:8 * j + 8].T
+    else:
+        for j in range(tile // 16):
+            a_step = np.zeros((64, 16))
+            for thread in range(128):
+                warp, g, t = thread // 32, (thread % 32) // 4, thread % 4
+                for r in range(4):
+                    for half in range(2):
+                        a_step[16 * warp + g + 8 * (r & 1),
+                               2 * t + 8 * (r >> 1) + half] = frag[
+                            thread, 8 * j + 2 * r + half]
+            out += a_step @ b[16 * j:16 * j + 16]
+    np.testing.assert_allclose(out, x @ b, rtol=1e-12, atol=1e-12)
+
+
+def _swizzle(offset, row_bytes):
+    """TMA's and wgmma's swizzle of a byte offset inside an aligned atom:
+    the 16-byte chunk bits XOR the row bits above them (Swizzle<3,4,3> for
+    128-byte rows, Swizzle<2,4,3> for 64-byte rows)."""
+    bits = 3 if row_bytes == 128 else 2
+    mask = ((1 << bits) - 1) << 7
+    return offset ^ ((offset & mask) >> 3)
+
+
+def _tma_tile(rows, cols, elt, rb):
+    """Byte -> (row, col) of a rows x cols operand as the kernels' TMA
+    boxes lay it: sub-tiles of ``rb``-byte rows, one after the other."""
+    sub_bytes = rows * rb
+    where = {}
+    for r in range(rows):
+        for c in range(cols):
+            byte = c * elt
+            off = (byte // rb) * sub_bytes + _swizzle(r * rb + byte % rb, rb)
+            where[off] = (r, c)
+    return where
+
+
+def _kmajor_read(start, mn, k_bytes, elt, rb):
+    """The address wgmma reads for element (mn, k) of a K-major operand
+    whose descriptor starts at ``start`` (SBO 8 rb, the swizzle of rb)."""
+    return _swizzle(start + (mn % 8) * rb + (mn // 8) * 8 * rb + k_bytes, rb)
+
+
+def _mnmajor_read(start, n, k, elt, rb, lbo):
+    """The address of element (n, k) of an MN-major operand: rb bytes of n
+    a row, the next rb bytes of n ``lbo`` on, k rows rb apart, eight k rows
+    an atom (SBO 8 rb)."""
+    per = rb // elt
+    return _swizzle(start + (n % per) * elt + (n // per) * lbo
+                    + (k % 8) * rb + (k // 8) * 8 * rb, rb)
+
+
+# (element bytes, head dimension, tile rows) of every TMA-fed operand.
+DESCRIPTORS = [(4, 32, 64), (4, 64, 64), (4, 128, 32), (2, 32, 64),
+               (2, 64, 64), (2, 128, 64), (2, 128, 32)]
+
+
+@pytest.mark.parametrize("elt,d,tile", DESCRIPTORS,
+                         ids=[f"{'f32' if e == 4 else 'bf16'}_d{d}_tile{t}"
+                              for e, d, t in DESCRIPTORS])
+def test_descriptors_read_what_tma_wrote(elt, d, tile):
+    """The kernels' descriptor arithmetic against the canonical layouts of
+    wgmma: the first products' K-major operands (a 64-row warpgroup's own
+    rows and a looped tile's rows, k step ks at sub-tile ks / KSUB, 32
+    bytes a step within it) read exactly the elements of their step, at
+    128-byte rows and at bf16 d = 32's 64-byte rows; and (bf16) the looped
+    tile read MN-major for the second product (step j 16 rows b on, the
+    next 64 columns one sub-tile on: the leading byte offset) reads rows
+    16 j .. 16 j + 15 of every column."""
+    rb = min(128, d * elt)
+    ksub = rb // 32
+    for rows in (64, tile):
+        where = _tma_tile(rows, d, elt, rb)
+        for ks in range(d * elt // 32):
+            start = (ks // ksub) * rows * rb + 32 * (ks % ksub)
+            for mn in range(rows):
+                for kb in range(0, 32, elt):
+                    assert where[_kmajor_read(start, mn, kb, elt, rb)] == (
+                        mn, (32 * ks + kb) // elt)
+    if elt == 2:
+        where = _tma_tile(tile, d, elt, rb)
+        sub = d * elt // rb
+        lbo = tile * rb if sub > 1 else 16
+        for j in range(tile // 16):
+            start = 16 * rb * j
+            for n in range(d):
+                for k in range(16):
+                    assert where[_mnmajor_read(start, n, k, elt, rb, lbo)] \
+                        == (16 * j + k, n)
+
+
+def test_shared_memory_of_every_instantiation():
+    """_flash_smem, the host's mirror of ff_smem and hb_smem (the GPU
+    tests hold it against the source's): every instantiation within the
+    232,448 bytes a block may have, head dimension 64 as before; f32 at 128
+    would not fit with two consumer warpgroups' 128 own rows."""
+    want = {  # (F1, F2, F3) at d = 32, 64, 128
+        torch.float32: ((116296, 101024, 84640), (230984, 199328, 166560),
+                        (230728, 198560, 165792)),
+        torch.bfloat16: ((43144, 53440, 53440), (84104, 102592, 102592),
+                         (166024, 101056, 200896))}
+    names = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
+    for dtype, rows in want.items():
+        for d, row in zip(K.FLASH_HEAD_DIMS, rows):
+            got = tuple(K._flash_smem(n, dtype, d) for n in names)
+            assert got == row, (dtype, d)
+            assert max(got) <= K.FLASH_SMEM_LIMIT
+    # F1 f32 at 128 with 128 own rows: Q's planes alone take 128 KB.
+    assert 2 * 128 * 128 * 4 + 2 * 2 * 32 * 128 * 4 * 2 > K.FLASH_SMEM_LIMIT
+    for name in names:
+        with pytest.raises(ValueError):
+            K._flash_tiles(name, torch.float32, 96)

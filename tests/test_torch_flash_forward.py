@@ -4,7 +4,9 @@ on the CPU.
 
 F1: its arithmetic emulated in torch -- f32 operands as three TF32
 products, bf16 operands exact with P rounded to bf16 before P V, the online
-softmax over 64-row kv tiles with ``exp2`` and the running max kept in the
+softmax over kv tiles of the instantiation's rows (64, or 32 in f32 at head
+dimension 128, where a block is one warpgroup's 64 query rows; the shapes
+of ``K._flash_tiles``) with ``exp2`` and the running max kept in the
 units of S (and moved only when a row of a warp's 16 gains more than 2^8 on
 it), the tiles a block visits under the causal mask (and a warpgroup's skip
 of a tile wholly past its rows), lse = m + log(l) -- held
@@ -32,8 +34,8 @@ from fewbit_tpu_torch.ops.flash_attention import (DEFAULT_MASK_VALUE,
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOG2E = 1.4426950408889634
-HEAD_DIM = K.FLASH_HEAD_DIM
-BLOCK, TILE = 128, 64  # query rows of a block, kv rows of a tile
+HEAD_DIM = 64
+BLOCK, TILE = 128, 64  # query rows of a block, kv rows of a tile (d = 64)
 
 
 def _tf32(a: torch.Tensor) -> torch.Tensor:
@@ -62,27 +64,29 @@ def _keep(seg_q, seg_kv, causal, sq, sk):
     return keep
 
 
-def _emulate(q, k, v, keep, causal, scale, dtype):
-    """One head of F1 as the kernel computes it: ``(o, lse)``."""
-    sq, sk = q.shape[0], k.shape[0]
-    o = torch.zeros(sq, HEAD_DIM)
+def _emulate(q, k, v, keep, causal, scale, dtype, block=BLOCK, tile=TILE):
+    """One head of F1 as the kernel computes it: ``(o, lse)``; a block of
+    ``block`` query rows (64 a consumer warpgroup) over kv tiles of
+    ``tile`` rows."""
+    sq, sk, d = q.shape[0], k.shape[0], q.shape[1]
+    o = torch.zeros(sq, d)
     lse = torch.zeros(sq)
-    for row0 in range(0, sq, BLOCK):
-        t1 = -(-sk // TILE)
+    for row0 in range(0, sq, block):
+        t1 = -(-sk // tile)
         if causal:
-            t1 = min(t1, (min(row0 + BLOCK, sq) - 1) // TILE + 1)
-        for w0 in (row0, row0 + 64):  # the two consumer warpgroups
+            t1 = min(t1, (min(row0 + block, sq) - 1) // tile + 1)
+        for w0 in range(row0, row0 + block, 64):  # the consumer warpgroups
             if w0 >= sq:
                 continue
             rows = torch.arange(w0, min(w0 + 64, sq))
             m = torch.full((len(rows),), -float("inf"))
             l = torch.zeros(len(rows))
-            acc = torch.zeros(len(rows), HEAD_DIM)
+            acc = torch.zeros(len(rows), d)
             for t in range(t1):
-                l0 = TILE * t
+                l0 = tile * t
                 if causal and l0 > w0 + 63:
                     continue  # the warpgroup skips it
-                cols = torch.arange(l0, min(l0 + TILE, sk))
+                cols = torch.arange(l0, min(l0 + tile, sk))
                 val = _product(q[rows], k[cols].t(), dtype) * scale
                 val = torch.where(keep[rows][:, cols], val,
                                   val + DEFAULT_MASK_VALUE)
@@ -114,11 +118,11 @@ def _f64(q, k, v, keep, scale):
     return torch.softmax(s, 1) @ v, lse
 
 
-def _head(sq, sk, mode, dtype, seed):
+def _head(sq, sk, mode, dtype, seed, d=HEAD_DIM):
     """One head's inputs from a seed and its segment ids (or None)."""
     rng = np.random.RandomState(seed)
-    q = torch.from_numpy(rng.randn(sq, HEAD_DIM).astype(np.float32))
-    k, v = (torch.from_numpy(rng.randn(sk, HEAD_DIM).astype(np.float32))
+    q = torch.from_numpy(rng.randn(sq, d).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(sk, d).astype(np.float32))
             for _ in range(2))
     q, k, v = (t.to(dtype) for t in (q, k, v))
     seg_q = seg_kv = None
@@ -143,10 +147,30 @@ def _head(sq, sk, mode, dtype, seed):
     ids=["gpt", "causal_segments", "segments", "masked_rows_sq_lt_sk",
          "causal_sq_gt_sk", "ragged"])
 def test_emulated_arithmetic_against_f64(sq, sk, causal, mode, dtype):
-    q, k, v, seg_q, seg_kv = _head(sq, sk, mode, dtype, seed=sq + sk)
-    scale = HEAD_DIM ** -0.5
+    _emulated_against_f64(sq, sk, causal, mode, dtype, HEAD_DIM)
+
+
+@pytest.mark.parametrize("d", [32, 128], ids=["d32", "d128"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("sq,sk,causal,mode", [
+    (1024, 1024, True, "none"), (200, 200, True, "segments"),
+    (130, 300, False, "masked_row"), (65, 65, False, "none")],
+    ids=["gpt", "causal_segments", "masked_rows_sq_lt_sk", "ragged"])
+def test_emulated_arithmetic_against_f64_at_head_dims(sq, sk, causal, mode,
+                                                      dtype, d):
+    """The same at head dimensions 32 and 128, on each instantiation's
+    block and tile rows (``K._flash_tiles``: at 128 in f32 one warpgroup's
+    64 query rows over 32-row kv tiles)."""
+    _emulated_against_f64(sq, sk, causal, mode, dtype, d)
+
+
+def _emulated_against_f64(sq, sk, causal, mode, dtype, d):
+    wgs, tile, _ = K._flash_tiles("flash_forward", dtype, d)
+    q, k, v, seg_q, seg_kv = _head(sq, sk, mode, dtype, seed=sq + sk, d=d)
+    scale = d ** -0.5
     keep = _keep(seg_q, seg_kv, causal, sq, sk)
-    o, lse = _emulate(q, k, v, keep, causal, scale, dtype)
+    o, lse = _emulate(q, k, v, keep, causal, scale, dtype, 64 * wgs, tile)
     o64, lse64 = _f64(q, k, v, keep, scale)
     o0, lse0 = flash_forward_plain(
         q[None, None], k[None, None], v[None, None],
