@@ -227,25 +227,32 @@ line as ``bf16_bs64`` and ``bf16_bs128``.
 
 The head-dimension phase (after the long-sequence phase; ``python3
 chip_smoke.py --headdim`` runs it alone) holds kernel 6, and kernel 5 on
-its codes, at the path's FFN (``CEREBRAS_SHAPES``: 4096 rows, 1536 ->
-6144, f32 and bf16) against their plain versions into NaN-filled outputs
-beside their bounds, and F1-F3 at head dimensions 128 and 32
-(``HEADDIM_FLASH``: (2, 12, 2048, 128) causal, the path's attention, and
-(16, 8, 512, 128) with a padding mask; (16, 4, 1024, 32) causal and (32,
-4, 128, 32) padded, the examples' width), f32 and bf16,
-as the kernel phase holds them at 64 (plain, f64, NaN-filled outputs, two
-launches equal to the bit, ``scaled_dot_product_attention`` and the
-bound beside; the CUDA-core kernels take 64 only); then drives GPT at
-Cerebras-GPT-590M's widths (``CEREBRAS_590M``: hidden 1536, 12 heads of
-128, 18 layers, FFN 6144, vocab 50257, 2048 positions; random weights),
-bs 2 x seq 2048, vanilla + flash and few-bit + flash (3 bits, ratio 0.2,
-countsketch), f32 and bf16, through ``make_train_step``: in f32 the
-few-bit forward against the vanilla model's on the same weights; 2 checked
-few-bit steps launching F1-F3, kernels 6 and 5 18 times each and kernel 1
-never (1536 and 6144 exceed its width cap); a vanilla step launching F1-F3
-18 times each and nothing else; vanilla against few-bit in 16 turns
-(step ms, peak above held; the few-bit peak lower).  Its launches go into the
-kernels line as ``cerebras_590m_flash_f32`` and ``_bf16``.
+its codes, at each Cerebras path's FFN (``CEREBRAS_SHAPES``: 4096 rows,
+1536 -> 6144; 2048 rows, 2560 -> 10240; f32 and bf16) against their plain
+versions into NaN-filled outputs beside their bounds, and F1-F3 at head
+dimensions other than 64 (``HEADDIM_FLASH``: 128 at (2, 12, 2048, 128)
+causal, the 590M path's attention, and (16, 8, 512, 128) with a padding
+mask; 32 causal and at the examples' width; 80 at (1, 32, 2048, 80)
+causal, the 2.7B path's; 16, 48, 96 and 112 causal and padded in turn;
+20, through the wrappers' zero-padded copies of the instantiation at 32),
+f32 and bf16, as the kernel phase
+holds them at 64 (plain, f64, NaN-filled outputs that are views of wider
+buffers, whose columns past d must stay NaN, two launches equal to the
+bit, ``scaled_dot_product_attention`` and the bound beside; the
+CUDA-core kernels take 64 only); then drives GPT at Cerebras-GPT-590M's
+widths (``CEREBRAS_590M``: hidden 1536, 12 heads of 128, 18 layers, FFN
+6144, vocab 50257, 2048 positions; random weights), bs 2 x seq 2048, and
+at Cerebras-GPT-2.7B's (``CEREBRAS_2P7B``: hidden 2560, 32 heads of 80,
+FFN 10240, 16 of its 32 layers), bs 1 x seq 2048, each vanilla + flash
+and few-bit + flash (3 bits, ratio 0.2, countsketch), f32 and bf16,
+through ``make_train_step``: in f32 the few-bit forward against the
+vanilla model's on the same weights; 2 checked few-bit steps launching
+F1-F3, kernels 6 and 5 once a layer and kernel 1 never (the widths exceed
+its cap); a vanilla step launching F1-F3 once a layer and nothing else;
+vanilla against few-bit in 16 pairs of single steps (step ms, peak above
+held; the few-bit peak lower).  Its launches go into the kernels line as
+``cerebras_590m_flash_f32``, ``cerebras_2p7b_flash_f32`` and their
+``_bf16``.
 
 ``python3 chip_smoke.py --profile PATH`` runs only the device phase and the
 few-bit steps of one path (a name in ``PATHS``), four timed without the
@@ -295,6 +302,12 @@ PATHS = {
     "cerebras_590m_flash": {"dense_act": 18, "fused_backward": 18,
                             "flash_forward": 18, "flash_backward_dkv": 18,
                             "flash_backward_dq": 18},
+    # Cerebras-GPT-2.7B's widths with flash (32 heads of 80), 16 of its 32
+    # layers: kernel 1 never (2560 and 10240 exceed its cap); kernels 6
+    # and 5 and F1-F3 once a layer.
+    "cerebras_2p7b_flash": {"dense_act": 16, "fused_backward": 16,
+                            "flash_forward": 16, "flash_backward_dkv": 16,
+                            "flash_backward_dq": 16},
 }
 # Cerebras-GPT-590M (Dey et al., "Cerebras-GPT", arXiv 2304.03208, Table 1;
 # the config.json of cerebras/Cerebras-GPT-590M): GPT-2's architecture
@@ -306,24 +319,50 @@ CEREBRAS_590M = dict(hidden_size=1536, num_heads=12, num_layers=18,
                      intermediate_size=6144, vocab_size=50257,
                      max_position_embeddings=2048)
 CEREBRAS_BS, CEREBRAS_SEQ = 2, 2048
-CEREBRAS_LAUNCHES_VANILLA = {"flash_forward": 18, "flash_backward_dkv": 18,
-                             "flash_backward_dq": 18}
+# Cerebras-GPT-2.7B (the same paper's Table 1; the config.json of
+# cerebras/Cerebras-GPT-2.7B): hidden 2560 over 32 heads of 80, FFN 10240,
+# at 16 of its 32 layers, the path's one cut: the few-bit model and its
+# vanilla twin are held side by side (the forward check, the steps in
+# turns), and at 32 layers each f32 model's 2.65 G parameters take about
+# 42 GB with their gradients and AdamW's two moments; two such do not fit
+# the 80 GB card.  Widths, vocabulary and positions are the published ones.
+CEREBRAS_2P7B_PATH = "cerebras_2p7b_flash"
+CEREBRAS_2P7B = dict(hidden_size=2560, num_heads=32, num_layers=16,
+                     intermediate_size=10240, vocab_size=50257,
+                     max_position_embeddings=2048)
+# Each Cerebras path: its config, batch and sequence.
+CEREBRAS = {
+    CEREBRAS_PATH: dict(config=CEREBRAS_590M, bs=CEREBRAS_BS,
+                        seq=CEREBRAS_SEQ),
+    CEREBRAS_2P7B_PATH: dict(config=CEREBRAS_2P7B, bs=1, seq=2048),
+}
+# Vanilla against few-bit in turns of single steps, enough of them that
+# the quartiles of the host-held step ms part (as the bf16 rows').
+CEREBRAS_TURNS = 16
 # F1-F3 at the head dimensions other than 64: (label, batch, heads, seq,
 # head dimension, causal); the padded ones with a padding mask as segment
 # ids.  The path's attention; a padded batch at 128; the examples' width
 # (hidden 128 over 4 heads) causal and at RoBERTa's seq 128.
+# Then the 2.7B path's attention (32 heads of 80), the other
+# instantiations (16, 48, 96, 112) causal and padded in turn, and 20, a
+# head dimension that is not a multiple of 16: the wrappers copy it into
+# zero-padded operands of the instantiation at 32.
 HEADDIM_FLASH = (("cerebras_590m", CEREBRAS_BS, 12, CEREBRAS_SEQ, 128, True),
                  ("d128 padded", 16, 8, 512, 128, False),
                  ("d32 causal", 16, 4, 1024, 32, True),
-                 ("examples roberta d32", 32, 4, 128, 32, False))
+                 ("examples roberta d32", 32, 4, 128, 32, False),
+                 ("cerebras_2p7b", 1, 32, 2048, 80, True),
+                 ("d16 causal", 16, 4, 1024, 16, True),
+                 ("d48 padded", 16, 8, 512, 48, False),
+                 ("d96 causal", 4, 16, 1024, 96, True),
+                 ("d112 padded", 16, 8, 512, 112, False),
+                 ("d20 padded copy", 8, 8, 1024, 20, False))
 # Kernel 6 (and kernel 5 on its codes) at the path's FFN: 4096 rows, 1536
 # -> 6144, in both of the path's types.
-CEREBRAS_SHAPES = ((CEREBRAS_BS * CEREBRAS_SEQ, CEREBRAS_590M["hidden_size"],
-                    CEREBRAS_590M["intermediate_size"],
-                    (torch.float32, torch.bfloat16), ("k6",)),)
-# Vanilla against few-bit in turns, enough of them that the quartiles of
-# the host-held step ms part (as the bf16 rows').
-CEREBRAS_TURNS = 16
+CEREBRAS_SHAPES = tuple(
+    (c["bs"] * c["seq"], c["config"]["hidden_size"],
+     c["config"]["intermediate_size"], (torch.float32, torch.bfloat16),
+     ("k6",)) for c in CEREBRAS.values())
 MLP_FEATURES = (FFN, FFN, FFN, HIDDEN)   # benchmark/bench_linear.py:30-31
 # The megakernel experiment: calls per row (one to size the outputs, two to
 # warm up, 3 timed blocks of EXP_ITERS), and the rows per kernel at its
@@ -723,6 +762,21 @@ def _nan_like(*like):
                                  else -1) for t in like)
 
 
+def _nan_wide(*like, extra=16):
+    """NaN-filled outputs like ``like`` (their last dimension d), each the
+    first d columns of a buffer ``extra`` columns wider; and the buffers.
+    A kernel that stores past d leaves a number in a buffer's margin."""
+    bufs = [torch.full((*t.shape[:-1], t.shape[-1] + extra), float("nan"),
+                       dtype=t.dtype, device=t.device) for t in like]
+    return tuple(b[..., :t.shape[-1]] for b, t in zip(bufs, like)), bufs
+
+
+def _nothing_past(tag, bufs, d):
+    for buf in bufs:
+        if not bool(buf[..., d:].isnan().all()):
+            raise AssertionError(f"{tag}: stored past head dimension {d}")
+
+
 def _held_to_f64(tag, names, got, simt, plain, want, tol):
     """Errors of a tensor-core kernel, the CUDA-core kernel it replaced
     (``simt``, None at a head dimension other than 64, which that kernel
@@ -754,7 +808,8 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     on the kernel's lse and di, the same inputs), each timed, and each
     against an f64 evaluation of the plain formulas on a batch slice (with
     the plain versions' and the replaced CUDA-core kernels' errors beside),
-    into outputs filled with NaN first, two launches held to equal bits, and
+    into outputs filled with NaN first (views of wider buffers, whose
+    columns past d must stay NaN), two launches held to equal bits, and
     beside the time of the CUDA-core kernel each replaced (at head
     dimension 64, the one it takes)."""
     from fewbit_tpu_torch.ops import kernels as K
@@ -775,13 +830,14 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     nb = max(1, min(q.shape[0], 2 ** 25 // (heads * q.shape[2] ** 2)))
     fargs = (q, k, v, ids, ids, causal, scale)
     lse_like = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    o, lse = K.flash_forward(*fargs, out=_nan_like(q, lse_like))
-    o2, lse2 = K.flash_forward(*fargs, out=_nan_like(q, lse_like))
+    (o_wide,), bufs = _nan_wide(q)
+    o, lse = K.flash_forward(*fargs, out=(o_wide, *_nan_like(lse_like)))
+    o2, lse2 = K.flash_forward(*fargs)
     if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
         raise AssertionError(f"F1 {tag} {shape}: two launches differ")
+    if o2.stride() != q.stride():
+        raise AssertionError(f"F1 {tag}: o strides {o2.stride()}")
     del o2, lse2
-    if o.stride() != q.stride():
-        raise AssertionError(f"F1 {tag}: o strides {o.stride()}")
     o0, lse0 = flash_forward_plain(*fargs)
     fsimt = K.flash_forward_simt(*fargs) if simt else None
     di = (o.float() * do.float()).sum(-1)
@@ -816,7 +872,9 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         scale)
     library = ("scaled_dot_product_attention, backward: dq, dk and dv in "
                "one call (F2 and F3 together)")
-    dk, dv = K.flash_backward_dkv(*bargs, out=_nan_like(k, v))
+    out, more = _nan_wide(k, v)
+    bufs += more
+    dk, dv = K.flash_backward_dkv(*bargs, out=out)
     dk2, dv2 = K.flash_backward_dkv(*bargs, out=_nan_like(k, v))
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError(f"F2 {tag} {shape}: two launches differ")
@@ -844,9 +902,13 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         "library": library}
     results["flash_backward_dkv"].append(case)
     del dk0, dv0, dkvs, dk64, dv64
-    dq = K.flash_backward_dq(*bargs, out=_nan_like(q))
+    out, more = _nan_wide(q)
+    bufs += more
+    dq = K.flash_backward_dq(*bargs, out=out)
     if not torch.equal(dq, K.flash_backward_dq(*bargs, out=_nan_like(q))):
         raise AssertionError(f"F3 {tag} {shape}: two launches differ")
+    _nothing_past(f"F1-F3 {tag} {shape}", bufs, d)
+    del bufs
     dq0 = flash_backward_dq_plain(*bargs)
     dqs = (K.flash_backward_dq_simt(*bargs),) if simt else None
     call, ops, nbytes = work["flash_backward_dq"]
@@ -1632,8 +1694,9 @@ def _batches(path, seed, bs=None):
                                     device="cuda")}
     if path.startswith("gpt2_small"):
         source = synthetic_lm(GPT_BS, GPT_SEQ, seed=seed)
-    elif path == CEREBRAS_PATH:
-        source = synthetic_lm(CEREBRAS_BS, CEREBRAS_SEQ, seed=seed)
+    elif path in CEREBRAS:
+        source = synthetic_lm(CEREBRAS[path]["bs"], CEREBRAS[path]["seq"],
+                              seed=seed)
     else:
         source = synthetic_glue(bs or BS, SEQ, seed=seed)
     for b in source:
@@ -1647,8 +1710,8 @@ def _model(path, dt, fewbit, flash=None, tp_group=None, train=None,
     SEED) and its training step (``TrainConfig(**train)``, by default
     100 steps at 1e-5).  On a flash path attention dropout is 0 and the
     few-bit model takes flash attention (unless ``flash`` says
-    otherwise); vanilla takes the standard attention, but on
-    CEREBRAS_PATH, where both take flash.  ``overrides`` are config fields;
+    otherwise); vanilla takes the standard attention, but on the
+    CEREBRAS paths, where both take flash.  ``overrides`` are config fields;
     with ``tp_group`` the model is a tp slice on it."""
     from fewbit_tpu_torch.models import (MLP, GPTConfig, GPTForCausalLM,
                                          RobertaConfig,
@@ -1662,7 +1725,7 @@ def _model(path, dt, fewbit, flash=None, tp_group=None, train=None,
     if path not in ("roberta_default", "mlp"):
         # The reference's default sketch is gaussian: the paths of kernels
         # 1-3 ask for the countsketch.
-        both = path == CEREBRAS_PATH
+        both = path in CEREBRAS
         switches.update(sketch="countsketch",
                         flash_attention=(flash_path and (fewbit or both)
                                          if flash is None else flash))
@@ -1681,14 +1744,14 @@ def _model(path, dt, fewbit, flash=None, tp_group=None, train=None,
     elif path.startswith("gpt2_small"):
         cfg = GPTConfig(**switches)
         loss_fn = causal_lm_loss
-    elif path == CEREBRAS_PATH:
-        cfg = GPTConfig(**CEREBRAS_590M, **switches)
+    elif path in CEREBRAS:
+        cfg = GPTConfig(**CEREBRAS[path]["config"], **switches)
         loss_fn = causal_lm_loss
     else:
         cfg = RobertaConfig(**switches,
                             fused_ffn=path != "roberta_unfused_ffn")
     model_cls = (GPTForCausalLM
-                 if path.startswith("gpt2_small") or path == CEREBRAS_PATH
+                 if path.startswith("gpt2_small") or path in CEREBRAS
                  else RobertaForSequenceClassification)
     model = model_cls(cfg, device="cuda", generator=gen, tp_group=tp_group)
     step = make_train_step(model, TrainConfig(**(train or dict(
@@ -3846,14 +3909,14 @@ def phase_bf16():
 
 
 def _headdim_kernel_cases():
-    """Kernels 6 and 5 at CEREBRAS_SHAPES (``_shape_kernel_cases``), and
-    F1-F3 at HEADDIM_FLASH's shapes, f32 and bf16, each through
-    ``_flash_case``: against its plain version and f64, into NaN-filled
-    outputs, two launches equal to the bit, beside
-    ``scaled_dot_product_attention`` and its bound."""
+    """Kernels 6 and 5 at CEREBRAS_SHAPES (``_shape_kernel_cases``: each
+    Cerebras path's FFN), and F1-F3 at HEADDIM_FLASH's shapes, f32 and
+    bf16, each through ``_flash_case``: against its plain version and f64,
+    into NaN-filled outputs (nothing stored past d), two launches equal to
+    the bit, beside ``scaled_dot_product_attention`` and its bound."""
     from fewbit_tpu_torch.train import synthetic_glue
 
-    results = _shape_kernel_cases(CEREBRAS_SHAPES, CEREBRAS_PATH, SEED + 31)
+    results = _shape_kernel_cases(CEREBRAS_SHAPES, "cerebras", SEED + 31)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 29)
     for dt in (torch.float32, torch.bfloat16):
@@ -3877,16 +3940,17 @@ def _headdim_kernel_cases():
     return results
 
 
-def _cerebras_row(dt):
-    """CEREBRAS_PATH in ``dt``: (f32) the few-bit forward against the
+def _cerebras_row(path, dt):
+    """A Cerebras path in ``dt``: (f32) the few-bit forward against the
     vanilla model's on the same weights; 2 checked few-bit steps (every
-    count set to 0 just before them: F1-F3, kernels 6 and 5 18 each, kernel
-    1 none); one vanilla step launching F1-F3 18 each and nothing else;
-    vanilla against few-bit, CEREBRAS_TURNS turns (step ms, peak above
+    count set to 0 just before them: F1-F3, kernels 6 and 5 once a layer,
+    kernel 1 none); one vanilla step launching F1-F3 once a layer and
+    nothing else; vanilla against few-bit, CEREBRAS_TURNS turns (step ms, peak above
     held; the few-bit peak lower).  Returns (its JSON object, counts)."""
     from fewbit_tpu_torch.ops import kernels as K
 
-    path, tag = CEREBRAS_PATH, "f32" if dt == torch.float32 else "bf16"
+    tag = "f32" if dt == torch.float32 else "bf16"
+    c = CEREBRAS[path]
     batches = _batches(path, SEED)
     gen = torch.Generator().manual_seed(SEED)
     model, step = _model(path, dt, fewbit=True)
@@ -3900,11 +3964,12 @@ def _cerebras_row(dt):
     loss = vstep(next(batches), gen)["loss"].item()
     after = K.launch_counts()
     delta = {k: after[k] - before[k] for k in after}
-    want = {k: CEREBRAS_LAUNCHES_VANILLA.get(k, 0) for k in after}
+    layers = c["config"]["num_layers"]
+    want = {k: layers if k in FLASH else 0 for k in after}
     if delta != want or not np.isfinite(loss):
         raise AssertionError(f"{path} vanilla {tag}: loss {loss}, launches "
                              f"{delta}, expected {want}")
-    out = {"batch": CEREBRAS_BS, "seq": CEREBRAS_SEQ,
+    out = {"batch": c["bs"], "seq": c["seq"], "layers": layers,
            "fewbit_losses": runs["losses"], "vanilla_loss": loss,
            **_vanilla_vs_fewbit(path, {"vanilla": vstep, "fewbit": step},
                                 batches, gen, CEREBRAS_TURNS, tag=tag)}
@@ -3914,15 +3979,16 @@ def _cerebras_row(dt):
 
 
 def phase_headdim():
-    """Flash attention at head dimensions 32 and 128 (``python3
+    """Flash attention at head dimensions other than 64 (``python3
     chip_smoke.py --headdim``): kernels 6 and 5 at CEREBRAS_SHAPES and
-    F1-F3 at HEADDIM_FLASH's shapes, then CEREBRAS_PATH in f32 and bf16.
-    Returns (summary, counts by row, cases)."""
+    F1-F3 at HEADDIM_FLASH's shapes, then each Cerebras path in f32 and
+    bf16.  Returns (summary, counts by row, cases)."""
     results = _headdim_kernel_cases()
     summary, counts = {}, {}
-    for dt in (torch.float32, torch.bfloat16):
-        key = f"{CEREBRAS_PATH}_{'f32' if dt == torch.float32 else 'bf16'}"
-        summary[key], counts[key] = _cerebras_row(dt)
+    for path in CEREBRAS:
+        for dt in (torch.float32, torch.bfloat16):
+            key = f"{path}_{'f32' if dt == torch.float32 else 'bf16'}"
+            summary[key], counts[key] = _cerebras_row(path, dt)
     return summary, counts, results
 
 

@@ -1,6 +1,6 @@
 // The entry points of the tensor-core flash backward (F2 and F3,
 // flash_backward.cuh) and the head dimension 64's instantiations;
-// flash_backward_d32.cu and flash_backward_d128.cu hold the others'.
+// flash_backward_d<D>.cu hold the other multiples of 16 up to 128.
 #include "flash_backward.cuh"
 
 FEWBIT_FLASH_BACKWARD_D(64)
@@ -11,10 +11,20 @@ namespace {
 int launch_backward_d(const FlashParams& p, int b, int d, bool bf16,
                       bool dkv, cudaStream_t st) {
   switch (d) {
+    case 16:
+      return flash_backward_d16(p, b, bf16, dkv, st);
     case 32:
       return flash_backward_d32(p, b, bf16, dkv, st);
+    case 48:
+      return flash_backward_d48(p, b, bf16, dkv, st);
     case 64:
       return flash_backward_d64(p, b, bf16, dkv, st);
+    case 80:
+      return flash_backward_d80(p, b, bf16, dkv, st);
+    case 96:
+      return flash_backward_d96(p, b, bf16, dkv, st);
+    case 112:
+      return flash_backward_d112(p, b, bf16, dkv, st);
     case 128:
       return flash_backward_d128(p, b, bf16, dkv, st);
     default:
@@ -26,9 +36,10 @@ int launch_backward_d(const FlashParams& p, int b, int d, bool bf16,
 }  // namespace fewbit
 
 // q and dout (b, h, sq, d), k and v (b, h, sk, d) of f32 or bf16 (is_bf16),
-// d one of 32, 64 and 128, any (b, h, s) strides that are multiples of 16
-// bytes, as the base addresses are; seg_q (b, sq) and seg_kv (b, sk) int32
-// or both null; the forward's lse and di = sum(dout * o), (b, h, sq) f32
+// d a multiple of 16 up to 128 (the wrappers give any other d zero-padded
+// copies), any (b, h, s) strides that are multiples of 16 bytes, as the
+// base addresses are; seg_q (b, sq) and seg_kv (b, sk) int32 or both
+// null; the forward's lse and di = sum(dout * o), (b, h, sq) f32
 // contiguous.  strides: the (b, h, s) strides of q, k, v, o, dO, dq, dk, dv
 // in elements.  Writes dk and dv.  Returns cudaGetLastError() after the
 // launch, -1 for arguments the kernel does not take (another d among

@@ -1,7 +1,8 @@
 // Flash attention's backward on the tensor cores: the dK/dV kernel (F2) and
 // the dQ kernel (F3), each every product a wgmma.  The kernel and its
 // launcher, templated on the head dimension; flash_backward*.cu instantiate
-// them at 32, 64 and 128, and flash_backward.cu holds the entry points.
+// them at every multiple of 16 up to 128, and flash_backward.cu holds the
+// entry points.
 //
 // Replaces JAX's Pallas TPU library kernels _flash_attention_bwd_dkv and
 // _flash_attention_bwd_dq (jax/experimental/pallas/ops/tpu/
@@ -67,10 +68,11 @@
 // single stage and the fragments' splits.  bf16 reaches about a quarter: a
 // block's prologue and stores are not overlapped with another block's tiles
 // (one block per SM), and both warpgroups run the exp at the same time.
-// Head dimensions 32 and 128: the same kernel with its planes and products
-// over d (bf16 rows of 32 elements are 64 bytes, read with the 64-byte
-// swizzle).  At 128, f32 and bf16 F2 run one consumer warpgroup (64 own
-// rows, up to 255 registers a thread) over 32-row tiles.
+// Other head dimensions: the same kernel with its planes and products over
+// d, in sub-tiles of the widest swizzle that divides a row (bf16 rows of
+// 32 elements are 64 bytes, read with the 64-byte swizzle; of 80 elements
+// five 32-byte sub-tiles).  Above 64, f32 and bf16 F2 run one consumer
+// warpgroup (64 own rows, up to 255 registers a thread) over 32-row tiles.
 #pragma once
 
 #include <math.h>
@@ -198,9 +200,9 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
           }
         }
       } else {
-        fetch_tile<S::TILE, D>(stage, f1, st1.s, l0, n_loop, ptid);
-        fetch_tile<S::TILE, D>(stage + 2 * S::TILE_BYTES, f2, st2.s, l0,
-                               n_loop, ptid);
+        fetch_tile<S::TILE, D, S::RB>(stage, f1, st1.s, l0, n_loop, ptid);
+        fetch_tile<S::TILE, D, S::RB>(stage + 2 * S::TILE_BYTES, f2, st2.s,
+                                      l0, n_loop, ptid);
       }
       if (ptid < S::TILE) {  // the tile's row values
         float* ax = aux + (t % S::NAUX) * S::AUX;
@@ -228,18 +230,19 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
         mbar_arrive(&full1[st]);
       } else {
         asm volatile("cp.async.wait_all;" ::: "memory");
-        split_fetched<S::TILE, D>(stage, ptid);
-        split_fetched<S::TILE, D>(stage + 2 * S::TILE_BYTES, ptid);
+        split_fetched<S::TILE, D, S::RB>(stage, ptid);
+        split_fetched<S::TILE, D, S::RB>(stage + 2 * S::TILE_BYTES, ptid);
         fence_proxy_async();  // the stores, before wgmma reads them
         mbar_arrive(&full1[st]);
         // The second products' planes, from the ones just written (they
         // stay until this warpgroup writes the next tile's).
         bar_sync(1, HB_PRODUCERS);
         mbar_wait(empty2, ph2 ^ 1);
-        transpose_planes<S::TILE, D>(part2, stage, ptid);
+        transpose_planes<S::TILE, D, S::RB>(part2, stage, ptid);
         if (DKV)
-          transpose_planes<S::TILE, D>(part2 + 2 * S::TILE_BYTES,
-                                       stage + 2 * S::TILE_BYTES, ptid);
+          transpose_planes<S::TILE, D, S::RB>(part2 + 2 * S::TILE_BYTES,
+                                              stage + 2 * S::TILE_BYTES,
+                                              ptid);
         fence_proxy_async();
         mbar_arrive(full2);
         ph2 ^= 1;
@@ -298,9 +301,10 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
         for (int e = 0; e < 4; ++e) {
           const int ks = CH * c + q;
           const uint32_t off =
-              (ks / 4) * S::RES_SUB_BYTES +
+              (ks / S::KSUB) * S::RES_SUB_BYTES +
               swizzled_offset(rloc + 8 * (e & 1),
-                              8 * (ks % 4) + tq + 4 * (e >> 1), 4);
+                              8 * (ks % S::KSUB) + tq + 4 * (e >> 1), 4,
+                              S::RB);
           split_tf32(*reinterpret_cast<const float*>(res + off),
                      fh1[c & 1][q][e], fl1[c & 1][q][e]);
           split_tf32(
@@ -355,12 +359,12 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
 #pragma unroll
           for (int q = 0; q < CH; ++q) {
             const int ks = CH * c + q;
-            const uint32_t b =
-                b_addr + (ks / 4) * S::TILE_SUB_BYTES + 32 * (ks % 4);
-            const uint64_t b1h = desc_sw128(b);
-            const uint64_t b1l = desc_sw128(b + S::TILE_BYTES);
-            const uint64_t b2h = desc_sw128(b + 2 * S::TILE_BYTES);
-            const uint64_t b2l = desc_sw128(b + 3 * S::TILE_BYTES);
+            const uint32_t b = b_addr + (ks / S::KSUB) * S::TILE_SUB_BYTES +
+                               32 * (ks % S::KSUB);
+            const uint64_t b1h = desc_sw(b, S::RB);
+            const uint64_t b1l = desc_sw(b + S::TILE_BYTES, S::RB);
+            const uint64_t b2h = desc_sw(b + 2 * S::TILE_BYTES, S::RB);
+            const uint64_t b2l = desc_sw(b + 3 * S::TILE_BYTES, S::RB);
             Wgmma<S::TILE>::tf32_rs(x, fh1[cur][q], b1h, ks != 0);
             Wgmma<S::TILE>::tf32_rs(x, fh1[cur][q], b1l);
             Wgmma<S::TILE>::tf32_rs(x, fl1[cur][q], b1h);

@@ -1,14 +1,15 @@
 // The entry points of the tensor-core flash forward (F1, flash_forward.cuh)
-// and the head dimension 64's instantiations; flash_forward_d32.cu and
-// flash_forward_d128.cu hold the others'.
+// and the head dimension 64's instantiations; flash_forward_d<D>.cu hold
+// the other multiples of 16 up to 128.
 #include "flash_forward.cuh"
 
 FEWBIT_FLASH_FORWARD_D(64)
 
-// q (b, h, sq, d), k and v (b, h, sk, d) of f32 or bf16 (is_bf16), d one of
-// 32, 64 and 128, any (b, h, s) strides that are multiples of 16 bytes, as
-// the base addresses are; seg_q (b, sq) and seg_kv (b, sk) int32 or both
-// null.  strides: the (b, h, s) strides of q, k, v, o, dO, dq, dk, dv in
+// q (b, h, sq, d), k and v (b, h, sk, d) of f32 or bf16 (is_bf16), d a
+// multiple of 16 up to 128 (the wrappers give any other d zero-padded
+// copies), any (b, h, s) strides that are multiples of 16 bytes, as the
+// base addresses are; seg_q (b, sq) and seg_kv (b, sk) int32 or both null.
+// strides: the (b, h, s) strides of q, k, v, o, dO, dq, dk, dv in
 // elements.  Writes o (q's shape, its own strides, unit stride along d) and
 // lse (b, h, sq) f32 contiguous.  Returns cudaGetLastError() after the
 // launch, -1 for arguments the kernel does not take (another d among
@@ -28,10 +29,20 @@ extern "C" int fewbit_flash_forward(const void* q, const void* k,
   p.lse_out = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 16:
+      return flash_forward_d16(p, b, is_bf16, st);
     case 32:
       return flash_forward_d32(p, b, is_bf16, st);
+    case 48:
+      return flash_forward_d48(p, b, is_bf16, st);
     case 64:
       return flash_forward_d64(p, b, is_bf16, st);
+    case 80:
+      return flash_forward_d80(p, b, is_bf16, st);
+    case 96:
+      return flash_forward_d96(p, b, is_bf16, st);
+    case 112:
+      return flash_forward_d112(p, b, is_bf16, st);
     case 128:
       return flash_forward_d128(p, b, is_bf16, st);
     default:
@@ -40,11 +51,12 @@ extern "C" int fewbit_flash_forward(const void* q, const void* k,
 }
 
 // Dynamic shared memory of a block of F1 (kernel 0), F2 (1) or F3 (2) at
-// head dimension d (32, 64 or 128) in bf16 or f32: what the host's mirror
-// (_flash_smem in ops/kernels.py) must give; -1 for another kernel or d.
+// the instantiation d (a multiple of 16 up to 128) in bf16 or f32: what the
+// host's mirror (_flash_smem in ops/kernels.py) must give; -1 for another
+// kernel or d.
 extern "C" int fewbit_flash_smem(int kernel, int is_bf16, int d) {
   using namespace fewbit;
-  if (d != 32 && d != 64 && d != 128) return -1;
+  if (d < 16 || d > 128 || d % 16) return -1;
   switch (kernel) {
     case FLASH_F1:
       return ff_smem(is_bf16, d);

@@ -1,7 +1,8 @@
 // Flash attention's forward on the tensor cores (F1): both products of each
 // tile a wgmma, the online softmax in registers.  The kernel and its
 // launcher, templated on the head dimension; flash_forward*.cu instantiate
-// them at 32, 64 and 128, and flash_forward.cu holds the entry point.
+// them at every multiple of 16 up to 128, and flash_forward.cu holds the
+// entry point.
 //
 // Replaces JAX's Pallas TPU library kernel _flash_attention_impl
 // (jax/experimental/pallas/ops/tpu/flash_attention.py).  With S = sm_scale
@@ -57,11 +58,12 @@
 //   is the special function unit's, ex2.approx.ftz.
 // - lse = m + log(l) at the end, o = acc / l by paired stores in q's
 //   strides.
-// Head dimensions 32 and 128: the same kernel with its planes and products
-// over d (bf16 rows of 32 elements are 64 bytes, read with the 64-byte
-// swizzle).  At 128, f32 runs one consumer warpgroup (64 query rows) over
-// 32-row kv tiles and bf16 one block an SM, with 64 registers of o a
-// thread.
+// Other head dimensions: the same kernel with its planes and products over
+// d, in sub-tiles of the widest swizzle that divides a row (bf16 rows of
+// 32 elements are 64 bytes, of 80 elements 160 bytes, read as five 32-byte
+// sub-tiles).  Above 64, f32 runs one consumer warpgroup (64 query rows)
+// over 32-row kv tiles; above 64 bf16 runs one block an SM, with up to 64
+// registers of o a thread.
 #pragma once
 
 #include <math.h>
@@ -176,8 +178,8 @@ __global__ void __launch_bounds__(FfShape<T, D>::THREADS,
           }
         }
       } else {
-        fetch_tile<S::TILE, D>(stage, kf, p.st_k.s, l0, p.sk, ptid);
-        fetch_tile<S::TILE, D>(staging, vf, p.st_v.s, l0, p.sk, ptid);
+        fetch_tile<S::TILE, D, S::RB>(stage, kf, p.st_k.s, l0, p.sk, ptid);
+        fetch_tile<S::TILE, D, S::RB>(staging, vf, p.st_v.s, l0, p.sk, ptid);
       }
       if (p.seg_kv != nullptr) {
         // The tile's ids in halves of 32, a warp each (one warp all, for
@@ -201,12 +203,12 @@ __global__ void __launch_bounds__(FfShape<T, D>::THREADS,
         mbar_arrive(&full[st]);
       } else {
         asm volatile("cp.async.wait_all;" ::: "memory");
-        split_fetched<S::TILE, D>(stage, ptid);
-        split_fetched<S::TILE, D>(staging, ptid);
+        split_fetched<S::TILE, D, S::RB>(stage, ptid);
+        split_fetched<S::TILE, D, S::RB>(staging, ptid);
         // Every warp's V chunks are split before any warp transposes them.
         bar_sync(1, HB_PRODUCERS);
-        transpose_planes<S::TILE, D>(stage + 2 * S::TILE_BYTES, staging,
-                                     ptid);
+        transpose_planes<S::TILE, D, S::RB>(stage + 2 * S::TILE_BYTES,
+                                            staging, ptid);
         fence_proxy_async();  // the stores, before wgmma reads them
         mbar_arrive(&full[st]);
         // No warp copies the next tile's V into the staging planes while a
@@ -251,11 +253,12 @@ __global__ void __launch_bounds__(FfShape<T, D>::THREADS,
     // the rows' bytes are taken in order, whatever their swizzle.
     if constexpr (!S::BF16) {
       const int wtid = tid % 128;
+      constexpr int PER_SUB = 64 * S::RB / 16;  // a warpgroup's, a sub-tile
 #pragma unroll
       for (int it = 0; it < D / 8; ++it) {
-        const int chunk = wtid + 128 * it;  // of D / 32 sub-tiles x 512
-        const int off = (chunk >> 9) * S::RES_SUB_BYTES +
-                        wg * 64 * ROW_BYTES + (chunk & 511) * 16;
+        const int chunk = wtid + 128 * it;  // of SUB sub-tiles x PER_SUB
+        const int off = (chunk >> ilog2(PER_SUB)) * S::RES_SUB_BYTES +
+                        wg * 64 * S::RB + (chunk & (PER_SUB - 1)) * 16;
         const float4 v = *reinterpret_cast<const float4*>(qs + off);
         uint4 qhi, qlo;
         split_tf32(v.x, qhi.x, qlo.x);
@@ -284,10 +287,10 @@ __global__ void __launch_bounds__(FfShape<T, D>::THREADS,
           Wgmma<S::TILE>::bf16_ss(x, desc_sw(a, S::RB), desc_sw(b, S::RB),
                                   ks != 0);
         } else {
-          const uint64_t ah = desc_sw128(a);
-          const uint64_t al = desc_sw128(a + S::RES_BYTES);
-          const uint64_t bh = desc_sw128(b);
-          const uint64_t bl = desc_sw128(b + S::TILE_BYTES);
+          const uint64_t ah = desc_sw(a, S::RB);
+          const uint64_t al = desc_sw(a + S::RES_BYTES, S::RB);
+          const uint64_t bh = desc_sw(b, S::RB);
+          const uint64_t bl = desc_sw(b + S::TILE_BYTES, S::RB);
           Wgmma<S::TILE>::tf32_ss(x, ah, bh, ks != 0);
           Wgmma<S::TILE>::tf32_ss(x, ah, bl);
           Wgmma<S::TILE>::tf32_ss(x, al, bh);

@@ -9,10 +9,14 @@
 //
 // Layout: a block owns 64 rows of its own side per consumer warpgroup and
 // loops over TILE rows of the other side.  An operand tile is kept in
-// sub-tiles of RB-byte rows (RB = 128, or 64 for bf16 at head dimension
-// 32), swizzled as TMA writes them, K-major over d.  An f32 looped tile is
-// kept as TF32 hi and lo planes of TILE rows x D floats, D / 32 sub-tiles
-// of 32 floats (128 bytes) a row.
+// sub-tiles of RB-byte rows (RB the largest of 128, 64 and 32 that divides
+// a row's D ELT bytes), swizzled as TMA writes them with the swizzle of
+// that width, K-major over d.  An f32 looped tile is kept as TF32 hi and lo
+// planes of TILE rows x D floats in the same sub-tiles.
+//
+// The kernels are instantiated at every multiple of 16 up to 128; the
+// wrappers (ops/kernels.py) give any other head dimension zero-padded
+// copies of the next multiple's width.
 #pragma once
 
 #include "flash_params.cuh"
@@ -28,24 +32,25 @@ constexpr float LOG2E = 1.4426950408889634f;
 // The kernels, as hb_tiles and the entry points number them.
 constexpr int FLASH_F1 = 0, FLASH_F2 = 1, FLASH_F3 = 2;
 
-// The shape of a block of kernel `kernel` at head dimension d: its consumer
-// warpgroups (64 own rows each), the rows of a looped tile and the stages
-// of its ring.  At d = 32 and 64: two warpgroups (128 own rows), 64-row
-// tiles, four stages in bf16; in f32 two stages in F1 and one in F2 and F3
-// (their TF32 planes fill the block's shared memory at d = 64).  At
-// d = 128 every plane doubles: f32 takes one warpgroup and 32-row tiles,
-// which bring its shared memory back to the budgets of d = 64, and a
-// consumer thread may have 255 registers for its 64 of each accumulator.
-// bf16 F2 holds dK and dV (128 registers) beside S, dP and their packed
-// fragments: in a 384-thread block (168 registers a thread by its launch
-// bound) ptxas reported 660 bytes of spills, so it too takes one
-// warpgroup and 32-row tiles.
+// The shape of a block of kernel `kernel` at head dimension d (an
+// instantiation): its consumer warpgroups (64 own rows each), the rows of a
+// looped tile and the stages of its ring.  Up to d = 64: two warpgroups
+// (128 own rows), 64-row tiles, four stages in bf16; in f32 two stages in
+// F1 and one in F2 and F3 (their TF32 planes fill the block's shared
+// memory at d = 64).  Above 64 the f32 planes of two warpgroups over
+// 64-row tiles no longer fit: f32 takes one warpgroup and 32-row tiles,
+// which at d = 128 bring its shared memory back to the budgets of d = 64,
+// and a consumer thread may have 255 registers for its d / 2 of each
+// accumulator.  bf16 F2 holds dK and dV (d registers) beside S, dP and
+// their packed fragments: at d = 128 in a 384-thread block (168 registers
+// a thread by its launch bound) ptxas reported 660 bytes of spills, so
+// above 64 it too takes one warpgroup and 32-row tiles.
 struct HbTiles {
   int wgs, tile, stages;
 };
 constexpr HbTiles hb_tiles(int kernel, bool bf16, int d) {
-  if (d == 128 && !bf16) return {1, 32, kernel == FLASH_F1 ? 2 : 1};
-  if (d == 128 && kernel == FLASH_F2) return {1, 32, 4};
+  if (d > 64 && !bf16) return {1, 32, kernel == FLASH_F1 ? 2 : 1};
+  if (d > 64 && kernel == FLASH_F2) return {1, 32, 4};
   return {2, 64, bf16 ? 4 : (kernel == FLASH_F1 ? 2 : 1)};
 }
 
@@ -82,14 +87,14 @@ constexpr int hb_smem(bool bf16, bool dkv, int d) {
 // warpgroups and rows, the looped tile's rows and the ring's stages
 // (hb_tiles); the bytes of a sub-tile row (the swizzle) and the sub-tiles
 // of a row; the parts of a B operand (f32: TF32 hi and lo); wgmma k steps
-// over d, over the looped rows, and within a sub-tile row; and the bytes of
-// a plane, of the block's own rows, of a sub-tile of either, and of a ring
-// stage of two operands.
+// (32 bytes: k16 in bf16, k8 in tf32) over d, over the looped rows, and
+// within a sub-tile row; and the bytes of a plane, of the block's own rows,
+// of a sub-tile of either, and of a ring stage of two operands.
 template <typename T, int D, int KERNEL>
 struct HbShape {
-  static_assert(D == 32 || D == 64 || D == 128,
-                "the kernels are instantiated at head dimensions 32, 64 "
-                "and 128");
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128,
+                "the kernels are instantiated at every multiple of 16 up "
+                "to 128");
   static constexpr int ELT = sizeof(T);
   static constexpr bool BF16 = ELT == 2;
   static constexpr HbTiles TILES = hb_tiles(KERNEL, BF16, D);
@@ -98,8 +103,9 @@ struct HbShape {
   static constexpr int TILE = TILES.tile;  // rows of a looped tile
   static constexpr int STAGES = TILES.stages;
   static constexpr int CONSUMERS = 128 * WGS;
-  static constexpr int RB = D * ELT < hopper::ROW_BYTES ? D * ELT
-                                                        : hopper::ROW_BYTES;
+  static constexpr int RB = D * ELT % 128 == 0 ? 128
+                            : D * ELT % 64 == 0 ? 64
+                                                : 32;
   static constexpr int SUB = D * ELT / RB;
   static constexpr int PARTS = Operand<T>::PARTS;
   static constexpr int KD = D * ELT / 32;
@@ -113,8 +119,6 @@ struct HbShape {
   // The leading byte offset of a looped tile read MN-major (bf16): its next
   // sub-tile of columns, where a row has more than one.
   static constexpr uint32_t MN_LBO = SUB > 1 ? TILE_SUB_BYTES : 16;
-  static_assert(BF16 || RB == hopper::ROW_BYTES,
-                "f32 rows are split in 128-byte sub-tiles");
 };
 
 // log2 of a power of two: the producer's index arithmetic takes shifts and
@@ -125,33 +129,49 @@ __host__ __device__ constexpr int ilog2(int x) {
 }
 
 // Byte offset of the 16-byte chunk c16 (four floats) of row `row` in a
-// K-major f32 plane of TILE rows: sub-tiles of 32 floats a row, swizzled as
-// TMA would.
-template <int TILE>
+// K-major f32 plane of TILE rows: sub-tiles of RB bytes a row, swizzled as
+// TMA would with the swizzle of that width.
+template <int TILE, int RB>
 __device__ __forceinline__ int plane_chunk(int row, int c16) {
-  return (c16 >> 3) * (TILE * hopper::ROW_BYTES) + row * hopper::ROW_BYTES +
-         (((c16 & 7) ^ (row & 7)) << 4);
+  constexpr int CPR = RB / 16;  // chunks of a sub-tile row
+  return (c16 >> ilog2(CPR)) * (TILE * RB) + row * RB +
+         ((((c16 & (CPR - 1)) ^ ((row * RB) >> 7)) & (CPR - 1)) << 4);
+}
+
+// The row and chunk of the producer's chunk `chunk` of a plane, row-major
+// over rows of D / 4 chunks: a shift and a mask where D / 4 is a power of
+// two, else an unsigned division (a multiply-high).
+template <int D>
+__device__ __forceinline__ void plane_row_chunk(int chunk, int& row,
+                                                int& c16) {
+  constexpr int ROW_CHUNKS = D / 4;
+  if constexpr ((ROW_CHUNKS & (ROW_CHUNKS - 1)) == 0) {
+    row = chunk >> ilog2(ROW_CHUNKS);
+    c16 = chunk & (ROW_CHUNKS - 1);
+  } else {
+    row = static_cast<int>(static_cast<unsigned>(chunk) / ROW_CHUNKS);
+    c16 = chunk - row * ROW_CHUNKS;
+  }
 }
 
 // The f32 producer, first half: tile rows l0 .. l0 + TILE - 1 of the head
 // at `src` copied raw (cp.async, 16 bytes a chunk, nothing held in
 // registers while they fly) to where the lo plane at `planes` + TILE D 4
 // will lie.  Rows past n_rows arrive as zeros.
-template <int TILE, int D>
+template <int TILE, int D, int RB>
 __device__ __forceinline__ void fetch_tile(uint8_t* planes, const float* src,
                                            long long stride_s, int l0,
                                            int n_rows, int ptid) {
   constexpr int PLANE = TILE * D * 4, ROW_CHUNKS = D / 4;
 #pragma unroll
   for (int it = 0; it < TILE * ROW_CHUNKS / HB_PRODUCERS; ++it) {
-    const int chunk = ptid + HB_PRODUCERS * it;
-    const int row = chunk >> ilog2(ROW_CHUNKS);
-    const int c16 = chunk & (ROW_CHUNKS - 1);
+    int row, c16;
+    plane_row_chunk<D>(ptid + HB_PRODUCERS * it, row, c16);
     const bool in = l0 + row < n_rows;
     const float* from = in ? src + (l0 + row) * stride_s + 4 * c16 : src;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
                      hopper::smem_u32(planes + PLANE +
-                                      plane_chunk<TILE>(row, c16))),
+                                      plane_chunk<TILE, RB>(row, c16))),
                  "l"(from), "r"(in ? 16 : 0)
                  : "memory");
   }
@@ -160,14 +180,14 @@ __device__ __forceinline__ void fetch_tile(uint8_t* planes, const float* src,
 // Second half, once the thread's own copies have landed: each chunk split
 // in place into the TF32 hi plane at `planes` and the lo plane one plane on,
 // K-major.
-template <int TILE, int D>
+template <int TILE, int D, int RB>
 __device__ __forceinline__ void split_fetched(uint8_t* planes, int ptid) {
   constexpr int PLANE = TILE * D * 4, ROW_CHUNKS = D / 4;
 #pragma unroll 4
   for (int it = 0; it < TILE * ROW_CHUNKS / HB_PRODUCERS; ++it) {
-    const int chunk = ptid + HB_PRODUCERS * it;
-    const int off = plane_chunk<TILE>(chunk >> ilog2(ROW_CHUNKS),
-                                      chunk & (ROW_CHUNKS - 1));
+    int row, c16;
+    plane_row_chunk<D>(ptid + HB_PRODUCERS * it, row, c16);
+    const int off = plane_chunk<TILE, RB>(row, c16);
     const float4 v = *reinterpret_cast<const float4*>(planes + PLANE + off);
     uint4 hi, lo;
     hopper::split_tf32(v.x, hi.x, lo.x);
@@ -190,10 +210,11 @@ __device__ __forceinline__ int permuted_k(int rr) {
 
 // The f32 producer: the hi and lo planes at `src` (as split_fetched wrote
 // them) transposed, out[d][permuted_k(row)], again as hi and lo planes of D
-// rows (d) x TILE floats, K-major for a product that contracts over the
-// looped rows.  A warp's lanes take 32 different rows, so its 16-byte reads
-// and its stores of one d are free of bank conflicts.
-template <int TILE, int D>
+// rows (d) x TILE floats in sub-tiles of 32 floats (128 bytes) a row,
+// K-major for a product that contracts over the looped rows.  A warp's
+// lanes take 32 different rows, so its 16-byte reads and its stores of one
+// d are free of bank conflicts.
+template <int TILE, int D, int RB>
 __device__ __forceinline__ void transpose_planes(uint8_t* planes,
                                                  const uint8_t* src,
                                                  int ptid) {
@@ -204,7 +225,7 @@ __device__ __forceinline__ void transpose_planes(uint8_t* planes,
   for (int it = 0; it < GROUPS * CHUNKS; ++it) {
     const int rr = lane + 32 * (it & (GROUPS - 1));
     const int c16 = CHUNKS * w + (it >> ilog2(GROUPS));
-    const int from = plane_chunk<TILE>(rr, c16);
+    const int from = plane_chunk<TILE, RB>(rr, c16);
     const uint4 hi = *reinterpret_cast<const uint4*>(src + from);
     const uint4 lo = *reinterpret_cast<const uint4*>(src + PLANE + from);
     const uint32_t his[4] = {hi.x, hi.y, hi.z, hi.w};
@@ -319,15 +340,19 @@ int allow_smem(Kernel kernel, int smem, unsigned& allowed) {
 // The launchers of each head dimension's instantiations, each in a source
 // of its own so that they compile in parallel (flash_forward*.cu,
 // flash_backward*.cu).  Each returns as its entry point does.
-int flash_forward_d32(const FlashParams& p, int b, bool bf16, cudaStream_t st);
-int flash_forward_d64(const FlashParams& p, int b, bool bf16, cudaStream_t st);
-int flash_forward_d128(const FlashParams& p, int b, bool bf16,
-                       cudaStream_t st);
-int flash_backward_d32(const FlashParams& p, int b, bool bf16, bool dkv,
-                       cudaStream_t st);
-int flash_backward_d64(const FlashParams& p, int b, bool bf16, bool dkv,
-                       cudaStream_t st);
-int flash_backward_d128(const FlashParams& p, int b, bool bf16, bool dkv,
-                        cudaStream_t st);
+#define FEWBIT_FLASH_DECLARE_D(D)                                         \
+  int flash_forward_d##D(const FlashParams& p, int b, bool bf16,          \
+                         cudaStream_t st);                                 \
+  int flash_backward_d##D(const FlashParams& p, int b, bool bf16, bool dkv, \
+                          cudaStream_t st);
+FEWBIT_FLASH_DECLARE_D(16)
+FEWBIT_FLASH_DECLARE_D(32)
+FEWBIT_FLASH_DECLARE_D(48)
+FEWBIT_FLASH_DECLARE_D(64)
+FEWBIT_FLASH_DECLARE_D(80)
+FEWBIT_FLASH_DECLARE_D(96)
+FEWBIT_FLASH_DECLARE_D(112)
+FEWBIT_FLASH_DECLARE_D(128)
+#undef FEWBIT_FLASH_DECLARE_D
 
 }  // namespace fewbit

@@ -2,8 +2,9 @@
 // TMA tensor maps (encoded on the host), the mbarrier ring that a producer
 // warp and consumer warpgroups share, TMA bulk stores of a staged output
 // tile, named barriers between warpgroups, shared-memory matrix descriptors
-// for the 128-byte swizzle (and the 64-byte one of the flash kernels' bf16
-// rows at head dimension 32), wgmma wrappers (bf16 with both operands in
+// for the 128-byte swizzle (and the 64- and 32-byte ones of the flash
+// kernels' rows at head dimensions whose rows 128 bytes do not divide),
+// wgmma wrappers (bf16 with both operands in
 // shared memory, or A in registers and B optionally MN-major; tf32 with A
 // in registers or shared memory), the round-to-nearest TF32 split, and the
 // register hand-over between a producer and its consumer warpgroups
@@ -227,8 +228,8 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, bool bf16,
 // 16, as `base`; any order, so the transposed view of a (b, s, h, d)
 // projection is read in place).  Dimensions run (d, s, h, b); a box is
 // (box_rows of s, row_bytes of d) of one head, swizzled for wgmma (the
-// 128-byte swizzle, or the 64-byte one for rows of 64 bytes), and rows past
-// s arrive as zeros.  Returns false when the encode is unavailable or
+// swizzle of row_bytes: 128, 64 or 32 bytes), and rows past s arrive as
+// zeros.  Returns false when the encode is unavailable or
 // refuses the arguments.
 inline bool make_tile_map_4d(CUtensorMap* map, const void* base, bool bf16,
                              uint64_t b, uint64_t h, uint64_t s, uint64_t d,
@@ -247,8 +248,9 @@ inline bool make_tile_map_4d(CUtensorMap* map, const void* base, bool bf16,
                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                 4, const_cast<void*>(base), dims, strides, box, estrides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                : CU_TENSOR_MAP_SWIZZLE_128B,
+                row_bytes == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                  : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -276,11 +278,16 @@ inline bool make_plain_map(CUtensorMap* map, const void* base, bool bf16,
 }
 
 // Byte offset of element (row, col) of a swizzled tile of elements of
-// `elem_bytes`, as TMA wrote it.
-__device__ __forceinline__ uint32_t swizzled_offset(int row, int col,
-                                                    int elem_bytes) {
+// `elem_bytes` and rows of `row_bytes` (128, 64 or 32), as TMA wrote it
+// with the swizzle of that width: the 16-byte chunk bits of the offset XOR
+// its bits from 7 on (Swizzle<3,4,3>, <2,4,3>, <1,4,3>).
+__device__ __forceinline__ uint32_t swizzled_offset(
+    int row, int col, int elem_bytes, int row_bytes = ROW_BYTES) {
   const int byte = col * elem_bytes;
-  return row * ROW_BYTES + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+  return row * row_bytes +
+         ((((byte >> 4) ^ ((row * row_bytes) >> 7)) & (row_bytes / 16 - 1))
+          << 4) +
+         (byte & 15);
 }
 
 // ---------------------------------------------------------------------------
@@ -299,9 +306,9 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
 }
 
-// Descriptor of a tile whose rows are `row_bytes` (128 or 64) bytes,
+// Descriptor of a tile whose rows are `row_bytes` (128, 64 or 32) bytes,
 // swizzled as TMA writes them with the swizzle of that width (atoms of
-// eight rows, 1024 or 512 bytes).  K-major, as desc_sw128 for 128.  Read
+// eight rows, 1024, 512 or 256 bytes).  K-major, as desc_sw128 for 128.  Read
 // MN-major (the transpose bit) with rows of k: the k-th k16 step starts
 // 16 row_bytes k bytes on, and an N wider than a row takes its next
 // row_bytes of columns from the sub-tile `lbo` bytes on.
@@ -310,7 +317,8 @@ __device__ __forceinline__ uint64_t desc_sw(uint32_t addr, int row_bytes,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>((8 * row_bytes) >> 4) << 32) |
-         (static_cast<uint64_t>(row_bytes == 64 ? 2 : 1) << 62);
+         (static_cast<uint64_t>(row_bytes == 32 ? 3 : row_bytes == 64 ? 2 : 1)
+          << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -375,7 +383,7 @@ __device__ __forceinline__ void reg_dealloc() {
 // (k x N).  tf32_rs: A from registers (the m16n8k8 tf32 fragment of each
 // warp's 16 rows), B a K-major tile in shared memory; k = 8.  tf32_ss
 // (N = 32, 64) and bf16_ss (N = 32, 64, 96): both from K-major tiles in
-// shared memory; k = 8 and 16.  bf16_rs (N = 32, 64, 128): A
+// shared memory; k = 8 and 16.  bf16_rs (N = 16 to 128 by 16): A
 // from registers (the m16n8k16 bf16 fragment: packed pairs of rows g and
 // g + 8, columns 2 t and 2 t + 8 on), B K-major or, with TRANS_B, MN-major.
 // scale_d = 0 overwrites D instead of adding to it (not N = 96).  Fragment
@@ -509,6 +517,32 @@ template <> struct Wgmma<96> {
           "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "l"(desc_a), "l"(desc_b), "r"(1));
   }
+  template <int TRANS_B>
+  static __device__ __forceinline__ void bf16_rs(
+      float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d), "n"(TRANS_B));
+  }
+
 };
 
 template <> struct Wgmma<32> {
@@ -632,6 +666,181 @@ template <> struct Wgmma<128> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+// The other head dimensions of the flash kernels' second products (N = d).
+template <> struct Wgmma<16> {
+  static __device__ __forceinline__ void tf32_rs(
+      float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+  template <int TRANS_B>
+  static __device__ __forceinline__ void bf16_rs(
+      float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <> struct Wgmma<48> {
+  static __device__ __forceinline__ void tf32_rs(
+      float (&d)[24], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+  template <int TRANS_B>
+  static __device__ __forceinline__ void bf16_rs(
+      float (&d)[24], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <> struct Wgmma<80> {
+  static __device__ __forceinline__ void tf32_rs(
+      float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+  template <int TRANS_B>
+  static __device__ __forceinline__ void bf16_rs(
+      float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <> struct Wgmma<112> {
+  static __device__ __forceinline__ void tf32_rs(
+      float (&d)[56], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55}, "
+        "{%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+  template <int TRANS_B>
+  static __device__ __forceinline__ void bf16_rs(
+      float (&d)[56], const uint32_t (&a)[4], uint64_t desc_b,
+      int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55}, "
+        "{%56, %57, %58, %59}, %60, p, 1, 1, %62;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
           "r"(scale_d), "n"(TRANS_B));
   }

@@ -55,8 +55,8 @@ __all__ = ("FFN_BN", "FFN_BM", "ACT_IDS", "sketch_dtype",
            "flash_forward", "flash_backward_dkv", "flash_backward_dq",
            "flash_forward_simt", "flash_backward_dkv_simt",
            "flash_backward_dq_simt",
-           "flash_backward_envelope",
-           "FLASH_HEAD_DIMS", "matmul_input_sketch_plain",
+           "flash_backward_envelope", "flash_instance",
+           "FLASH_HEAD_DIMS", "FLASH_INSTANCES", "matmul_input_sketch_plain",
            "input_sketch_plain", "dense_act_sketch_plain",
            "dense_act_sketch_x_plain",
            "matmul_lut_backward_plain", "act_forward_plain",
@@ -1112,36 +1112,51 @@ def fused_dense_act(spec, x: torch.Tensor, w: torch.Tensor,
 # Flash attention F1-F3: forward, dK/dV, dQ.
 # ---------------------------------------------------------------------------
 
-# The head dimensions F1-F3 are instantiated at (csrc/flash_forward*.cu,
-# csrc/flash_backward*.cu); the CUDA-core kernels they replaced take 64
-# only.
-FLASH_HEAD_DIMS = (32, 64, 128)
+# The head dimensions F1-F3 take: every d from 1 to 128, as JAX's TPU
+# kernels take every d below 128.  They are instantiated at every multiple
+# of 16 up to 128 (csrc/flash_forward*.cu, csrc/flash_backward*.cu), and
+# any other head dimension runs on the instantiation at the next multiple
+# of 16 (flash_instance), through zero-padded copies of its operands.  The
+# CUDA-core kernels they replaced take 64 only.
+FLASH_MAX_HEAD_DIM = 128
+FLASH_HEAD_DIMS = range(1, FLASH_MAX_HEAD_DIM + 1)
+FLASH_INSTANCES = tuple(range(16, FLASH_MAX_HEAD_DIM + 1, 16))
 FLASH_SIMT_HEAD_DIM = 64
 FLASH_SMEM_LIMIT = 232448  # dynamic shared memory of a block (HB_SMEM_LIMIT)
 _FLASH_KERNELS = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
 
 
+def flash_instance(d: int) -> int:
+    """The instantiation of F1-F3 that runs head dimension ``d``: the next
+    multiple of 16.  Raises for a ``d`` outside 1 to 128, naming it."""
+    _require(d in FLASH_HEAD_DIMS,
+             f"head dimension {d}: the flash kernels take 1 to "
+             f"{FLASH_MAX_HEAD_DIM}")
+    return -(-d // 16) * 16
+
+
 def _flash_tiles(kernel: str, dtype, d: int):
     """``(warpgroups, tile rows, stages)`` of a block of F1, F2 or F3 at
-    head dimension ``d``, as ``hb_tiles`` in ``csrc/flash_hopper.cuh``: a
-    block owns 64 rows of its own side per consumer warpgroup and loops
-    over tiles of the other side through a ring of stages."""
+    the instantiation ``d`` (``FLASH_INSTANCES``), as ``hb_tiles`` in
+    ``csrc/flash_hopper.cuh``: a block owns 64 rows of its own side per
+    consumer warpgroup and loops over tiles of the other side through a
+    ring of stages."""
     _require(kernel in _FLASH_KERNELS, f"kernel {kernel!r}")
-    _require(d in FLASH_HEAD_DIMS, f"head dimension {d}")
+    _require(d in FLASH_INSTANCES, f"head dimension {d}: no instantiation")
     bf16 = dtype == torch.bfloat16
-    if d == 128 and not bf16:
+    if d > 64 and not bf16:
         return 1, 32, 2 if kernel == "flash_forward" else 1
-    if d == 128 and kernel == "flash_backward_dkv":
+    if d > 64 and kernel == "flash_backward_dkv":
         return 1, 32, 4
     return 2, 64, 4 if bf16 else (2 if kernel == "flash_forward" else 1)
 
 
 def _flash_smem(kernel: str, dtype, d: int) -> int:
-    """Dynamic shared memory of a block of F1, F2 or F3 at head dimension
-    ``d``, as ``ff_smem`` and ``hb_smem`` in the source: the block's own
-    operands (F1 f32: Q's TF32 hi and lo planes), the ring, the f32 planes
-    of the second products (F1: the staging of V), the per-tile row
-    values, the barriers and 1024 bytes of alignment slack."""
+    """Dynamic shared memory of a block of F1, F2 or F3 at the
+    instantiation ``d``, as ``ff_smem`` and ``hb_smem`` in the source: the
+    block's own operands (F1 f32: Q's TF32 hi and lo planes), the ring, the
+    f32 planes of the second products (F1: the staging of V), the per-tile
+    row values, the barriers and 1024 bytes of alignment slack."""
     wgs, tile, stages = _flash_tiles(kernel, dtype, d)
     bf16 = dtype == torch.bfloat16
     elt, parts = (2, 1) if bf16 else (4, 2)
@@ -1166,8 +1181,10 @@ def _flash_checks(q, k, v, seg_q, seg_kv, head_dims=FLASH_HEAD_DIMS):
     sk = k.shape[2] if k.ndim == 4 else -1
     dev, dt = q.device, q.dtype
     _require(dt in _DTYPES, f"dtype {dt} not in {_DTYPES}")
+    takes = (f"{head_dims[0]} to {head_dims[-1]}" if len(head_dims) > 1
+             else f"{head_dims[0]} only")
     _require(d in head_dims,
-             f"head dimension {d}: the flash kernels take {head_dims}")
+             f"head dimension {d}: the flash kernels take {takes}")
     for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, h, sk, d)),
                            ("v", v, (b, h, sk, d))):
         _require(t.device == dev, f"{name} on {t.device}, expected {dev}")
@@ -1205,12 +1222,32 @@ def _head_dims(tensor_core):
     return FLASH_HEAD_DIMS if tensor_core else (FLASH_SIMT_HEAD_DIM,)
 
 
+def _flash_operands(tensor_core, ins, outs):
+    """The operands and outputs a kernel takes: ``ins`` and ``outs`` as
+    given, or, at a head dimension d that is not a multiple of 16, copies
+    of ``ins`` of ``flash_instance(d)`` columns, zeros past d, and new
+    outputs of as many columns (``_flash_copy_back`` copies them into
+    ``outs``)."""
+    d = ins[0].shape[-1]
+    pad = flash_instance(d) - d if tensor_core else 0
+    if pad:
+        return (tuple(torch.nn.functional.pad(t, (0, pad)) for t in ins),
+                tuple(o.new_empty(*o.shape[:-1], d + pad) for o in outs))
+    if tensor_core:
+        _flash_tma_checks(*ins)
+    return ins, outs
+
+
+def _flash_copy_back(outs, got):
+    for o, g in zip(outs, got):
+        if g is not o:
+            o.copy_(g[..., :o.shape[-1]])
+
+
 def _flash_forward(fn_name, tensor_core, q, k, v, seg_q, seg_kv, causal,
                    sm_scale, out):
     b, h, sq, sk, dev, dt = _flash_checks(q, k, v, seg_q, seg_kv,
                                           _head_dims(tensor_core))
-    if tensor_core:
-        _flash_tma_checks(q, k, v)
     if out is None:
         o = torch.empty_like(q)
         lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
@@ -1219,11 +1256,13 @@ def _flash_forward(fn_name, tensor_core, q, k, v, seg_q, seg_kv, causal,
         o, = _flash_outputs(out[:1], (q,), ("o",))
         lse = out[1]
         _check("out lse", lse, dev, (b, h, sq), torch.float32)
-    strides = _strides(q, k, v, o, None, None, None, None)
+    (q, k, v), (o_k,) = _flash_operands(tensor_core, (q, k, v), (o,))
+    strides = _strides(q, k, v, o_k, None, None, None, None)
     _launch(fn_name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ptr(seg_q), _ptr(seg_kv), o.data_ptr(), lse.data_ptr(),
+            _ptr(seg_q), _ptr(seg_kv), o_k.data_ptr(), lse.data_ptr(),
             ctypes.addressof(strides), b, h, sq, sk, q.shape[-1],
             int(causal), float(sm_scale), int(dt == torch.bfloat16))
+    _flash_copy_back((o,), (o_k,))
     return o, lse
 
 
@@ -1234,7 +1273,8 @@ def flash_forward(q, k, v, seg_q=None, seg_kv=None, causal: bool = False,
     masked logits ``(b, h, sq)``, contiguous.  On the card both products
     run on the tensor cores (bf16, or f32 as three TF32 products), fed by
     TMA: bases and strides are multiples of 16 bytes, and the head
-    dimension one of ``FLASH_HEAD_DIMS``."""
+    dimension one of ``FLASH_HEAD_DIMS`` (1 to 128; those that are not a
+    multiple of 16 go through zero-padded copies)."""
     if q.device.type == "cpu":
         return _into(out, flash_forward_plain(q, k, v, seg_q, seg_kv, causal,
                                               sm_scale))
@@ -1314,15 +1354,16 @@ def _flash_backward_dkv(fn_name, tensor_core, q, k, v, seg_q, seg_kv, lse,
                         do, di, causal, sm_scale, out):
     b, h, sq, sk, dev, dt = _flash_backward_checks(
         q, k, v, seg_q, seg_kv, lse, do, di, _head_dims(tensor_core))
-    if tensor_core:
-        _flash_tma_checks(q, k, v, do)
     dk, dv = _flash_outputs(out, (k, v), ("dk", "dv"))
-    strides = _strides(q, k, v, None, do, None, dk, dv)
+    (q, k, v, do), (dk_k, dv_k) = _flash_operands(tensor_core, (q, k, v, do),
+                                                   (dk, dv))
+    strides = _strides(q, k, v, None, do, None, dk_k, dv_k)
     _launch(fn_name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(seg_q), _ptr(seg_kv), lse.data_ptr(), do.data_ptr(),
-            di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            di.data_ptr(), dk_k.data_ptr(), dv_k.data_ptr(),
             ctypes.addressof(strides), b, h, sq, sk, q.shape[-1],
             int(causal), float(sm_scale), int(dt == torch.bfloat16))
+    _flash_copy_back((dk, dv), (dk_k, dv_k))
     return dk, dv
 
 
@@ -1330,15 +1371,16 @@ def _flash_backward_dq(fn_name, tensor_core, q, k, v, seg_q, seg_kv, lse, do,
                        di, causal, sm_scale, out):
     b, h, sq, sk, dev, dt = _flash_backward_checks(
         q, k, v, seg_q, seg_kv, lse, do, di, _head_dims(tensor_core))
-    if tensor_core:
-        _flash_tma_checks(q, k, v, do)
     dq, = _flash_outputs(out, (q,), ("dq",))
-    strides = _strides(q, k, v, None, do, dq, None, None)
+    (q, k, v, do), (dq_k,) = _flash_operands(tensor_core, (q, k, v, do),
+                                              (dq,))
+    strides = _strides(q, k, v, None, do, dq_k, None, None)
     _launch(fn_name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(seg_q), _ptr(seg_kv), lse.data_ptr(), do.data_ptr(),
-            di.data_ptr(), dq.data_ptr(), ctypes.addressof(strides), b, h,
+            di.data_ptr(), dq_k.data_ptr(), ctypes.addressof(strides), b, h,
             sq, sk, q.shape[-1], int(causal), float(sm_scale),
             int(dt == torch.bfloat16))
+    _flash_copy_back((dq,), (dq_k,))
     return dq
 
 

@@ -647,22 +647,62 @@ def test_flash_kernels_match_plain_at_other_head_dims(
     _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d)
 
 
-def _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d):
+# Head dimensions of every instantiation but 32, 64 and 128 (the tests
+# above), and head dimensions that are not multiples of 16, which the
+# wrappers copy into zero-padded operands of the next instantiation's
+# width and copy back (40, 72, 20, 100, 6 and 1).
+NEW_HEAD_DIMS = [16, 48, 80, 96, 112, 40, 72, 20, 100, 6, 1]
+_NEW_HEAD_DIM_SHAPES = [(1000, 1000, True, True, False),
+                        (300, 1000, False, True, False),
+                        (1000, 300, True, False, False),
+                        (127, 127, True, True, True),
+                        (65, 127, False, False, True),
+                        (1, 1, True, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,sk,causal,seg,contiguous", _NEW_HEAD_DIM_SHAPES)
+def test_flash_kernels_match_plain_at_every_head_dim(
+        cuda, dtype, s, sk, causal, seg, contiguous, d):
+    """The same at the other instantiations (16, 48, 80, 96 and 112: rows
+    in 32- and 64-byte sub-tiles, wgmma's N = d) and at head dimensions
+    below their instantiation, through zero-padded copies; the outputs are
+    views of wider buffers filled with NaN, whose columns past d must stay
+    NaN: nothing is stored past d."""
+    _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d,
+                         wide=True)
+
+
+def _flash_nan_outputs(likes, wide):
+    """NaN-filled outputs like ``likes``; with ``wide``, views of the first
+    d columns of buffers 16 columns wider (and the buffers)."""
+    if not wide:
+        outs = [torch.full_like(t, float("nan")) for t in likes]
+        return outs, outs
+    bufs = [torch.full((*t.shape[:-1], t.shape[-1] + 16), float("nan"),
+                       dtype=t.dtype, device=t.device) for t in likes]
+    return [b[..., :t.shape[-1]] for b, t in zip(bufs, likes)], bufs
+
+
+def _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d,
+                         wide=False):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     simt = d == 64
     (q, k, v, do), ids_q, ids_kv = _flash_inputs(cuda, dtype, 2, 3, s,
                                                  s + causal, sk, contiguous,
                                                  d)
     seg_q, seg_kv = (ids_q, ids_kv) if seg else (None, None)
-    scale = 0.125
+    scale = d ** -0.5 if wide else 0.125
     K.reset_launch_counts()
     o0, lse0 = flash_forward_plain(q, k, v, seg_q, seg_kv, causal, scale)
-    fout = (torch.full_like(q, float("nan")),
-            torch.full_like(lse0, float("nan")))
+    (o_out,), bufs = _flash_nan_outputs((q,), wide)
+    fout = (o_out, torch.full_like(lse0, float("nan")))
     o, lse = K.flash_forward(q, k, v, seg_q, seg_kv, causal, scale,
                              out=fout)
     assert o is fout[0] and lse is fout[1]
-    assert o.stride() == q.stride()
+    assert wide or o.stride() == q.stride()
     o2, lse2 = K.flash_forward(q, k, v, seg_q, seg_kv, causal, scale)
     assert o2.stride() == q.stride()
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
@@ -671,7 +711,8 @@ def _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d):
                                          scale)
     di = (o.float() * do.float()).sum(-1)
     bargs = (q, k, v, seg_q, seg_kv, lse, do, di, causal, scale)
-    nan = [torch.full_like(t, float("nan")) for t in (k, v, q)]
+    nan, more = _flash_nan_outputs((k, v, q), wide)
+    bufs += more
     dk, dv = K.flash_backward_dkv(*bargs, out=nan[:2])
     dq = K.flash_backward_dq(*bargs, out=nan[2:])
     assert all(a is b for a, b in zip((dk, dv, dq), nan))
@@ -686,8 +727,12 @@ def _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d):
                   ("dq simt", dqs, dq0), ("dk simt", dks, dk0),
                   ("dv simt", dvs, dv0)]
     torch.cuda.synchronize()
-    assert (dk.stride(), dv.stride(), dq.stride()) == (
-        k.stride(), v.stride(), q.stride())
+    if wide:
+        for buf in bufs:
+            assert bool(buf[..., d:].isnan().all()), "stored past d"
+    else:
+        assert (dk.stride(), dv.stride(), dq.stride()) == (
+            k.stride(), v.stride(), q.stride())
     for name, a, b in pairs:
         err = (a.float() - b.float()).abs().max().item()
         assert err <= tol * max(1.0, b.float().abs().max().item()), \
@@ -706,11 +751,11 @@ def _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 80, 96, 256])
+@pytest.mark.parametrize("d", [129, 144, 256])
 def test_flash_kernels_refuse_other_head_dims(cuda, dtype, d):
-    """Outside FLASH_HEAD_DIMS every tensor-core wrapper raises, with the
-    head dimension in its message: nothing falls back to a plain version;
-    the CUDA-core kernels take 64 only."""
+    """Outside FLASH_HEAD_DIMS (1 to 128) every tensor-core wrapper raises,
+    with the head dimension in its message: nothing falls back to a plain
+    version; the CUDA-core kernels take 64 only."""
     (q, k, v, do), _, _ = _flash_inputs(cuda, dtype, 2, 2, 96, 3,
                                         contiguous=True, d=d)
     lse = torch.zeros(2, 2, 96, device=cuda)
@@ -730,7 +775,7 @@ def test_flash_kernels_refuse_other_head_dims(cuda, dtype, d):
 @pytest.mark.cuda
 def test_flash_smem_matches_the_source(cuda):
     """_flash_smem, the host's mirror, gives what the source's ff_smem and
-    hb_smem give for every kernel, type and head dimension, each within the
+    hb_smem give for every kernel, type and instantiation, each within the
     232,448 bytes a block may have; -1 for another head dimension."""
     from fewbit_tpu_torch.ops._build import load_library
 
@@ -739,11 +784,12 @@ def test_flash_smem_matches_the_source(cuda):
                               "flash_backward_dq")):
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = int(dtype == torch.bfloat16)
-            for d in K.FLASH_HEAD_DIMS:
+            for d in K.FLASH_INSTANCES:
                 want = K._flash_smem(name, dtype, d)
                 assert query(i, bf16, d) == want, (name, dtype, d)
                 assert want <= K.FLASH_SMEM_LIMIT
-            assert query(i, bf16, 96) == -1
+            for d in (100, 144):
+                assert query(i, bf16, d) == -1
 
 
 @pytest.mark.cuda
@@ -781,9 +827,10 @@ def test_flash_backward_refuses_what_tma_cannot_read(cuda, dtype):
             err = (got.float() - ref.float()).abs().max().item()
             tol = 1e-4 if dtype == torch.float32 else 2e-2
             assert err <= tol * max(1.0, ref.float().abs().max().item())
-    with pytest.raises(ValueError):  # head dimension 16
-        K.flash_backward_dq(q[..., :16], k[..., :16], v[..., :16], None, None,
-                            lse, do[..., :16], di)
+    wide = [torch.zeros(b, h, s, 144, dtype=dtype, device=cuda)
+            for _ in range(4)]
+    with pytest.raises(ValueError, match="head dimension 144"):
+        K.flash_backward_dq(*wide[:3], None, None, lse, wide[3], di)
 
 
 @pytest.mark.cuda
@@ -871,8 +918,9 @@ def test_flash_attention_function_on_cuda(cuda):
     for a, b in zip(*grads):
         err = (a - b).abs().max().item()
         assert err <= 1e-4 * max(1.0, b.abs().max().item()), err
-    with pytest.raises(ValueError):  # head dimension 16
-        K.flash_forward(q[..., :16], k[..., :16], v[..., :16])
+    wide = torch.zeros(*q.shape[:3], 144, device=cuda)
+    with pytest.raises(ValueError, match="head dimension 144"):
+        K.flash_forward(wide, wide, wide)
     with pytest.raises(ValueError):  # float64
         K.flash_forward(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):  # segment ids for one side only
@@ -1437,3 +1485,69 @@ def test_example_width_kernels_write_every_output_on_cuda(cuda, dtype):
         args = (spec, codes, levels, rand(n, 512))
         want = K.act_backward_plain(*args)
         held((K.fused_backward(*args, out=_nan_outputs((want,))),), (want,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_step_on_cuda_matches_cpu(cuda, dtype):
+    """make_train_step on the card, where AdamW runs fused, against the same
+    step on the CPU (torch's default AdamW), which tests/test_torch_train.py
+    holds against JAX's: three steps of a vanilla GPT (no dropout, no
+    sketch: nothing drawn) from the same f32 weights on the same batches,
+    Adam's eps 1 and the first step's learning rate 0, as that file's
+    max_grad_norm test.  f32: the parameters within its tolerances (rtol
+    1e-5, atol 1e-7).  bf16 compute (the parameters and AdamW stay f32):
+    the joined parameter updates' relative error against the CPU's f32
+    step at most 2.5 times the CPU bf16 step's, as tests/test_torch_bf16.py
+    bounds the bf16 path against JAX's own bf16 run."""
+    from fewbit_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from fewbit_tpu_torch.train import (TrainConfig, causal_lm_loss,
+                                        make_optimizer, make_train_step,
+                                        synthetic_lm)
+
+    widths = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+                  intermediate_size=512, max_position_embeddings=64,
+                  hidden_dropout=0.0, attention_dropout=0.0)
+    train = TrainConfig(total_steps=4, learning_rate=1e-2, eps=1.0)
+    batches = [next(synthetic_lm(4, 64, vocab_size=256, seed=s))
+               for s in range(3)]
+
+    def fresh(dt):
+        # The same f32 weights whatever the compute dtype.
+        return GPTForCausalLM(GPTConfig(**widths, dtype=dt), device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+
+    before = [p.detach().clone() for p in fresh(torch.float32).parameters()]
+
+    def run(dt, device):
+        model = fresh(dt).to(device)
+        assert all(torch.equal(p.cpu(), b)
+                   for p, b in zip(model.parameters(), before))
+        if device.type == "cuda":
+            opt, _ = make_optimizer(train, list(model.parameters()))
+            assert opt.defaults["fused"]
+        step = make_train_step(model, train, loss_fn=causal_lm_loss)
+        gen = torch.Generator().manual_seed(0)
+        for b in batches:
+            loss = step({k: torch.as_tensor(v, device=device)
+                         for k, v in b.items()}, gen)["loss"]
+            assert math.isfinite(loss.item())
+        return [p.detach().float().cpu() for p in model.parameters()]
+
+    truth = run(torch.float32, torch.device("cpu"))
+    got = run(dtype, cuda)
+    assert all(not torch.equal(t, b) for t, b in zip(truth, before))
+    if dtype == torch.float32:
+        for g, t in zip(got, truth):
+            torch.testing.assert_close(g, t, rtol=1e-5, atol=1e-7)
+        return
+
+    def update_err(params):
+        num = sum(((p - b) - (t - b)).double().pow(2).sum()
+                  for p, t, b in zip(params, truth, before))
+        den = sum((t - b).double().pow(2).sum()
+                  for t, b in zip(truth, before))
+        return math.sqrt(num / den)
+
+    cpu_err = update_err(run(dtype, torch.device("cpu")))
+    assert update_err(got) <= 2.5 * cpu_err, (update_err(got), cpu_err)

@@ -78,6 +78,29 @@ def test_plain_matches_library_reference(s, causal, seg, d):
     """The plain forward and backward against the library's reference and
     its VJP, at every row (padded query rows included), at the head
     dimensions the kernels take (the plain versions take any)."""
+    _plain_against_library(s, causal, seg, d)
+
+
+# The other instantiations, and two head dimensions below theirs, which the
+# wrappers copy into zero-padded operands: 20 (the instantiation at 32) and
+# 40 (at 48).  One sequence length and mask each.
+OTHER_HEAD_DIMS = [(16, 128, True, True), (48, 100, False, True),
+                   (80, 100, True, True), (96, 128, False, False),
+                   (112, 100, True, False), (20, 100, True, True),
+                   (40, 128, False, True)]
+
+
+@pytest.mark.parametrize("d,s,causal,seg", OTHER_HEAD_DIMS,
+                         ids=[f"d{c[0]}" for c in OTHER_HEAD_DIMS])
+def test_plain_matches_library_reference_at_every_head_dim(d, s, causal,
+                                                           seg):
+    """The same at head dimensions 16, 48, 80, 96 and 112 (the other
+    instantiations of F1-F3) and at 20 and 40, which run on the
+    instantiations at 32 and 48 with zeros past d."""
+    _plain_against_library(s, causal, seg, d)
+
+
+def _plain_against_library(s, causal, seg, d):
     q, k, v, do, ids = _op_inputs(s, s + 2 * causal + seg, d)
     scale = d ** -0.5
     jseg = fa.SegmentIds(q=jnp.asarray(ids), kv=jnp.asarray(ids)) \
@@ -219,13 +242,20 @@ def test_use_flash_matches_jax_rule():
 def test_auto_keeps_standard_attention_outside_the_kernels_envelope(
         monkeypatch):
     """"auto" takes flash only at a head dimension F1-F3 take
-    (FLASH_HEAD_DIMS: 32, 64 and 128), on a CUDA device only; elsewhere
-    True goes on to the kernel, which refuses with the head dimension in
-    its message.  The models hand use_flash their own head dimension."""
+    (FLASH_HEAD_DIMS: every d from 1 to 128, as JAX's TPU kernels take
+    every d below 128; each runs on the instantiation at the next multiple
+    of 16), on a CUDA device only; above 128 True goes on to the kernel,
+    which refuses with the head dimension in its message.  The models hand
+    use_flash their own head dimension."""
     from fewbit_tpu_torch.models import gpt, roberta
-    from fewbit_tpu_torch.ops.kernels import FLASH_HEAD_DIMS
+    from fewbit_tpu_torch.ops.kernels import (FLASH_HEAD_DIMS,
+                                              FLASH_INSTANCES,
+                                              flash_instance)
 
-    assert FLASH_HEAD_DIMS == (32, 64, 128)
+    assert FLASH_HEAD_DIMS == range(1, 129)
+    assert FLASH_INSTANCES == (16, 32, 48, 64, 80, 96, 112, 128)
+    assert [flash_instance(d) for d in (1, 16, 17, 20, 40, 80, 127)] == [
+        16, 16, 32, 32, 48, 80, 128]
     s = FLASH_AUTO_MIN_SEQ
     assert use_flash("auto", s, 0.0, "cuda", head_dim=None)
     for d in FLASH_HEAD_DIMS:
@@ -233,7 +263,10 @@ def test_auto_keeps_standard_attention_outside_the_kernels_envelope(
         assert use_flash("auto", s, 0.1, "cuda", True, d)
         assert not use_flash("auto", s, 0.0, "cpu", head_dim=d)
         assert not use_flash("auto", s, 0.1, "cuda", head_dim=d)
-    for d in (16, 80, 96, 256):
+    for d in (0, 129, 144, 256):
+        with pytest.raises(ValueError, match=f"head dimension {d}"):
+            flash_instance(d)
+    for d in (129, 144, 256):
         assert not use_flash("auto", s, 0.0, "cuda", head_dim=d)
         assert not use_flash("auto", s, 0.1, "cuda", True, d)
         assert use_flash(True, s, 0.0, "cuda", head_dim=d)
@@ -481,6 +514,10 @@ class _PortCodes:
 # (b, h, s, s) from (b, h, s, d) by it).
 HEAD_DIM_WIDTHS = {32: (dict(hidden_size=128, num_heads=4), SEQ),
                    128: (dict(hidden_size=256, num_heads=2), 96)}
+# Head dimension 80, Cerebras-GPT-2.7B's (32 heads of 80), at hidden 640
+# over 8 heads (JAX's kernel 6 takes widths that are multiples of 128, and
+# the few-bit check reads its codes): GPT only.
+GPT_D80 = (dict(hidden_size=640, num_heads=8), SEQ)
 # GPT's batch seeds, the same at every head dimension.
 GPT_BATCH_SEEDS = (2, 3, 4, 5)
 
@@ -501,6 +538,17 @@ def test_gpt_flash_matches_jax_at_head_dims(monkeypatch, fewbit, d):
     32 and 128, the other two F1-F3 take on the card; two layers, the same
     tolerances."""
     _gpt_flash_case(monkeypatch, fewbit, *HEAD_DIM_WIDTHS[d])
+
+
+@pytest.mark.parametrize("fewbit", [False, True], ids=["vanilla", "fewbit"])
+def test_gpt_flash_matches_jax_at_head_dim_80(monkeypatch, fewbit):
+    """As test_gpt_flash_matches_jax at head dimension 80, the width of
+    Cerebras-GPT-2.7B's heads (F1-F3's instantiation at 80 on the card;
+    bf16 and f32 rows of 160 and 320 bytes), hidden 640 over 8 heads, two
+    layers, JAX's parameters through load_flax_params; the same
+    tolerances."""
+    assert GPTConfig(**{**SMALL, **GPT_D80[0]}).head_dim == 80
+    _gpt_flash_case(monkeypatch, fewbit, *GPT_D80)
 
 
 def _gpt_flash_case(monkeypatch, fewbit, widths, seq):

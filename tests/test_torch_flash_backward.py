@@ -245,29 +245,34 @@ def test_swizzled_plane_offsets_are_a_permutation():
 
 
 # The f32 planes of each instantiation: (tile rows, head dimension).
-F32_PLANES = [(64, 32), (64, 64), (32, 128)]
+F32_PLANES = [(64, 16), (64, 32), (64, 48), (64, 64), (32, 80), (32, 96),
+              (32, 112), (32, 128)]
+
+
+def _row_bytes(d, elt):
+    """``HbShape::RB``: the largest of 128, 64 and 32 that divides a row."""
+    return next(rb for rb in (128, 64, 32) if d * elt % rb == 0)
 
 
 @pytest.mark.parametrize("tile,d", F32_PLANES,
                          ids=[f"tile{t}_d{d}" for t, d in F32_PLANES])
 def test_swizzled_plane_offsets_at_every_f32_instantiation(tile, d):
     """The same for every f32 plane the kernels keep (``K._flash_tiles``),
-    and the producer's thread layouts over it: ``fetch_tile`` and
-    ``split_fetched`` (128 threads, ``tile d / 512`` chunks each, row =
-    chunk >> log2(d / 4)) and ``transpose_planes`` (a warp's lanes on 32
-    different rows, ``tile / 32`` row groups by ``d / 16`` chunk columns a
-    warp) each visit every chunk once; the transposed plane (d rows x tile
-    floats, sub-tiles of 32 k) is a permutation of its bytes too."""
+    in sub-tiles of 128- or 64-byte rows, and the producer's thread layouts
+    over it: ``fetch_tile`` and ``split_fetched`` (128 threads, ``tile d /
+    512`` chunks each, row = chunk / (d / 4) unsigned) and
+    ``transpose_planes`` (a warp's lanes on 32 different rows, ``tile / 32``
+    row groups by ``d / 16`` chunk columns a warp) each visit every chunk
+    once; the transposed plane (d rows x tile floats, sub-tiles of 32 k) is
+    a permutation of its bytes too."""
     assert {(K._flash_tiles(name, torch.float32, dd)[1], dd)
             for name in ("flash_forward", "flash_backward_dkv",
-                         "flash_backward_dq") for dd in K.FLASH_HEAD_DIMS} \
+                         "flash_backward_dq") for dd in K.FLASH_INSTANCES} \
         == set(F32_PLANES)
     _plane_offsets(tile, d)
     row_chunks = d // 4
-    shift = row_chunks.bit_length() - 1
-    fetched = [((ptid + 128 * it) >> shift,
-                (ptid + 128 * it) & (row_chunks - 1))
-               for ptid in range(128) for it in range(tile * row_chunks // 128)]
+    fetched = [divmod(ptid + 128 * it, row_chunks) for ptid in range(128)
+               for it in range(tile * row_chunks // 128)]
     assert sorted(fetched) == [(r, c) for r in range(tile)
                                for c in range(row_chunks)]
     groups, chunks = tile // 32, d // 16
@@ -287,24 +292,40 @@ def test_swizzled_plane_offsets_at_every_f32_instantiation(tile, d):
     assert out == set(range(0, d * tile * 4, 4))
 
 
-def _swizzled_offset(row, col, elem_bytes):
-    """``hopper::swizzled_offset``: element (row, col) of a 128-byte-row
-    tile as TMA's 128-byte swizzle writes it."""
+def _swizzled_offset(row, col, elem_bytes, row_bytes=128):
+    """``hopper::swizzled_offset``: element (row, col) of a tile of
+    ``row_bytes``-byte rows as TMA's swizzle of that width writes it."""
     byte = col * elem_bytes
-    return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15)
+    chunk = ((byte >> 4) ^ ((row * row_bytes) >> 7)) & (row_bytes // 16 - 1)
+    return row * row_bytes + (chunk << 4) + (byte & 15)
+
+
+def _plane_chunk(row, c16, tile, rb):
+    """``plane_chunk<TILE, RB>``: chunk c16 of a row in sub-tiles of rb."""
+    cpr = rb // 16
+    return (c16 // cpr) * tile * rb + _swizzled_offset(row, 4 * (c16 % cpr),
+                                                       4, rb)
 
 
 def _plane_offsets(tile, d):
-    def plane_chunk(row, c16):
-        return (c16 >> 3) * tile * 128 + row * 128 + (
-            ((c16 & 7) ^ (row & 7)) << 4)
-
-    offsets = {plane_chunk(r, c) for r in range(tile) for c in range(d // 4)}
+    """The plane's chunks each land on a place of their own; the 16-byte
+    copies of a quarter warp (eight consecutive chunks of the producer's
+    row-major order) touch each bank once, but where a row is an odd
+    number (above one) of 64-byte sub-tiles (d = 48, 80, 112), where two of
+    them may share a bank."""
+    rb = _row_bytes(d, 4)
+    offsets = {_plane_chunk(r, c, tile, rb)
+               for r in range(tile) for c in range(d // 4)}
     assert offsets == set(range(0, tile * d * 4, 16))
-    for row in range(tile):
-        banks = {(plane_chunk(row, c) // 4 + w) % 32
-                 for c in range(8) for w in range(4)}
-        assert len(banks) == 32
+    worst = 0
+    for q0 in range(0, tile * d // 4, 8):
+        hits = np.zeros(32, int)
+        for n in range(q0, q0 + 8):
+            off = _plane_chunk(*divmod(n, d // 4), tile, rb)
+            hits[[(off // 4 + w) % 32 for w in range(4)]] += 1
+        worst = max(worst, hits.max())
+    sub = d * 4 // rb
+    assert worst == (2 if rb == 64 and sub > 1 and sub % 2 else 1), worst
 
 
 # ---------------------------------------------------------------------------
@@ -456,7 +477,7 @@ SECOND_PRODUCTS = sorted({
     (dt, K._flash_tiles(name, torch.float32 if dt == "f32"
                         else torch.bfloat16, d)[1], d)
     for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
-    for dt in ("f32", "bf16") for d in (32, 64, 128)})
+    for dt in ("f32", "bf16") for d in K.FLASH_INSTANCES})
 
 
 @pytest.mark.parametrize("dt,tile,d", SECOND_PRODUCTS,
@@ -501,8 +522,9 @@ def test_fragments_feed_the_second_product_at_every_shape(dt, tile, d):
 def _swizzle(offset, row_bytes):
     """TMA's and wgmma's swizzle of a byte offset inside an aligned atom:
     the 16-byte chunk bits XOR the row bits above them (Swizzle<3,4,3> for
-    128-byte rows, Swizzle<2,4,3> for 64-byte rows)."""
-    bits = 3 if row_bytes == 128 else 2
+    128-byte rows, Swizzle<2,4,3> for 64-byte rows, Swizzle<1,4,3> for
+    32-byte rows)."""
+    bits = {128: 3, 64: 2, 32: 1}[row_bytes]
     mask = ((1 << bits) - 1) << 7
     return offset ^ ((offset & mask) >> 3)
 
@@ -535,9 +557,13 @@ def _mnmajor_read(start, n, k, elt, rb, lbo):
                     + (k % 8) * rb + (k // 8) * 8 * rb, rb)
 
 
-# (element bytes, head dimension, tile rows) of every TMA-fed operand.
-DESCRIPTORS = [(4, 32, 64), (4, 64, 64), (4, 128, 32), (2, 32, 64),
-               (2, 64, 64), (2, 128, 64), (2, 128, 32)]
+# (element bytes, head dimension, tile rows) of every TMA-fed operand, by
+# K._flash_tiles.
+DESCRIPTORS = sorted({
+    (elt, d, K._flash_tiles(name, dt, d)[1])
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
+    for elt, dt in ((4, torch.float32), (2, torch.bfloat16))
+    for d in K.FLASH_INSTANCES})
 
 
 @pytest.mark.parametrize("elt,d,tile", DESCRIPTORS,
@@ -548,11 +574,14 @@ def test_descriptors_read_what_tma_wrote(elt, d, tile):
     wgmma: the first products' K-major operands (a 64-row warpgroup's own
     rows and a looped tile's rows, k step ks at sub-tile ks / KSUB, 32
     bytes a step within it) read exactly the elements of their step, at
-    128-byte rows and at bf16 d = 32's 64-byte rows; and (bf16) the looped
-    tile read MN-major for the second product (step j 16 rows b on, the
-    next 64 columns one sub-tile on: the leading byte offset) reads rows
-    16 j .. 16 j + 15 of every column."""
-    rb = min(128, d * elt)
+    rows of 128, 64 and 32 bytes (the widest that divides d elt); and
+    (bf16) the looped tile read MN-major for the second product (step j 16
+    rows b on, the next rb bytes of columns one sub-tile on: the leading
+    byte offset) reads rows 16 j .. 16 j + 15 of every column.  The f32
+    producer's own copies land where TMA's would (``plane_chunk``)."""
+    rb = _row_bytes(d, elt)
+    assert rb == {4: 128 if d % 32 == 0 else 64,
+                  2: 128 if d % 64 == 0 else 64 if d % 32 == 0 else 32}[elt]
     ksub = rb // 32
     for rows in (64, tile):
         where = _tma_tile(rows, d, elt, rb)
@@ -572,26 +601,40 @@ def test_descriptors_read_what_tma_wrote(elt, d, tile):
                 for k in range(16):
                     assert where[_mnmajor_read(start, n, k, elt, rb, lbo)] \
                         == (16 * j + k, n)
+    if elt == 4:
+        where = _tma_tile(tile, d, elt, rb)
+        for r in range(tile):
+            for c16 in range(d // 4):
+                assert where[_plane_chunk(r, c16, tile, rb)] == (r, 4 * c16)
 
 
 def test_shared_memory_of_every_instantiation():
     """_flash_smem, the host's mirror of ff_smem and hb_smem (the GPU
     tests hold it against the source's): every instantiation within the
-    232,448 bytes a block may have, head dimension 64 as before; f32 at 128
-    would not fit with two consumer warpgroups' 128 own rows."""
-    want = {  # (F1, F2, F3) at d = 32, 64, 128
-        torch.float32: ((116296, 101024, 84640), (230984, 199328, 166560),
-                        (230728, 198560, 165792)),
-        torch.bfloat16: ((43144, 53440, 53440), (84104, 102592, 102592),
-                         (166024, 101056, 200896))}
+    232,448 bytes a block may have, head dimensions 32, 64 and 128 as
+    before; f32 above 64 would not fit with two consumer warpgroups' 128
+    own rows over 64-row tiles (F1 at 80: 3584 d bytes); no instantiation
+    but the multiples of 16 up to 128."""
+    want = {  # (F1, F2, F3) at d = 16, 32, ..., 128
+        torch.float32: ((58952, 51872, 43680), (116296, 101024, 84640),
+                        (173640, 150176, 125600), (230984, 199328, 166560),
+                        (144712, 124832, 104352), (173384, 149408, 124832),
+                        (202056, 173984, 145312), (230728, 198560, 165792)),
+        torch.bfloat16: ((22664, 28864, 28864), (43144, 53440, 53440),
+                         (63624, 78016, 78016), (84104, 102592, 102592),
+                         (104584, 64192, 127168), (125064, 76480, 151744),
+                         (145544, 88768, 176320), (166024, 101056, 200896))}
     names = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
+    assert K.FLASH_INSTANCES == (16, 32, 48, 64, 80, 96, 112, 128)
     for dtype, rows in want.items():
-        for d, row in zip(K.FLASH_HEAD_DIMS, rows):
+        for d, row in zip(K.FLASH_INSTANCES, rows):
             got = tuple(K._flash_smem(n, dtype, d) for n in names)
             assert got == row, (dtype, d)
             assert max(got) <= K.FLASH_SMEM_LIMIT
     # F1 f32 at 128 with 128 own rows: Q's planes alone take 128 KB.
     assert 2 * 128 * 128 * 4 + 2 * 2 * 32 * 128 * 4 * 2 > K.FLASH_SMEM_LIMIT
+    assert 3584 * 80 > K.FLASH_SMEM_LIMIT
     for name in names:
-        with pytest.raises(ValueError):
-            K._flash_tiles(name, torch.float32, 96)
+        for d in (100, 144):
+            with pytest.raises(ValueError):
+                K._flash_tiles(name, torch.float32, d)

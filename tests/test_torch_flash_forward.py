@@ -165,6 +165,26 @@ def test_emulated_arithmetic_against_f64_at_head_dims(sq, sk, causal, mode,
     _emulated_against_f64(sq, sk, causal, mode, dtype, d)
 
 
+# The other instantiations, one shape each (the shapes above in turn).
+NEW_INSTANCES = [(16, 1024, 1024, True, "none"),
+                 (48, 200, 200, True, "segments"),
+                 (80, 130, 300, False, "masked_row"),
+                 (96, 65, 65, False, "none"),
+                 (112, 1024, 1024, True, "none")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,sq,sk,causal,mode", NEW_INSTANCES,
+                         ids=[f"d{c[0]}" for c in NEW_INSTANCES])
+def test_emulated_arithmetic_against_f64_at_every_instantiation(
+        d, sq, sk, causal, mode, dtype):
+    """The same at the instantiations 16, 48, 80, 96 and 112, on their
+    block and tile rows (above 64 in f32 one warpgroup's 64 query rows
+    over 32-row kv tiles)."""
+    _emulated_against_f64(sq, sk, causal, mode, dtype, d)
+
+
 def _emulated_against_f64(sq, sk, causal, mode, dtype, d):
     wgs, tile, _ = K._flash_tiles("flash_forward", dtype, d)
     q, k, v, seg_q, seg_kv = _head(sq, sk, mode, dtype, seed=sq + sk, d=d)

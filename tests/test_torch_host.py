@@ -337,8 +337,10 @@ def test_cli_quantize_matches_jax(tmp_path):
 
 def test_cli_log_output_and_failure(tmp_path):
     log = tmp_path / "quantize.log"
+    # Seeded: an unseeded start converges within two iterations for a few
+    # seeds in a hundred, and exits 0.  Seed 0 does not converge.
     assert cli.main(["--log-output", str(log), "quantize", "1",
-                     "torch:tanh", "-M", "2"]) == 1
+                     "torch:tanh", "-M", "2", "-s", "0"]) == 1
     text = log.read_text()
     assert "running quantizer: 1 bits" in text
     assert "failed to converge in 1 iterations" in text
