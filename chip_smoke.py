@@ -227,32 +227,38 @@ line as ``bf16_bs64`` and ``bf16_bs128``.
 
 The head-dimension phase (after the long-sequence phase; ``python3
 chip_smoke.py --headdim`` runs it alone) holds kernel 6, and kernel 5 on
-its codes, at each Cerebras path's FFN (``CEREBRAS_SHAPES``: 4096 rows,
-1536 -> 6144; 2048 rows, 2560 -> 10240; f32 and bf16) against their plain
-versions into NaN-filled outputs beside their bounds, and F1-F3 at head
-dimensions other than 64 (``HEADDIM_FLASH``: 128 at (2, 12, 2048, 128)
-causal, the 590M path's attention, and (16, 8, 512, 128) with a padding
-mask; 32 causal and at the examples' width; 80 at (1, 32, 2048, 80)
-causal, the 2.7B path's; 16, 48, 96 and 112 causal and padded in turn;
-20, through the wrappers' zero-padded copies of the instantiation at 32),
-f32 and bf16, as the kernel phase
-holds them at 64 (plain, f64, NaN-filled outputs that are views of wider
-buffers, whose columns past d must stay NaN, two launches equal to the
-bit, ``scaled_dot_product_attention`` and the bound beside; the
-CUDA-core kernels take 64 only); then drives GPT at Cerebras-GPT-590M's
-widths (``CEREBRAS_590M``: hidden 1536, 12 heads of 128, 18 layers, FFN
-6144, vocab 50257, 2048 positions; random weights), bs 2 x seq 2048, and
-at Cerebras-GPT-2.7B's (``CEREBRAS_2P7B``: hidden 2560, 32 heads of 80,
-FFN 10240, 16 of its 32 layers), bs 1 x seq 2048, each vanilla + flash
-and few-bit + flash (3 bits, ratio 0.2, countsketch), f32 and bf16,
+its codes, at each width path's FFN (``WIDTH_SHAPES``: 4096 rows,
+1536 -> 6144; 2048 rows, 2560 -> 10240; 4096 rows, 2048 -> 8192; f32 and
+bf16) against their plain versions into NaN-filled outputs beside their
+bounds, and F1-F3 at head dimensions other than 64 (``HEADDIM_FLASH``: 128
+at (2, 12, 2048, 128) causal, the 590M path's attention, and (16, 8, 512,
+128) with a padding mask; 32 causal and at the examples' width; 80 at (1,
+32, 2048, 80) causal, the 2.7B path's; 16, 48, 96 and 112 causal and
+padded in turn; 20, through the wrappers' zero-padded copies of the
+instantiation at 32; the wide kernels at (2, 8, 2048, 256) causal, the
+Pythia path's, (16, 4, 512, 256) padded, (4, 4, 1024, 384) causal and (2,
+4, 1024, 512) padded), f32 and bf16, as the kernel phase holds them at 64
+(plain, f64, NaN-filled outputs that are views of wider buffers, whose
+columns past d must stay NaN, two launches equal to the bit,
+``scaled_dot_product_attention`` with the backend its dispatch takes (and
+above 128 each backend that accepts the call, timed under
+``sdpa_kernel``) and the bound beside; the CUDA-core kernels take 64
+only); then drives GPT at Cerebras-GPT-590M's widths (``CEREBRAS_590M``:
+hidden 1536, 12 heads of 128, 18 layers, FFN 6144, vocab 50257, 2048
+positions; random weights), bs 2 x seq 2048, at Cerebras-GPT-2.7B's
+(``CEREBRAS_2P7B``: hidden 2560, 32 heads of 80, FFN 10240, 16 of its 32
+layers), bs 1 x seq 2048, and at Pythia-1B's (``PYTHIA_1B``: hidden 2048,
+8 heads of 256, all 16 layers, FFN 8192, vocab 50304, an untied head), bs
+2 x seq 2048, each vanilla + flash and few-bit + flash (3 bits, ratio 0.2,
+countsketch), f32 and bf16,
 through ``make_train_step``: in f32 the few-bit forward against the
 vanilla model's on the same weights; 2 checked few-bit steps launching
 F1-F3, kernels 6 and 5 once a layer and kernel 1 never (the widths exceed
 its cap); a vanilla step launching F1-F3 once a layer and nothing else;
 vanilla against few-bit in 16 pairs of single steps (step ms, peak above
 held; the few-bit peak lower).  Its launches go into the kernels line as
-``cerebras_590m_flash_f32``, ``cerebras_2p7b_flash_f32`` and their
-``_bf16``.
+``cerebras_590m_flash_f32``, ``cerebras_2p7b_flash_f32``,
+``pythia_1b_flash_f32`` and their ``_bf16``.
 
 ``python3 chip_smoke.py --profile PATH`` runs only the device phase and the
 few-bit steps of one path (a name in ``PATHS``), four timed without the
@@ -308,6 +314,12 @@ PATHS = {
     "cerebras_2p7b_flash": {"dense_act": 16, "fused_backward": 16,
                             "flash_forward": 16, "flash_backward_dkv": 16,
                             "flash_backward_dq": 16},
+    # Pythia-1B's widths with flash (8 heads of 256: the wide F1-F3),
+    # all 16 layers: kernel 1 never (2048 and 8192 exceed its cap);
+    # kernels 6 and 5 and F1-F3 once a layer.
+    "pythia_1b_flash": {"dense_act": 16, "fused_backward": 16,
+                        "flash_forward": 16, "flash_backward_dkv": 16,
+                        "flash_backward_dq": 16},
 }
 # Cerebras-GPT-590M (Dey et al., "Cerebras-GPT", arXiv 2304.03208, Table 1;
 # the config.json of cerebras/Cerebras-GPT-590M): GPT-2's architecture
@@ -330,15 +342,27 @@ CEREBRAS_2P7B_PATH = "cerebras_2p7b_flash"
 CEREBRAS_2P7B = dict(hidden_size=2560, num_heads=32, num_layers=16,
                      intermediate_size=10240, vocab_size=50257,
                      max_position_embeddings=2048)
-# Each Cerebras path: its config, batch and sequence.
-CEREBRAS = {
+# Pythia-1B (Biderman et al., "Pythia", arXiv 2304.01373, Table 1; the
+# config.json of EleutherAI/pythia-1b): hidden 2048 over 8 heads of 256,
+# 16 layers, FFN 8192, vocabulary 50304, 2048 positions, an untied head;
+# the widths only (the port, as the JAX package, has neither its rotary
+# embeddings nor its parallel residual), all 16 layers: two f32 models
+# with gradients and AdamW's moments take about 32.5 GB.
+PYTHIA_PATH = "pythia_1b_flash"
+PYTHIA_1B = dict(hidden_size=2048, num_heads=8, num_layers=16,
+                 intermediate_size=8192, vocab_size=50304,
+                 max_position_embeddings=2048, tie_lm_head=False)
+# Each path of GPT at a published model's widths: its config, batch and
+# sequence.
+WIDTH_PATHS = {
     CEREBRAS_PATH: dict(config=CEREBRAS_590M, bs=CEREBRAS_BS,
                         seq=CEREBRAS_SEQ),
     CEREBRAS_2P7B_PATH: dict(config=CEREBRAS_2P7B, bs=1, seq=2048),
+    PYTHIA_PATH: dict(config=PYTHIA_1B, bs=2, seq=2048),
 }
 # Vanilla against few-bit in turns of single steps, enough of them that
 # the quartiles of the host-held step ms part (as the bf16 rows').
-CEREBRAS_TURNS = 16
+WIDTH_TURNS = 16
 # F1-F3 at the head dimensions other than 64: (label, batch, heads, seq,
 # head dimension, causal); the padded ones with a padding mask as segment
 # ids.  The path's attention; a padded batch at 128; the examples' width
@@ -346,7 +370,9 @@ CEREBRAS_TURNS = 16
 # Then the 2.7B path's attention (32 heads of 80), the other
 # instantiations (16, 48, 96, 112) causal and padded in turn, and 20, a
 # head dimension that is not a multiple of 16: the wrappers copy it into
-# zero-padded operands of the instantiation at 32.
+# zero-padded operands of the instantiation at 32.  Then the wide kernels:
+# the Pythia path's attention (8 heads of 256), 256 with a padding mask,
+# 384 causal and 512 padded (d / 128 chunks of 128 columns).
 HEADDIM_FLASH = (("cerebras_590m", CEREBRAS_BS, 12, CEREBRAS_SEQ, 128, True),
                  ("d128 padded", 16, 8, 512, 128, False),
                  ("d32 causal", 16, 4, 1024, 32, True),
@@ -356,13 +382,18 @@ HEADDIM_FLASH = (("cerebras_590m", CEREBRAS_BS, 12, CEREBRAS_SEQ, 128, True),
                  ("d48 padded", 16, 8, 512, 48, False),
                  ("d96 causal", 4, 16, 1024, 96, True),
                  ("d112 padded", 16, 8, 512, 112, False),
-                 ("d20 padded copy", 8, 8, 1024, 20, False))
-# Kernel 6 (and kernel 5 on its codes) at the path's FFN: 4096 rows, 1536
-# -> 6144, in both of the path's types.
-CEREBRAS_SHAPES = tuple(
+                 ("d20 padded copy", 8, 8, 1024, 20, False),
+                 ("pythia_1b", 2, 8, 2048, 256, True),
+                 ("d256 padded", 16, 4, 512, 256, False),
+                 ("d384 causal", 4, 4, 1024, 384, True),
+                 ("d512 padded", 2, 4, 1024, 512, False))
+# Kernel 6 (and kernel 5 on its codes) at each width path's FFN (4096
+# rows, 1536 -> 6144; 2048 rows, 2560 -> 10240; 4096 rows, 2048 -> 8192),
+# in both of the paths' types.
+WIDTH_SHAPES = tuple(
     (c["bs"] * c["seq"], c["config"]["hidden_size"],
      c["config"]["intermediate_size"], (torch.float32, torch.bfloat16),
-     ("k6",)) for c in CEREBRAS.values())
+     ("k6",)) for c in WIDTH_PATHS.values())
 MLP_FEATURES = (FFN, FFN, FFN, HIDDEN)   # benchmark/bench_linear.py:30-31
 # The megakernel experiment: calls per row (one to size the outputs, two to
 # warm up, 3 timed blocks of EXP_ITERS), and the rows per kernel at its
@@ -533,7 +564,12 @@ def _gemm_case(results, name, mode, tag, wrapper, plain, args, errs, route,
                           key="plain_device_ms"),
             **least,
             "library_ms": None,
-            "matmul_only_device_ms": device_ms(lambda: torch.matmul(a, w))}
+            "matmul_only_device_ms": device_ms(
+                lambda: torch.matmul(a, w), bound(
+                    2 * a.shape[0] * a.shape[1] * w.shape[-1],
+                    gemm_rate(a.dtype),
+                    tensor_bytes(a, w) + a.shape[0] * w.shape[-1]
+                    * a.element_size())["bound_ms"])}
     case["tflops"] = flop / case["device_ms"] / 1e9
     case["plain_tflops"] = flop / case["plain_device_ms"] / 1e9
     case["bound_share"] = case["bound_ms"] / case["device_ms"]
@@ -823,7 +859,6 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     simt = d == K.FLASH_SIMT_HEAD_DIM
     heads = q.shape[1]
     mode = f"{shape} {tuple(q.shape)}, {'causal' if causal else 'full'}"
-    lib = _sdpa_ms(q, k, v, do, unmasked(ids, causal), ids, causal, scale)
     rate = gemm_rate(q.dtype)
     # The f64 evaluations, on as many batch rows as keep their (s, s)
     # tensors near 2^25 elements per head.
@@ -844,6 +879,15 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
     # Each kernel's call, operations and bytes, as tools/flash_timing.py
     # times them.
     work = flash_work(q, k, v, do, ids, causal, o, lse, di)
+    # The library computes F1's function forward and F2's and F3's
+    # backward: their bounds are floors for its device times too.
+    floors = {name: bound(ops, rate, nbytes)["bound_ms"]
+              for name, (_, ops, nbytes) in work.items()}
+    lib = _sdpa_ms(q, k, v, do, unmasked(ids, causal), ids, causal, scale,
+                   (floors["flash_forward"],
+                    max(floors["flash_backward_dkv"],
+                        floors["flash_backward_dq"])),
+                   backends=d > K.FLASH_MAX_HEAD_DIM)
     call, ops, nbytes = work["flash_forward"]
     least = bound(ops, rate, nbytes)
     o64, lse64 = _flash_forward_f64(q[:nb], k[:nb], v[:nb], ids[:nb],
@@ -864,7 +908,8 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
            if simt else {}),
         **least,
         "library_ms": lib["fwd_ms"], "library_device_ms": lib["fwd_device_ms"],
-        "library": "scaled_dot_product_attention, forward"})
+        "library": "scaled_dot_product_attention, forward",
+        **_library_backends(lib, "fwd")})
     del o0, lse0, fsimt, o64, lse64
     bargs = (q, k, v, ids, ids, lse, do, di, causal, scale)
     dk64, dv64, dq64 = _flash_backward_f64(
@@ -899,7 +944,7 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
            if simt else {}),
         **least,
         "library_ms": lib["bwd_ms"], "library_device_ms": lib["bwd_device_ms"],
-        "library": library}
+        "library": library, **_library_backends(lib, "bwd")}
     results["flash_backward_dkv"].append(case)
     del dk0, dv0, dkvs, dk64, dv64
     out, more = _nan_wide(q)
@@ -926,7 +971,7 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
            if simt else {}),
         **least,
         "library_ms": lib["bwd_ms"], "library_device_ms": lib["bwd_device_ms"],
-        "library": library})
+        "library": library, **_library_backends(lib, "bwd")})
     if shape == "gpt2_small":
         for name in ("flash_forward", "flash_backward_dkv",
                      "flash_backward_dq"):
@@ -937,14 +982,22 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
                     f"ms, the CUDA-core kernel it replaced {c['simt_ms']} ms")
 
 
-def _sdpa_ms(q, k, v, do, keep, ids, causal, scale):
+def _sdpa_ms(q, k, v, do, keep, ids, causal, scale, floors,
+             backends=False):
     """Milliseconds of PyTorch's ``scaled_dot_product_attention`` on the
     flash kernels' inputs, forward and backward (dq, dk and dv in one
     call): the library's time for the same function.  A yardstick only:
     the port never calls it.  All-ones segment ids with ``causal`` are its
     ``is_causal``; any other mask is passed as a boolean ``attn_mask``.
     Returns the forward's and the backward's time per call and on the
-    device (the profiler's)."""
+    device (the profiler's), the backend its dispatch takes, and with
+    ``backends`` the device times of each backend that accepts the call
+    (``torch.nn.attention.sdpa_kernel``; a backend that refuses it is
+    named with its error).  ``floors`` are the forward's and the
+    backward's bounds in ms: a profiled run below them, or one that saw no
+    device time, has dropped events, and the call is timed by CUDA events
+    instead (``device_time``)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     if causal and bool((ids == 1).all()):
@@ -953,17 +1006,60 @@ def _sdpa_ms(q, k, v, do, keep, ids, causal, scale):
         kwargs = {"attn_mask": keep[:, None]}
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
 
-    def forward():
-        with torch.no_grad():
-            return sdpa(*ins, scale=scale, **kwargs)
+    def timed():
+        def forward():
+            with torch.no_grad():
+                return sdpa(*ins, scale=scale, **kwargs)
 
-    out = sdpa(*ins, scale=scale, **kwargs)
+        out = sdpa(*ins, scale=scale, **kwargs)
 
-    def backward():
-        torch.autograd.grad(out, ins, do, retain_graph=True)
+        def backward():
+            torch.autograd.grad(out, ins, do, retain_graph=True)
 
-    return {"fwd_ms": cuda_ms(forward), "fwd_device_ms": device_ms(forward),
-            "bwd_ms": cuda_ms(backward), "bwd_device_ms": device_ms(backward)}
+        return forward, backward
+
+    forward, backward = timed()
+    fwd_floor, bwd_floor = floors
+    got = {"fwd_ms": cuda_ms(forward),
+           "fwd_device_ms": device_ms(forward, fwd_floor),
+           "bwd_ms": cuda_ms(backward),
+           "bwd_device_ms": device_ms(backward, bwd_floor)}
+    try:
+        choice = torch._fused_sdp_choice(
+            *ins, attn_mask=kwargs.get("attn_mask"),
+            is_causal=kwargs.get("is_causal", False), scale=scale)
+        got["backend"] = SDPBackend(choice).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        got["backend"] = f"not read: {type(e).__name__}"
+    del forward, backward
+    if backends:
+        got["backends"] = {}
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel(backend):
+                    forward, backward = timed()
+                    got["backends"][backend.name] = {
+                        "fwd_device_ms": device_ms(forward, fwd_floor),
+                        "bwd_device_ms": device_ms(backward, bwd_floor)}
+                    del forward, backward
+            except RuntimeError as e:
+                got["backends"][backend.name] = {
+                    "refused": str(e).splitlines()[0][:160]}
+            torch.cuda.empty_cache()
+    return got
+
+
+def _library_backends(lib, part):
+    """The library's backend and, where timed, each backend's device ms of
+    ``part`` (fwd or bwd), for a case's entry."""
+    out = {"library_backend": lib["backend"]}
+    if "backends" in lib:
+        out["library_backends"] = {
+            name: (t if "refused" in t else t[f"{part}_device_ms"])
+            for name, t in lib["backends"].items()}
+    return out
 
 
 def phase_kernels():
@@ -1147,9 +1243,12 @@ def _log_cases(results):
                 extra += (f"; device {c['device_ms']:.4f} ms "
                           f"({100 * c['bound_ms'] / c['device_ms']:.1f}% of "
                           f"the bound), the library's "
-                          f"{c['library_device_ms']:.4f} ms device; against "
+                          f"{c['library_device_ms']:.4f} ms device "
+                          f"({c['library_backend']}); against "
                           f"f64 on {c['f64_batch_rows']} batch rows: "
                           f"{c['f64_errors']}")
+            if "library_backends" in c:
+                extra += f"; library by backend {c['library_backends']}"
             if "bound_share" in c and "route" not in c:
                 extra += (f"; device {c['device_ms']:.4f} ms "
                           f"({100 * c['bound_share']:.1f}% of the bound)")
@@ -1694,9 +1793,9 @@ def _batches(path, seed, bs=None):
                                     device="cuda")}
     if path.startswith("gpt2_small"):
         source = synthetic_lm(GPT_BS, GPT_SEQ, seed=seed)
-    elif path in CEREBRAS:
-        source = synthetic_lm(CEREBRAS[path]["bs"], CEREBRAS[path]["seq"],
-                              seed=seed)
+    elif path in WIDTH_PATHS:
+        c = WIDTH_PATHS[path]
+        source = synthetic_lm(c["bs"], c["seq"], seed=seed)
     else:
         source = synthetic_glue(bs or BS, SEQ, seed=seed)
     for b in source:
@@ -1711,7 +1810,7 @@ def _model(path, dt, fewbit, flash=None, tp_group=None, train=None,
     100 steps at 1e-5).  On a flash path attention dropout is 0 and the
     few-bit model takes flash attention (unless ``flash`` says
     otherwise); vanilla takes the standard attention, but on the
-    CEREBRAS paths, where both take flash.  ``overrides`` are config fields;
+    WIDTH_PATHS, where both take flash.  ``overrides`` are config fields;
     with ``tp_group`` the model is a tp slice on it."""
     from fewbit_tpu_torch.models import (MLP, GPTConfig, GPTForCausalLM,
                                          RobertaConfig,
@@ -1725,7 +1824,7 @@ def _model(path, dt, fewbit, flash=None, tp_group=None, train=None,
     if path not in ("roberta_default", "mlp"):
         # The reference's default sketch is gaussian: the paths of kernels
         # 1-3 ask for the countsketch.
-        both = path in CEREBRAS
+        both = path in WIDTH_PATHS
         switches.update(sketch="countsketch",
                         flash_attention=(flash_path and (fewbit or both)
                                          if flash is None else flash))
@@ -1744,14 +1843,14 @@ def _model(path, dt, fewbit, flash=None, tp_group=None, train=None,
     elif path.startswith("gpt2_small"):
         cfg = GPTConfig(**switches)
         loss_fn = causal_lm_loss
-    elif path in CEREBRAS:
-        cfg = GPTConfig(**CEREBRAS[path]["config"], **switches)
+    elif path in WIDTH_PATHS:
+        cfg = GPTConfig(**WIDTH_PATHS[path]["config"], **switches)
         loss_fn = causal_lm_loss
     else:
         cfg = RobertaConfig(**switches,
                             fused_ffn=path != "roberta_unfused_ffn")
     model_cls = (GPTForCausalLM
-                 if path.startswith("gpt2_small") or path in CEREBRAS
+                 if path.startswith("gpt2_small") or path in WIDTH_PATHS
                  else RobertaForSequenceClassification)
     model = model_cls(cfg, device="cuda", generator=gen, tp_group=tp_group)
     step = make_train_step(model, TrainConfig(**(train or dict(
@@ -1919,30 +2018,37 @@ KERNEL_GROUPS = {
 
 
 def profiled_steps(path, step, batches, gen, n=2, tag="f32",
-                   model="few-bit"):
+                   model="few-bit", tries=3):
     """``n`` steps of a model (few-bit unless ``model`` says otherwise)
     under the profiler (after the steps already taken): device
     milliseconds per step, busy in all and by kernel group,
     the wall time of a profiled step, and the eight kernels that took the
-    most device time (``top``: name, ms per step)."""
+    most device time (``top``: name, ms per step).  A profiled run that
+    saw no device time has dropped its events: up to ``tries`` runs are
+    made before that fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step(next(batches), gen)
+    for _ in range(tries):
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / n
-    out = {"wall_ms": wall, "busy_ms": 0.0,
-           **{group: 0.0 for group in KERNEL_GROUPS}}
-    for e in prof.key_averages():
-        ms = e.device_time_total / 1e3 / n
-        out["busy_ms"] += ms
-        for group, parts in KERNEL_GROUPS.items():
-            if any(part in e.key for part in parts):
-                out[group] += ms
-    if not out["busy_ms"] > 0:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step(next(batches), gen)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        out = {"wall_ms": wall, "busy_ms": 0.0,
+               **{group: 0.0 for group in KERNEL_GROUPS}}
+        for e in prof.key_averages():
+            ms = e.device_time_total / 1e3 / n
+            out["busy_ms"] += ms
+            for group, parts in KERNEL_GROUPS.items():
+                if any(part in e.key for part in parts):
+                    out[group] += ms
+        if out["busy_ms"] > 0:
+            break
+        log(f"{path}: the profiler saw no device time in {n} {model} "
+            f"{tag} steps")
+    else:
         raise AssertionError("the profiler saw no device time")
     out["top"] = sorted(((e.key, e.device_time_total / 1e3 / n)
                          for e in prof.key_averages()),
@@ -3909,14 +4015,14 @@ def phase_bf16():
 
 
 def _headdim_kernel_cases():
-    """Kernels 6 and 5 at CEREBRAS_SHAPES (``_shape_kernel_cases``: each
-    Cerebras path's FFN), and F1-F3 at HEADDIM_FLASH's shapes, f32 and
+    """Kernels 6 and 5 at WIDTH_SHAPES (``_shape_kernel_cases``: each
+    width path's FFN), and F1-F3 at HEADDIM_FLASH's shapes, f32 and
     bf16, each through ``_flash_case``: against its plain version and f64,
     into NaN-filled outputs (nothing stored past d), two launches equal to
     the bit, beside ``scaled_dot_product_attention`` and its bound."""
     from fewbit_tpu_torch.train import synthetic_glue
 
-    results = _shape_kernel_cases(CEREBRAS_SHAPES, "cerebras", SEED + 31)
+    results = _shape_kernel_cases(WIDTH_SHAPES, "widths", SEED + 31)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 29)
     for dt in (torch.float32, torch.bfloat16):
@@ -3940,17 +4046,17 @@ def _headdim_kernel_cases():
     return results
 
 
-def _cerebras_row(path, dt):
-    """A Cerebras path in ``dt``: (f32) the few-bit forward against the
+def _width_row(path, dt):
+    """A width path in ``dt``: (f32) the few-bit forward against the
     vanilla model's on the same weights; 2 checked few-bit steps (every
     count set to 0 just before them: F1-F3, kernels 6 and 5 once a layer,
     kernel 1 none); one vanilla step launching F1-F3 once a layer and
-    nothing else; vanilla against few-bit, CEREBRAS_TURNS turns (step ms, peak above
-    held; the few-bit peak lower).  Returns (its JSON object, counts)."""
+    nothing else; vanilla against few-bit, WIDTH_TURNS turns (step ms, peak
+    above held; the few-bit peak lower).  Returns (its JSON object, counts)."""
     from fewbit_tpu_torch.ops import kernels as K
 
     tag = "f32" if dt == torch.float32 else "bf16"
-    c = CEREBRAS[path]
+    c = WIDTH_PATHS[path]
     batches = _batches(path, SEED)
     gen = torch.Generator().manual_seed(SEED)
     model, step = _model(path, dt, fewbit=True)
@@ -3972,7 +4078,7 @@ def _cerebras_row(path, dt):
     out = {"batch": c["bs"], "seq": c["seq"], "layers": layers,
            "fewbit_losses": runs["losses"], "vanilla_loss": loss,
            **_vanilla_vs_fewbit(path, {"vanilla": vstep, "fewbit": step},
-                                batches, gen, CEREBRAS_TURNS, tag=tag)}
+                                batches, gen, WIDTH_TURNS, tag=tag)}
     del model, step, vmodel, vstep
     torch.cuda.empty_cache()
     return out, counts
@@ -3980,15 +4086,15 @@ def _cerebras_row(path, dt):
 
 def phase_headdim():
     """Flash attention at head dimensions other than 64 (``python3
-    chip_smoke.py --headdim``): kernels 6 and 5 at CEREBRAS_SHAPES and
-    F1-F3 at HEADDIM_FLASH's shapes, then each Cerebras path in f32 and
+    chip_smoke.py --headdim``): kernels 6 and 5 at WIDTH_SHAPES and
+    F1-F3 at HEADDIM_FLASH's shapes, then each width path in f32 and
     bf16.  Returns (summary, counts by row, cases)."""
     results = _headdim_kernel_cases()
     summary, counts = {}, {}
-    for path in CEREBRAS:
+    for path in WIDTH_PATHS:
         for dt in (torch.float32, torch.bfloat16):
             key = f"{path}_{'f32' if dt == torch.float32 else 'bf16'}"
-            summary[key], counts[key] = _cerebras_row(path, dt)
+            summary[key], counts[key] = _width_row(path, dt)
     return summary, counts, results
 
 

@@ -1,6 +1,7 @@
 // The entry points of the tensor-core flash backward (F2 and F3,
 // flash_backward.cuh) and the head dimension 64's instantiations;
-// flash_backward_d<D>.cu hold the other multiples of 16 up to 128.
+// flash_backward_d<D>.cu hold the other multiples of 16 up to 128,
+// flash_backward_wide.cu every multiple of 128 above.
 #include "flash_backward.cuh"
 
 FEWBIT_FLASH_BACKWARD_D(64)
@@ -28,6 +29,8 @@ int launch_backward_d(const FlashParams& p, int b, int d, bool bf16,
     case 128:
       return flash_backward_d128(p, b, bf16, dkv, st);
     default:
+      if (d > FLASH_CHUNK && d % FLASH_CHUNK == 0)
+        return flash_backward_wide(p, b, d / FLASH_CHUNK, bf16, dkv, st);
       return -1;
   }
 }
@@ -36,8 +39,8 @@ int launch_backward_d(const FlashParams& p, int b, int d, bool bf16,
 }  // namespace fewbit
 
 // q and dout (b, h, sq, d), k and v (b, h, sk, d) of f32 or bf16 (is_bf16),
-// d a multiple of 16 up to 128 (the wrappers give any other d zero-padded
-// copies), any (b, h, s) strides that are multiples of 16 bytes, as the
+// d a multiple of 16 up to 128 (the wrappers give any other d up to 128
+// zero-padded copies) or of 128 above it, any (b, h, s) strides that are multiples of 16 bytes, as the
 // base addresses are; seg_q (b, sq) and seg_kv (b, sk) int32 or both
 // null; the forward's lse and di = sum(dout * o), (b, h, sq) f32
 // contiguous.  strides: the (b, h, s) strides of q, k, v, o, dO, dq, dk, dv

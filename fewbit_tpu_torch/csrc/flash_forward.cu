@@ -1,13 +1,14 @@
 // The entry points of the tensor-core flash forward (F1, flash_forward.cuh)
 // and the head dimension 64's instantiations; flash_forward_d<D>.cu hold
-// the other multiples of 16 up to 128.
+// the other multiples of 16 up to 128, flash_forward_wide.cu every
+// multiple of 128 above.
 #include "flash_forward.cuh"
 
 FEWBIT_FLASH_FORWARD_D(64)
 
 // q (b, h, sq, d), k and v (b, h, sk, d) of f32 or bf16 (is_bf16), d a
-// multiple of 16 up to 128 (the wrappers give any other d zero-padded
-// copies), any (b, h, s) strides that are multiples of 16 bytes, as the
+// multiple of 16 up to 128 (the wrappers give any other d up to 128
+// zero-padded copies) or of 128 above it, any (b, h, s) strides that are multiples of 16 bytes, as the
 // base addresses are; seg_q (b, sq) and seg_kv (b, sk) int32 or both null.
 // strides: the (b, h, s) strides of q, k, v, o, dO, dq, dk, dv in
 // elements.  Writes o (q's shape, its own strides, unit stride along d) and
@@ -46,16 +47,23 @@ extern "C" int fewbit_flash_forward(const void* q, const void* k,
     case 128:
       return flash_forward_d128(p, b, is_bf16, st);
     default:
+      if (d > FLASH_CHUNK && d % FLASH_CHUNK == 0)
+        return flash_forward_wide(p, b, d / FLASH_CHUNK, is_bf16, st);
       return -1;
   }
 }
 
 // Dynamic shared memory of a block of F1 (kernel 0), F2 (1) or F3 (2) at
-// the instantiation d (a multiple of 16 up to 128) in bf16 or f32: what the
-// host's mirror (_flash_smem in ops/kernels.py) must give; -1 for another
-// kernel or d.
+// the instantiation d (a multiple of 16 up to 128, or of 128 above it: the
+// wide kernels, whatever the multiple) in bf16 or f32: what the host's
+// mirror (_flash_smem in ops/kernels.py) must give; -1 for another kernel
+// or d.
 extern "C" int fewbit_flash_smem(int kernel, int is_bf16, int d) {
   using namespace fewbit;
+  if (d > FLASH_CHUNK && d % FLASH_CHUNK == 0)
+    return kernel >= FLASH_F1 && kernel <= FLASH_F3
+               ? wide_smem(kernel, is_bf16)
+               : -1;
   if (d < 16 || d > 128 || d % 16) return -1;
   switch (kernel) {
     case FLASH_F1:

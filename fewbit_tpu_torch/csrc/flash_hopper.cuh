@@ -15,8 +15,12 @@
 // planes of TILE rows x D floats in the same sub-tiles.
 //
 // The kernels are instantiated at every multiple of 16 up to 128; the
-// wrappers (ops/kernels.py) give any other head dimension zero-padded
-// copies of the next multiple's width.
+// wrappers (ops/kernels.py) give any other head dimension up to 128
+// zero-padded copies of the next multiple's width.  Every multiple of 128
+// above 128 runs on the wide kernels (flash_forward_wide.cu,
+// flash_backward_wide.cu), one instantiation per type and kernel whose
+// number of 128-column chunks is a launch argument: below, hb_wide_tiles,
+// wide_smem and HbWideShape.
 #pragma once
 
 #include "flash_params.cuh"
@@ -82,6 +86,83 @@ constexpr int hb_smem(bool bf16, bool dkv, int d) {
          (bf16 ? 0 : (dkv ? 2 : 1) * 2 * tile) +
          (bf16 ? t.stages : 2) * (3 * t.tile + 4) * 4 + 128 + 1024;
 }
+
+// The wide kernels: a head dimension d = 128 c above 128 as c chunks of
+// 128 columns, each laid out as head dimension 128's operands (sub-tiles of
+// 128-byte rows, the 128-byte swizzle).  A block owns 64 rows of its own
+// side per consumer warpgroup and ONE chunk of its output's columns (O in
+// F1, dK and dV in F2, dQ in F3): the grid holds c blocks per row tile, so
+// the accumulators, and the register plan, are head dimension 128's.  The
+// first products (S, and dP in the backward) contract over all of d: each
+// block streams the chunks of its own rows and of the looped tile through
+// a ring of STAGES stages, one chunk a stage, and accumulates them in one
+// fragment, in the same order in every block, so that the c blocks of a
+// row tile hold the same S, m, l and lse to the bit.  The second products'
+// operand (the looped tile's chunk of the block's columns) and the tile's
+// row values go through one buffer of their own (part 2).  f32: the own
+// rows stay raw (the consumers split their A fragments in registers), the
+// looped tile goes through the producer's TF32 planes; one warpgroup over
+// 32-row tiles, two stages in F1 and one in F2 and F3 (a stage of F2 or F3
+// holds two own and two looped operands: 128 KB).  bf16: every operand by
+// TMA; F1 and F3 two warpgroups over 64-row tiles (four and two stages),
+// F2 one over 32-row tiles (four), as at head dimension 128.
+constexpr int FLASH_CHUNK = 128;  // columns of a chunk
+constexpr HbTiles hb_wide_tiles(int kernel, bool bf16) {
+  if (!bf16) return {1, 32, kernel == FLASH_F1 ? 2 : 1};
+  if (kernel == FLASH_F2) return {1, 32, 4};
+  return {2, 64, kernel == FLASH_F1 ? 4 : 2};
+}
+
+// Dynamic shared memory of a wide block: the ring (each stage: the own
+// rows' chunks, raw, and the looped tile's chunks, for f32 as TF32 hi and
+// lo planes), part 2 (the second products' chunks: F1 V, F2 Q and dO, F3
+// K; f32 transposed hi and lo planes), F1 f32's staging of V, the tile's
+// row values, the barriers and 1024 bytes of alignment slack.  It does not
+// depend on the number of chunks.
+constexpr int wide_smem(int kernel, bool bf16) {
+  const HbTiles t = hb_wide_tiles(kernel, bf16);
+  const int elt = bf16 ? 2 : 4, parts = bf16 ? 1 : 2;
+  const int own = 64 * t.wgs * FLASH_CHUNK * elt;
+  const int tile = t.tile * FLASH_CHUNK * elt;
+  const int nown = kernel == FLASH_F1 ? 1 : 2;
+  const int nsecond = kernel == FLASH_F2 ? 2 : 1;
+  const int aux = kernel == FLASH_F1 ? t.tile + 4 : 3 * t.tile + 4;
+  return t.stages * nown * (own + parts * tile) + nsecond * parts * tile +
+         (kernel == FLASH_F1 && !bf16 ? 2 * tile : 0) + aux * 4 +
+         (2 * t.stages + 2) * 8 + 1024;
+}
+
+// The shapes of a wide block of kernel KERNEL per element type, named as
+// HbShape's over one chunk (RB = 128: SUB sub-tiles a chunk row), and what
+// a stage and part 2 hold: NOWN own and as many looped operands in a
+// stage, NSECOND looped ones in part 2.
+template <typename T, int KERNEL>
+struct HbWideShape {
+  static constexpr int ELT = sizeof(T);
+  static constexpr bool BF16 = ELT == 2;
+  static constexpr HbTiles TILES = hb_wide_tiles(KERNEL, BF16);
+  static constexpr int WGS = TILES.wgs;
+  static constexpr int BLOCK = 64 * WGS;
+  static constexpr int TILE = TILES.tile;
+  static constexpr int STAGES = TILES.stages;
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int RB = 128;
+  static constexpr int SUB = FLASH_CHUNK * ELT / RB;
+  static constexpr int PARTS = Operand<T>::PARTS;
+  static constexpr int KD = FLASH_CHUNK * ELT / 32;  // k steps of a chunk
+  static constexpr int KT = TILE * ELT / 32;
+  static constexpr int KSUB = RB / 32;
+  static constexpr int NOWN = KERNEL == FLASH_F1 ? 1 : 2;
+  static constexpr int NSECOND = KERNEL == FLASH_F2 ? 2 : 1;
+  static constexpr int OWN_BYTES = BLOCK * FLASH_CHUNK * ELT;
+  static constexpr int OWN_SUB_BYTES = BLOCK * RB;
+  static constexpr int TILE_BYTES = TILE * FLASH_CHUNK * ELT;  // a plane
+  static constexpr int TILE_SUB_BYTES = TILE * RB;
+  static constexpr int LOOP_BYTES = PARTS * TILE_BYTES;  // an operand's
+  static constexpr int STAGE_BYTES = NOWN * (OWN_BYTES + LOOP_BYTES);
+  static constexpr int PART2_BYTES = NSECOND * LOOP_BYTES;
+  static constexpr uint32_t MN_LBO = TILE_SUB_BYTES;
+};
 
 // Per element type, at head dimension D, for kernel KERNEL: the block's
 // warpgroups and rows, the looped tile's rows and the ring's stages
@@ -281,6 +362,77 @@ __device__ __forceinline__ void tf32_rows_product(float (&acc)[D / 2],
   fence_operands(acc);
 }
 
+// f32, the wide kernels' first products over one chunk of 128 columns:
+// x += A1 B1^T (and y += A2 B2^T where TWO), A1 (A2) the warpgroup's own
+// rows of the chunk, raw f32 at `own` (`own` + BLOCK 512) as TMA wrote them
+// in sub-tiles of 128-byte rows, split into TF32 hi and lo A fragments in
+// registers CH k steps at a time (the next CH steps' loaded while these
+// multiply), B1 (B2) the looped tile's K-major hi and lo planes at `b`
+// (`b` + 2 TILE 512).  rloc is the thread's first row in the block.
+template <int TILE, int BLOCK, int CH, bool TWO>
+__device__ __forceinline__ void tf32_chunk_products(float (&x)[TILE / 2],
+                                                    float (&y)[TILE / 2],
+                                                    const uint8_t* own,
+                                                    uint32_t b, int rloc,
+                                                    int tq) {
+  using namespace hopper;
+  constexpr int KD = 16, KSUB = 4, OWN_SUB = BLOCK * 128, OWN = BLOCK * 512;
+  constexpr int PLANE = TILE * 512, TSUB = TILE * 128, NC = TWO ? CH : 1;
+  uint32_t fh1[2][CH][4], fl1[2][CH][4], fh2[2][NC][4], fl2[2][NC][4];
+  auto load = [&](int c) {
+#pragma unroll
+    for (int q = 0; q < CH; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ks = CH * c + q;
+        const uint32_t off =
+            (ks / KSUB) * OWN_SUB +
+            swizzled_offset(rloc + 8 * (e & 1),
+                            8 * (ks % KSUB) + tq + 4 * (e >> 1), 4, 128);
+        split_tf32(*reinterpret_cast<const float*>(own + off),
+                   fh1[c & 1][q][e], fl1[c & 1][q][e]);
+        if constexpr (TWO)
+          split_tf32(*reinterpret_cast<const float*>(own + OWN + off),
+                     fh2[c & 1][q][e], fl2[c & 1][q][e]);
+      }
+  };
+  load(0);
+#pragma unroll
+  for (int c = 0; c < KD / CH; ++c) {
+    const int cur = c & 1;
+    fence_operands(x);
+    if constexpr (TWO) fence_operands(y);
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < CH; ++q) {
+      const int ks = CH * c + q;
+      const uint32_t bb = b + (ks / KSUB) * TSUB + 32 * (ks % KSUB);
+      const uint64_t b1h = desc_sw(bb, 128), b1l = desc_sw(bb + PLANE, 128);
+      Wgmma<TILE>::tf32_rs(x, fh1[cur][q], b1h);
+      Wgmma<TILE>::tf32_rs(x, fh1[cur][q], b1l);
+      Wgmma<TILE>::tf32_rs(x, fl1[cur][q], b1h);
+      if constexpr (TWO) {
+        const uint64_t b2h = desc_sw(bb + 2 * PLANE, 128);
+        const uint64_t b2l = desc_sw(bb + 3 * PLANE, 128);
+        Wgmma<TILE>::tf32_rs(y, fh2[cur][q], b2h);
+        Wgmma<TILE>::tf32_rs(y, fh2[cur][q], b2l);
+        Wgmma<TILE>::tf32_rs(y, fl2[cur][q], b2h);
+      }
+    }
+    wgmma_commit();
+    if (c < KD / CH - 1) load(c + 1);
+    wgmma_wait<0>();
+    keep_alive(fh1[cur]);
+    keep_alive(fl1[cur]);
+    if constexpr (TWO) {
+      keep_alive(fh2[cur]);
+      keep_alive(fl2[cur]);
+    }
+  }
+  fence_operands(x);
+  if constexpr (TWO) fence_operands(y);
+}
+
 // Whether every row of the warp and every row of a looped tile of TILE rows
 // have one segment id: `one` holds, for each 32 rows of the tile, whether
 // they share an id and which; rid the thread's two rows' ids.
@@ -354,5 +506,12 @@ FEWBIT_FLASH_DECLARE_D(96)
 FEWBIT_FLASH_DECLARE_D(112)
 FEWBIT_FLASH_DECLARE_D(128)
 #undef FEWBIT_FLASH_DECLARE_D
+
+// The wide kernels' launchers, at head dimension 128 chunks
+// (flash_forward_wide.cu, flash_backward_wide.cu).
+int flash_forward_wide(const FlashParams& p, int b, int chunks, bool bf16,
+                       cudaStream_t st);
+int flash_backward_wide(const FlashParams& p, int b, int chunks, bool bf16,
+                        bool dkv, cudaStream_t st);
 
 }  // namespace fewbit

@@ -12,9 +12,10 @@ of the backend ``"tpu"``:
   where :func:`auto_blocks` finds a 128-aligned block, where no attention
   dropout would be applied (``attention_dropout == 0`` or a
   ``deterministic`` call), and where the head dimension is one the flash
-  kernels take (``FLASH_HEAD_DIMS``: every d from 1 to 128, as JAX's TPU
-  kernels take every d below 128): above it ``"auto"`` keeps the standard
-  attention, and only ``True`` reaches a kernel that refuses the call.
+  kernels take (``FLASH_HEAD_DIMS``: every d from 1 to 128 and every
+  multiple of 128 above it, as JAX's TPU kernels take them): at any other
+  ``"auto"`` keeps the standard attention, and only ``True`` reaches a
+  kernel that refuses the call.
 
 The threshold of 1024 and the 128-alignment rule are the JAX package's TPU
 findings, kept as written so that the port takes the reference's paths;

@@ -1112,38 +1112,73 @@ def fused_dense_act(spec, x: torch.Tensor, w: torch.Tensor,
 # Flash attention F1-F3: forward, dK/dV, dQ.
 # ---------------------------------------------------------------------------
 
-# The head dimensions F1-F3 take: every d from 1 to 128, as JAX's TPU
-# kernels take every d below 128.  They are instantiated at every multiple
-# of 16 up to 128 (csrc/flash_forward*.cu, csrc/flash_backward*.cu), and
-# any other head dimension runs on the instantiation at the next multiple
-# of 16 (flash_instance), through zero-padded copies of its operands.  The
+# The head dimensions F1-F3 take: every d from 1 to 128 and every multiple
+# of 128 above it, as JAX's TPU kernels take them.  Up to 128 they are
+# instantiated at every multiple of 16 (csrc/flash_forward*.cu,
+# csrc/flash_backward*.cu), and any other head dimension up to 128 runs on
+# the instantiation at the next multiple of 16 (flash_instance), through
+# zero-padded copies of its operands.  Above 128 the wide kernels
+# (csrc/flash_forward_wide.cu, csrc/flash_backward_wide.cu) take d as
+# d / 128 chunks of 128 columns, one instantiation per type and kernel.  The
 # CUDA-core kernels they replaced take 64 only.
-FLASH_MAX_HEAD_DIM = 128
-FLASH_HEAD_DIMS = range(1, FLASH_MAX_HEAD_DIM + 1)
+FLASH_MAX_HEAD_DIM = 128  # the largest of the instantiations by 16
+FLASH_CHUNK = 128  # columns of a wide kernel's chunk
 FLASH_INSTANCES = tuple(range(16, FLASH_MAX_HEAD_DIM + 1, 16))
 FLASH_SIMT_HEAD_DIM = 64
 FLASH_SMEM_LIMIT = 232448  # dynamic shared memory of a block (HB_SMEM_LIMIT)
 _FLASH_KERNELS = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
 
 
+class _FlashHeadDims:
+    """Every d from 1 to 128 and every multiple of 128 above it: ``d in
+    FLASH_HEAD_DIMS``.  Unbounded, so it is not iterated."""
+
+    def __contains__(self, d) -> bool:
+        return (isinstance(d, int) and not isinstance(d, bool)
+                and (1 <= d <= FLASH_MAX_HEAD_DIM
+                     or (d > FLASH_CHUNK and d % FLASH_CHUNK == 0)))
+
+    def __str__(self) -> str:
+        return (f"1 to {FLASH_MAX_HEAD_DIM} and every multiple of "
+                f"{FLASH_CHUNK} above")
+
+
+FLASH_HEAD_DIMS = _FlashHeadDims()
+
+
+def _flash_wide(d: int) -> bool:
+    """Whether head dimension ``d`` runs on the wide kernels."""
+    return d > FLASH_MAX_HEAD_DIM
+
+
 def flash_instance(d: int) -> int:
     """The instantiation of F1-F3 that runs head dimension ``d``: the next
-    multiple of 16.  Raises for a ``d`` outside 1 to 128, naming it."""
+    multiple of 16 up to 128, ``d`` itself above (the wide kernels, with
+    ``d / 128`` chunks).  Raises for a ``d`` outside ``FLASH_HEAD_DIMS``,
+    naming it."""
     _require(d in FLASH_HEAD_DIMS,
-             f"head dimension {d}: the flash kernels take 1 to "
-             f"{FLASH_MAX_HEAD_DIM}")
-    return -(-d // 16) * 16
+             f"head dimension {d}: the flash kernels take {FLASH_HEAD_DIMS}")
+    return d if _flash_wide(d) else -(-d // 16) * 16
 
 
 def _flash_tiles(kernel: str, dtype, d: int):
     """``(warpgroups, tile rows, stages)`` of a block of F1, F2 or F3 at
-    the instantiation ``d`` (``FLASH_INSTANCES``), as ``hb_tiles`` in
+    the instantiation ``d`` (``FLASH_INSTANCES``, or a multiple of 128
+    above 128), as ``hb_tiles`` and ``hb_wide_tiles`` in
     ``csrc/flash_hopper.cuh``: a block owns 64 rows of its own side per
     consumer warpgroup and loops over tiles of the other side through a
-    ring of stages."""
+    ring of stages (above 128, a stage per 128-column chunk of the
+    tile)."""
     _require(kernel in _FLASH_KERNELS, f"kernel {kernel!r}")
-    _require(d in FLASH_INSTANCES, f"head dimension {d}: no instantiation")
+    _require(d in FLASH_INSTANCES or (_flash_wide(d) and d in FLASH_HEAD_DIMS),
+             f"head dimension {d}: no instantiation")
     bf16 = dtype == torch.bfloat16
+    if _flash_wide(d):
+        if not bf16:
+            return 1, 32, 2 if kernel == "flash_forward" else 1
+        if kernel == "flash_backward_dkv":
+            return 1, 32, 4
+        return 2, 64, 4 if kernel == "flash_forward" else 2
     if d > 64 and not bf16:
         return 1, 32, 2 if kernel == "flash_forward" else 1
     if d > 64 and kernel == "flash_backward_dkv":
@@ -1153,13 +1188,26 @@ def _flash_tiles(kernel: str, dtype, d: int):
 
 def _flash_smem(kernel: str, dtype, d: int) -> int:
     """Dynamic shared memory of a block of F1, F2 or F3 at the
-    instantiation ``d``, as ``ff_smem`` and ``hb_smem`` in the source: the
-    block's own operands (F1 f32: Q's TF32 hi and lo planes), the ring, the
-    f32 planes of the second products (F1: the staging of V), the per-tile
-    row values, the barriers and 1024 bytes of alignment slack."""
+    instantiation ``d``, as ``ff_smem``, ``hb_smem`` and ``wide_smem`` in
+    the source: the block's own operands (F1 f32: Q's TF32 hi and lo
+    planes), the ring, the f32 planes of the second products (F1: the
+    staging of V), the per-tile row values, the barriers and 1024 bytes of
+    alignment slack.  Above 128 (the wide kernels) each stage holds one
+    128-column chunk of the own rows (raw) and of the looped tile, a buffer
+    of its own the second products' chunk, and the size does not depend on
+    d."""
     wgs, tile, stages = _flash_tiles(kernel, dtype, d)
     bf16 = dtype == torch.bfloat16
     elt, parts = (2, 1) if bf16 else (4, 2)
+    if _flash_wide(d):
+        own, plane = 64 * wgs * FLASH_CHUNK * elt, tile * FLASH_CHUNK * elt
+        nown = 1 if kernel == "flash_forward" else 2
+        nsecond = 2 if kernel == "flash_backward_dkv" else 1
+        aux = tile + 4 if kernel == "flash_forward" else 3 * tile + 4
+        staging = 2 * plane if kernel == "flash_forward" and not bf16 else 0
+        return (stages * nown * (own + parts * plane)
+                + nsecond * parts * plane + staging + aux * 4
+                + (2 * stages + 2) * 8 + 1024)
     plane = tile * d * elt
     if kernel == "flash_forward":
         return (parts * 64 * wgs * d * elt + stages * 2 * parts * plane
@@ -1181,7 +1229,7 @@ def _flash_checks(q, k, v, seg_q, seg_kv, head_dims=FLASH_HEAD_DIMS):
     sk = k.shape[2] if k.ndim == 4 else -1
     dev, dt = q.device, q.dtype
     _require(dt in _DTYPES, f"dtype {dt} not in {_DTYPES}")
-    takes = (f"{head_dims[0]} to {head_dims[-1]}" if len(head_dims) > 1
+    takes = (head_dims if head_dims is FLASH_HEAD_DIMS
              else f"{head_dims[0]} only")
     _require(d in head_dims,
              f"head dimension {d}: the flash kernels take {takes}")
@@ -1273,8 +1321,9 @@ def flash_forward(q, k, v, seg_q=None, seg_kv=None, causal: bool = False,
     masked logits ``(b, h, sq)``, contiguous.  On the card both products
     run on the tensor cores (bf16, or f32 as three TF32 products), fed by
     TMA: bases and strides are multiples of 16 bytes, and the head
-    dimension one of ``FLASH_HEAD_DIMS`` (1 to 128; those that are not a
-    multiple of 16 go through zero-padded copies)."""
+    dimension one of ``FLASH_HEAD_DIMS`` (1 to 128, those that are not a
+    multiple of 16 through zero-padded copies, and every multiple of 128
+    above on the wide kernels)."""
     if q.device.type == "cpu":
         return _into(out, flash_forward_plain(q, k, v, seg_q, seg_kv, causal,
                                               sm_scale))

@@ -1,7 +1,7 @@
 """Device time of the tensor-core flash kernels F1, F2 and F3 at given shapes.
 
     python3 -m fewbit_tpu_torch.tools.flash_timing [--case B H S D MODE ...]
-        [--dtypes f32 bf16] [--reps 10] [--tries 3]
+        [--wide] [--dtypes f32 bf16] [--reps 10] [--tries 3]
 
 Each case is (batch, heads, sequence, head dimension, mode): ``causal``
 (segment ids all one, as GPT passes them) or ``padded`` (the non-causal
@@ -12,8 +12,11 @@ device milliseconds per call of F1, F2 and F3 (the profiler's, or CUDA
 events where every profiled run read below the call's bound; see
 ``act_timing.device_time``), each call's bound and its share of it.  Without
 ``--case`` it times GPT-2 small's (8, 12, 1024, 64) causal and RoBERTa's
-(64, 12, 128, 64) padded.  It calls the wrappers only, so copied into an
-older tree it times that tree's kernels at the head dimensions they take.
+(64, 12, 128, 64) padded; ``--wide`` times the wide kernels' cases
+(``WIDE_CASES``: Pythia-1B's (2, 8, 2048, 256) causal, 256 padded, 384
+causal, 512 padded), after any ``--case``.  It calls the wrappers only,
+so copied into an older tree it times that tree's kernels at the head
+dimensions they take.
 ``chip_smoke.py`` bounds and times F1-F3 through :func:`flash_work` and
 ``act_timing.device_time`` too, with the same ``REPS``.  Needs a CUDA
 device.
@@ -26,9 +29,13 @@ import json
 
 import torch
 
-__all__ = ("unmasked", "flash_work", "time_case", "main")
+__all__ = ("WIDE_CASES", "unmasked", "flash_work", "time_case", "main")
 
 DEFAULT_CASES = ((8, 12, 1024, 64, "causal"), (64, 12, 128, 64, "padded"))
+# The wide kernels (head dimensions d = 128 c above 128), as chip_smoke.py's
+# HEADDIM_FLASH holds them.
+WIDE_CASES = ((2, 8, 2048, 256, "causal"), (16, 4, 512, 256, "padded"),
+              (4, 4, 1024, 384, "causal"), (2, 4, 1024, 512, "padded"))
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # Profiled calls per run, as chip_smoke.py times every kernel.
 REPS = 10
@@ -110,6 +117,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--case", nargs=5, action="append",
                     metavar=("B", "H", "S", "D", "MODE"))
+    ap.add_argument("--wide", action="store_true",
+                    help="time WIDE_CASES (after any --case)")
     ap.add_argument("--dtypes", nargs="+", default=["f32", "bf16"],
                     choices=sorted(_DTYPES))
     ap.add_argument("--reps", type=int, default=REPS)
@@ -118,9 +127,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         ap.error("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = ([(int(b), int(h), int(s), int(d), mode)
-              for b, h, s, d, mode in args.case] if args.case
-             else DEFAULT_CASES)
+    cases = [(int(b), int(h), int(s), int(d), mode)
+             for b, h, s, d, mode in args.case or ()]
+    if args.wide:
+        cases += WIDE_CASES
+    cases = cases or DEFAULT_CASES
     rows = []
     for case in cases:
         if case[4] not in ("causal", "padded"):

@@ -675,6 +675,34 @@ def test_flash_kernels_match_plain_at_every_head_dim(
                          wide=True)
 
 
+# Head dimensions of the wide kernels (every multiple of 128 above 128, as
+# d / 128 chunks of 128 columns, one block per chunk): 256 (Pythia-1B's
+# heads), 384 and 512.
+WIDE_HEAD_DIMS = [256, 384, 512]
+_WIDE_HEAD_DIM_SHAPES = [(1000, 1000, True, True, False),
+                         (1000, 1000, False, True, True),
+                         (300, 1000, False, True, False),
+                         (1000, 300, True, False, False),
+                         (127, 127, True, True, True),
+                         (65, 127, False, False, True),
+                         (1, 1, True, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,sk,causal,seg,contiguous", _WIDE_HEAD_DIM_SHAPES)
+def test_flash_kernels_match_plain_at_wide_head_dims(
+        cuda, dtype, s, sk, causal, seg, contiguous, d):
+    """The same on the wide kernels at head dimensions 256, 384 and 512:
+    ragged sequences, sq != sk, causal, padded and segment ids, into views
+    of NaN-filled buffers 16 columns wider whose columns past d must stay
+    NaN, twice for equal bits (the c chunk blocks of a row tile share
+    nothing but their inputs)."""
+    _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d,
+                         wide=True)
+
+
 def _flash_nan_outputs(likes, wide):
     """NaN-filled outputs like ``likes``; with ``wide``, views of the first
     d columns of buffers 16 columns wider (and the buffers)."""
@@ -751,9 +779,10 @@ def _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [129, 144, 256])
+@pytest.mark.parametrize("d", [129, 144, 192, 200])
 def test_flash_kernels_refuse_other_head_dims(cuda, dtype, d):
-    """Outside FLASH_HEAD_DIMS (1 to 128) every tensor-core wrapper raises,
+    """Outside FLASH_HEAD_DIMS (1 to 128 and every multiple of 128 above)
+    every tensor-core wrapper raises,
     with the head dimension in its message: nothing falls back to a plain
     version; the CUDA-core kernels take 64 only."""
     (q, k, v, do), _, _ = _flash_inputs(cuda, dtype, 2, 2, 96, 3,
@@ -784,10 +813,12 @@ def test_flash_smem_matches_the_source(cuda):
                               "flash_backward_dq")):
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = int(dtype == torch.bfloat16)
-            for d in K.FLASH_INSTANCES:
+            for d in (*K.FLASH_INSTANCES, 256, 384, 512, 1280):
                 want = K._flash_smem(name, dtype, d)
                 assert query(i, bf16, d) == want, (name, dtype, d)
                 assert want <= K.FLASH_SMEM_LIMIT
+            for d in (0, 8, 136, 144, 192, 200, 257):
+                assert query(i, bf16, d) == -1, (name, dtype, d)
             for d in (100, 144):
                 assert query(i, bf16, d) == -1
 

@@ -49,6 +49,18 @@ B, H, D = 2, 2, 64
 SCALE = D ** -0.5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for torch while this module runs: its small
+    models run many small ops, whose parallel regions stall when the test
+    workers share the cores (the module took 1272 s under six workers with
+    torch's default threads, about 220 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, want, rtol=1e-4, atol=1e-5):
     want = np.asarray(want, np.float32)
     np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=rtol,
@@ -98,6 +110,15 @@ def test_plain_matches_library_reference_at_every_head_dim(d, s, causal,
     instantiations of F1-F3) and at 20 and 40, which run on the
     instantiations at 32 and 48 with zeros past d."""
     _plain_against_library(s, causal, seg, d)
+
+
+@pytest.mark.parametrize("d", [256, 384], ids=["d256", "d384"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("seg", [False, True], ids=["noseg", "seg"])
+def test_plain_matches_library_reference_at_wide_head_dims(causal, seg, d):
+    """The same at head dimensions 256 (Pythia-1B's heads) and 384, which
+    the wide kernels take on the card as chunks of 128 columns."""
+    _plain_against_library(100, causal, seg, d)
 
 
 def _plain_against_library(s, causal, seg, d):
@@ -242,31 +263,37 @@ def test_use_flash_matches_jax_rule():
 def test_auto_keeps_standard_attention_outside_the_kernels_envelope(
         monkeypatch):
     """"auto" takes flash only at a head dimension F1-F3 take
-    (FLASH_HEAD_DIMS: every d from 1 to 128, as JAX's TPU kernels take
-    every d below 128; each runs on the instantiation at the next multiple
-    of 16), on a CUDA device only; above 128 True goes on to the kernel,
-    which refuses with the head dimension in its message.  The models hand
+    (FLASH_HEAD_DIMS: every d from 1 to 128 and every multiple of 128
+    above, as JAX's TPU kernels take them; up to 128 each runs on the
+    instantiation at the next multiple of 16, above on the wide kernels),
+    on a CUDA device only; at any other True goes on to the kernel, which
+    refuses with the head dimension in its message.  The models hand
     use_flash their own head dimension."""
     from fewbit_tpu_torch.models import gpt, roberta
     from fewbit_tpu_torch.ops.kernels import (FLASH_HEAD_DIMS,
                                               FLASH_INSTANCES,
                                               flash_instance)
 
-    assert FLASH_HEAD_DIMS == range(1, 129)
+    assert all(d in FLASH_HEAD_DIMS for d in range(1, 129))
+    assert all(d in FLASH_HEAD_DIMS for d in (256, 384, 512, 1280))
     assert FLASH_INSTANCES == (16, 32, 48, 64, 80, 96, 112, 128)
     assert [flash_instance(d) for d in (1, 16, 17, 20, 40, 80, 127)] == [
         16, 16, 32, 32, 48, 80, 128]
+    assert [flash_instance(d) for d in (256, 384, 512)] == [256, 384, 512]
     s = FLASH_AUTO_MIN_SEQ
     assert use_flash("auto", s, 0.0, "cuda", head_dim=None)
-    for d in FLASH_HEAD_DIMS:
+    for d in (*range(1, 129), 256, 384, 512):
         assert use_flash("auto", s, 0.0, "cuda", head_dim=d)
         assert use_flash("auto", s, 0.1, "cuda", True, d)
         assert not use_flash("auto", s, 0.0, "cpu", head_dim=d)
         assert not use_flash("auto", s, 0.1, "cuda", head_dim=d)
-    for d in (0, 129, 144, 256):
+        assert not use_flash("auto", s - 1, 0.0, "cuda", head_dim=d)
+    refused = (129, 144, 192, 200, 255, 257)
+    for d in (0, *refused):
+        assert d not in FLASH_HEAD_DIMS
         with pytest.raises(ValueError, match=f"head dimension {d}"):
             flash_instance(d)
-    for d in (129, 144, 256):
+    for d in refused:
         assert not use_flash("auto", s, 0.0, "cuda", head_dim=d)
         assert not use_flash("auto", s, 0.1, "cuda", True, d)
         assert use_flash(True, s, 0.0, "cuda", head_dim=d)
@@ -513,7 +540,8 @@ class _PortCodes:
 # length that no head dimension equals (the saved-tensor check below tells
 # (b, h, s, s) from (b, h, s, d) by it).
 HEAD_DIM_WIDTHS = {32: (dict(hidden_size=128, num_heads=4), SEQ),
-                   128: (dict(hidden_size=256, num_heads=2), 96)}
+                   128: (dict(hidden_size=256, num_heads=2), 96),
+                   256: (dict(hidden_size=512, num_heads=2), 96)}
 # Head dimension 80, Cerebras-GPT-2.7B's (32 heads of 80), at hidden 640
 # over 8 heads (JAX's kernel 6 takes widths that are multiples of 128, and
 # the few-bit check reads its codes): GPT only.
@@ -532,11 +560,12 @@ def test_gpt_flash_matches_jax(monkeypatch, fewbit):
 
 
 @pytest.mark.parametrize("fewbit", [False, True], ids=["vanilla", "fewbit"])
-@pytest.mark.parametrize("d", sorted(HEAD_DIM_WIDTHS), ids=["d32", "d128"])
+@pytest.mark.parametrize("d", sorted(HEAD_DIM_WIDTHS),
+                         ids=["d32", "d128", "d256"])
 def test_gpt_flash_matches_jax_at_head_dims(monkeypatch, fewbit, d):
     """As test_gpt_flash_matches_jax (head dimension 64) at head dimensions
-    32 and 128, the other two F1-F3 take on the card; two layers, the same
-    tolerances."""
+    32, 128 and 256 (hidden 512 over 2 heads: Pythia-1B's head width, which
+    the wide kernels take on the card); two layers, the same tolerances."""
     _gpt_flash_case(monkeypatch, fewbit, *HEAD_DIM_WIDTHS[d])
 
 
@@ -591,10 +620,11 @@ def test_roberta_flash_matches_jax_on_padded_batch(monkeypatch, fewbit):
 
 
 @pytest.mark.parametrize("fewbit", [False, True], ids=["vanilla", "fewbit"])
-@pytest.mark.parametrize("d", sorted(HEAD_DIM_WIDTHS), ids=["d32", "d128"])
+@pytest.mark.parametrize("d", sorted(HEAD_DIM_WIDTHS),
+                         ids=["d32", "d128", "d256"])
 def test_roberta_flash_matches_jax_at_head_dims(monkeypatch, fewbit, d):
     """As test_roberta_flash_matches_jax_on_padded_batch (head dimension
-    64) at head dimensions 32 and 128."""
+    64) at head dimensions 32, 128 and 256."""
     _roberta_flash_case(monkeypatch, fewbit, *HEAD_DIM_WIDTHS[d])
 
 
@@ -627,6 +657,30 @@ def test_gpt_at_cerebras_590m_widths_matches_jax(monkeypatch):
     jmodel = JaxGPT(JaxGPTConfig(**cfg, scan_layers=False))
     tmodel = GPTForCausalLM(GPTConfig(**cfg), device="cpu")
     assert GPTConfig(**cfg).head_dim == 128
+    b = next(synthetic_lm(2, 96, vocab_size=SMALL["vocab_size"], seed=4))
+    params = _transplant(jmodel, tmodel, b)
+    jl, jlogits, jgrads = _jax_loss_grads(jmodel, params, b, jax_lm_loss)
+    tl, tlogits = _torch_loss_grads(tmodel, b, causal_lm_loss)
+    np.testing.assert_allclose(tlogits, jlogits, rtol=1e-4, atol=1e-5)
+    assert abs(tl - jl) < 1e-5
+    _check_grads(tmodel, jgrads, False)
+
+
+def test_gpt_at_pythia_1b_widths_matches_jax(monkeypatch):
+    """One layer of Pythia-1B's widths (hidden 2048 over 8 heads of 256,
+    FFN 8192, an untied head; vocabulary cut to 1000, 256 positions; the
+    widths only: the JAX package has neither rotary embeddings nor the
+    parallel residual): the JAX parameters load through load_flax_params
+    and flax_param_pairs, and the port's flash path (its plain versions
+    here) gives JAX's logits, loss and gradients at the tolerances above."""
+    monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
+    cfg = dict(SMALL, hidden_size=2048, num_heads=8, num_layers=1,
+               intermediate_size=8192, max_position_embeddings=256,
+               tie_lm_head=False)
+    jmodel = JaxGPT(JaxGPTConfig(**cfg, scan_layers=False))
+    tmodel = GPTForCausalLM(GPTConfig(**cfg), device="cpu")
+    assert GPTConfig(**cfg).head_dim == 256
+    assert any("lm_head" in n for n, _ in tmodel.named_parameters())
     b = next(synthetic_lm(2, 96, vocab_size=SMALL["vocab_size"], seed=4))
     params = _transplant(jmodel, tmodel, b)
     jl, jlogits, jgrads = _jax_loss_grads(jmodel, params, b, jax_lm_loss)
