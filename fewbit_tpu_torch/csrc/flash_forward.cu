@@ -55,15 +55,16 @@ extern "C" int fewbit_flash_forward(const void* q, const void* k,
 
 // Dynamic shared memory of a block of F1 (kernel 0), F2 (1) or F3 (2) at
 // the instantiation d (a multiple of 16 up to 128, or of 128 above it: the
-// wide kernels, whatever the multiple) in bf16 or f32: what the host's
-// mirror (_flash_smem in ops/kernels.py) must give; -1 for another kernel
-// or d.
+// wide kernels) in bf16 or f32: what the host's mirror (_flash_smem in
+// ops/kernels.py) must give; -1 for another kernel or d.
 extern "C" int fewbit_flash_smem(int kernel, int is_bf16, int d) {
   using namespace fewbit;
-  if (d > FLASH_CHUNK && d % FLASH_CHUNK == 0)
-    return kernel >= FLASH_F1 && kernel <= FLASH_F3
-               ? wide_smem(kernel, is_bf16)
+  if (d > FLASH_CHUNK && d % FLASH_CHUNK == 0) {
+    if (kernel == FLASH_F1) return wide_smem(is_bf16);
+    return kernel == FLASH_F2 || kernel == FLASH_F3
+               ? wide_bwd_smem(is_bf16, kernel == FLASH_F2, d / FLASH_CHUNK)
                : -1;
+  }
   if (d < 16 || d > 128 || d % 16) return -1;
   switch (kernel) {
     case FLASH_F1:

@@ -41,8 +41,8 @@ namespace fewbit {
 namespace {
 
 template <typename T>
-struct FwShape : HbWideShape<T, FLASH_F1> {
-  using Base = HbWideShape<T, FLASH_F1>;
+struct FwShape : HbWideShape<T> {
+  using Base = HbWideShape<T>;
   static constexpr int PRODUCERS = Base::BF16 ? 32 : HB_PRODUCERS;
   static constexpr int THREADS = Base::CONSUMERS + PRODUCERS;
   static constexpr int AUX = Base::TILE + 4;
@@ -307,7 +307,7 @@ __global__ void __launch_bounds__(FwShape<T>::THREADS, 1)
             wgmma_wait<0>();
             fence_operands(x);
           } else {
-            tf32_chunk_products<S::TILE, S::BLOCK, 2, false>(x, x, stage, kb,
+            tf32_chunk_products<S::TILE, S::BLOCK, S::KD, 2>(x, stage, kb,
                                                              rloc, tq);
           }
         }
@@ -389,7 +389,7 @@ int launch_forward_wide(const FlashParams& p, int b, int chunks,
         operand_map<T>(&mv, p.v, p.st_v, b, p.h, p.sk, d, S::TILE, S::RB)));
   if (!ok) return -2;
   auto kernel = flash_forward_wide_kernel<T>;
-  constexpr int smem = wide_smem(FLASH_F1, S::BF16);
+  constexpr int smem = wide_smem(S::BF16);
   static_assert(smem <= HB_SMEM_LIMIT, "the block's shared memory");
   static unsigned allowed = 0;
   if (const int err = allow_smem(kernel, smem, allowed)) return err;

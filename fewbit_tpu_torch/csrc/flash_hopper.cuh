@@ -18,9 +18,9 @@
 // wrappers (ops/kernels.py) give any other head dimension up to 128
 // zero-padded copies of the next multiple's width.  Every multiple of 128
 // above 128 runs on the wide kernels (flash_forward_wide.cu,
-// flash_backward_wide.cu), one instantiation per type and kernel whose
-// number of 128-column chunks is a launch argument: below, hb_wide_tiles,
-// wide_smem and HbWideShape.
+// flash_backward_wide.cuh), whose number of 128-column chunks is a launch
+// argument: below, hb_wide_tiles, wide_smem and HbWideShape (F1) and
+// hb_wide_bwd and wide_bwd_smem (F2 and F3).
 #pragma once
 
 #include "flash_params.cuh"
@@ -87,60 +87,50 @@ constexpr int hb_smem(bool bf16, bool dkv, int d) {
          (bf16 ? t.stages : 2) * (3 * t.tile + 4) * 4 + 128 + 1024;
 }
 
-// The wide kernels: a head dimension d = 128 c above 128 as c chunks of
-// 128 columns, each laid out as head dimension 128's operands (sub-tiles of
-// 128-byte rows, the 128-byte swizzle).  A block owns 64 rows of its own
-// side per consumer warpgroup and ONE chunk of its output's columns (O in
-// F1, dK and dV in F2, dQ in F3): the grid holds c blocks per row tile, so
-// the accumulators, and the register plan, are head dimension 128's.  The
-// first products (S, and dP in the backward) contract over all of d: each
-// block streams the chunks of its own rows and of the looped tile through
-// a ring of STAGES stages, one chunk a stage, and accumulates them in one
-// fragment, in the same order in every block, so that the c blocks of a
-// row tile hold the same S, m, l and lse to the bit.  The second products'
-// operand (the looped tile's chunk of the block's columns) and the tile's
-// row values go through one buffer of their own (part 2).  f32: the own
-// rows stay raw (the consumers split their A fragments in registers), the
-// looped tile goes through the producer's TF32 planes; one warpgroup over
-// 32-row tiles, two stages in F1 and one in F2 and F3 (a stage of F2 or F3
-// holds two own and two looped operands: 128 KB).  bf16: every operand by
-// TMA; F1 and F3 two warpgroups over 64-row tiles (four and two stages),
-// F2 one over 32-row tiles (four), as at head dimension 128.
+// The wide forward (flash_forward_wide.cu): a head dimension d = 128 c
+// above 128 as c chunks of 128 columns, each laid out as head dimension
+// 128's operands (sub-tiles of 128-byte rows, the 128-byte swizzle).  A
+// block owns 64 query rows per consumer warpgroup and ONE chunk of o's
+// columns: the grid holds c blocks per row tile, so the accumulators, and
+// the register plan, are head dimension 128's.  S contracts over all of d:
+// each block streams the chunks of its Q rows and of the kv tile's K
+// through a ring of STAGES stages, one chunk a stage, and accumulates them
+// in one fragment, in the same order in every block, so that the c blocks
+// of a row tile hold the same S, m, l and lse to the bit.  V's chunk of
+// the block's columns and the tile's row values go through one buffer of
+// their own (part 2).  f32: the Q rows stay raw (the consumers split their
+// A fragments in registers), K goes through the producer's TF32 planes; one
+// warpgroup over 32-row tiles, two stages.  bf16: every operand by TMA; two
+// warpgroups over 64-row tiles, four stages.  (The wide backward's plan,
+// hb_wide_bwd below, is another.)
 constexpr int FLASH_CHUNK = 128;  // columns of a chunk
-constexpr HbTiles hb_wide_tiles(int kernel, bool bf16) {
-  if (!bf16) return {1, 32, kernel == FLASH_F1 ? 2 : 1};
-  if (kernel == FLASH_F2) return {1, 32, 4};
-  return {2, 64, kernel == FLASH_F1 ? 4 : 2};
+constexpr HbTiles hb_wide_tiles(bool bf16) {
+  return bf16 ? HbTiles{2, 64, 4} : HbTiles{1, 32, 2};
 }
 
-// Dynamic shared memory of a wide block: the ring (each stage: the own
-// rows' chunks, raw, and the looped tile's chunks, for f32 as TF32 hi and
-// lo planes), part 2 (the second products' chunks: F1 V, F2 Q and dO, F3
-// K; f32 transposed hi and lo planes), F1 f32's staging of V, the tile's
-// row values, the barriers and 1024 bytes of alignment slack.  It does not
-// depend on the number of chunks.
-constexpr int wide_smem(int kernel, bool bf16) {
-  const HbTiles t = hb_wide_tiles(kernel, bf16);
+// Dynamic shared memory of a wide F1 block: the ring (each stage: the Q
+// rows' chunk, raw, and the kv tile's K chunk, for f32 as TF32 hi and lo
+// planes), part 2 (V's chunk; f32 transposed hi and lo planes), f32's
+// staging of V, the tile's row values, the barriers and 1024 bytes of
+// alignment slack.  It does not depend on the number of chunks.
+constexpr int wide_smem(bool bf16) {
+  const HbTiles t = hb_wide_tiles(bf16);
   const int elt = bf16 ? 2 : 4, parts = bf16 ? 1 : 2;
   const int own = 64 * t.wgs * FLASH_CHUNK * elt;
   const int tile = t.tile * FLASH_CHUNK * elt;
-  const int nown = kernel == FLASH_F1 ? 1 : 2;
-  const int nsecond = kernel == FLASH_F2 ? 2 : 1;
-  const int aux = kernel == FLASH_F1 ? t.tile + 4 : 3 * t.tile + 4;
-  return t.stages * nown * (own + parts * tile) + nsecond * parts * tile +
-         (kernel == FLASH_F1 && !bf16 ? 2 * tile : 0) + aux * 4 +
-         (2 * t.stages + 2) * 8 + 1024;
+  return t.stages * (own + parts * tile) + parts * tile +
+         (bf16 ? 0 : 2 * tile) + (t.tile + 4) * 4 + (2 * t.stages + 2) * 8 +
+         1024;
 }
 
-// The shapes of a wide block of kernel KERNEL per element type, named as
-// HbShape's over one chunk (RB = 128: SUB sub-tiles a chunk row), and what
-// a stage and part 2 hold: NOWN own and as many looped operands in a
-// stage, NSECOND looped ones in part 2.
-template <typename T, int KERNEL>
+// The shapes of a wide F1 block per element type, named as HbShape's over
+// one chunk (RB = 128: SUB sub-tiles a chunk row), and what a stage and
+// part 2 hold: the Q rows' and K's chunks in a stage, V's in part 2.
+template <typename T>
 struct HbWideShape {
   static constexpr int ELT = sizeof(T);
   static constexpr bool BF16 = ELT == 2;
-  static constexpr HbTiles TILES = hb_wide_tiles(KERNEL, BF16);
+  static constexpr HbTiles TILES = hb_wide_tiles(BF16);
   static constexpr int WGS = TILES.wgs;
   static constexpr int BLOCK = 64 * WGS;
   static constexpr int TILE = TILES.tile;
@@ -152,17 +142,88 @@ struct HbWideShape {
   static constexpr int KD = FLASH_CHUNK * ELT / 32;  // k steps of a chunk
   static constexpr int KT = TILE * ELT / 32;
   static constexpr int KSUB = RB / 32;
-  static constexpr int NOWN = KERNEL == FLASH_F1 ? 1 : 2;
-  static constexpr int NSECOND = KERNEL == FLASH_F2 ? 2 : 1;
   static constexpr int OWN_BYTES = BLOCK * FLASH_CHUNK * ELT;
   static constexpr int OWN_SUB_BYTES = BLOCK * RB;
   static constexpr int TILE_BYTES = TILE * FLASH_CHUNK * ELT;  // a plane
   static constexpr int TILE_SUB_BYTES = TILE * RB;
   static constexpr int LOOP_BYTES = PARTS * TILE_BYTES;  // an operand's
-  static constexpr int STAGE_BYTES = NOWN * (OWN_BYTES + LOOP_BYTES);
-  static constexpr int PART2_BYTES = NSECOND * LOOP_BYTES;
+  static constexpr int STAGE_BYTES = OWN_BYTES + LOOP_BYTES;
+  static constexpr int PART2_BYTES = LOOP_BYTES;
   static constexpr uint32_t MN_LBO = TILE_SUB_BYTES;
 };
+
+// The wide backward (flash_backward_wide.cuh), F2 and F3 at d = 128 c: a
+// block owns 64 rows of its own side (k and v rows in F2, q and dO rows in
+// F3) and NJ chunks of 128 columns of its outputs, so the grid holds
+// ceil(c / NJ) blocks per row tile.  Its two consumer warpgroups share the
+// 64 rows and split the work by operand: in F2 the first computes S^T and
+// P and sums dV, the second dP^T and dS and sums dK, each over the block's
+// chunks; in F3 the first computes S and P, the second dP and dS, and each
+// sums one half (64 columns) of every chunk of dQ the block owns.  P (and
+// in F3 dS) passes between them through shared memory, as f32 fragments.
+// Per looped tile of TILE rows a ring of STAGES stages carries the first
+// products' operands over all of d, SLICE columns a stage, in the order
+// 0 .. d - 1 (every block of a row tile so holds the same P and dS to the
+// bit); the second products read the looped tile's chunks of the block's
+// columns.  ptxas gives every thread of a block the launch's register
+// budget (setmaxnreg does not raise it for the consumers' code), and a
+// block of nine or twelve warps puts three on one of the SM's four
+// register files: 168 registers a thread, eight warps 255.
+// - bf16: no producer warps (256 threads, 255 registers: F2's 128 of dV or
+//   dK over two chunks beside a 64 x 64 first product), one consumer
+//   thread issues every TMA load; NJ = 2, one block a row tile at c = 2;
+//   64-row tiles (the first products at N = 64), a stage one chunk.  At
+//   c = 2 (RES) the block's own rows are loaded once and stay resident
+//   (64 KB), a stage holds only the looped tile's chunk, and the second
+//   products read the block's chunks from the ring: four stages, two
+//   tiles.  Above, a stage carries the own rows' chunk beside the looped
+//   one, and the block's chunks come again by TMA into slots of their own
+//   (part 2): two stages.  There F3, whose halves of dQ take 32 registers
+//   a chunk, owns NJ = 4 (one block a row tile up to c = 4): every block
+//   streams the own rows and computes the first products again, so fewer
+//   blocks a row tile move fewer bytes from L2.
+// - f32: a producer warpgroup (384 threads, 168 registers), which fetches
+//   the looped slices, splits them into TF32 hi and lo planes and writes
+//   the block's chunks of the second products' operands into part 2 as
+//   transposed planes; 32-row tiles, four stages of 32 columns (the own
+//   rows' raw slice by TMA and the looped planes, 32 KB).  168 registers
+//   hold one chunk of dK or dV beside a first product: F2 NJ = 1 (at c = 2
+//   the two blocks of a row tile each compute the first products), F3,
+//   whose halves of dQ take 32 registers a chunk, NJ = 2.
+struct HbWideBwd {
+  int tile;       // rows of a looped tile
+  int slice;      // columns of d a stage carries
+  int stages;     // of the ring
+  int nj;         // output chunks a block owns
+  bool res;       // the own rows resident (else a stage carries their slice)
+  int producers;  // threads of the producer warpgroup (bf16: none)
+};
+constexpr HbWideBwd hb_wide_bwd(bool bf16, bool dkv, int chunks) {
+  if (bf16)
+    return chunks == 2 ? HbWideBwd{64, FLASH_CHUNK, 4, 2, true, 0}
+                       : HbWideBwd{64, FLASH_CHUNK, 2, dkv ? 2 : 4, false, 0};
+  return {32, 32, 4, dkv ? 1 : 2, false, HB_PRODUCERS};
+}
+
+// Dynamic shared memory of a wide F2 (dkv) or F3 block of `chunks` chunks:
+// the resident own rows (RES), the ring (a stage: the own rows' slice of
+// both operands unless resident, and the looped tile's, f32 as TF32 hi and
+// lo planes), part 2 (unless RES: NJ slots of the second products'
+// operands, F2 two and F3 one, f32 as transposed hi and lo planes), the f32
+// exchange of P (and dS in F3), the barriers and 1024 bytes of alignment
+// slack.
+constexpr int wide_bwd_smem(bool bf16, bool dkv, int chunks) {
+  const HbWideBwd w = hb_wide_bwd(bf16, dkv, chunks);
+  const int elt = bf16 ? 2 : 4, parts = bf16 ? 1 : 2;
+  const int own_slice = 64 * w.slice * elt;
+  const int loop_slice = parts * w.tile * w.slice * elt;
+  const int stage = (w.res ? 0 : 2 * own_slice) + 2 * loop_slice;
+  const int slot = (dkv ? 2 : 1) * parts * w.tile * FLASH_CHUNK * elt;
+  return (w.res ? 2 * 64 * FLASH_CHUNK * chunks * elt : 0) +
+         w.stages * stage + (w.res ? 0 : w.nj * slot) +
+         (dkv ? 1 : 2) * 64 * w.tile * 4 + (2 * w.stages + 2 * w.nj + 5) * 8 +
+         1024;
+}
 
 // Per element type, at head dimension D, for kernel KERNEL: the block's
 // warpgroups and rows, the looped tile's rows and the ring's stages
@@ -292,10 +353,12 @@ __device__ __forceinline__ int permuted_k(int rr) {
 // The f32 producer: the hi and lo planes at `src` (as split_fetched wrote
 // them) transposed, out[d][permuted_k(row)], again as hi and lo planes of D
 // rows (d) x TILE floats in sub-tiles of 32 floats (128 bytes) a row,
-// K-major for a product that contracts over the looped rows.  A warp's
-// lanes take 32 different rows, so its 16-byte reads and its stores of one
-// d are free of bank conflicts.
-template <int TILE, int D, int RB>
+// K-major for a product that contracts over the looped rows; the lo plane
+// DST_PLANE bytes after the hi one (the wide backward writes a slice of
+// columns into planes of 128 rows).  A warp's lanes take 32 different
+// rows, so its 16-byte reads and its stores of one d are free of bank
+// conflicts.
+template <int TILE, int D, int RB, int DST_PLANE = TILE * D * 4>
 __device__ __forceinline__ void transpose_planes(uint8_t* planes,
                                                  const uint8_t* src,
                                                  int ptid) {
@@ -317,7 +380,7 @@ __device__ __forceinline__ void transpose_planes(uint8_t* planes,
     for (int i = 0; i < 4; ++i) {
       const uint32_t off = hopper::swizzled_offset(4 * c16 + i, kcol & 31, 4);
       *reinterpret_cast<uint32_t*>(sub + off) = his[i];
-      *reinterpret_cast<uint32_t*>(sub + PLANE + off) = los[i];
+      *reinterpret_cast<uint32_t*>(sub + DST_PLANE + off) = los[i];
     }
   }
 }
@@ -362,23 +425,23 @@ __device__ __forceinline__ void tf32_rows_product(float (&acc)[D / 2],
   fence_operands(acc);
 }
 
-// f32, the wide kernels' first products over one chunk of 128 columns:
-// x += A1 B1^T (and y += A2 B2^T where TWO), A1 (A2) the warpgroup's own
-// rows of the chunk, raw f32 at `own` (`own` + BLOCK 512) as TMA wrote them
-// in sub-tiles of 128-byte rows, split into TF32 hi and lo A fragments in
-// registers CH k steps at a time (the next CH steps' loaded while these
-// multiply), B1 (B2) the looped tile's K-major hi and lo planes at `b`
-// (`b` + 2 TILE 512).  rloc is the thread's first row in the block.
-template <int TILE, int BLOCK, int CH, bool TWO>
+// f32, the wide kernels' first products over KD k steps of 8 columns (a
+// chunk of 128 in the forward, a slice of 32 in the backward): x += A B^T,
+// A the warpgroup's own rows, raw f32 at `own` as TMA wrote them in
+// sub-tiles of BLOCK rows of 128 bytes, split into TF32 hi and lo A
+// fragments in registers CH k steps at a time (the next CH steps' loaded
+// while these multiply), B the looped tile's K-major hi and lo planes at
+// `b` (the lo plane TILE rows of 32 KD bytes on).  rloc is the thread's
+// first row in the block.
+template <int TILE, int BLOCK, int KD, int CH>
 __device__ __forceinline__ void tf32_chunk_products(float (&x)[TILE / 2],
-                                                    float (&y)[TILE / 2],
                                                     const uint8_t* own,
                                                     uint32_t b, int rloc,
                                                     int tq) {
   using namespace hopper;
-  constexpr int KD = 16, KSUB = 4, OWN_SUB = BLOCK * 128, OWN = BLOCK * 512;
-  constexpr int PLANE = TILE * 512, TSUB = TILE * 128, NC = TWO ? CH : 1;
-  uint32_t fh1[2][CH][4], fl1[2][CH][4], fh2[2][NC][4], fl2[2][NC][4];
+  constexpr int KSUB = 4, OWN_SUB = BLOCK * 128;
+  constexpr int PLANE = TILE * 32 * KD, TSUB = TILE * 128;
+  uint32_t fh[2][CH][4], fl[2][CH][4];
   auto load = [&](int c) {
 #pragma unroll
     for (int q = 0; q < CH; ++q)
@@ -390,10 +453,7 @@ __device__ __forceinline__ void tf32_chunk_products(float (&x)[TILE / 2],
             swizzled_offset(rloc + 8 * (e & 1),
                             8 * (ks % KSUB) + tq + 4 * (e >> 1), 4, 128);
         split_tf32(*reinterpret_cast<const float*>(own + off),
-                   fh1[c & 1][q][e], fl1[c & 1][q][e]);
-        if constexpr (TWO)
-          split_tf32(*reinterpret_cast<const float*>(own + OWN + off),
-                     fh2[c & 1][q][e], fl2[c & 1][q][e]);
+                   fh[c & 1][q][e], fl[c & 1][q][e]);
       }
   };
   load(0);
@@ -401,36 +461,23 @@ __device__ __forceinline__ void tf32_chunk_products(float (&x)[TILE / 2],
   for (int c = 0; c < KD / CH; ++c) {
     const int cur = c & 1;
     fence_operands(x);
-    if constexpr (TWO) fence_operands(y);
     wgmma_fence();
 #pragma unroll
     for (int q = 0; q < CH; ++q) {
       const int ks = CH * c + q;
       const uint32_t bb = b + (ks / KSUB) * TSUB + 32 * (ks % KSUB);
-      const uint64_t b1h = desc_sw(bb, 128), b1l = desc_sw(bb + PLANE, 128);
-      Wgmma<TILE>::tf32_rs(x, fh1[cur][q], b1h);
-      Wgmma<TILE>::tf32_rs(x, fh1[cur][q], b1l);
-      Wgmma<TILE>::tf32_rs(x, fl1[cur][q], b1h);
-      if constexpr (TWO) {
-        const uint64_t b2h = desc_sw(bb + 2 * PLANE, 128);
-        const uint64_t b2l = desc_sw(bb + 3 * PLANE, 128);
-        Wgmma<TILE>::tf32_rs(y, fh2[cur][q], b2h);
-        Wgmma<TILE>::tf32_rs(y, fh2[cur][q], b2l);
-        Wgmma<TILE>::tf32_rs(y, fl2[cur][q], b2h);
-      }
+      const uint64_t bh = desc_sw(bb, 128), bl = desc_sw(bb + PLANE, 128);
+      Wgmma<TILE>::tf32_rs(x, fh[cur][q], bh);
+      Wgmma<TILE>::tf32_rs(x, fh[cur][q], bl);
+      Wgmma<TILE>::tf32_rs(x, fl[cur][q], bh);
     }
     wgmma_commit();
     if (c < KD / CH - 1) load(c + 1);
     wgmma_wait<0>();
-    keep_alive(fh1[cur]);
-    keep_alive(fl1[cur]);
-    if constexpr (TWO) {
-      keep_alive(fh2[cur]);
-      keep_alive(fl2[cur]);
-    }
+    keep_alive(fh[cur]);
+    keep_alive(fl[cur]);
   }
   fence_operands(x);
-  if constexpr (TWO) fence_operands(y);
 }
 
 // Whether every row of the warp and every row of a looped tile of TILE rows

@@ -20,10 +20,13 @@ tensor-core kernels of ``csrc/flash_forward.cu`` and
 kernels`), which read q, k, v and dO through TMA: bases and strides are
 multiples of 16 bytes.  They take the head dimensions JAX's TPU kernels
 take (``FLASH_HEAD_DIMS``): every d from 1 to 128, and every multiple of
-128 above it on the wide kernels (``csrc/flash_forward_wide.cu``,
-``csrc/flash_backward_wide.cu``), which split each output into chunks of
-128 columns, one block per chunk.  On the CPU their plain versions below,
-which take any d.  The plain versions
+128 above it on the wide kernels: the forward
+(``csrc/flash_forward_wide.cu``) splits o into chunks of 128 columns, one
+block per chunk; the backward (``csrc/flash_backward_wide.cuh``) gives a
+block 64 rows and a group of chunks of its outputs, whose two
+warpgroups split the products by operand and pass P (and dS) between
+them, so that at d = 256 every product is computed once.  On the CPU
+their plain versions below, which take any d.  The plain versions
 follow ``mha_reference_no_custom_vjp`` and ``mha_reference_bwd`` of the
 library, in f32 on the widened operands.  They form the whole ``(s, s)``
 matrix: only the kernels keep attention linear in memory.

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -1164,21 +1164,20 @@ def flash_instance(d: int) -> int:
 def _flash_tiles(kernel: str, dtype, d: int):
     """``(warpgroups, tile rows, stages)`` of a block of F1, F2 or F3 at
     the instantiation ``d`` (``FLASH_INSTANCES``, or a multiple of 128
-    above 128), as ``hb_tiles`` and ``hb_wide_tiles`` in
-    ``csrc/flash_hopper.cuh``: a block owns 64 rows of its own side per
-    consumer warpgroup and loops over tiles of the other side through a
-    ring of stages (above 128, a stage per 128-column chunk of the
-    tile)."""
+    above 128), as ``hb_tiles``, ``hb_wide_tiles`` and ``hb_wide_bwd`` in
+    ``csrc/flash_hopper.cuh``: a block loops over tiles of the other side
+    through a ring of stages and owns 64 rows of its own side per consumer
+    warpgroup, but in the wide F2 and F3 (:func:`_flash_wide_bwd`), whose
+    two warpgroups share 64 rows."""
     _require(kernel in _FLASH_KERNELS, f"kernel {kernel!r}")
     _require(d in FLASH_INSTANCES or (_flash_wide(d) and d in FLASH_HEAD_DIMS),
              f"head dimension {d}: no instantiation")
     bf16 = dtype == torch.bfloat16
     if _flash_wide(d):
-        if not bf16:
-            return 1, 32, 2 if kernel == "flash_forward" else 1
-        if kernel == "flash_backward_dkv":
-            return 1, 32, 4
-        return 2, 64, 4 if kernel == "flash_forward" else 2
+        if kernel == "flash_forward":
+            return (2, 64, 4) if bf16 else (1, 32, 2)
+        plan = _flash_wide_bwd(kernel, dtype, d)
+        return 2, plan.tile, plan.stages
     if d > 64 and not bf16:
         return 1, 32, 2 if kernel == "flash_forward" else 1
     if d > 64 and kernel == "flash_backward_dkv":
@@ -1186,28 +1185,82 @@ def _flash_tiles(kernel: str, dtype, d: int):
     return 2, 64, 4 if bf16 else (2 if kernel == "flash_forward" else 1)
 
 
+class WideBwdPlan(NamedTuple):
+    """A wide F2 or F3 block, as ``hb_wide_bwd``: the rows of a looped
+    tile, the columns of d a ring stage carries, the ring's stages, the
+    output chunks a block owns, and whether its own rows stay resident."""
+    tile: int
+    slice: int
+    stages: int
+    nj: int
+    res: bool
+
+
+def _flash_wide_bwd(kernel: str, dtype, d: int) -> WideBwdPlan:
+    """The plan of the wide F2 (``flash_backward_dkv``) or F3 at head
+    dimension ``d = 128 c``, as ``hb_wide_bwd`` in
+    ``csrc/flash_hopper.cuh``: a block owns 64 own rows and ``nj`` chunks
+    of 128 output columns; bf16 (no producer warps, 255 registers a thread)
+    two chunks, 64-row tiles, a stage a chunk, and at c = 2 its own rows
+    resident (four stages, the second products reading the looped chunks
+    from the ring), above streamed (two stages; F3 four chunks); f32 (a
+    producer warpgroup, 168 registers) F2 one chunk and F3 two, 32-row
+    tiles and four stages of 32 columns."""
+    _require(kernel in _FLASH_KERNELS[1:], f"kernel {kernel!r}")
+    _require(_flash_wide(d) and d in FLASH_HEAD_DIMS,
+             f"head dimension {d}: not a wide one")
+    if dtype == torch.bfloat16:
+        return (WideBwdPlan(64, FLASH_CHUNK, 4, 2, True)
+                if d == 2 * FLASH_CHUNK
+                else WideBwdPlan(64, FLASH_CHUNK, 2,
+                                 2 if kernel == "flash_backward_dkv" else 4,
+                                 False))
+    return WideBwdPlan(32, 32, 4, 1 if kernel == "flash_backward_dkv" else 2,
+                       False)
+
+
+def _flash_wide_groups(kernel: str, dtype, d: int):
+    """The output chunks of each block of a row tile of the wide F2 or F3
+    at ``d``, in the order of ``blockIdx.x``: ``ceil(c / nj)`` blocks, block
+    ``x`` the chunks ``nj x`` .. ``min(nj (x + 1), c) - 1``."""
+    c, nj = d // FLASH_CHUNK, _flash_wide_bwd(kernel, dtype, d).nj
+    return [list(range(j0, min(j0 + nj, c))) for j0 in range(0, c, nj)]
+
+
 def _flash_smem(kernel: str, dtype, d: int) -> int:
     """Dynamic shared memory of a block of F1, F2 or F3 at the
-    instantiation ``d``, as ``ff_smem``, ``hb_smem`` and ``wide_smem`` in
-    the source: the block's own operands (F1 f32: Q's TF32 hi and lo
-    planes), the ring, the f32 planes of the second products (F1: the
-    staging of V), the per-tile row values, the barriers and 1024 bytes of
-    alignment slack.  Above 128 (the wide kernels) each stage holds one
-    128-column chunk of the own rows (raw) and of the looped tile, a buffer
-    of its own the second products' chunk, and the size does not depend on
-    d."""
-    wgs, tile, stages = _flash_tiles(kernel, dtype, d)
+    instantiation ``d``, as ``ff_smem``, ``hb_smem``, ``wide_smem`` and
+    ``wide_bwd_smem`` in the source: the block's own operands (F1 f32: Q's
+    TF32 hi and lo planes), the ring, the f32 planes of the second products
+    (F1: the staging of V), the per-tile row values, the barriers and 1024
+    bytes of alignment slack.  The wide F1 keeps one 128-column chunk of
+    its Q rows and of the kv tile in a stage and its size does not depend
+    on d; the wide F2 and F3 keep (:func:`_flash_wide_bwd`) the resident
+    own rows (bf16 at c = 2), the ring (a stage: the own rows' slice unless
+    resident, the looped tile's, f32 as hi and lo planes), part 2 (unless
+    resident: ``nj`` slots of the block's chunks of the second products'
+    operands, F2 two operands and F3 one, f32 as transposed hi and lo
+    planes) and the f32 exchange of P (F3: and dS); their row values stay
+    in registers."""
     bf16 = dtype == torch.bfloat16
     elt, parts = (2, 1) if bf16 else (4, 2)
+    if _flash_wide(d) and kernel != "flash_forward":
+        _flash_tiles(kernel, dtype, d)  # refuses what is no instantiation
+        w = _flash_wide_bwd(kernel, dtype, d)
+        dkv = kernel == "flash_backward_dkv"
+        stage = ((0 if w.res else 2 * 64 * w.slice * elt)
+                 + 2 * parts * w.tile * w.slice * elt)
+        slot = (2 if dkv else 1) * parts * w.tile * FLASH_CHUNK * elt
+        return ((2 * 64 * d * elt if w.res else 0) + w.stages * stage
+                + (0 if w.res else w.nj * slot)
+                + (1 if dkv else 2) * 64 * w.tile * 4
+                + (2 * w.stages + 2 * w.nj + 5) * 8 + 1024)
+    wgs, tile, stages = _flash_tiles(kernel, dtype, d)
     if _flash_wide(d):
         own, plane = 64 * wgs * FLASH_CHUNK * elt, tile * FLASH_CHUNK * elt
-        nown = 1 if kernel == "flash_forward" else 2
-        nsecond = 2 if kernel == "flash_backward_dkv" else 1
-        aux = tile + 4 if kernel == "flash_forward" else 3 * tile + 4
-        staging = 2 * plane if kernel == "flash_forward" and not bf16 else 0
-        return (stages * nown * (own + parts * plane)
-                + nsecond * parts * plane + staging + aux * 4
-                + (2 * stages + 2) * 8 + 1024)
+        staging = 0 if bf16 else 2 * plane
+        return (stages * (own + parts * plane) + parts * plane + staging
+                + (tile + 4) * 4 + (2 * stages + 2) * 8 + 1024)
     plane = tile * d * elt
     if kernel == "flash_forward":
         return (parts * 64 * wgs * d * elt + stages * 2 * parts * plane

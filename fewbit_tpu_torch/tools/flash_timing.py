@@ -1,7 +1,7 @@
 """Device time of the tensor-core flash kernels F1, F2 and F3 at given shapes.
 
     python3 -m fewbit_tpu_torch.tools.flash_timing [--case B H S D MODE ...]
-        [--wide] [--dtypes f32 bf16] [--reps 10] [--tries 3]
+        [--wide] [--library] [--dtypes f32 bf16] [--reps 10] [--tries 3]
 
 Each case is (batch, heads, sequence, head dimension, mode): ``causal``
 (segment ids all one, as GPT passes them) or ``padded`` (the non-causal
@@ -14,7 +14,10 @@ events where every profiled run read below the call's bound; see
 ``--case`` it times GPT-2 small's (8, 12, 1024, 64) causal and RoBERTa's
 (64, 12, 128, 64) padded; ``--wide`` times the wide kernels' cases
 (``WIDE_CASES``: Pythia-1B's (2, 8, 2048, 256) causal, 256 padded, 384
-causal, 512 padded), after any ``--case``.  It calls the wrappers only,
+causal, 512 padded), after any ``--case``.  ``--library`` adds the device
+ms of PyTorch's ``scaled_dot_product_attention`` forward and backward on
+the same inputs (a yardstick; the port never calls it), floored by F1's
+and by the larger of F2's and F3's bounds.  It calls the wrappers only,
 so copied into an older tree it times that tree's kernels at the head
 dimensions they take.
 ``chip_smoke.py`` bounds and times F1-F3 through :func:`flash_work` and
@@ -29,7 +32,8 @@ import json
 
 import torch
 
-__all__ = ("WIDE_CASES", "unmasked", "flash_work", "time_case", "main")
+__all__ = ("WIDE_CASES", "unmasked", "flash_work", "time_case",
+           "library_time", "main")
 
 DEFAULT_CASES = ((8, 12, 1024, 64, "causal"), (64, 12, 128, 64, "padded"))
 # The wide kernels (head dimensions d = 128 c above 128), as chip_smoke.py's
@@ -91,9 +95,40 @@ def flash_work(q, k, v, do, ids, causal, o, lse, di):
     }
 
 
-def time_case(b, h, s, d, mode, dtype, reps=REPS, tries=3):
+def library_time(q, k, v, do, ids, causal, floors, reps=REPS, tries=3):
+    """``{"forward", "backward"}``: the device ms of PyTorch's
+    ``scaled_dot_product_attention`` on the flash kernels' inputs, its
+    backward giving dq, dk and dv in one call; ``floors`` the two bounds
+    (``act_timing.device_time``).  Causal cases pass ``is_causal``, the
+    others the padding mask as a boolean ``attn_mask``."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from fewbit_tpu_torch.tools.act_timing import device_time
+
+    scale = q.shape[-1] ** -0.5
+    kwargs = ({"is_causal": True} if causal
+              else {"attn_mask": unmasked(ids, False)[:, None]})
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def forward():
+        with torch.no_grad():
+            return sdpa(*ins, scale=scale, **kwargs)
+
+    out = sdpa(*ins, scale=scale, **kwargs)
+
+    def backward():
+        torch.autograd.grad(out, ins, do, retain_graph=True)
+
+    return {"forward": device_time(forward, reps, tries,
+                                   bound_ms=floors[0])[0],
+            "backward": device_time(backward, reps, tries,
+                                    bound_ms=floors[1])[0]}
+
+
+def time_case(b, h, s, d, mode, dtype, reps=REPS, tries=3, library=False):
     """``{kernel: {"device_ms", "source", "bound_ms", "bound_share"}}`` of
-    F1, F2 and F3 on one case (:func:`flash_work`)."""
+    F1, F2 and F3 on one case (:func:`flash_work`); with ``library`` also
+    ``{"library": library_time(...)}``."""
     from fewbit_tpu_torch.ops import kernels as K
     from fewbit_tpu_torch.tools.act_timing import device_time
     from fewbit_tpu_torch.tools.timing import bound_ms
@@ -110,6 +145,12 @@ def time_case(b, h, s, d, mode, dtype, reps=REPS, tries=3):
         ms, source = device_time(fn, reps, tries, bound_ms=least)
         out[name] = {"device_ms": ms, "source": source, "bound_ms": least,
                      "bound_by": by, "bound_share": least / ms}
+    if library:
+        floors = (out["flash_forward"]["bound_ms"],
+                  max(out["flash_backward_dkv"]["bound_ms"],
+                      out["flash_backward_dq"]["bound_ms"]))
+        out["library"] = library_time(q, k, v, do, ids, causal, floors,
+                                      reps, tries)
     return out
 
 
@@ -119,6 +160,8 @@ def main(argv=None):
                     metavar=("B", "H", "S", "D", "MODE"))
     ap.add_argument("--wide", action="store_true",
                     help="time WIDE_CASES (after any --case)")
+    ap.add_argument("--library", action="store_true",
+                    help="also time scaled_dot_product_attention")
     ap.add_argument("--dtypes", nargs="+", default=["f32", "bf16"],
                     choices=sorted(_DTYPES))
     ap.add_argument("--reps", type=int, default=REPS)
@@ -139,7 +182,8 @@ def main(argv=None):
         for tag in args.dtypes:
             row = {"case": list(case), "dtype": tag,
                    "device": torch.cuda.get_device_name(0),
-                   **time_case(*case, _DTYPES[tag], args.reps, args.tries)}
+                   **time_case(*case, _DTYPES[tag], args.reps, args.tries,
+                               args.library)}
             print(json.dumps(row), flush=True)
             rows.append(row)
     return rows

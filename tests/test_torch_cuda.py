@@ -21,6 +21,8 @@ from fewbit_tpu_torch.ops import kernels as K
 from fewbit_tpu_torch.ops.bitpack import unpack_codes
 from fewbit_tpu_torch.ops.flash_attention import (SegmentIds,
                                                   flash_attention,
+                                                  flash_backward_dkv_plain,
+                                                  flash_backward_dq_plain,
                                                   flash_backward_plain,
                                                   flash_forward_plain)
 
@@ -676,8 +678,8 @@ def test_flash_kernels_match_plain_at_every_head_dim(
 
 
 # Head dimensions of the wide kernels (every multiple of 128 above 128, as
-# d / 128 chunks of 128 columns, one block per chunk): 256 (Pythia-1B's
-# heads), 384 and 512.
+# d / 128 chunks of 128 columns: F1 one block per chunk, F2 and F3 two
+# chunks a block): 256 (Pythia-1B's heads), 384 and 512.
 WIDE_HEAD_DIMS = [256, 384, 512]
 _WIDE_HEAD_DIM_SHAPES = [(1000, 1000, True, True, False),
                          (1000, 1000, False, True, True),
@@ -697,10 +699,88 @@ def test_flash_kernels_match_plain_at_wide_head_dims(
     """The same on the wide kernels at head dimensions 256, 384 and 512:
     ragged sequences, sq != sk, causal, padded and segment ids, into views
     of NaN-filled buffers 16 columns wider whose columns past d must stay
-    NaN, twice for equal bits (the c chunk blocks of a row tile share
-    nothing but their inputs)."""
+    NaN, twice for equal bits (the blocks of a row tile share nothing but
+    their inputs)."""
     _flash_against_plain(cuda, dtype, s, sk, causal, seg, contiguous, d,
                          wide=True)
+
+
+# The wide backward's own tiles and grids (64 own rows a block; looped
+# tiles of 64 rows in bf16 and 32 in f32; two output chunks a block): sq !=
+# sk with tails of both sides that no tile divides, segment ids (three
+# documents) and padding at c = 2 (bf16: the own rows resident, the ring
+# held for the second products) and c = 4 (two blocks a row tile, the
+# chunks again in part 2), and the odd c = 3 (a block of one chunk).
+_WIDE_BWD_CASES = [(256, 333, 517, False, "segments"),
+                   (256, 517, 333, True, "padded"),
+                   (256, 200, 200, True, "segments"),
+                   (512, 200, 200, False, "padded"),
+                   (512, 333, 517, True, "segments"),
+                   (384, 97, 301, True, "padded"),
+                   (384, 301, 97, False, "segments")]
+
+
+def _wide_ids(b, n, n0, mask, cuda):
+    """``(b, n)`` int32 ids: three documents of unequal length, or the
+    padding of a batch row that keeps 3 n0 / 4 of its positions.  Their
+    borders lie at the same positions on both sides (n0 = min(sq, sk)), so
+    that every query row keeps a key: a row whose every key is masked is
+    left to the tiles a kernel skips, as in the library's kernels, and its
+    gradient is not the plain version's."""
+    pos = torch.arange(n, device=cuda)
+    if mask == "segments":
+        ids = (pos >= n0 // 5).int() + (pos >= n0 // 2).int()
+    else:
+        ids = (pos < n0 * 3 // 4).int()
+    return ids[None].repeat(b, 1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,sq,sk,causal,mask", _WIDE_BWD_CASES,
+                         ids=[f"d{c[0]}_{c[1]}x{c[2]}_"
+                              f"{'causal' if c[3] else 'full'}_{c[4]}"
+                              for c in _WIDE_BWD_CASES])
+def test_flash_wide_backward_tails_and_masks(cuda, dtype, d, sq, sk, causal,
+                                             mask):
+    """The wide F2 and F3 at those shapes against their plain versions
+    (on the kernel's own lse and di) and against an f64 evaluation of the
+    function, both within TOL (1e-4 in f32, 2e-2 in bf16, of the largest
+    element), into NaN-filled views whose columns past d stay NaN, and a
+    second launch to the bit."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    b, h = 2, 3
+    gen = torch.Generator(device=cuda).manual_seed(d + sq)
+    q, k, v, do = (torch.randn(b, n, h, d, generator=gen, device=cuda)
+                   .to(dtype).transpose(1, 2) for n in (sq, sk, sk, sq))
+    n0 = min(sq, sk)
+    seg_q, seg_kv = (_wide_ids(b, n, n0, mask, cuda) for n in (sq, sk))
+    scale = d ** -0.5
+    o, lse = K.flash_forward(q, k, v, seg_q, seg_kv, causal, scale)
+    di = (o.float() * do.float()).sum(-1)
+    bargs = (q, k, v, seg_q, seg_kv, lse, do, di, causal, scale)
+    nan, bufs = _flash_nan_outputs((k, v, q), True)
+    dk, dv = K.flash_backward_dkv(*bargs, out=nan[:2])
+    dq = K.flash_backward_dq(*bargs, out=nan[2:])
+    plain = {"dk": None, "dv": None}
+    plain["dk"], plain["dv"] = flash_backward_dkv_plain(*bargs)
+    plain["dq"] = flash_backward_dq_plain(*bargs)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    o64, lse64 = flash_forward_plain(q64, k64, v64, seg_q, seg_kv, causal,
+                                     scale)
+    exact = dict(zip(("dq", "dk", "dv"), flash_backward_plain(
+        q64, k64, v64, seg_q, seg_kv, o64, lse64, do64, causal, scale)))
+    torch.cuda.synchronize()
+    for buf in bufs:
+        assert bool(buf[..., d:].isnan().all()), "stored past d"
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        for ref, want in (("plain", plain[name]), ("f64", exact[name])):
+            err = (got.double() - want.double()).abs().max().item()
+            bound = tol * max(1.0, want.double().abs().max().item())
+            assert err <= bound, (name, ref, err, bound)
+    dk2, dv2 = K.flash_backward_dkv(*bargs)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, K.flash_backward_dq(*bargs))
 
 
 def _flash_nan_outputs(likes, wide):

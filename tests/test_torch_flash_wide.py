@@ -2,23 +2,27 @@
 d = 128 c above 128: ``csrc/flash_forward_wide.cu``,
 ``csrc/flash_backward_wide.cu``) on the CPU.
 
-Their schedule emulated in torch on one head: a block owns 64 rows of its
-own side per consumer warpgroup and ONE chunk of 128 columns of its
-outputs (O in F1, dK and dV in F2, dQ in F3); the first products (S, and dP
-in the backward) contract over all of d, chunk by chunk in the order
-0 .. c - 1, each chunk's product as the kernel multiplies it (f32 as three
-TF32 products, bf16 exactly) added to one f32 sum; the online softmax (F1)
-runs per kv tile as ``tests/test_torch_flash_forward.py`` emulates it, and
-the backward recomputes P = exp2 of the logits less lse and dS = P (dP - di)
+Their schedule emulated in torch on one head.  F1: a block owns 64 query
+rows per consumer warpgroup and ONE chunk of 128 columns of o.  F2 and F3:
+a block owns 64 rows of its own side and a group of the output chunks
+(``K._flash_wide_groups``: two, one in f32 F2, four in bf16 F3 above
+c = 2), its two warpgroups
+splitting the products by operand.  The first products (S, and dP in the
+backward) contract over all of d, chunk by chunk in the order 0 .. c - 1,
+each chunk's product as the kernel multiplies it (f32 as three TF32
+products, bf16 exactly) added to one f32 sum; the online softmax (F1) runs
+per kv tile as ``tests/test_torch_flash_forward.py`` emulates it, and the
+backward recomputes P = exp2 of the logits less lse and dS = P (dP - di)
 per looped tile, P and dS rounded to bf16 before the second products in
-bf16.  The chunks of each output, each from a block of its own, joined,
-are held against an f64 evaluation of the function with the tolerances of
-``chip_smoke.py`` (1e-4 of max(1, max |want|) in f32, 2e-2 in bf16); the c
-blocks of a row tile must hold the same m, l and lse (F1), P and dS
-(backward) to the bit, which the fixed chunk order gives and an order that
-starts at a block's own chunk would not.  Then the shared memory and tiles
-of the wide instances against hand-computed budgets.  The emulation does
-not model the card's accumulation order inside a product.
+bf16.  The chunks of each output, joined, are held against an f64
+evaluation of the function with the tolerances of ``chip_smoke.py`` (1e-4
+of max(1, max |want|) in f32, 2e-2 in bf16); the blocks of a row tile must
+hold the same m, l and lse (F1), P and dS (backward) to the bit, which the
+fixed chunk order gives and an order that starts at a block's own chunk
+would not.  Then the shared memory and tiles of the wide instances against
+hand-computed budgets, and the backward's grid against the chunks.  The
+emulation does not model the card's accumulation order inside a
+product.
 """
 
 import numpy as np
@@ -139,20 +143,22 @@ def _forward_chunk(q, k, v, keep, causal, scale, dtype, j, order):
     return o.to(dtype), m_all, l_all, lse
 
 
-def _backward_chunk(q, k, v, do, keep, lse, di, causal, scale, dtype, j,
-                    dkv, order):
-    """Chunk j's blocks of F2 (dkv: ``(dk_j, dv_j, p)``) or F3 (``(dq_j,
-    p)``): own rows in blocks of 64 wgs over looped tiles, P and dS
-    recomputed per tile from the chunked first products; ``p`` the joined
-    P (query by key) every block computed, for the bit check."""
+def _backward_group(q, k, v, do, keep, lse, di, causal, scale, dtype,
+                    group, dkv, order):
+    """The blocks of F2 (dkv: ``(dk, dv, p)``) or F3 (``(dq, p)``) that own
+    the output chunks ``group``: 64 own rows a block over looped tiles, P
+    and dS recomputed per tile from the chunked first products, each second
+    product over the group's columns; dk, dv, dq those columns, ``p`` the
+    joined P (query by key) the blocks computed, for the bit check."""
     name = "flash_backward_dkv" if dkv else "flash_backward_dq"
-    wgs, tile, _ = K._flash_tiles(name, dtype, q.shape[1])
-    block = 64 * wgs
+    tile = K._flash_wide_bwd(name, dtype, q.shape[1]).tile
+    block = 64
     sq, sk = q.shape[0], k.shape[0]
-    cols_j = slice(CHUNK * j, CHUNK * (j + 1))
+    cols_j = slice(CHUNK * group[0], CHUNK * (group[-1] + 1))
     n_res, n_loop = (sk, sq) if dkv else (sq, sk)
-    da = torch.zeros(n_res, CHUNK)
-    db = torch.zeros(n_res, CHUNK)
+    width = CHUNK * len(group)
+    da = torch.zeros(n_res, width)
+    db = torch.zeros(n_res, width)
     p_all = torch.zeros(sq, sk)
     for row0 in range(0, n_res, block):
         t0, t1 = 0, -(-n_loop // tile)
@@ -237,7 +243,7 @@ WIDE_CASES = [(256, 256, 256, True, "none"), (256, 200, 200, True,
 def test_wide_schedule_against_f64(d, sq, sk, causal, mode, dtype):
     """F1, F2 and F3 at head dimensions 256, 384 and 512 as the wide
     kernels schedule them, the outputs' chunks joined, against f64; the
-    chunk blocks of every row tile agree on m, l, lse and P to the bit."""
+    blocks of every row tile agree on m, l, lse and P to the bit."""
     c = d // CHUNK
     q, k, v, do, seg_q, seg_kv = _head(sq, sk, d, mode, dtype, sq + d)
     scale = d ** -0.5
@@ -256,10 +262,12 @@ def test_wide_schedule_against_f64(d, sq, sk, causal, mode, dtype):
     _within("lse", lse[live], lse64[live], dtype)
     # The backward on the forward's lse, and di as the wrapper computes it.
     di = (o.float() * do.float()).sum(1)
-    dkv = [_backward_chunk(q, k, v, do, keep, lse, di, causal, scale, dtype,
-                           j, True, order) for j in range(c)]
-    dqs = [_backward_chunk(q, k, v, do, keep, lse, di, causal, scale, dtype,
-                           j, False, order) for j in range(c)]
+    dkv = [_backward_group(q, k, v, do, keep, lse, di, causal, scale, dtype,
+                           g, True, order)
+           for g in K._flash_wide_groups("flash_backward_dkv", dtype, d)]
+    dqs = [_backward_group(q, k, v, do, keep, lse, di, causal, scale, dtype,
+                           g, False, order)
+           for g in K._flash_wide_groups("flash_backward_dq", dtype, d)]
     for got in dkv[1:]:
         assert torch.equal(got[2], dkv[0][2])
     for got in dqs[1:]:
@@ -285,10 +293,15 @@ def test_chunk_order_fixed_in_every_block():
 
 
 # (kernel, dtype) -> (warpgroups, tile rows, stages, bytes) of the wide
-# instances, whatever the number of chunks, by hand from wide_smem: the
-# ring's stages (own rows' chunks raw, the looped tile's chunks: f32 TF32
-# hi and lo planes), part 2, F1 f32's staging of V, the row values, the
-# barriers and 1024 bytes of slack.
+# instances, by hand from wide_smem and wide_bwd_smem.  F1, whatever the
+# number of chunks: the ring's stages (the query rows' chunk raw, the kv
+# tile's chunk: f32 TF32 hi and lo planes), part 2, f32's staging of V,
+# the row values, the barriers and 1024 bytes of slack.  F2 and F3 in f32
+# (two consumer warpgroups on 64 own rows, 32-row tiles, four stages of 32
+# columns: the own rows' raw slice of both operands and the looped slice's
+# hi and lo planes), part 2 (a slot of transposed hi and lo planes per
+# chunk owned: F2 one chunk of Q and dO, F3 two of K), the exchange of P
+# (F3: and dS), the barriers and the slack.
 WIDE_BUDGETS = {
     ("flash_forward", torch.float32): (
         1, 32, 2, 2 * (32768 + 2 * 16384) + 2 * 16384 + 2 * 16384
@@ -296,17 +309,34 @@ WIDE_BUDGETS = {
     ("flash_forward", torch.bfloat16): (
         2, 64, 4, 4 * (32768 + 16384) + 16384 + 68 * 4 + 10 * 8 + 1024),
     ("flash_backward_dkv", torch.float32): (
-        1, 32, 1, 2 * (32768 + 2 * 16384) + 2 * 2 * 16384 + 100 * 4 + 4 * 8
-        + 1024),
-    ("flash_backward_dkv", torch.bfloat16): (
-        1, 32, 4, 4 * 2 * (16384 + 8192) + 2 * 8192 + 100 * 4 + 10 * 8
-        + 1024),
+        2, 32, 4, 4 * (2 * 8192 + 2 * 2 * 4096) + 2 * 2 * 16384 + 8192
+        + 15 * 8 + 1024),
     ("flash_backward_dq", torch.float32): (
-        1, 32, 1, 2 * (32768 + 2 * 16384) + 2 * 16384 + 100 * 4 + 4 * 8
-        + 1024),
-    ("flash_backward_dq", torch.bfloat16): (
-        2, 64, 2, 2 * 2 * (32768 + 16384) + 16384 + 196 * 4 + 6 * 8 + 1024),
+        2, 32, 4, 4 * (2 * 8192 + 2 * 2 * 4096) + 2 * 2 * 16384 + 2 * 8192
+        + 17 * 8 + 1024),
 }
+# bf16 F2 and F3 (64-row tiles, a stage one chunk, two chunks a block), at
+# c = 2 (the own rows resident, 2 x 32 KB, four stages of the looped tile's
+# chunk of both operands, no part 2) and above (two stages of the own rows'
+# and the looped tile's chunks, part 2 a slot per chunk owned: F2 two of Q
+# and dO, F3 four of K), with the exchange of P (F3: and dS), the barriers
+# and the slack.
+WIDE_BF16_BACKWARD = {
+    ("flash_backward_dkv", True): (
+        2, 64, 4, 2 * 32768 + 4 * 2 * 16384 + 16384 + 17 * 8 + 1024),
+    ("flash_backward_dkv", False): (
+        2, 64, 2, 2 * 4 * 16384 + 2 * 2 * 16384 + 16384 + 13 * 8 + 1024),
+    ("flash_backward_dq", True): (
+        2, 64, 4, 2 * 32768 + 4 * 2 * 16384 + 2 * 16384 + 17 * 8 + 1024),
+    ("flash_backward_dq", False): (
+        2, 64, 2, 2 * 4 * 16384 + 4 * 16384 + 2 * 16384 + 17 * 8 + 1024),
+}
+
+
+def _wide_budget(name, dtype, d):
+    if dtype == torch.bfloat16 and name != "flash_forward":
+        return WIDE_BF16_BACKWARD[name, d == 2 * CHUNK]
+    return WIDE_BUDGETS[name, dtype]
 
 
 @pytest.mark.parametrize("d", [256, 384, 512, 1280])
@@ -315,18 +345,43 @@ def test_shared_memory_of_the_wide_instances(d):
     above, each within the 232,448 bytes a block may have; no
     instantiation at a head dimension above 128 that is not a multiple of
     128."""
-    for (name, dtype), (wgs, tile, stages, smem) in WIDE_BUDGETS.items():
-        assert K._flash_tiles(name, dtype, d) == (wgs, tile, stages)
-        assert K._flash_smem(name, dtype, d) == smem <= K.FLASH_SMEM_LIMIT
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq"):
+        for dtype in (torch.float32, torch.bfloat16):
+            wgs, tile, stages, smem = _wide_budget(name, dtype, d)
+            assert K._flash_tiles(name, dtype, d) == (wgs, tile, stages)
+            assert K._flash_smem(name, dtype, d) == smem <= K.FLASH_SMEM_LIMIT
         assert K.flash_instance(d) == d
-    assert [WIDE_BUDGETS[n, torch.float32][3] for n in (
+    assert [_wide_budget(n, torch.float32, d)[3] for n in (
         "flash_forward", "flash_backward_dkv", "flash_backward_dq")] == [
-        197824, 198064, 165296]
-    assert [WIDE_BUDGETS[n, torch.bfloat16][3] for n in (
-        "flash_forward", "flash_backward_dkv", "flash_backward_dq")] == [
-        214368, 214496, 214848]
+        197824, 205944, 214152]
+    assert [_wide_budget(n, torch.bfloat16, d)[3] for n in (
+        "flash_forward", "flash_backward_dkv", "flash_backward_dq")] == (
+        [214368, 214152, 230536] if d == 256 else [214368, 214120, 230536])
     for bad in (144, 192, 200, 257, d + 64):
         with pytest.raises(ValueError, match=f"head dimension {bad}"):
             K._flash_tiles("flash_forward", torch.float32, bad)
         with pytest.raises(ValueError, match=f"head dimension {bad}"):
             K.flash_instance(bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 384, 512, 1280])
+def test_wide_backward_grid_covers_every_chunk(d, dtype):
+    """Every wide F2 and F3 instance fits the 232,448 bytes a block may
+    have, and the blocks of a row tile (``_flash_wide_groups``, in the
+    order of ``blockIdx.x``) own every chunk of the outputs exactly once,
+    at most ``nj`` each, in order; bf16 keeps its own rows resident at
+    c = 2 only, and one block then owns both chunks."""
+    c = d // CHUNK
+    for name in ("flash_backward_dkv", "flash_backward_dq"):
+        plan = K._flash_wide_bwd(name, dtype, d)
+        assert K._flash_smem(name, dtype, d) <= K.FLASH_SMEM_LIMIT
+        groups = K._flash_wide_groups(name, dtype, d)
+        assert len(groups) == -(-c // plan.nj)
+        assert [j for g in groups for j in g] == list(range(c))
+        assert all(1 <= len(g) <= plan.nj for g in groups)
+        assert plan.res == (dtype == torch.bfloat16 and c == 2)
+        assert K._flash_tiles(name, dtype, d)[1:] == (plan.tile,
+                                                      plan.stages)
+    assert len(K._flash_wide_groups("flash_backward_dq", dtype, 256)) == 1
