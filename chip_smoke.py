@@ -236,8 +236,9 @@ at (2, 12, 2048, 128) causal, the 590M path's attention, and (16, 8, 512,
 32, 2048, 80) causal, the 2.7B path's; 16, 48, 96 and 112 causal and
 padded in turn; 20, through the wrappers' zero-padded copies of the
 instantiation at 32; the wide kernels at (2, 8, 2048, 256) causal, the
-Pythia path's, (16, 4, 512, 256) padded, (4, 4, 1024, 384) causal and (2,
-4, 1024, 512) padded), f32 and bf16, as the kernel phase holds them at 64
+Pythia path's, (16, 4, 512, 256) padded, (4, 4, 1024, 384) causal, (2,
+4, 1024, 512) padded and (2, 4, 1000, 384) padded, with tails), f32 and
+bf16, as the kernel phase holds them at 64
 (plain, f64, NaN-filled outputs that are views of wider buffers, whose
 columns past d must stay NaN, two launches equal to the bit,
 ``scaled_dot_product_attention`` with the backend its dispatch takes (and
@@ -372,7 +373,9 @@ WIDTH_TURNS = 16
 # head dimension that is not a multiple of 16: the wrappers copy it into
 # zero-padded operands of the instantiation at 32.  Then the wide kernels:
 # the Pythia path's attention (8 heads of 256), 256 with a padding mask,
-# 384 causal and 512 padded (d / 128 chunks of 128 columns).
+# 384 causal and 512 padded (d / 128 chunks of 128 columns), and 384
+# padded at seq 1000, whose tiles and blocks of query rows end in tails
+# (the odd c = 3: F1's second block of a row tile owns one chunk).
 HEADDIM_FLASH = (("cerebras_590m", CEREBRAS_BS, 12, CEREBRAS_SEQ, 128, True),
                  ("d128 padded", 16, 8, 512, 128, False),
                  ("d32 causal", 16, 4, 1024, 32, True),
@@ -386,7 +389,8 @@ HEADDIM_FLASH = (("cerebras_590m", CEREBRAS_BS, 12, CEREBRAS_SEQ, 128, True),
                  ("pythia_1b", 2, 8, 2048, 256, True),
                  ("d256 padded", 16, 4, 512, 256, False),
                  ("d384 causal", 4, 4, 1024, 384, True),
-                 ("d512 padded", 2, 4, 1024, 512, False))
+                 ("d512 padded", 2, 4, 1024, 512, False),
+                 ("d384 padded tails", 2, 4, 1000, 384, False))
 # Kernel 6 (and kernel 5 on its codes) at each width path's FFN (4096
 # rows, 1536 -> 6144; 2048 rows, 2560 -> 10240; 4096 rows, 2048 -> 8192),
 # in both of the paths' types.

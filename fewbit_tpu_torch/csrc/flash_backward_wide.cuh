@@ -155,19 +155,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Whether the looped tile has one segment id and every row of the warp
-// has it too (one document, or no padding here): ids the thread's ids of
-// the tile's columns (a warp holds every column), rid its rows'.
-template <int N>
-__device__ __forceinline__ bool one_segment_ids(const int (&ids)[N],
-                                                const int (&rid)[2]) {
-  const int first = __shfl_sync(0xffffffffu, ids[0], 0);
-  bool same = rid[0] == first && rid[1] == first;
-#pragma unroll
-  for (int i = 0; i < N; ++i) same = same && ids[i] == first;
-  return __all_sync(0xffffffffu, same);
-}
-
 // F2 (DKV) or F3.  map_r1, map_r2: the block's own operands (K and V in F2,
 // Q and dO in F3), boxes of 64 rows; map_l1, map_l2: the looped ones (Q and
 // dO in F2, K and V in F3), boxes of TILE rows, read by TMA for bf16 only.

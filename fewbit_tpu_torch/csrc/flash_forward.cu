@@ -60,7 +60,7 @@ extern "C" int fewbit_flash_forward(const void* q, const void* k,
 extern "C" int fewbit_flash_smem(int kernel, int is_bf16, int d) {
   using namespace fewbit;
   if (d > FLASH_CHUNK && d % FLASH_CHUNK == 0) {
-    if (kernel == FLASH_F1) return wide_smem(is_bf16);
+    if (kernel == FLASH_F1) return wide_fwd_smem(is_bf16, d / FLASH_CHUNK);
     return kernel == FLASH_F2 || kernel == FLASH_F3
                ? wide_bwd_smem(is_bf16, kernel == FLASH_F2, d / FLASH_CHUNK)
                : -1;

@@ -19,8 +19,8 @@
 // zero-padded copies of the next multiple's width.  Every multiple of 128
 // above 128 runs on the wide kernels (flash_forward_wide.cu,
 // flash_backward_wide.cuh), whose number of 128-column chunks is a launch
-// argument: below, hb_wide_tiles, wide_smem and HbWideShape (F1) and
-// hb_wide_bwd and wide_bwd_smem (F2 and F3).
+// argument: below, hb_wide_fwd and wide_fwd_smem (F1) and hb_wide_bwd
+// and wide_bwd_smem (F2 and F3).
 #pragma once
 
 #include "flash_params.cuh"
@@ -87,70 +87,60 @@ constexpr int hb_smem(bool bf16, bool dkv, int d) {
          (bf16 ? t.stages : 2) * (3 * t.tile + 4) * 4 + 128 + 1024;
 }
 
+constexpr int FLASH_CHUNK = 128;  // columns of a wide kernel's chunk
+
 // The wide forward (flash_forward_wide.cu): a head dimension d = 128 c
 // above 128 as c chunks of 128 columns, each laid out as head dimension
 // 128's operands (sub-tiles of 128-byte rows, the 128-byte swizzle).  A
-// block owns 64 query rows per consumer warpgroup and ONE chunk of o's
-// columns: the grid holds c blocks per row tile, so the accumulators, and
-// the register plan, are head dimension 128's.  S contracts over all of d:
-// each block streams the chunks of its Q rows and of the kv tile's K
-// through a ring of STAGES stages, one chunk a stage, and accumulates them
-// in one fragment, in the same order in every block, so that the c blocks
-// of a row tile hold the same S, m, l and lse to the bit.  V's chunk of
-// the block's columns and the tile's row values go through one buffer of
-// their own (part 2).  f32: the Q rows stay raw (the consumers split their
-// A fragments in registers), K goes through the producer's TF32 planes; one
-// warpgroup over 32-row tiles, two stages.  bf16: every operand by TMA; two
-// warpgroups over 64-row tiles, four stages.  (The wide backward's plan,
-// hb_wide_bwd below, is another.)
-constexpr int FLASH_CHUNK = 128;  // columns of a chunk
-constexpr HbTiles hb_wide_tiles(bool bf16) {
-  return bf16 ? HbTiles{2, 64, 4} : HbTiles{1, 32, 2};
+// block owns 64 query rows per consumer warpgroup and NJ = 2 chunks of o's
+// columns (128 registers of o a thread): ceil(c / 2) blocks per row tile,
+// one at c = 2.  S contracts over all of d, chunk by chunk in the order
+// 0 .. c - 1, so that the blocks of a row tile hold the same S, m, l and
+// lse to the bit.  Where they fit beside the ring (RES) the block's query
+// rows are loaded once and stay resident; else a ring stage carries their
+// chunk beside K's.
+// - bf16: no producer warps (256 threads, 255 registers; a consumer warp
+//   issues every TMA load), two warpgroups over 64-row kv tiles.  The ring
+//   carries, per kv tile, K's c chunks and then V's chunks of the block's
+//   columns, a chunk a stage (16 KB): eight stages, two tiles at c = 2,
+//   beside the resident rows (32 KB a chunk) up to c = 4 (six stages
+//   there: a step's c + 2 chunks must fit, as a step is one wgmma group);
+//   above, four stages that each hold the query rows' chunk too, each
+//   retired before the next is waited for.
+// - f32: one consumer warpgroup over 32-row kv tiles and a producer
+//   warpgroup (256 threads, 255 registers) that splits K's chunks into TF32
+//   hi and lo planes in the ring (two stages) and writes V's chunks of the
+//   block's columns into part 2 as transposed planes, a slot a chunk,
+//   through one staging pair of planes.  The query rows are resident at
+//   c = 2 (64 KB); above, a stage carries their chunk raw.
+struct HbWideFwd {
+  int tile;    // rows of a kv tile
+  int stages;  // of the ring
+  int nj;      // chunks of o a block owns
+  bool res;    // the query rows resident (else a stage carries their chunk)
+};
+__host__ __device__ constexpr HbWideFwd hb_wide_fwd(bool bf16, int chunks) {
+  if (bf16)
+    return chunks <= 4 ? HbWideFwd{64, chunks <= 3 ? 8 : 6, 2, true}
+                       : HbWideFwd{64, 4, 2, false};
+  return {32, 2, 2, chunks == 2};
 }
 
-// Dynamic shared memory of a wide F1 block: the ring (each stage: the Q
-// rows' chunk, raw, and the kv tile's K chunk, for f32 as TF32 hi and lo
-// planes), part 2 (V's chunk; f32 transposed hi and lo planes), f32's
-// staging of V, the tile's row values, the barriers and 1024 bytes of
-// alignment slack.  It does not depend on the number of chunks.
-constexpr int wide_smem(bool bf16) {
-  const HbTiles t = hb_wide_tiles(bf16);
+// Dynamic shared memory of a wide F1 block of `chunks` chunks: the
+// resident query rows (RES), the ring (a stage: the query rows' chunk
+// unless resident, and a chunk of K or V, f32's K as TF32 hi and lo
+// planes), f32's part 2 (NJ slots of V's transposed hi and lo planes) and
+// staging of V, the barriers and 1024 bytes of alignment slack.
+constexpr int wide_fwd_smem(bool bf16, int chunks) {
+  const HbWideFwd w = hb_wide_fwd(bf16, chunks);
   const int elt = bf16 ? 2 : 4, parts = bf16 ? 1 : 2;
-  const int own = 64 * t.wgs * FLASH_CHUNK * elt;
-  const int tile = t.tile * FLASH_CHUNK * elt;
-  return t.stages * (own + parts * tile) + parts * tile +
-         (bf16 ? 0 : 2 * tile) + (t.tile + 4) * 4 + (2 * t.stages + 2) * 8 +
+  const int q_chunk = (bf16 ? 128 : 64) * FLASH_CHUNK * elt;
+  const int loop = parts * w.tile * FLASH_CHUNK * elt;
+  return (w.res ? chunks * q_chunk : 0) +
+         w.stages * ((w.res ? 0 : q_chunk) + loop) +
+         (bf16 ? 0 : (w.nj + 1) * loop) + (2 * w.stages + 2 * w.nj + 1) * 8 +
          1024;
 }
-
-// The shapes of a wide F1 block per element type, named as HbShape's over
-// one chunk (RB = 128: SUB sub-tiles a chunk row), and what a stage and
-// part 2 hold: the Q rows' and K's chunks in a stage, V's in part 2.
-template <typename T>
-struct HbWideShape {
-  static constexpr int ELT = sizeof(T);
-  static constexpr bool BF16 = ELT == 2;
-  static constexpr HbTiles TILES = hb_wide_tiles(BF16);
-  static constexpr int WGS = TILES.wgs;
-  static constexpr int BLOCK = 64 * WGS;
-  static constexpr int TILE = TILES.tile;
-  static constexpr int STAGES = TILES.stages;
-  static constexpr int CONSUMERS = 128 * WGS;
-  static constexpr int RB = 128;
-  static constexpr int SUB = FLASH_CHUNK * ELT / RB;
-  static constexpr int PARTS = Operand<T>::PARTS;
-  static constexpr int KD = FLASH_CHUNK * ELT / 32;  // k steps of a chunk
-  static constexpr int KT = TILE * ELT / 32;
-  static constexpr int KSUB = RB / 32;
-  static constexpr int OWN_BYTES = BLOCK * FLASH_CHUNK * ELT;
-  static constexpr int OWN_SUB_BYTES = BLOCK * RB;
-  static constexpr int TILE_BYTES = TILE * FLASH_CHUNK * ELT;  // a plane
-  static constexpr int TILE_SUB_BYTES = TILE * RB;
-  static constexpr int LOOP_BYTES = PARTS * TILE_BYTES;  // an operand's
-  static constexpr int STAGE_BYTES = OWN_BYTES + LOOP_BYTES;
-  static constexpr int PART2_BYTES = LOOP_BYTES;
-  static constexpr uint32_t MN_LBO = TILE_SUB_BYTES;
-};
 
 // The wide backward (flash_backward_wide.cuh), F2 and F3 at d = 128 c: a
 // block owns 64 rows of its own side (k and v rows in F2, q and dO rows in
@@ -491,6 +481,19 @@ __device__ __forceinline__ bool one_segment(const int* one,
       TILE == 64 ? one[0] && one[2] && one[1] == one[3] : one[0];
   return __all_sync(0xffffffffu,
                     tile_one && rid[0] == one[1] && rid[1] == one[1]);
+}
+
+// Whether the looped tile has one segment id and every row of the warp
+// has it too (one document, or no padding here): ids the thread's ids of
+// the tile's columns (a warp holds every column), rid its rows'.
+template <int N>
+__device__ __forceinline__ bool one_segment_ids(const int (&ids)[N],
+                                                const int (&rid)[2]) {
+  const int first = __shfl_sync(0xffffffffu, ids[0], 0);
+  bool same = rid[0] == first && rid[1] == first;
+#pragma unroll
+  for (int i = 0; i < N; ++i) same = same && ids[i] == first;
+  return __all_sync(0xffffffffu, same);
 }
 
 // The 4-D map of one operand of head dimension d: boxes of box_rows rows of

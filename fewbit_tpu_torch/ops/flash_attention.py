@@ -21,8 +21,10 @@ kernels`), which read q, k, v and dO through TMA: bases and strides are
 multiples of 16 bytes.  They take the head dimensions JAX's TPU kernels
 take (``FLASH_HEAD_DIMS``): every d from 1 to 128, and every multiple of
 128 above it on the wide kernels: the forward
-(``csrc/flash_forward_wide.cu``) splits o into chunks of 128 columns, one
-block per chunk; the backward (``csrc/flash_backward_wide.cuh``) gives a
+(``csrc/flash_forward_wide.cu``) splits o into chunks of 128 columns, two
+a block, and keeps the block's query rows resident where they fit, so
+that at d = 256 one block a row tile computes S once; the backward
+(``csrc/flash_backward_wide.cuh``) gives a
 block 64 rows and a group of chunks of its outputs, whose two
 warpgroups split the products by operand and pass P (and dS) between
 them, so that at d = 256 every product is computed once.  On the CPU

@@ -1164,18 +1164,20 @@ def flash_instance(d: int) -> int:
 def _flash_tiles(kernel: str, dtype, d: int):
     """``(warpgroups, tile rows, stages)`` of a block of F1, F2 or F3 at
     the instantiation ``d`` (``FLASH_INSTANCES``, or a multiple of 128
-    above 128), as ``hb_tiles``, ``hb_wide_tiles`` and ``hb_wide_bwd`` in
+    above 128), as ``hb_tiles``, ``hb_wide_fwd`` and ``hb_wide_bwd`` in
     ``csrc/flash_hopper.cuh``: a block loops over tiles of the other side
     through a ring of stages and owns 64 rows of its own side per consumer
     warpgroup, but in the wide F2 and F3 (:func:`_flash_wide_bwd`), whose
-    two warpgroups share 64 rows."""
+    two warpgroups share 64 rows.  The wide F1 (:func:`_flash_wide_fwd`)
+    runs two warpgroups in bf16 and one in f32."""
     _require(kernel in _FLASH_KERNELS, f"kernel {kernel!r}")
     _require(d in FLASH_INSTANCES or (_flash_wide(d) and d in FLASH_HEAD_DIMS),
              f"head dimension {d}: no instantiation")
     bf16 = dtype == torch.bfloat16
     if _flash_wide(d):
         if kernel == "flash_forward":
-            return (2, 64, 4) if bf16 else (1, 32, 2)
+            plan = _flash_wide_fwd(dtype, d)
+            return 2 if bf16 else 1, plan.tile, plan.stages
         plan = _flash_wide_bwd(kernel, dtype, d)
         return 2, plan.tile, plan.stages
     if d > 64 and not bf16:
@@ -1183,6 +1185,35 @@ def _flash_tiles(kernel: str, dtype, d: int):
     if d > 64 and kernel == "flash_backward_dkv":
         return 1, 32, 4
     return 2, 64, 4 if bf16 else (2 if kernel == "flash_forward" else 1)
+
+
+class WideFwdPlan(NamedTuple):
+    """A wide F1 block, as ``hb_wide_fwd``: the rows of a kv tile, the
+    ring's stages, the chunks of o a block owns, and whether its query rows
+    stay resident."""
+    tile: int
+    stages: int
+    nj: int
+    res: bool
+
+
+def _flash_wide_fwd(dtype, d: int) -> WideFwdPlan:
+    """The plan of the wide F1 at head dimension ``d = 128 c``, as
+    ``hb_wide_fwd`` in ``csrc/flash_hopper.cuh``: a block owns two chunks
+    of 128 columns of o (128 registers a thread) and computes S over all of
+    d.  bf16 (two warpgroups, no producer warps, 255 registers a thread):
+    64-row kv tiles, a ring stage one chunk of K or V, the query rows
+    resident up to c = 4 (eight stages, six at c = 4), above streamed
+    beside K's chunk (four stages).  f32 (one consumer and one producer
+    warpgroup): 32-row kv tiles, two stages of K's chunk as TF32 planes, V's
+    chunks transposed into part 2, the query rows resident at c = 2 only."""
+    _require(_flash_wide(d) and d in FLASH_HEAD_DIMS,
+             f"head dimension {d}: not a wide one")
+    c = d // FLASH_CHUNK
+    if dtype == torch.bfloat16:
+        return (WideFwdPlan(64, 8 if c <= 3 else 6, 2, True) if c <= 4
+                else WideFwdPlan(64, 4, 2, False))
+    return WideFwdPlan(32, 2, 2, c == 2)
 
 
 class WideBwdPlan(NamedTuple):
@@ -1220,23 +1251,28 @@ def _flash_wide_bwd(kernel: str, dtype, d: int) -> WideBwdPlan:
 
 
 def _flash_wide_groups(kernel: str, dtype, d: int):
-    """The output chunks of each block of a row tile of the wide F2 or F3
-    at ``d``, in the order of ``blockIdx.x``: ``ceil(c / nj)`` blocks, block
-    ``x`` the chunks ``nj x`` .. ``min(nj (x + 1), c) - 1``."""
-    c, nj = d // FLASH_CHUNK, _flash_wide_bwd(kernel, dtype, d).nj
+    """The output chunks of each block of a row tile of the wide F1, F2 or
+    F3 at ``d``, in the order of ``blockIdx.x``: ``ceil(c / nj)`` blocks,
+    block ``x`` the chunks ``nj x`` .. ``min(nj (x + 1), c) - 1``."""
+    plan = (_flash_wide_fwd(dtype, d) if kernel == "flash_forward"
+            else _flash_wide_bwd(kernel, dtype, d))
+    c, nj = d // FLASH_CHUNK, plan.nj
     return [list(range(j0, min(j0 + nj, c))) for j0 in range(0, c, nj)]
 
 
 def _flash_smem(kernel: str, dtype, d: int) -> int:
     """Dynamic shared memory of a block of F1, F2 or F3 at the
-    instantiation ``d``, as ``ff_smem``, ``hb_smem``, ``wide_smem`` and
+    instantiation ``d``, as ``ff_smem``, ``hb_smem``, ``wide_fwd_smem`` and
     ``wide_bwd_smem`` in the source: the block's own operands (F1 f32: Q's
     TF32 hi and lo planes), the ring, the f32 planes of the second products
     (F1: the staging of V), the per-tile row values, the barriers and 1024
-    bytes of alignment slack.  The wide F1 keeps one 128-column chunk of
-    its Q rows and of the kv tile in a stage and its size does not depend
-    on d; the wide F2 and F3 keep (:func:`_flash_wide_bwd`) the resident
-    own rows (bf16 at c = 2), the ring (a stage: the own rows' slice unless
+    bytes of alignment slack.  The wide F1 keeps (:func:`_flash_wide_fwd`)
+    its resident query rows (bf16 up to c = 4, f32 at c = 2), the ring (a
+    stage: the query rows' chunk unless resident, and one 128-column chunk
+    of K or V, f32's K as hi and lo planes), f32's part 2 (two slots of
+    V's transposed planes) and staging of V, and no row values (the ids go
+    to registers); the wide F2 and F3 keep (:func:`_flash_wide_bwd`) the
+    resident own rows (bf16 at c = 2), the ring (a stage: the own rows' slice unless
     resident, the looped tile's, f32 as hi and lo planes), part 2 (unless
     resident: ``nj`` slots of the block's chunks of the second products'
     operands, F2 two operands and F3 one, f32 as transposed hi and lo
@@ -1257,10 +1293,13 @@ def _flash_smem(kernel: str, dtype, d: int) -> int:
                 + (2 * w.stages + 2 * w.nj + 5) * 8 + 1024)
     wgs, tile, stages = _flash_tiles(kernel, dtype, d)
     if _flash_wide(d):
-        own, plane = 64 * wgs * FLASH_CHUNK * elt, tile * FLASH_CHUNK * elt
-        staging = 0 if bf16 else 2 * plane
-        return (stages * (own + parts * plane) + parts * plane + staging
-                + (tile + 4) * 4 + (2 * stages + 2) * 8 + 1024)
+        w = _flash_wide_fwd(dtype, d)
+        q_chunk = 64 * wgs * FLASH_CHUNK * elt
+        loop = parts * tile * FLASH_CHUNK * elt
+        return ((d // FLASH_CHUNK * q_chunk if w.res else 0)
+                + stages * ((0 if w.res else q_chunk) + loop)
+                + (0 if bf16 else (w.nj + 1) * loop)
+                + (2 * stages + 2 * w.nj + 1) * 8 + 1024)
     plane = tile * d * elt
     if kernel == "flash_forward":
         return (parts * 64 * wgs * d * elt + stages * 2 * parts * plane

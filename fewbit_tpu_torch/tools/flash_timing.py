@@ -14,7 +14,7 @@ events where every profiled run read below the call's bound; see
 ``--case`` it times GPT-2 small's (8, 12, 1024, 64) causal and RoBERTa's
 (64, 12, 128, 64) padded; ``--wide`` times the wide kernels' cases
 (``WIDE_CASES``: Pythia-1B's (2, 8, 2048, 256) causal, 256 padded, 384
-causal, 512 padded), after any ``--case``.  ``--library`` adds the device
+causal, 512 padded, 384 padded at seq 1000), after any ``--case``.  ``--library`` adds the device
 ms of PyTorch's ``scaled_dot_product_attention`` forward and backward on
 the same inputs (a yardstick; the port never calls it), floored by F1's
 and by the larger of F2's and F3's bounds.  It calls the wrappers only,
@@ -39,7 +39,8 @@ DEFAULT_CASES = ((8, 12, 1024, 64, "causal"), (64, 12, 128, 64, "padded"))
 # The wide kernels (head dimensions d = 128 c above 128), as chip_smoke.py's
 # HEADDIM_FLASH holds them.
 WIDE_CASES = ((2, 8, 2048, 256, "causal"), (16, 4, 512, 256, "padded"),
-              (4, 4, 1024, 384, "causal"), (2, 4, 1024, 512, "padded"))
+              (4, 4, 1024, 384, "causal"), (2, 4, 1024, 512, "padded"),
+              (2, 4, 1000, 384, "padded"))
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # Profiled calls per run, as chip_smoke.py times every kernel.
 REPS = 10

@@ -678,8 +678,8 @@ def test_flash_kernels_match_plain_at_every_head_dim(
 
 
 # Head dimensions of the wide kernels (every multiple of 128 above 128, as
-# d / 128 chunks of 128 columns: F1 one block per chunk, F2 and F3 two
-# chunks a block): 256 (Pythia-1B's heads), 384 and 512.
+# d / 128 chunks of 128 columns: F1 two chunks a block, F2 and F3 one to
+# four, K._flash_wide_groups): 256 (Pythia-1B's heads), 384 and 512.
 WIDE_HEAD_DIMS = [256, 384, 512]
 _WIDE_HEAD_DIM_SHAPES = [(1000, 1000, True, True, False),
                          (1000, 1000, False, True, True),
@@ -781,6 +781,72 @@ def test_flash_wide_backward_tails_and_masks(cuda, dtype, d, sq, sk, causal,
     dk2, dv2 = K.flash_backward_dkv(*bargs)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert torch.equal(dq, K.flash_backward_dq(*bargs))
+
+
+# The wide forward's own tiles and grids (64 query rows per consumer
+# warpgroup, two of them in bf16; kv tiles of 64 rows in bf16 and 32 in
+# f32; two chunks of o a block, K._flash_wide_fwd): sq != sk with tails of
+# both sides that no tile divides, segment ids and padding at c = 2 (one
+# block a row tile, the query rows resident), the odd c = 3 (a block of
+# one chunk), c = 4 (bf16: resident beside six stages) and c = 5 (the
+# query rows streamed in both types).
+_WIDE_FWD_CASES = [(256, 333, 517, True, "segments"),
+                   (256, 517, 333, False, "padded"),
+                   (384, 333, 517, False, "segments"),
+                   (384, 517, 333, True, "padded"),
+                   (512, 200, 200, True, "segments"),
+                   (512, 333, 517, False, "padded"),
+                   (640, 301, 97, True, "segments"),
+                   (640, 97, 301, False, "padded")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,sq,sk,causal,mask", _WIDE_FWD_CASES,
+                         ids=[f"d{c[0]}_{c[1]}x{c[2]}_"
+                              f"{'causal' if c[3] else 'full'}_{c[4]}"
+                              for c in _WIDE_FWD_CASES])
+def test_flash_wide_forward_tails_and_masks(cuda, dtype, d, sq, sk, causal,
+                                            mask):
+    """The wide F1 at those shapes against its plain version and against
+    an f64 evaluation of the function, both within TOL (1e-4 in f32, 2e-2
+    in bf16, of the largest element), into a NaN-filled view whose columns
+    past d stay NaN and a NaN-filled lse, a second launch to the bit; and
+    with V's chunks all equal, o's chunks are equal to the bit: the blocks
+    of a row tile (and a block's two chunks) hold the same m and l."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    b, h = 2, 3
+    gen = torch.Generator(device=cuda).manual_seed(d + sq + 1)
+    q, k, v = (torch.randn(b, n, h, d, generator=gen, device=cuda)
+               .to(dtype).transpose(1, 2) for n in (sq, sk, sk))
+    n0 = min(sq, sk)
+    seg_q, seg_kv = (_wide_ids(b, n, n0, mask, cuda) for n in (sq, sk))
+    scale = d ** -0.5
+    fargs = (q, k, v, seg_q, seg_kv, causal, scale)
+    (o_out,), bufs = _flash_nan_outputs((q,), True)
+    lse_out = torch.full((b, h, sq), float("nan"), device=cuda)
+    K.reset_launch_counts()
+    o, lse = K.flash_forward(*fargs, out=(o_out, lse_out))
+    assert o is o_out and lse is lse_out
+    o0, lse0 = flash_forward_plain(*fargs)
+    o64, lse64 = flash_forward_plain(*(t.double() for t in (q, k, v)),
+                                     seg_q, seg_kv, causal, scale)
+    torch.cuda.synchronize()
+    assert bool(bufs[0][..., d:].isnan().all()), "stored past d"
+    for name, got, pair in (("o", o, (o0, o64)), ("lse", lse, (lse0, lse64))):
+        for ref, want in zip(("plain", "f64"), pair):
+            err = (got.double() - want.double()).abs().max().item()
+            bound = tol * max(1.0, want.double().abs().max().item())
+            assert err <= bound, (name, ref, err, bound)
+    o2, lse2 = K.flash_forward(*fargs)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    chunks = d // 128
+    same_v = v[..., :128].repeat(1, 1, 1, chunks)
+    o3, lse3 = K.flash_forward(q, k, same_v, seg_q, seg_kv, causal, scale)
+    assert torch.equal(lse3, lse)
+    for j in range(1, chunks):
+        assert torch.equal(o3[..., 128 * j:128 * (j + 1)], o3[..., :128]), j
+    assert K.launch_counts()["flash_forward"] == 3
 
 
 def _flash_nan_outputs(likes, wide):

@@ -3,10 +3,10 @@ d = 128 c above 128: ``csrc/flash_forward_wide.cu``,
 ``csrc/flash_backward_wide.cu``) on the CPU.
 
 Their schedule emulated in torch on one head.  F1: a block owns 64 query
-rows per consumer warpgroup and ONE chunk of 128 columns of o.  F2 and F3:
-a block owns 64 rows of its own side and a group of the output chunks
-(``K._flash_wide_groups``: two, one in f32 F2, four in bf16 F3 above
-c = 2), its two warpgroups
+rows per consumer warpgroup and a group of two chunks of 128 columns of o
+(``K._flash_wide_groups``: one block a row tile at c = 2).  F2 and F3: a
+block owns 64 rows of its own side and a group of the output chunks (two,
+one in f32 F2, four in bf16 F3 above c = 2), its two warpgroups
 splitting the products by operand.  The first products (S, and dP in the
 backward) contract over all of d, chunk by chunk in the order 0 .. c - 1,
 each chunk's product as the kernel multiplies it (f32 as three TF32
@@ -20,7 +20,8 @@ of max(1, max |want|) in f32, 2e-2 in bf16); the blocks of a row tile must
 hold the same m, l and lse (F1), P and dS (backward) to the bit, which the
 fixed chunk order gives and an order that starts at a block's own chunk
 would not.  Then the shared memory and tiles of the wide instances against
-hand-computed budgets, and the backward's grid against the chunks.  The
+hand-computed budgets, and the grids of F1, F2 and F3 against the chunks.
+The
 emulation does not model the card's accumulation order inside a
 product.
 """
@@ -101,14 +102,17 @@ def _logits(a, b, rows, cols, keep, scale, dtype, order, transposed=False):
     return torch.where(mask, val, val + DEFAULT_MASK_VALUE)
 
 
-def _forward_chunk(q, k, v, keep, causal, scale, dtype, j, order):
-    """Chunk j's block of F1 for every row tile: ``(o_j, m, l, lse)``, o_j
-    the 128 columns of j; a block of 64 wgs query rows over kv tiles."""
+def _forward_group(q, k, v, keep, causal, scale, dtype, group, order):
+    """The block of F1 that owns the chunks ``group`` of o, for every row
+    tile: ``(o_g, m, l, lse)``, o_g the group's columns; a block of 64 wgs
+    query rows over kv tiles, S over all of d in ``order``, P V over the
+    group's columns."""
     wgs, tile, _ = K._flash_tiles("flash_forward", dtype, q.shape[1])
     block = 64 * wgs
     sq, sk = q.shape[0], k.shape[0]
-    cols_j = slice(CHUNK * j, CHUNK * (j + 1))
-    o = torch.zeros(sq, CHUNK)
+    cols_j = slice(CHUNK * group[0], CHUNK * (group[-1] + 1))
+    width = CHUNK * len(group)
+    o = torch.zeros(sq, width)
     m_all, l_all, lse = (torch.zeros(sq) for _ in range(3))
     for row0 in range(0, sq, block):
         t1 = -(-sk // tile)
@@ -118,7 +122,7 @@ def _forward_chunk(q, k, v, keep, causal, scale, dtype, j, order):
             rows = torch.arange(w0, min(w0 + 64, sq))
             m = torch.full((len(rows),), -float("inf"))
             l = torch.zeros(len(rows))
-            acc = torch.zeros(len(rows), CHUNK)
+            acc = torch.zeros(len(rows), width)
             for t in range(t1):
                 l0 = tile * t
                 if causal and l0 > w0 + 63:
@@ -249,13 +253,14 @@ def test_wide_schedule_against_f64(d, sq, sk, causal, mode, dtype):
     scale = d ** -0.5
     keep = _keep(seg_q, seg_kv, causal, sq, sk)
     order = range(c)
-    fwd = [_forward_chunk(q, k, v, keep, causal, scale, dtype, j, order)
-           for j in range(c)]
+    fwd = [_forward_group(q, k, v, keep, causal, scale, dtype, g, order)
+           for g in K._flash_wide_groups("flash_forward", dtype, d)]
+    assert len(fwd) == -(-c // 2)
     for _, m, l, lse_j in fwd[1:]:
         assert torch.equal(m, fwd[0][1]) and torch.equal(l, fwd[0][2])
         assert torch.equal(lse_j, fwd[0][3])
     o = torch.cat([f[0] for f in fwd], 1)
-    lse = fwd[0][3]  # chunk 0's, the one the kernel stores
+    lse = fwd[0][3]  # chunk 0's block's, the one the kernel stores
     o64, lse64, dq64, dk64, dv64 = _f64(q, k, v, do, keep, scale)
     live = keep.any(1)
     _within("o", o, o64, dtype)
@@ -293,10 +298,12 @@ def test_chunk_order_fixed_in_every_block():
 
 
 # (kernel, dtype) -> (warpgroups, tile rows, stages, bytes) of the wide
-# instances, by hand from wide_smem and wide_bwd_smem.  F1, whatever the
-# number of chunks: the ring's stages (the query rows' chunk raw, the kv
-# tile's chunk: f32 TF32 hi and lo planes), part 2, f32's staging of V,
-# the row values, the barriers and 1024 bytes of slack.  F2 and F3 in f32
+# instances, by hand from wide_fwd_smem and wide_bwd_smem.  F1 in f32,
+# whatever the number of chunks (one warpgroup, 32-row tiles, two stages):
+# at c = 2 the query rows resident (64 KB) and a stage K's chunk as TF32
+# hi and lo planes (32 KB); above, a stage the query rows' chunk raw too;
+# part 2 two slots of V's transposed planes, V's staging, the barriers and
+# 1024 bytes of slack.  F2 and F3 in f32
 # (two consumer warpgroups on 64 own rows, 32-row tiles, four stages of 32
 # columns: the own rows' raw slice of both operands and the looped slice's
 # hi and lo planes), part 2 (a slot of transposed hi and lo planes per
@@ -304,10 +311,8 @@ def test_chunk_order_fixed_in_every_block():
 # (F3: and dS), the barriers and the slack.
 WIDE_BUDGETS = {
     ("flash_forward", torch.float32): (
-        1, 32, 2, 2 * (32768 + 2 * 16384) + 2 * 16384 + 2 * 16384
-        + 36 * 4 + 6 * 8 + 1024),
-    ("flash_forward", torch.bfloat16): (
-        2, 64, 4, 4 * (32768 + 16384) + 16384 + 68 * 4 + 10 * 8 + 1024),
+        1, 32, 2, 65536 + 2 * 2 * 16384 + 2 * 2 * 16384 + 2 * 16384
+        + 9 * 8 + 1024),
     ("flash_backward_dkv", torch.float32): (
         2, 32, 4, 4 * (2 * 8192 + 2 * 2 * 4096) + 2 * 2 * 16384 + 8192
         + 15 * 8 + 1024),
@@ -333,8 +338,21 @@ WIDE_BF16_BACKWARD = {
 }
 
 
+# bf16 F1 (two warpgroups, 64-row tiles, a stage a chunk of K or V): the
+# query rows resident (32 KB a chunk) beside eight stages up to c = 3 and
+# six at c = 4; above, four stages that carry the query rows' chunk too.
+WIDE_BF16_FORWARD = {
+    2: (2, 64, 8, 2 * 32768 + 8 * 16384 + 21 * 8 + 1024),
+    3: (2, 64, 8, 3 * 32768 + 8 * 16384 + 21 * 8 + 1024),
+    4: (2, 64, 6, 4 * 32768 + 6 * 16384 + 17 * 8 + 1024),
+    5: (2, 64, 4, 4 * (32768 + 16384) + 13 * 8 + 1024),
+}
+
+
 def _wide_budget(name, dtype, d):
-    if dtype == torch.bfloat16 and name != "flash_forward":
+    if dtype == torch.bfloat16:
+        if name == "flash_forward":
+            return WIDE_BF16_FORWARD[min(d // CHUNK, 5)]
         return WIDE_BF16_BACKWARD[name, d == 2 * CHUNK]
     return WIDE_BUDGETS[name, dtype]
 
@@ -353,10 +371,11 @@ def test_shared_memory_of_the_wide_instances(d):
         assert K.flash_instance(d) == d
     assert [_wide_budget(n, torch.float32, d)[3] for n in (
         "flash_forward", "flash_backward_dkv", "flash_backward_dq")] == [
-        197824, 205944, 214152]
+        230472, 205944, 214152]
     assert [_wide_budget(n, torch.bfloat16, d)[3] for n in (
         "flash_forward", "flash_backward_dkv", "flash_backward_dq")] == (
-        [214368, 214152, 230536] if d == 256 else [214368, 214120, 230536])
+        [197800, 214152, 230536] if d == 256 else
+        [{384: 230568, 512: 230536}.get(d, 197736), 214120, 230536])
     for bad in (144, 192, 200, 257, d + 64):
         with pytest.raises(ValueError, match=f"head dimension {bad}"):
             K._flash_tiles("flash_forward", torch.float32, bad)
@@ -385,3 +404,26 @@ def test_wide_backward_grid_covers_every_chunk(d, dtype):
         assert K._flash_tiles(name, dtype, d)[1:] == (plan.tile,
                                                       plan.stages)
     assert len(K._flash_wide_groups("flash_backward_dq", dtype, 256)) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 384, 512, 1280])
+def test_wide_forward_grid_covers_every_chunk(d, dtype):
+    """Every wide F1 instance fits the 232,448 bytes a block may have, and
+    the blocks of a row tile (``_flash_wide_groups``, in the order of
+    ``blockIdx.x``) own every chunk of o exactly once, at most two each,
+    in order: one block a row tile at c = 2, and at odd c a last block of
+    one chunk.  The query rows stay resident where they fit: bf16 up to
+    c = 4, f32 at c = 2."""
+    c = d // CHUNK
+    plan = K._flash_wide_fwd(dtype, d)
+    assert K._flash_smem("flash_forward", dtype, d) <= K.FLASH_SMEM_LIMIT
+    groups = K._flash_wide_groups("flash_forward", dtype, d)
+    assert plan.nj == 2 and len(groups) == -(-c // 2)
+    assert [j for g in groups for j in g] == list(range(c))
+    assert all(1 <= len(g) <= 2 for g in groups)
+    assert len(groups[-1]) == 2 - c % 2
+    assert plan.res == (c <= 4 if dtype == torch.bfloat16 else c == 2)
+    assert K._flash_tiles("flash_forward", dtype, d) == (
+        2 if dtype == torch.bfloat16 else 1, plan.tile, plan.stages)
