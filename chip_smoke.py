@@ -891,7 +891,7 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
                    (floors["flash_forward"],
                     max(floors["flash_backward_dkv"],
                         floors["flash_backward_dq"])),
-                   backends=d > K.FLASH_MAX_HEAD_DIM)
+                   backends=d > K.FLASH_SIMT_HEAD_DIM)
     call, ops, nbytes = work["flash_forward"]
     least = bound(ops, rate, nbytes)
     o64, lse64 = _flash_forward_f64(q[:nb], k[:nb], v[:nb], ids[:nb],
@@ -913,7 +913,7 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
         **least,
         "library_ms": lib["fwd_ms"], "library_device_ms": lib["fwd_device_ms"],
         "library": "scaled_dot_product_attention, forward",
-        **_library_backends(lib, "fwd")})
+        **_library_backends(lib, "forward")})
     del o0, lse0, fsimt, o64, lse64
     bargs = (q, k, v, ids, ids, lse, do, di, causal, scale)
     dk64, dv64, dq64 = _flash_backward_f64(
@@ -948,7 +948,7 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
            if simt else {}),
         **least,
         "library_ms": lib["bwd_ms"], "library_device_ms": lib["bwd_device_ms"],
-        "library": library, **_library_backends(lib, "bwd")}
+        "library": library, **_library_backends(lib, "backward")}
     results["flash_backward_dkv"].append(case)
     del dk0, dv0, dkvs, dk64, dv64
     out, more = _nan_wide(q)
@@ -975,7 +975,7 @@ def _flash_case(results, tag, shape, q, k, v, do, ids, causal, tol):
            if simt else {}),
         **least,
         "library_ms": lib["bwd_ms"], "library_device_ms": lib["bwd_device_ms"],
-        "library": library, **_library_backends(lib, "bwd")})
+        "library": library, **_library_backends(lib, "backward")})
     if shape == "gpt2_small":
         for name in ("flash_forward", "flash_backward_dkv",
                      "flash_backward_dq"):
@@ -997,71 +997,42 @@ def _sdpa_ms(q, k, v, do, keep, ids, causal, scale, floors,
     device (the profiler's), the backend its dispatch takes, and with
     ``backends`` the device times of each backend that accepts the call
     (``torch.nn.attention.sdpa_kernel``; a backend that refuses it is
-    named with its error).  ``floors`` are the forward's and the
+    named with its error; ``tools/flash_timing.py``'s
+    ``sdpa_backend_times``).  ``floors`` are the forward's and the
     backward's bounds in ms: a profiled run below them, or one that saw no
     device time, has dropped events, and the call is timed by CUDA events
     instead (``device_time``)."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from fewbit_tpu_torch.tools.flash_timing import (sdpa_backend,
+                                                     sdpa_backend_times,
+                                                     sdpa_calls)
 
     if causal and bool((ids == 1).all()):
         kwargs = {"is_causal": True}
     else:
         kwargs = {"attn_mask": keep[:, None]}
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
-
-    def timed():
-        def forward():
-            with torch.no_grad():
-                return sdpa(*ins, scale=scale, **kwargs)
-
-        out = sdpa(*ins, scale=scale, **kwargs)
-
-        def backward():
-            torch.autograd.grad(out, ins, do, retain_graph=True)
-
-        return forward, backward
-
-    forward, backward = timed()
-    fwd_floor, bwd_floor = floors
+    floor = dict(zip(("forward", "backward"), floors))
+    forward, backward = sdpa_calls(ins, do, scale, kwargs)
     got = {"fwd_ms": cuda_ms(forward),
-           "fwd_device_ms": device_ms(forward, fwd_floor),
+           "fwd_device_ms": device_ms(forward, floor["forward"]),
            "bwd_ms": cuda_ms(backward),
-           "bwd_device_ms": device_ms(backward, bwd_floor)}
-    try:
-        choice = torch._fused_sdp_choice(
-            *ins, attn_mask=kwargs.get("attn_mask"),
-            is_causal=kwargs.get("is_causal", False), scale=scale)
-        got["backend"] = SDPBackend(choice).name
-    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
-        got["backend"] = f"not read: {type(e).__name__}"
+           "bwd_device_ms": device_ms(backward, floor["backward"]),
+           "backend": sdpa_backend(ins, scale, kwargs)}
     del forward, backward
     if backends:
-        got["backends"] = {}
-        for backend in (SDPBackend.FLASH_ATTENTION,
-                        SDPBackend.EFFICIENT_ATTENTION,
-                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
-            try:
-                with sdpa_kernel(backend):
-                    forward, backward = timed()
-                    got["backends"][backend.name] = {
-                        "fwd_device_ms": device_ms(forward, fwd_floor),
-                        "bwd_device_ms": device_ms(backward, bwd_floor)}
-                    del forward, backward
-            except RuntimeError as e:
-                got["backends"][backend.name] = {
-                    "refused": str(e).splitlines()[0][:160]}
-            torch.cuda.empty_cache()
+        got["backends"] = sdpa_backend_times(
+            ins, do, scale, kwargs,
+            lambda call, part: device_ms(call, floor[part]))
     return got
 
 
 def _library_backends(lib, part):
     """The library's backend and, where timed, each backend's device ms of
-    ``part`` (fwd or bwd), for a case's entry."""
+    ``part`` (forward or backward), for a case's entry."""
     out = {"library_backend": lib["backend"]}
     if "backends" in lib:
         out["library_backends"] = {
-            name: (t if "refused" in t else t[f"{part}_device_ms"])
+            name: (t if "refused" in t else t[part])
             for name, t in lib["backends"].items()}
     return out
 

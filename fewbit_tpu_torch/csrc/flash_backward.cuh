@@ -53,11 +53,11 @@
 //   consumers work on the other.
 // - The producer warpgroup gives registers to the two consumer warpgroups
 //   (setmaxnreg 40 / 232: together the block's 384 x 168 of the launch; a
-//   wait for more than that never ends).  F2 holds dK, dV, S^T and dP^T (128
-//   registers) beside the A fragments of a product, so in f32 it takes the
-//   first products one k step at a time (the next step's fragments loaded
-//   and split while this one multiplies) and the second products one after
-//   the other.
+//   wait for more than that never ends; bf16 F2 above 64 runs without it,
+//   below).  F2 holds dK, dV, S^T and dP^T (128 registers) beside the A
+//   fragments of a product, so in f32 it takes the first products one k
+//   step at a time (the next step's fragments loaded and split while this
+//   one multiplies) and the second products one after the other.
 // - Between the products: exp2 on logits scaled by log2 e, the mask (only
 //   on diagonal, ragged and segment-id tiles), lse and di of the looped tile
 //   from shared memory (F2: by column) or registers (F3: by row); sm_scale
@@ -71,8 +71,20 @@
 // Other head dimensions: the same kernel with its planes and products over
 // d, in sub-tiles of the widest swizzle that divides a row (bf16 rows of
 // 32 elements are 64 bytes, read with the 64-byte swizzle; of 80 elements
-// five 32-byte sub-tiles).  Above 64, f32 and bf16 F2 run one consumer
-// warpgroup (64 own rows, up to 255 registers a thread) over 32-row tiles.
+// five 32-byte sub-tiles).  Above 64, f32 runs one consumer warpgroup (64
+// own rows, up to 255 registers a thread) over 32-row tiles.  bf16 keeps
+// the shape of 64 (two warpgroups, 128 own rows, 64-row tiles, four
+// stages): F3 as it is; F2, whose warpgroups hold dK and dV (d registers)
+// beside S^T, dP^T and their packed fragments (208 to 254 registers at 80
+// to 128), runs no producer warpgroup (hb_self_fed): 256 threads, 255
+// registers, a consumer warp issuing the TMA loads and copying the row
+// values by cp.async.  At Cerebras-GPT-590M's (2, 12, 2048, 128) causal
+// that took bf16 F2 from 0.19 to 0.13 ms (28% to 41% of its bound), at
+// Cerebras-GPT-2.7B's (1, 32, 2048, 80) from 0.25 to 0.14 (18% to 31%);
+// the wide backward's schedule at one chunk (two warpgroups sharing 64 own
+// rows, P through shared memory) reached 0.17 and 0.20.  There both take
+// exp2 from the SFU alone (ex2.approx.ftz): F2 3 to 5% faster for it, F3
+// 6 to 9%.
 #pragma once
 
 #include <math.h>
@@ -85,17 +97,22 @@ namespace fewbit {
 namespace {
 
 // The buffers of per-tile row values (AUX words each: lse, di and segment
-// ids, and for each 32 ids whether they are all one id, and which), the
-// block's threads, and whether its consumers take registers from the
-// producer (setmaxnreg 40 / 232, with two consumer warpgroups; one keeps
-// what the launch gives, up to 255).
+// ids, and for each 32 ids whether they are all one id, and which), whether
+// the block runs without a producer warpgroup (SELF: bf16 F2 above 64,
+// whose dK and dV and their operands need more than the 168 registers a
+// thread of a 384-thread block may have), the block's threads, and whether
+// its consumers take registers from the producer (setmaxnreg 40 / 232,
+// with two consumer warpgroups; else they keep what the launch gives, up
+// to 255).
 template <typename T, int D, bool DKV>
 struct HbBwdShape : HbShape<T, D, DKV ? FLASH_F2 : FLASH_F3> {
   using Base = HbShape<T, D, DKV ? FLASH_F2 : FLASH_F3>;
   static constexpr int NAUX = Base::BF16 ? Base::STAGES : 2;
   static constexpr int AUX = 3 * Base::TILE + 4;
-  static constexpr int THREADS = Base::CONSUMERS + HB_PRODUCERS;
-  static constexpr bool REG_SPLIT = Base::WGS == 2;
+  static constexpr bool SELF =
+      hb_self_fed(DKV ? FLASH_F2 : FLASH_F3, Base::BF16, D);
+  static constexpr int THREADS = Base::CONSUMERS + (SELF ? 0 : HB_PRODUCERS);
+  static constexpr bool REG_SPLIT = Base::WGS == 2 && !SELF;
 };
 
 // F2 (DKV) or F3.  map_r1, map_r2: the block's own operands (K and V in F2,
@@ -143,8 +160,9 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
   const float* di = p.di + (long long)bh * p.sq;
 
   if (tid == 0) {
+    // SELF: the issuing warp's 32 cp.async arrivals and its first lane's.
     for (int i = 0; i < S::STAGES; ++i) {
-      mbar_init(&full1[i], HB_PRODUCERS);
+      mbar_init(&full1[i], S::SELF ? 33 : HB_PRODUCERS);
       mbar_init(&empty1[i], S::CONSUMERS);
     }
     mbar_init(full2, HB_PRODUCERS);
@@ -154,23 +172,37 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
   }
   __syncthreads();
 
-  if (tid >= S::CONSUMERS) {
+  // By TMA, from one thread: the block's own rows (once), and (bf16) the
+  // looped tile from row l0 on into `stage`, their bytes counted on `bar`.
+  auto load_own_rows = [&]() {
+    mbar_arrive_expect_tx(resb, 2 * S::RES_BYTES);
+#pragma unroll
+    for (int sub = 0; sub < S::SUB; ++sub) {
+      const int c0 = sub * (S::RB / S::ELT);
+      tma_load_4d(res + sub * S::RES_SUB_BYTES, &map_r1, resb, c0, row0, hi,
+                  bi);
+      tma_load_4d(res + S::RES_BYTES + sub * S::RES_SUB_BYTES, &map_r2, resb,
+                  c0, row0, hi, bi);
+    }
+  };
+  auto load_tile = [&](uint8_t* stage, uint64_t* bar, int l0) {
+#pragma unroll
+    for (int sub = 0; sub < S::SUB; ++sub) {
+      const int c0 = sub * (S::RB / S::ELT);
+      tma_load_4d(stage + sub * S::TILE_SUB_BYTES, &map_l1, bar, c0, l0, hi,
+                  bi);
+      tma_load_4d(stage + S::TILE_BYTES + sub * S::TILE_SUB_BYTES, &map_l2,
+                  bar, c0, l0, hi, bi);
+    }
+  };
+
+  if (!S::SELF && tid >= S::CONSUMERS) {
     // ----------------------------------------------------------------------
     // The producer warpgroup.
     // ----------------------------------------------------------------------
     if constexpr (S::REG_SPLIT) reg_dealloc<40>();
     const int ptid = tid - S::CONSUMERS;
-    if (ptid == 0) {
-      mbar_arrive_expect_tx(resb, 2 * S::RES_BYTES);
-#pragma unroll
-      for (int sub = 0; sub < S::SUB; ++sub) {
-        const int c0 = sub * (S::RB / S::ELT);
-        tma_load_4d(res + sub * S::RES_SUB_BYTES, &map_r1, resb, c0, row0, hi,
-                    bi);
-        tma_load_4d(res + S::RES_BYTES + sub * S::RES_SUB_BYTES, &map_r2,
-                    resb, c0, row0, hi, bi);
-      }
-    }
+    if (ptid == 0) load_own_rows();
     const Strides& st1 = DKV ? p.st_q : p.st_k;
     const Strides& st2 = DKV ? p.st_do : p.st_v;
     const T* l1 = static_cast<const T*>(DKV ? p.q : p.k) + bi * st1.b +
@@ -190,14 +222,7 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
       if constexpr (S::BF16) {
         if (ptid == 0) {
           mbar_expect_tx(&full1[st], S::STAGE_BYTES);
-#pragma unroll
-          for (int sub = 0; sub < S::SUB; ++sub) {
-            const int c0 = sub * (S::RB / S::ELT);
-            tma_load_4d(stage + sub * S::TILE_SUB_BYTES, &map_l1, &full1[st],
-                        c0, l0, hi, bi);
-            tma_load_4d(stage + S::TILE_BYTES + sub * S::TILE_SUB_BYTES,
-                        &map_l2, &full1[st], c0, l0, hi, bi);
-          }
+          load_tile(stage, &full1[st], l0);
         }
       } else {
         fetch_tile<S::TILE, D, S::RB>(stage, f1, st1.s, l0, n_loop, ptid);
@@ -287,6 +312,51 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
 #pragma unroll
     for (int i = 0; i < (DKV ? D / 2 : 1); ++i) db[i] = 0.f;
     const uint32_t res_addr = smem_u32(res);
+
+    // SELF: the second warpgroup's first warp issues the loads: the own
+    // rows once, then looped tile `it` into stage ist, its operands by TMA
+    // from the first lane and its row values by cp.async, two rows a lane,
+    // each lane arriving on the stage's full barrier when its copies land
+    // (the flags of one_segment are left unwritten: each warp reads the
+    // ids).  STAGES tiles go out at first, then one a tile while the warp's
+    // second products run, into the stage of the tile before, which the
+    // other warpgroup has most likely freed too.
+    const bool issuer = S::SELF && wg == 1 && warp == 0;
+    int it = t0, ist = 0;
+    uint32_t iph = 0;
+    auto issue = [&]() {
+      if (it >= t1) return;
+      const int l0 = it * S::TILE;
+      uint8_t* stage = part1 + ist * S::STAGE_BYTES;
+      if (lane == 0) {
+        mbar_wait(&empty1[ist], iph ^ 1);
+        mbar_arrive_expect_tx(&full1[ist], S::STAGE_BYTES);
+        load_tile(stage, &full1[ist], l0);
+      }
+      __syncwarp();  // the stage's row values are free too
+      float* ax = aux + (it % S::NAUX) * S::AUX;
+#pragma unroll
+      for (int r = lane; r < S::TILE; r += 32) {
+        const int row = l0 + r;
+        const bool in = row < n_loop, has_id = in && seg_loop != nullptr;
+        cp_async4(ax + r, lse + (in ? row : 0), in);
+        cp_async4(ax + S::TILE + r, di + (in ? row : 0), in);
+        cp_async4(ax + 2 * S::TILE + r,
+                  has_id ? seg_loop + (long long)bi * n_loop + row
+                         : static_cast<const void*>(lse),
+                  has_id);
+      }
+      cp_async_arrive(&full1[ist]);
+      ++it;
+      if (++ist == S::STAGES) {
+        ist = 0;
+        iph ^= 1;
+      }
+    };
+    if (issuer) {
+      if (lane == 0) load_own_rows();
+      for (int n = 0; n < S::STAGES; ++n) issue();
+    }
     mbar_wait(resb, 0);
 
     // f32: the TF32 hi and lo A fragments of the block's own rows for the
@@ -396,9 +466,16 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
       // this warp's rows have it too (one document, or no padding here).
       bool by_segment = seg_loop != nullptr;
       if (by_segment)
-        by_segment = !one_segment<S::TILE>(
-            reinterpret_cast<const int*>(ax) + 3 * S::TILE, rid);
+        by_segment =
+            S::SELF ? !one_segment_read<S::TILE>(
+                          reinterpret_cast<const int*>(ax) + 2 * S::TILE, rid)
+                    : !one_segment<S::TILE>(
+                          reinterpret_cast<const int*>(ax) + 3 * S::TILE, rid);
       const bool masked = by_segment || diagonal || l0 + S::TILE > n_loop;
+      // exp2: the SFU's alone in bf16 above 64.
+      auto pow2 = [](float v) {
+        return S::BF16 && D > 64 ? ex2(v) : exp2f(v);
+      };
       auto between = [&](auto masked_c) {
         constexpr bool MASKED = decltype(masked_c)::value;
 #pragma unroll
@@ -429,9 +506,9 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
                 float val = x[idx] * p.scale;
                 if (!keep) val += MASK_VALUE;
                 // A looped row past the sequence takes no part.
-                pv = colg < n_loop ? exp2f((val - lse_v) * LOG2E) : 0.f;
+                pv = colg < n_loop ? pow2((val - lse_v) * LOG2E) : 0.f;
               } else {
-                pv = exp2f(fmaf(x[idx], scale_log2, -LOG2E * lse_v));
+                pv = pow2(fmaf(x[idx], scale_log2, -LOG2E * lse_v));
               }
               x[idx] = pv;
               y[idx] = pv * (y[idx] - di_v);  // sm_scale: at the store
@@ -469,6 +546,8 @@ __global__ void __launch_bounds__(HbBwdShape<T, D, DKV>::THREADS, 1)
               da, py[j], desc_sw(b_addr + off, S::RB, S::MN_LBO));
         }
         wgmma_commit();
+        // The next load goes out while the products run.
+        if (issuer && t > t0) issue();
         wgmma_wait<0>();
         if (DKV) keep_alive(px);
         keep_alive(py);

@@ -147,14 +147,6 @@ __device__ __forceinline__ void get_fragment(float (&v)[N], const float* xb,
   }
 }
 
-// 2^x by the SFU alone (ex2.approx.ftz: exp2f adds a fix-up for results
-// below 2^-126, which P does not need).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // F2 (DKV) or F3.  map_r1, map_r2: the block's own operands (K and V in F2,
 // Q and dO in F3), boxes of 64 rows; map_l1, map_l2: the looped ones (Q and
 // dO in F2, K and V in F3), boxes of TILE rows, read by TMA for bf16 only.

@@ -48,14 +48,22 @@ constexpr int FLASH_F1 = 0, FLASH_F2 = 1, FLASH_F3 = 2;
 // accumulator.  bf16 F2 holds dK and dV (d registers) beside S, dP and
 // their packed fragments: at d = 128 in a 384-thread block (168 registers
 // a thread by its launch bound) ptxas reported 660 bytes of spills, so
-// above 64 it too takes one warpgroup and 32-row tiles.
+// above 64 it runs its two consumer warpgroups without the producer
+// (hb_self_fed): 256 threads, 255 registers.
 struct HbTiles {
   int wgs, tile, stages;
 };
 constexpr HbTiles hb_tiles(int kernel, bool bf16, int d) {
   if (d > 64 && !bf16) return {1, 32, kernel == FLASH_F1 ? 2 : 1};
-  if (d > 64 && kernel == FLASH_F2) return {1, 32, 4};
   return {2, 64, bf16 ? 4 : (kernel == FLASH_F1 ? 2 : 1)};
+}
+
+// Whether kernel `kernel` at the instantiation d runs without a producer
+// warpgroup, a consumer warp issuing the loads: bf16 F2 above 64.  (bf16
+// F3 so fed took 1.03 to 1.35 times its time with the producer on an
+// NVIDIA H100 80GB HBM3.)
+__host__ __device__ constexpr bool hb_self_fed(int kernel, bool bf16, int d) {
+  return kernel == FLASH_F2 && bf16 && d > 64;
 }
 
 // Dynamic shared memory of an F1 block: Q (f32: its hi and lo planes), the
@@ -375,6 +383,14 @@ __device__ __forceinline__ void transpose_planes(uint8_t* planes,
   }
 }
 
+// 2^x by the SFU alone (ex2.approx.ftz: exp2f adds a fix-up for results
+// below 2^-126, which P does not need).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -481,6 +497,37 @@ __device__ __forceinline__ bool one_segment(const int* one,
       TILE == 64 ? one[0] && one[2] && one[1] == one[3] : one[0];
   return __all_sync(0xffffffffu,
                     tile_one && rid[0] == one[1] && rid[1] == one[1]);
+}
+
+// The same from the tile's TILE ids in shared memory, read by each warp
+// itself (where no producer wrote the flags that one_segment reads).
+template <int TILE>
+__device__ __forceinline__ bool one_segment_read(const int* ids,
+                                                 const int (&rid)[2]) {
+  const int first = ids[0];
+  bool same = rid[0] == first && rid[1] == first;
+#pragma unroll
+  for (int i = threadIdx.x & 31; i < TILE; i += 32)
+    same = same && ids[i] == first;
+  return __all_sync(0xffffffffu, same);
+}
+
+// 4 bytes from global `src` to shared `dst` by cp.async, zeros where !in
+// (src is then not read).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// An arrival on `bar` once every cp.async this thread issued has landed;
+// the barrier's count includes it (noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];" ::"r"(
+                   hopper::smem_u32(bar))
+               : "memory");
 }
 
 // Whether the looped tile has one segment id and every row of the warp

@@ -1182,8 +1182,6 @@ def _flash_tiles(kernel: str, dtype, d: int):
         return 2, plan.tile, plan.stages
     if d > 64 and not bf16:
         return 1, 32, 2 if kernel == "flash_forward" else 1
-    if d > 64 and kernel == "flash_backward_dkv":
-        return 1, 32, 4
     return 2, 64, 4 if bf16 else (2 if kernel == "flash_forward" else 1)
 
 

@@ -14,12 +14,14 @@ events where every profiled run read below the call's bound; see
 ``--case`` it times GPT-2 small's (8, 12, 1024, 64) causal and RoBERTa's
 (64, 12, 128, 64) padded; ``--wide`` times the wide kernels' cases
 (``WIDE_CASES``: Pythia-1B's (2, 8, 2048, 256) causal, 256 padded, 384
-causal, 512 padded, 384 padded at seq 1000), after any ``--case``.  ``--library`` adds the device
-ms of PyTorch's ``scaled_dot_product_attention`` forward and backward on
-the same inputs (a yardstick; the port never calls it), floored by F1's
-and by the larger of F2's and F3's bounds.  It calls the wrappers only,
-so copied into an older tree it times that tree's kernels at the head
-dimensions they take.
+causal, 512 padded, 384 padded at seq 1000), after any ``--case``.
+``--library`` adds the device ms of PyTorch's
+``scaled_dot_product_attention`` forward and backward on the same inputs
+(a yardstick; the port never calls it), floored by F1's and by the larger
+of F2's and F3's bounds, the backend its dispatch takes, and each
+backend's device ms under ``sdpa_kernel`` (or its refusal).  It calls the
+wrappers only, so copied into an older tree it times that tree's kernels
+at the head dimensions they take.
 ``chip_smoke.py`` bounds and times F1-F3 through :func:`flash_work` and
 ``act_timing.device_time`` too, with the same ``REPS``.  Needs a CUDA
 device.
@@ -32,8 +34,9 @@ import json
 
 import torch
 
-__all__ = ("WIDE_CASES", "unmasked", "flash_work", "time_case",
-           "library_time", "main")
+__all__ = ("WIDE_CASES", "unmasked", "flash_work", "sdpa_calls",
+           "sdpa_backend", "sdpa_backend_times", "time_case", "library_time",
+           "main")
 
 DEFAULT_CASES = ((8, 12, 1024, 64, "causal"), (64, 12, 128, 64, "padded"))
 # The wide kernels (head dimensions d = 128 c above 128), as chip_smoke.py's
@@ -96,20 +99,12 @@ def flash_work(q, k, v, do, ids, causal, o, lse, di):
     }
 
 
-def library_time(q, k, v, do, ids, causal, floors, reps=REPS, tries=3):
-    """``{"forward", "backward"}``: the device ms of PyTorch's
-    ``scaled_dot_product_attention`` on the flash kernels' inputs, its
-    backward giving dq, dk and dv in one call; ``floors`` the two bounds
-    (``act_timing.device_time``).  Causal cases pass ``is_causal``, the
-    others the padding mask as a boolean ``attn_mask``."""
+def sdpa_calls(ins, do, scale, kwargs):
+    """``(forward, backward)``: calls of PyTorch's
+    ``scaled_dot_product_attention`` on ``ins`` (q, k and v that require
+    their gradients) with ``kwargs`` (``is_causal`` or ``attn_mask``), the
+    backward giving dq, dk and dv in one call against ``do``."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
-
-    from fewbit_tpu_torch.tools.act_timing import device_time
-
-    scale = q.shape[-1] ** -0.5
-    kwargs = ({"is_causal": True} if causal
-              else {"attn_mask": unmasked(ids, False)[:, None]})
-    ins = [t.detach().requires_grad_() for t in (q, k, v)]
 
     def forward():
         with torch.no_grad():
@@ -120,10 +115,74 @@ def library_time(q, k, v, do, ids, causal, floors, reps=REPS, tries=3):
     def backward():
         torch.autograd.grad(out, ins, do, retain_graph=True)
 
-    return {"forward": device_time(forward, reps, tries,
-                                   bound_ms=floors[0])[0],
-            "backward": device_time(backward, reps, tries,
-                                    bound_ms=floors[1])[0]}
+    return forward, backward
+
+
+def sdpa_backend(ins, scale, kwargs):
+    """The name of the backend ``scaled_dot_product_attention``'s dispatch
+    takes for these arguments, or why it could not be read."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        choice = torch._fused_sdp_choice(
+            *ins, attn_mask=kwargs.get("attn_mask"),
+            is_causal=kwargs.get("is_causal", False), scale=scale)
+        return SDPBackend(choice).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"not read: {type(e).__name__}"
+
+
+def sdpa_backend_times(ins, do, scale, kwargs, time_fn):
+    """``{backend: {"forward": ms, "backward": ms}}`` for each backend of
+    ``scaled_dot_product_attention`` under ``sdpa_kernel`` (flash,
+    efficient, cuDNN, math), ``time_fn(call, part)`` timing a call of
+    ``part`` (``"forward"`` or ``"backward"``); a backend that refuses the
+    call is ``{"refused": its error's first line}``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    got = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                calls = sdpa_calls(ins, do, scale, kwargs)
+                got[backend.name] = {
+                    part: time_fn(call, part)
+                    for part, call in zip(("forward", "backward"), calls)}
+                del calls
+        except RuntimeError as e:
+            got[backend.name] = {"refused": str(e).splitlines()[0][:160]}
+        torch.cuda.empty_cache()
+    return got
+
+
+def library_time(q, k, v, do, ids, causal, floors, reps=REPS, tries=3):
+    """``{"forward", "backward", "backend", "backends"}``: the device ms
+    of PyTorch's ``scaled_dot_product_attention`` on the flash kernels'
+    inputs, its backward giving dq, dk and dv in one call; ``floors`` the
+    two bounds (``act_timing.device_time``); the backend its dispatch
+    takes and each backend's times (:func:`sdpa_backend_times`).  Causal
+    cases pass ``is_causal``, the others the padding mask as a boolean
+    ``attn_mask``."""
+    from fewbit_tpu_torch.tools.act_timing import device_time
+
+    scale = q.shape[-1] ** -0.5
+    kwargs = ({"is_causal": True} if causal
+              else {"attn_mask": unmasked(ids, False)[:, None]})
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    floor = dict(zip(("forward", "backward"), floors))
+
+    def timed(call, part):
+        return device_time(call, reps, tries, bound_ms=floor[part])[0]
+
+    forward, backward = sdpa_calls(ins, do, scale, kwargs)
+    got = {"forward": timed(forward, "forward"),
+           "backward": timed(backward, "backward"),
+           "backend": sdpa_backend(ins, scale, kwargs)}
+    del forward, backward
+    got["backends"] = sdpa_backend_times(ins, do, scale, kwargs, timed)
+    return got
 
 
 def time_case(b, h, s, d, mode, dtype, reps=REPS, tries=3, library=False):

@@ -7,14 +7,16 @@ Compiles each ``fewbit_tpu_torch/csrc/<name>.cu`` (all of them without
 arguments) with the library's own flags plus ``-Xptxas -v``, one ``nvcc``
 per source, all started together, and prints one line per kernel
 instantiation: its demangled name, registers per thread, bytes of spill
-stores and loads, and static shared memory; then one line per source with
-the wall seconds its ``nvcc`` took (all sources compiling at once, as the
-library's build does, so they share the host's cores).  A 288-thread block
-of the tensor-core kernels may have 168 registers a thread; so may the
-384-thread blocks of the flash backward kernels, which ``ptxas`` reports at
-that figure whatever their warpgroups take after ``setmaxnreg`` (40 for the
-producer, 232 for the consumers).  Needs ``nvcc``; builds nothing that the
-library loads.
+stores and loads, and static shared memory; then the compiler's warnings
+(``ptxas`` says there when it serializes a kernel's ``wgmma``s, C7520), and
+one line per source with the wall seconds its ``nvcc`` took (all sources
+compiling at once, as the library's build does, so they share the host's
+cores).  A 288-thread block of the tensor-core kernels may have 168
+registers a thread; so may the 384-thread blocks of the flash backward
+kernels, which ``ptxas`` reports at that figure whatever their warpgroups
+take after ``setmaxnreg`` (40 for the producer, 232 for the consumers);
+256-thread blocks (bf16 F2 above head dimension 64, the wide kernels'
+bf16) 255.  Needs ``nvcc``; builds nothing that the library loads.
 """
 
 from __future__ import annotations
@@ -59,8 +61,8 @@ def _demangle(names):
 
 def report(sources):
     """``([(source, kernel, registers, spill stores, spill loads, static
-    shared bytes), ...], {source: nvcc wall seconds})`` for the given
-    ``.cu`` paths."""
+    shared bytes), ...], {source: nvcc wall seconds}, [warning lines])``
+    for the given ``.cu`` paths."""
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         def compile_one(src):
@@ -73,11 +75,13 @@ def report(sources):
 
         with ThreadPoolExecutor(max(1, len(sources))) as pool:
             outs = list(pool.map(compile_one, sources))
-    rows, seconds = [], {}
+    rows, seconds, warnings = [], {}, []
     for src, text, rc, sec in outs:
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}) on {src}:\n{text}")
         seconds[src.name] = sec
+        warnings += [f"{src.name}: {line.strip()}"
+                     for line in text.splitlines() if "warning" in line]
         chunks = _ENTRY.split(text)[1:]  # name, arch, body, name, ...
         names = _demangle(chunks[0::3])
         for name, body in zip(names, chunks[2::3]):
@@ -86,17 +90,19 @@ def report(sources):
             rows.append((src.name, name, int(_USED.search(body).group(1)),
                          int(spill.group(1)), int(spill.group(2)),
                          int(smem.group(1)) if smem else 0))
-    return rows, seconds
+    return rows, seconds, warnings
 
 
 def main(argv=None):
     names = list(sys.argv[1:] if argv is None else argv)
     sources = ([CSRC / f"{n}.cu" for n in names] if names
                else sorted(CSRC.glob("*.cu")))
-    rows, seconds = report(sources)
+    rows, seconds, warnings = report(sources)
     for src, name, regs, stores, loads, smem in rows:
         print(f"{src}: {name}: {regs} registers, spill {stores} + {loads} B, "
               f"static smem {smem} B", flush=True)
+    for line in warnings:
+        print(line, flush=True)
     for src, sec in seconds.items():
         print(f"{src}: nvcc {sec:.1f} s", flush=True)
     return rows, seconds

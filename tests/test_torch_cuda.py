@@ -748,6 +748,39 @@ def test_flash_wide_backward_tails_and_masks(cuda, dtype, d, sq, sk, causal,
     function, both within TOL (1e-4 in f32, 2e-2 in bf16, of the largest
     element), into NaN-filled views whose columns past d stay NaN, and a
     second launch to the bit."""
+    _backward_tails_and_masks(cuda, dtype, d, sq, sk, causal, mask)
+
+
+# F2 and F3 at the instantiations above 64 and at head dimensions that run
+# on them through zero-padded copies (72, 100): bf16 on the wide
+# backward's schedule at one chunk of d columns (64 own rows a block, two
+# warpgroups splitting the products by operand, F3's dQ columns split
+# between them unevenly at 80, 96 and 112), f32 on one warpgroup over
+# 32-row tiles; a causal sequence of 1000 (a tail of 40 rows past the last
+# 64-row tile), sq != sk both ways with padding and segment ids.
+_NARROW_BWD_CASES = [(1000, 1000, True, "padded"),
+                     (1000, 1000, False, "segments"),
+                     (333, 517, True, "segments"),
+                     (517, 333, False, "padded")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [72, 80, 96, 100, 112, 128])
+@pytest.mark.parametrize("sq,sk,causal,mask", _NARROW_BWD_CASES,
+                         ids=[f"{c[0]}x{c[1]}_"
+                              f"{'causal' if c[2] else 'full'}_{c[3]}"
+                              for c in _NARROW_BWD_CASES])
+def test_flash_backward_tails_and_masks_above_64(cuda, dtype, d, sq, sk,
+                                                 causal, mask):
+    """F2 and F3 at head dimensions 72 to 128 as the wide ones above:
+    against their plain versions and f64 within TOL, every element written
+    (NaN-filled views, nothing stored past d), two launches to the bit."""
+    _backward_tails_and_masks(cuda, dtype, d, sq, sk, causal, mask)
+
+
+def _backward_tails_and_masks(cuda, dtype, d, sq, sk, causal, mask):
+    """F2 and F3 at one shape and mask, as the two tests above hold them."""
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     b, h = 2, 3
     gen = torch.Generator(device=cuda).manual_seed(d + sq)

@@ -612,9 +612,10 @@ def test_shared_memory_of_every_instantiation():
     """_flash_smem, the host's mirror of ff_smem and hb_smem (the GPU
     tests hold it against the source's): every instantiation within the
     232,448 bytes a block may have, head dimensions 32, 64 and 128 as
-    before; f32 above 64 would not fit with two consumer warpgroups' 128
-    own rows over 64-row tiles (F1 at 80: 3584 d bytes); no instantiation
-    but the multiples of 16 up to 128."""
+    before; bf16 F2 above 64 keeps F3's block (two warpgroups, 64-row
+    tiles) and so its bytes; f32 above 64 would not fit with two consumer
+    warpgroups' 128 own rows over 64-row tiles (F1 at 80: 3584 d bytes);
+    no instantiation but the multiples of 16 up to 128."""
     want = {  # (F1, F2, F3) at d = 16, 32, ..., 128
         torch.float32: ((58952, 51872, 43680), (116296, 101024, 84640),
                         (173640, 150176, 125600), (230984, 199328, 166560),
@@ -622,8 +623,8 @@ def test_shared_memory_of_every_instantiation():
                         (202056, 173984, 145312), (230728, 198560, 165792)),
         torch.bfloat16: ((22664, 28864, 28864), (43144, 53440, 53440),
                          (63624, 78016, 78016), (84104, 102592, 102592),
-                         (104584, 64192, 127168), (125064, 76480, 151744),
-                         (145544, 88768, 176320), (166024, 101056, 200896))}
+                         (104584, 127168, 127168), (125064, 151744, 151744),
+                         (145544, 176320, 176320), (166024, 200896, 200896))}
     names = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
     assert K.FLASH_INSTANCES == (16, 32, 48, 64, 80, 96, 112, 128)
     for dtype, rows in want.items():
