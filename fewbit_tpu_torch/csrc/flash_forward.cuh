@@ -63,7 +63,12 @@
 // 32 elements are 64 bytes, of 80 elements 160 bytes, read as five 32-byte
 // sub-tiles).  Above 64, f32 runs one consumer warpgroup (64 query rows)
 // over 32-row kv tiles; above 64 bf16 runs one block an SM, with up to 64
-// registers of o a thread.
+// registers of o a thread, and its producer warp reads each tile's ids a
+// tile ahead, while it waits for the tile's stage.  What holds it there is
+// each warpgroup's softmax, about half of a step, under which its own
+// tensor-core work stops; overlapping the two within a warpgroup (S of
+// tile t and P V of tile t - 1 as two wgmma groups, no producer warp, 255
+// registers) was slower on an NVIDIA H100 80GB HBM3 (hb_self_fed).
 #pragma once
 
 #include <math.h>
@@ -157,6 +162,21 @@ __global__ void __launch_bounds__(FfShape<T, D>::THREADS,
                       hi * p.st_k.h;
     const float* vf = static_cast<const float*>(p.v) + bi * p.st_v.b +
                       hi * p.st_v.h;
+    // bf16 above 64: the producer warp reads a tile's ids while it waits
+    // for the tile's stage, a tile ahead (ahead: its lane's row of each
+    // half of 32).  Read after the wait, as below 64, they took a tile as
+    // long as a consumer's step at d = 80, and the consumers waited for it.
+    constexpr bool AHEAD = S::BF16 && D > 64;
+    int ahead[S::TILE / 32];
+    auto read_ahead = [&](int t) {
+      if (p.seg_kv == nullptr || t >= t1) return;
+#pragma unroll
+      for (int half = 0; half < S::TILE / 32; ++half) {
+        const int row = t * S::TILE + 32 * half + ptid;
+        ahead[half] = row < p.sk ? p.seg_kv[(long long)bi * p.sk + row] : 0;
+      }
+    };
+    if constexpr (AHEAD) read_ahead(0);
     int st = 0;
     uint32_t ph = 0;
     for (int t = 0; t < t1; ++t) {
@@ -181,7 +201,20 @@ __global__ void __launch_bounds__(FfShape<T, D>::THREADS,
         fetch_tile<S::TILE, D, S::RB>(stage, kf, p.st_k.s, l0, p.sk, ptid);
         fetch_tile<S::TILE, D, S::RB>(staging, vf, p.st_v.s, l0, p.sk, ptid);
       }
-      if (p.seg_kv != nullptr) {
+      if (AHEAD && p.seg_kv != nullptr) {
+        int* ids = aux + st * S::AUX;
+#pragma unroll
+        for (int half = 0; half < S::TILE / 32; ++half) {
+          const int id = ahead[half];
+          ids[32 * half + ptid] = id;
+          const int first = __shfl_sync(0xffffffffu, id, 0);
+          const int same = __all_sync(0xffffffffu, id == first);
+          if (ptid == 0) {
+            ids[S::TILE + 2 * half] = same;
+            ids[S::TILE + 2 * half + 1] = first;
+          }
+        }
+      } else if (p.seg_kv != nullptr) {
         // The tile's ids in halves of 32, a warp each (one warp all, for
         // bf16): one id in all of a half's?
         int* ids = aux + st * S::AUX;
@@ -201,6 +234,7 @@ __global__ void __launch_bounds__(FfShape<T, D>::THREADS,
       }
       if constexpr (S::BF16) {
         mbar_arrive(&full[st]);
+        if constexpr (AHEAD) read_ahead(t + 1);
       } else {
         asm volatile("cp.async.wait_all;" ::: "memory");
         split_fetched<S::TILE, D, S::RB>(stage, ptid);

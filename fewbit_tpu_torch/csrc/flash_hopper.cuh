@@ -49,7 +49,9 @@ constexpr int FLASH_F1 = 0, FLASH_F2 = 1, FLASH_F3 = 2;
 // their packed fragments: at d = 128 in a 384-thread block (168 registers
 // a thread by its launch bound) ptxas reported 660 bytes of spills, so
 // above 64 it runs its two consumer warpgroups without the producer
-// (hb_self_fed): 256 threads, 255 registers.
+// (hb_self_fed): 256 threads, 255 registers.  bf16 F1 above 64 keeps the
+// shapes of 64 and its producer warp, one block an SM (288 threads, 168
+// registers: o is at most 64 of them).
 struct HbTiles {
   int wgs, tile, stages;
 };
@@ -61,7 +63,9 @@ constexpr HbTiles hb_tiles(int kernel, bool bf16, int d) {
 // Whether kernel `kernel` at the instantiation d runs without a producer
 // warpgroup, a consumer warp issuing the loads: bf16 F2 above 64.  (bf16
 // F3 so fed took 1.03 to 1.35 times its time with the producer on an
-// NVIDIA H100 80GB HBM3.)
+// NVIDIA H100 80GB HBM3, and bf16 F1 above 64 so fed, each warpgroup
+// running a tile's softmax while the tensor cores ran P V of the tile
+// before, 1.01 to 1.13 times.)
 __host__ __device__ constexpr bool hb_self_fed(int kernel, bool bf16, int d) {
   return kernel == FLASH_F2 && bf16 && d > 64;
 }

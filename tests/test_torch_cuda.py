@@ -847,6 +847,39 @@ def test_flash_wide_forward_tails_and_masks(cuda, dtype, d, sq, sk, causal,
     past d stay NaN and a NaN-filled lse, a second launch to the bit; and
     with V's chunks all equal, o's chunks are equal to the bit: the blocks
     of a row tile (and a block's two chunks) hold the same m and l."""
+    (q, k, v, seg_q, seg_kv, causal, scale), o, lse = _forward_tails_and_masks(
+        cuda, dtype, d, sq, sk, causal, mask)
+    chunks = d // 128
+    same_v = v[..., :128].repeat(1, 1, 1, chunks)
+    o3, lse3 = K.flash_forward(q, k, same_v, seg_q, seg_kv, causal, scale)
+    assert torch.equal(lse3, lse)
+    for j in range(1, chunks):
+        assert torch.equal(o3[..., 128 * j:128 * (j + 1)], o3[..., :128]), j
+    assert K.launch_counts()["flash_forward"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [72, 80, 96, 100, 112, 128])
+@pytest.mark.parametrize("sq,sk,causal,mask", _NARROW_BWD_CASES,
+                         ids=[f"{c[0]}x{c[1]}_"
+                              f"{'causal' if c[2] else 'full'}_{c[3]}"
+                              for c in _NARROW_BWD_CASES])
+def test_flash_forward_tails_and_masks_above_64(cuda, dtype, d, sq, sk,
+                                                causal, mask):
+    """F1 at head dimensions 72 to 128 (bf16: its producer warp reads the
+    segment ids a tile ahead; 72 and 100 through zero-padded copies) at
+    the backward's shapes above: a causal sequence of 1000 (a tail past
+    the last kv tile and the last block of query rows), sq != sk both ways
+    with padding and segment ids; against the plain version and f64 within
+    TOL, every element written (NaN-filled views, nothing stored past d),
+    two launches to the bit."""
+    _forward_tails_and_masks(cuda, dtype, d, sq, sk, causal, mask)
+
+
+def _forward_tails_and_masks(cuda, dtype, d, sq, sk, causal, mask):
+    """F1 at one shape and mask, as the two tests above hold it; returns
+    its arguments, o and lse (two launches counted)."""
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     b, h = 2, 3
     gen = torch.Generator(device=cuda).manual_seed(d + sq + 1)
@@ -873,13 +906,8 @@ def test_flash_wide_forward_tails_and_masks(cuda, dtype, d, sq, sk, causal,
             assert err <= bound, (name, ref, err, bound)
     o2, lse2 = K.flash_forward(*fargs)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
-    chunks = d // 128
-    same_v = v[..., :128].repeat(1, 1, 1, chunks)
-    o3, lse3 = K.flash_forward(q, k, same_v, seg_q, seg_kv, causal, scale)
-    assert torch.equal(lse3, lse)
-    for j in range(1, chunks):
-        assert torch.equal(o3[..., 128 * j:128 * (j + 1)], o3[..., :128]), j
-    assert K.launch_counts()["flash_forward"] == 3
+    assert K.launch_counts()["flash_forward"] == 2
+    return fargs, o, lse
 
 
 def _flash_nan_outputs(likes, wide):

@@ -13,7 +13,9 @@ of a tile wholly past its rows), lse = m + log(l) -- held
 against an f64 evaluation of the same function, with the tolerances of
 ``chip_smoke.py`` (1e-4 of max(1, max |want|) in f32, 2e-2 in bf16), which
 the kernel meets on the card against the same f64 evaluation.  The
-emulation does not model the card's accumulation order.
+emulation does not model the card's accumulation order.  bf16 above head
+dimension 64: the producer warp's segment ids read a tile ahead against
+the ids read in place.
 
 Kernel 4: its code rule (the borders counted from a table padded with +inf
 to 2^TB entries, four to a read) against ``compare_codes``, and its thread
@@ -269,6 +271,64 @@ def test_kernels_table_names_the_new_source():
     assert "flash_forward_simt" not in K.KERNELS
     K.reset_launch_counts()
     assert K.flash_forward_simt.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# bf16 F1 above head dimension 64: the producer warp's ids a tile ahead.
+# ---------------------------------------------------------------------------
+
+
+def _producer_stages(seg_kv, sk, t1, ahead, tile=64):
+    """What the bf16 producer warp writes into each kv tile's ids (its
+    ``AUX`` ints: the tile's ids, then for each half of 32 whether its ids
+    are one and which), lane by lane as ``flash_forward_kernel`` runs:
+    with ``ahead`` (above 64) each lane reads its row of each half of
+    tile t + 1 once tile t's stage is full, and of tile 0 before the
+    loop; without, as below 64, each half's ids after the wait for the
+    stage.  Rows past sk read as 0."""
+    def read(t):
+        return [[int(seg_kv[t * tile + 32 * half + lane])
+                 if t * tile + 32 * half + lane < sk else 0
+                 for lane in range(32)] for half in range(tile // 32)]
+
+    stages = []
+    regs = read(0) if ahead and t1 > 0 else None
+    for t in range(t1):
+        ids = regs if ahead else read(t)
+        aux = [i for half in ids for i in half]
+        for half in ids:
+            aux += [int(all(i == half[0] for i in half)), half[0]]
+        stages.append(aux)
+        if ahead and t + 1 < t1:
+            regs = read(t + 1)
+    return stages
+
+
+@pytest.mark.parametrize("sq,sk,causal", [
+    (2048, 2048, True), (1000, 1000, True), (1000, 1000, False),
+    (333, 517, True), (517, 333, False), (1, 1, True), (65, 130, False)],
+    ids=lambda v: str(v))
+def test_producer_ids_ahead_equal_the_ids_in_place(sq, sk, causal):
+    """The ids and one-id flags of every tile of every row block, read a
+    tile ahead (bf16 above 64), equal those read in place and the segment
+    ids of the tile's rows: documents of a few rows and of many, rows
+    past sk (the ragged last tile), the causal bound on the tiles."""
+    rng = np.random.RandomState(sq + sk)
+    seg_kv = np.repeat(np.arange(sk), rng.randint(1, 90, sk))[:sk]
+    for row0 in range(0, sq, 128):
+        t1 = -(-sk // 64)
+        if causal:
+            t1 = min(t1, (min(row0 + 128, sq) - 1) // 64 + 1)
+        got = _producer_stages(seg_kv, sk, t1, True)
+        assert got == _producer_stages(seg_kv, sk, t1, False)
+        for t, aux in enumerate(got):
+            rows = np.arange(64 * t, 64 * t + 64)
+            want = np.where(rows < sk, seg_kv[np.minimum(rows, sk - 1)], 0)
+            assert aux[:64] == want.tolist()
+            for half in range(2):
+                part = want[32 * half:32 * half + 32]
+                assert aux[64 + 2 * half:66 + 2 * half] == [
+                    int((part == part[0]).all()), int(part[0])]
 
 
 # ---------------------------------------------------------------------------
